@@ -1,0 +1,33 @@
+"""Architecture registry (twin of ``repro.configs``).
+
+Only ``gemma3-1b`` is ported so far; ``input_specs`` (JAX abstract
+shapes for the dry-run) has no counterpart yet.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = ["ARCHS", "get_config", "get_smoke"]
+
+_MODULES = {
+    "gemma3-1b": "gemma3_1b",
+}
+
+ARCHS: tuple[str, ...] = tuple(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; one of {list(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    return _module(arch).smoke()

@@ -1,0 +1,50 @@
+"""Load the JAX package's parameter tree into the port.
+
+``from_jax_numpy(tree, cfg, device)`` takes the tree that
+``repro.models.api.init_params`` returns, as nested dicts of numpy
+arrays, and returns the port's params (``models.transformer`` layout),
+so both packages compute the same function in the tests.
+
+The JAX tree stacks each segment's sublayer params on a leading
+``count`` axis (``seg{i}/pos{j}/...``) and scans the periods, running
+each period's pattern in order; the flat layer order is therefore
+``for i in segments: for c in range(count): for j in pattern`` — not
+position-major.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = ["from_jax_numpy"]
+
+
+def _tensors(tree, index, device):
+    """Nested dict of numpy arrays -> same dict of tensors, taking
+    ``x[index]`` of every leaf when ``index`` is given."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, index, device) for k, v in tree.items()}
+    x = np.asarray(tree)
+    if index is not None:
+        x = x[index]
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+
+
+def from_jax_numpy(tree: dict, cfg: ModelConfig,
+                   device: torch.device | str = "cpu") -> dict:
+    """JAX ``api.init_params`` tree (numpy leaves) -> port params."""
+    params = {"embed": _tensors(tree["embed"], None, device),
+              "final_norm": _tensors(tree["final_norm"], None, device)}
+    if "unembed" in tree:
+        params["unembed"] = _tensors(tree["unembed"], None, device)
+    layers = []
+    for i, seg in enumerate(cfg.segments):
+        seg_tree = tree[f"seg{i}"]
+        for c in range(seg.count):
+            for j, _ in enumerate(seg.pattern):
+                layers.append(_tensors(seg_tree[f"pos{j}"], c, device))
+    params["layers"] = layers
+    return params

@@ -1,0 +1,47 @@
+"""The port's op registry and its families (twin of ``repro.core.ops``).
+
+Importing this package registers the ``gemm`` and ``attention``
+families with their ``torch`` reference impls and their hand-written
+CUDA impls (``cuda``, ``cuda_fused``).
+"""
+
+from repro_torch.core.ops import registry
+from repro_torch.core.ops.registry import (
+    LADDER_BOUNDS,
+    Capabilities,
+    KernelImpl,
+    OpSpec,
+    available_impls,
+    families,
+    get_family,
+    get_impl,
+    reference_impl,
+    register_family,
+    register_impl,
+)
+from repro_torch.core.ops.route import (
+    ExecutionPolicy,
+    Route,
+    as_route,
+    normalize_backends,
+    parse_backend_flags,
+    validate_backends,
+)
+from repro_torch.core.ops.tiles import TileConfig, pad2, round_up, set_tiles, tile_for
+from repro_torch.core.ops.gemm import gemm, routed_einsum, torch_policy_einsum  # noqa: I001
+from repro_torch.core.ops.attention import (
+    AttentionOps,
+    attention_decode,
+    attention_forward,
+)
+
+__all__ = [
+    "registry", "LADDER_BOUNDS", "Capabilities", "KernelImpl", "OpSpec",
+    "available_impls", "families", "get_family", "get_impl",
+    "reference_impl", "register_family", "register_impl",
+    "ExecutionPolicy", "Route", "as_route", "normalize_backends",
+    "parse_backend_flags", "validate_backends",
+    "TileConfig", "pad2", "round_up", "set_tiles", "tile_for",
+    "gemm", "routed_einsum", "torch_policy_einsum",
+    "AttentionOps", "attention_decode", "attention_forward",
+]

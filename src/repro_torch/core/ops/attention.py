@@ -1,0 +1,152 @@
+"""The attention family (twin of ``repro.core.ops.attention``): a named
+fused op, not a 2-D-reducible einsum.
+
+  ``torch``       the chunked two-GEMM reference (score and value
+                  contractions through ``routed_einsum``, online softmax
+                  in PyTorch between them); the parity oracle.  Twin of
+                  ``xla``.
+  ``cuda_fused``  the hand-written flash-attention kernels
+                  (``kernels.attention_fused``): the score tile never
+                  leaves shared memory and the ladder is fused in the
+                  kernel.  Twin of ``pallas_fused``.  It declares only
+                  the rungs its kernels fuse (bf16, refine_a, bf16x3,
+                  refine_ab, f32), so a route asking it for bf16x6 or a
+                  quantized rung fails at route build with the rung named.
+
+The impl object is an ``AttentionOps(forward, decode)`` pair:
+forward(q, k, v, *, causal, window, softcap, route, kv_chunk) and
+decode(q, k_cache, v_cache, pos, *, window, softcap, route); q
+(B,Sq,Kv,G,hd) pre-scaled, k/v (B,Skv,Kv,hd), f32 out.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.ops import registry
+from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
+                                           register_family, register_impl)
+from repro_torch.core.ops.route import Route, as_route
+from repro_torch.kernels import attention_fused
+
+__all__ = ["AttentionOps", "attention_forward", "attention_decode"]
+
+
+class AttentionOps(NamedTuple):
+    """The entry points an attention impl registers."""
+
+    forward: Callable
+    decode: Callable
+
+
+FEATURES = ("decode", "gqa", "softcap", "masks:causal", "masks:sliding",
+            "masks:full")
+
+
+def _make_problem(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    b, s, kv, g, hd = 2, 16, 2, 2, 32
+
+    def r(shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+
+    return {"q": r((b, s, kv, g, hd)) * hd ** -0.5,
+            "k": r((b, s, kv, hd)), "v": r((b, s, kv, hd))}
+
+
+def _oracle(problem: dict) -> np.ndarray:
+    """Dense fp64 causal softmax attention (GQA layout)."""
+    qn, kn, vn = (problem[x].double().numpy() for x in ("q", "k", "v"))
+    s = qn.shape[1]
+    keep = np.arange(s)[None, :] <= np.arange(s)[:, None]
+    sc = np.einsum("bqkgd,bskd->bkgqs", qn, kn)
+    sc = np.where(keep[None, None, None], sc, -1e30)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bkgqs,bskd->bqkgd", p, vn)
+
+
+register_family(OpSpec(
+    family="attention",
+    contract="AttentionOps(forward(q, k, v, *, causal, window, softcap, "
+             "route, kv_chunk), decode(q, k_cache, v_cache, pos, *, "
+             "window, softcap, route)); q (B,Sq,Kv,G,hd) pre-scaled, "
+             "k/v (B,Skv,Kv,hd), f32 out",
+    reference="torch",
+    label="attention backend",
+    layer_families=("attention",),
+    make_problem=_make_problem,
+    run=lambda problem, route: attention_forward(
+        problem["q"], problem["k"], problem["v"], causal=True, policy=route),
+    oracle=_oracle,
+    error_bound=lambda policy: LADDER_BOUNDS[policy],
+))
+
+
+def _torch_forward(q, k, v, *, causal, window, softcap, route, kv_chunk=2048):
+    from repro_torch.models.attention import reference_forward
+    return reference_forward(q, k, v, causal=causal, window=window,
+                             softcap=softcap, policy=route, kv_chunk=kv_chunk)
+
+
+def _torch_decode(q, k_cache, v_cache, pos, *, window, softcap, route):
+    from repro_torch.models.attention import reference_decode
+    return reference_decode(q, k_cache, v_cache, pos, window=window,
+                            softcap=softcap, policy=route)
+
+
+def _fused_forward(q, k, v, *, causal, window, softcap, route, kv_chunk=2048):
+    del kv_chunk
+    return attention_fused.flash_attention(
+        q, k, v, causal=causal, window=window, softcap=softcap,
+        precision=route.precision)
+
+
+def _fused_decode(q, k_cache, v_cache, pos, *, window, softcap, route):
+    return attention_fused.flash_decode(
+        q, k_cache, v_cache, pos, window=window, softcap=softcap,
+        precision=route.precision)
+
+
+register_impl("attention", "torch", fused_policies=(),
+              features=("vjp", *FEATURES))(
+    AttentionOps(forward=_torch_forward, decode=_torch_decode))
+
+register_impl("attention", "cuda_fused",
+              policies=attention_fused.FUSED_POLICIES,
+              fused_policies=attention_fused.FUSED_POLICIES,
+              features=FEATURES)(
+    AttentionOps(forward=_fused_forward, decode=_fused_decode))
+
+
+def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      softcap: float | None = None,
+                      policy: str | Route = "bf16",
+                      kv_chunk: int = 2048) -> torch.Tensor:
+    """Fused-attention dispatch (train/prefill shapes): q (B,Sq,Kv,G,hd)
+    pre-scaled, k/v (B,Skv,Kv,hd); returns (B,Sq,Kv,G,hd) f32."""
+    route = as_route(policy)
+    impl = registry.get_impl("attention", route.impl("attention"))
+    return impl.fn.forward(q, k, v, causal=causal, window=window,
+                           softcap=softcap, route=route, kv_chunk=kv_chunk)
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int | None = None, softcap: float | None = None,
+                     policy: str | Route = "bf16") -> torch.Tensor:
+    """Single-token decode against the post-write cache at the per-row
+    (B,) ``pos``; ``window`` selects ring-buffer vs linear masking."""
+    route = as_route(policy)
+    impl = registry.get_impl("attention", route.impl("attention"))
+    if not impl.capabilities.has("decode"):
+        raise ValueError(
+            f"attention impl {impl.name!r} does not support capability "
+            f"'decode' (features: {sorted(impl.capabilities.features)})")
+    return impl.fn.decode(q, k_cache, v_cache, pos, window=window,
+                          softcap=softcap, route=route)

@@ -1,0 +1,279 @@
+// Tiled tensor-core GEMM shared by gemm_tiled.cu (the bf16 rung) and
+// gemm_refined.cu (refine_a / bf16x3 / refine_ab): C = A.B, f32 out.
+//
+// A is (batch, M, K) and B is (batch, K, N), each f32 or bf16 with
+// arbitrary element strides, so the router hands views (the unembed's
+// transposed 262144x1152 table, a batched attention plan) without a
+// copy.  Operands are rounded to bf16 (and split into hi/lo for the
+// refined rungs) on their way into shared memory, so f32 weights are
+// never rewritten as bf16 in device memory.  Ragged edges are masked in
+// the kernel: no operand is padded.
+//
+// One block computes a BM x BN tile of C, walking K in BK steps: the next
+// K step's operands are fetched into registers while the tensor cores work
+// on the current one out of shared memory (register double buffering).
+// Global reads run along each operand's contiguous dimension, four
+// elements (16 or 8 bytes) per thread where strides and alignment allow.
+// Each warp owns a WM x WN sub-tile of 16x16 WMMA fragments; the bf16
+// rung keeps one accumulator per fragment, the refined rungs two.
+#pragma once
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace rt {
+
+struct GemmArgs {
+  const void* a;
+  const void* b;
+  float* c;
+  long long sab, sam, sak;  // A strides in elements: batch, m, k
+  long long sbb, sbk, sbn;  // B strides in elements: batch, k, n
+  int a_bf16, b_bf16;
+  int a_vec, b_vec;         // 4-wide loads along the contiguous dim are safe
+  int m, n, k;
+};
+
+// Fetch an OUTER x INNER tile whose INNER index is contiguous in global
+// memory when `vec`, else strided by s_inner (zeros off the edge).
+// Register r[e] holds element (o, i) of the tile as mapped here; stage()
+// below uses the same mapping.
+template <int OUTER, int INNER, int NT, int PER_T>
+__device__ __forceinline__ void fetch_tile(float (&r)[PER_T], const char* base, int is_bf16,
+                                           long long s_outer, long long s_inner, int o0, int i0,
+                                           int n_outer, int n_inner, bool vec) {
+  static_assert(PER_T == OUTER * INNER / NT && PER_T % 4 == 0, "tile/threads mismatch");
+  if (vec) {
+#pragma unroll
+    for (int g = 0; g < PER_T / 4; ++g) {
+      const int gi = threadIdx.x + g * NT;
+      const int go = o0 + gi / (INNER / 4), gin = i0 + (gi % (INNER / 4)) * 4;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (go < n_outer && gin < n_inner) {
+        const long long off = go * s_outer + gin;
+        if (is_bf16) {
+          const uint2 u = *reinterpret_cast<const uint2*>(base + off * 2);
+          const __nv_bfloat162 p0 = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+          const __nv_bfloat162 p1 = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+          f = make_float4(__low2float(p0), __high2float(p0), __low2float(p1), __high2float(p1));
+        } else {
+          f = *reinterpret_cast<const float4*>(base + off * 4);
+        }
+      }
+      r[g * 4 + 0] = f.x;
+      r[g * 4 + 1] = f.y;
+      r[g * 4 + 2] = f.z;
+      r[g * 4 + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < PER_T; ++e) {
+      const int ei = threadIdx.x + e * NT;
+      const int go = o0 + ei / INNER, gin = i0 + ei % INNER;
+      r[e] = (go < n_outer && gin < n_inner)
+                 ? load_elem(base, go * s_outer + gin * s_inner, is_bf16) : 0.f;
+    }
+  }
+}
+
+// Round (and split) a fetched tile into shared memory: element (o, i) goes
+// to o * ld_o + i * ld_i.
+template <int OUTER, int INNER, int NT, int PER_T, bool WITH_LO>
+__device__ __forceinline__ void stage_tile(const float (&r)[PER_T], bf16* hi, bf16* lo,
+                                           int ld_o, int ld_i, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int g = 0; g < PER_T / 4; ++g) {
+      const int gi = threadIdx.x + g * NT;
+      const int o = gi / (INNER / 4), i = (gi % (INNER / 4)) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) store_split<WITH_LO>(hi, lo, o * ld_o + (i + j) * ld_i, r[g * 4 + j]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < PER_T; ++e) {
+      const int ei = threadIdx.x + e * NT;
+      store_split<WITH_LO>(hi, lo, (ei / INNER) * ld_o + (ei % INNER) * ld_i, r[e]);
+    }
+  }
+}
+
+template <int BM_, int BN_, int BK_, int WM, int WN, bool B_KMAJOR>
+struct GemmTile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static constexpr int NWARPS = (BM / WM) * (BN / WN);
+  static constexpr int NT = NWARPS * 32;
+  static constexpr int LDA = BK + 8;                      // A tile [BM][LDA]
+  static constexpr int LDB = B_KMAJOR ? BK + 8 : BN + 8;  // [BN][BK+8] or [BK][BN+8]
+  static constexpr int A_PER_T = BM * BK / NT;
+  static constexpr int B_PER_T = BK * BN / NT;
+  static constexpr size_t a_bytes = align128(BM * LDA * sizeof(bf16));
+  static constexpr size_t b_bytes = align128((B_KMAJOR ? BN : BK) * LDB * sizeof(bf16));
+  static constexpr size_t smem = 2 * a_bytes + 2 * b_bytes + NWARPS * 256 * sizeof(float);
+};
+
+// One K step of both operands into registers, then into shared memory.
+template <class T, bool B_KMAJOR>
+__device__ __forceinline__ void fetch_ab(float (&ra)[T::A_PER_T], float (&rb)[T::B_PER_T],
+                                         const GemmArgs& g, const char* a_base,
+                                         const char* b_base, int m0, int n0, int k0,
+                                         bool a_kcontig) {
+  if (a_kcontig)
+    fetch_tile<T::BM, T::BK, T::NT>(ra, a_base, g.a_bf16, g.sam, g.sak, m0, k0, g.m, g.k, g.a_vec);
+  else
+    fetch_tile<T::BK, T::BM, T::NT>(ra, a_base, g.a_bf16, g.sak, g.sam, k0, m0, g.k, g.m, false);
+  if constexpr (B_KMAJOR)
+    fetch_tile<T::BN, T::BK, T::NT>(rb, b_base, g.b_bf16, g.sbn, g.sbk, n0, k0, g.n, g.k, g.b_vec);
+  else
+    fetch_tile<T::BK, T::BN, T::NT>(rb, b_base, g.b_bf16, g.sbk, g.sbn, k0, n0, g.k, g.n, g.b_vec);
+}
+
+template <class T, bool B_KMAJOR, int POL>
+__device__ __forceinline__ void stage_ab(const float (&ra)[T::A_PER_T],
+                                         const float (&rb)[T::B_PER_T], bf16* a_hi, bf16* a_lo,
+                                         bf16* b_hi, bf16* b_lo, const GemmArgs& g,
+                                         bool a_kcontig) {
+  if (a_kcontig)
+    stage_tile<T::BM, T::BK, T::NT, T::A_PER_T, Splits<POL>::a_lo>(ra, a_hi, a_lo, T::LDA, 1,
+                                                                  g.a_vec);
+  else
+    stage_tile<T::BK, T::BM, T::NT, T::A_PER_T, Splits<POL>::a_lo>(ra, a_hi, a_lo, 1, T::LDA,
+                                                                  false);
+  stage_tile<B_KMAJOR ? T::BN : T::BK, B_KMAJOR ? T::BK : T::BN, T::NT, T::B_PER_T,
+             Splits<POL>::b_lo>(rb, b_hi, b_lo, T::LDB, 1, g.b_vec);
+}
+
+template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL>
+__global__ void __launch_bounds__(GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>::NT)
+gemm_kernel(GemmArgs g) {
+  using T = GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>;
+  using LayoutB = typename std::conditional<B_KMAJOR, wmma::col_major, wmma::row_major>::type;
+  constexpr int FM = WM / 16, FN = WN / 16;
+  constexpr bool SPLIT = POL != P_BF16;   // refined rungs keep a second accumulator
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* a_hi = reinterpret_cast<bf16*>(smem);
+  bf16* a_lo = reinterpret_cast<bf16*>(smem + T::a_bytes);
+  bf16* b_hi = reinterpret_cast<bf16*>(smem + 2 * T::a_bytes);
+  bf16* b_lo = reinterpret_cast<bf16*>(smem + 2 * T::a_bytes + T::b_bytes);
+  float* scratch = reinterpret_cast<float*>(smem + 2 * T::a_bytes + 2 * T::b_bytes);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long bz = blockIdx.z;
+  const bool a_kcontig = g.sak == 1;
+  const char* a_base = static_cast<const char*>(g.a) + bz * g.sab * (g.a_bf16 ? 2 : 4);
+  const char* b_base = static_cast<const char*>(g.b) + bz * g.sbb * (g.b_bf16 ? 2 : 4);
+
+  float ra[T::A_PER_T], rb[T::B_PER_T];
+  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
+  FragC main[FM][FN];
+  FragC small[SPLIT ? FM : 1][SPLIT ? FN : 1];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      wmma::fill_fragment(main[i][j], 0.f);
+      if constexpr (SPLIT) wmma::fill_fragment(small[i][j], 0.f);
+    }
+
+  const int nk = (g.k + BK - 1) / BK;
+  fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, 0, a_kcontig);
+  for (int t = 0; t < nk; ++t) {
+    stage_ab<T, B_KMAJOR, POL>(ra, rb, a_hi, a_lo, b_hi, b_lo, g, a_kcontig);
+    __syncthreads();
+    if (t + 1 < nk) fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, (t + 1) * BK, a_kcontig);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const int ao = (wm * WM + i * 16) * T::LDA + kk;
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          const int nc = wn * WN + j * 16;
+          const int bo = B_KMAJOR ? nc * T::LDB + kk : kk * T::LDB + nc;
+          policy_mma<POL, LayoutB>(small[SPLIT ? i : 0][SPLIT ? j : 0], main[i][j], a_hi + ao,
+                                   a_lo + ao, T::LDA, b_hi + bo, b_lo + bo, T::LDB);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: small terms + leading term, staged per warp, masked store.
+  float* ws = scratch + warp * 256;
+  float* c_base = g.c + bz * (long long)g.m * g.n;
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int e = 0; e < main[i][j].num_elements; ++e)
+          main[i][j].x[e] = small[i][j].x[e] + main[i][j].x[e];
+      }
+      wmma::store_matrix_sync(ws, main[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int r0 = m0 + wm * WM + i * 16, c0 = n0 + wn * WN + j * 16;
+      for (int e = lane; e < 256; e += 32) {
+        const int gm = r0 + e / 16, gn = c0 + e % 16;
+        if (gm < g.m && gn < g.n) c_base[(long long)gm * g.n + gn] = ws[e];
+      }
+      __syncwarp();
+    }
+}
+
+template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL>
+int run_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
+  using T = GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>;
+  auto kern = gemm_kernel<BM, BN, BK, WM, WN, B_KMAJOR, POL>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM, batch);
+  kern<<<grid, T::NT, T::smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// Tile shape by M: a skinny tile for decode (M <= 16 rows: the GEMM is a
+// weight stream, bounded by bytes) and a 64 x 128 one otherwise (small
+// enough in registers for two blocks per SM).  B's shared-memory layout
+// follows its contiguous dimension so that global reads stay coalesced for
+// both the NN weights and the NT unembed table.
+template <int POL>
+int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
+  const bool kmajor = g.sbk < g.sbn;
+  if (g.m <= 16) {
+    return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL>(g, batch, stream)
+                  : run_gemm<16, 128, 64, 16, 16, false, POL>(g, batch, stream);
+  }
+  return kmajor ? run_gemm<64, 128, 32, 32, 32, true, POL>(g, batch, stream)
+                : run_gemm<64, 128, 32, 32, 32, false, POL>(g, batch, stream);
+}
+
+// Whether an operand can be read four elements at a time along the
+// dimension whose stride is `s_contig` (== 1), given its other strides,
+// that dimension's extent and the base address.
+inline bool vec4_ok(const void* p, int bf16, long long s_contig, long long s_other,
+                    long long s_batch, int extent) {
+  const unsigned long long align = bf16 ? 8 : 16;
+  return s_contig == 1 && extent % 4 == 0 && s_other % 4 == 0 && s_batch % 4 == 0 &&
+         reinterpret_cast<unsigned long long>(p) % align == 0;
+}
+
+inline GemmArgs make_args(const void* a, int a_bf16, long long sab, long long sam, long long sak,
+                          const void* b, int b_bf16, long long sbb, long long sbk, long long sbn,
+                          float* c, int m, int n, int k) {
+  GemmArgs g;
+  g.a = a; g.b = b; g.c = c;
+  g.sab = sab; g.sam = sam; g.sak = sak;
+  g.sbb = sbb; g.sbk = sbk; g.sbn = sbn;
+  g.a_bf16 = a_bf16; g.b_bf16 = b_bf16;
+  g.m = m; g.n = n; g.k = k;
+  g.a_vec = vec4_ok(a, a_bf16, sak, sam, sab, k);
+  g.b_vec = sbk < sbn ? vec4_ok(b, b_bf16, sbk, sbn, sbb, k) : vec4_ok(b, b_bf16, sbn, sbk, sbb, n);
+  return g;
+}
+
+}  // namespace rt

@@ -1,0 +1,126 @@
+"""Decoder-only LM over the config's segment programs (twin of
+``repro.models.transformer``), dense kinds only: ``attn``,
+``attn_local`` and ``mlp``.
+
+The JAX package stacks each segment's params on a ``count`` axis and
+runs ``lax.scan``; the port keeps one flat list of sublayers in the same
+execution order (``configs.base.layer_kinds``) and runs a Python loop.
+``params["layers"][i]`` and ``cache[i]`` belong to sublayer ``i``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, layer_kinds
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.models import layers as L
+from repro_torch.models.attention import AttnCache, attention, init_attn
+
+__all__ = ["init_params", "forward", "init_cache"]
+
+_ATTN_KINDS = ("attn", "attn_local")
+
+
+def _check_kinds(cfg: ModelConfig) -> list[str]:
+    kinds = layer_kinds(cfg)
+    bad = sorted({k for k in kinds if k not in (*_ATTN_KINDS, "mlp")})
+    if bad or cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: the port runs dense attn/attn_local/mlp "
+                         f"stacks; got family {cfg.family!r}, kinds {bad}")
+    return kinds
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device | str) -> dict:
+    """Random params on ``device``, drawn from ``generator`` (which must
+    live there), with the JAX package's shapes and scales."""
+    kinds = _check_kinds(cfg)
+    dev = torch.device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device} cannot draw params on {dev}")
+    params: dict[str, Any] = {
+        "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.init_embedding(generator, cfg.vocab_size, cfg.d_model)
+    layers = []
+    for kind in kinds:
+        if kind in _ATTN_KINDS:
+            layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
+                           **init_attn(generator, cfg.d_model, cfg.num_heads,
+                                       cfg.num_kv_heads, cfg.head_dim,
+                                       bias=cfg.qkv_bias)})
+        else:
+            layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
+                           **L.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.mlp_kind, bias=cfg.mlp_bias)})
+    params["layers"] = layers
+    return params
+
+
+def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
+    """Rows of a sublayer's KV cache: the context for global layers, the
+    window (at most) for local ones, None for stateless sublayers."""
+    if kind == "attn" or (kind == "attn_local" and cfg.window is None):
+        return s_ctx
+    if kind == "attn_local":
+        return min(s_ctx, cfg.window)
+    return None
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: torch.device | str = "cpu") -> list:
+    """Pre-allocated decode cache: an ``AttnCache`` per attention
+    sublayer, None per mlp sublayer."""
+    cache: list = []
+    for kind in _check_kinds(cfg):
+        cap = cache_capacity(kind, cfg, s_ctx)
+        if cap is None:
+            cache.append(None)
+            continue
+        shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
+        cache.append(AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                               v=torch.zeros(shape, dtype=dtype, device=device)))
+    return cache
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            policy: PrecisionPolicy, mode: str = "train",
+            cache: list | None = None, pos: torch.Tensor | None = None,
+            last_only: bool = False) -> tuple[torch.Tensor, list]:
+    """Run the LM stack.  tokens (B, S) int; mode train | prefill |
+    decode; decode takes the per-row ``pos`` (B,) and updates ``cache``
+    in place.  ``last_only`` projects only the last position onto the
+    vocabulary (each row of the unembed is independent, so its logits
+    equal the full projection's last row).  Returns (logits f32, cache).
+    """
+    kinds = _check_kinds(cfg)
+    dtype = getattr(torch, cfg.activation_dtype)
+    x = L.embed(params["embed"], tokens, dtype)
+    new_cache: list = []
+    for i, kind in enumerate(kinds):
+        p = params["layers"][i]
+        xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
+        if kind in _ATTN_KINDS:
+            out, nc = attention(
+                p, xn, mode=mode, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                policy=policy.for_("attention"), rope_theta=cfg.rope_theta,
+                window=cfg.window if kind == "attn_local" else None,
+                softcap=cfg.attn_logit_softcap,
+                cache=cache[i] if mode == "decode" else None, pos=pos)
+            x = x + out
+            new_cache.append(nc if mode != "train" else None)
+        else:
+            x = x + L.mlp(p, xn, cfg.mlp_kind, policy.for_("mlp"))
+            new_cache.append(None)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    table = params["embed" if cfg.tie_embeddings else "unembed"]
+    return L.unembed(table, x, policy.for_("logits")), new_cache

@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU and the CUDA toolkit: it is
+marked ``cuda`` and skips where ``torch.cuda.is_available()`` is false.
+Run it on the card with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the shared conftest imports JAX, which the GPU
+machine does not need).  Shapes are small and ragged so the masked tile
+edges, strided (NT, batched) operands and every precision rung are hit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.ops.registry import LADDER_BOUNDS
+from repro_torch.kernels import attention_fused as af
+from repro_torch.kernels import gemm_refined as gr
+from repro_torch.kernels import gemm_tiled as gt
+
+pytestmark = pytest.mark.cuda
+
+# Kernel and plain version multiply the same bf16 terms exactly; only the
+# order of the f32 sums differs (K <= 1152, |terms| <= 1).
+GEMM_ATOL = 1e-3
+# Same tiles and softmax steps; f32 sum order and expf ulps differ, and a
+# probability can round to the neighbouring bf16 value.
+ATTN_ATOL = 2e-3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda")
+
+
+def _u(rng, shape, dev, dtype=torch.float32):
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("m,n,k", [(48, 40, 132), (4, 1000, 1152), (200, 300, 70),
+                                   (1, 17, 5)])
+@pytest.mark.parametrize("layout", ["nn", "nt", "batched"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_tiled_matches_plain(dev, m, n, k, layout, dtype):
+    rng = np.random.default_rng(m * 7 + n)
+    if layout == "batched":
+        a, b = _u(rng, (3, m, k), dev, dtype), _u(rng, (3, k, n), dev)
+    elif layout == "nt":
+        a, b = _u(rng, (m, k), dev, dtype), _u(rng, (n, k), dev).t()
+    else:
+        a, b = _u(rng, (m, k), dev, dtype), _u(rng, (k, n), dev)
+    out = gt.gemm_tiled(a, b)
+    torch.cuda.synchronize()
+    ref = gt.gemm_tiled_plain(a, b)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
+
+
+@pytest.mark.parametrize("policy", ["refine_a", "bf16x3", "refine_ab"])
+@pytest.mark.parametrize("m,n,k", [(48, 40, 132), (4, 1000, 1152), (200, 300, 70)])
+@pytest.mark.parametrize("layout", ["nn", "nt", "batched"])
+def test_gemm_refined_matches_plain(dev, policy, m, n, k, layout):
+    rng = np.random.default_rng(m + n * 3)
+    if layout == "batched":
+        a, b = _u(rng, (2, m, k), dev), _u(rng, (2, k, n), dev)
+    elif layout == "nt":
+        a, b = _u(rng, (m, k), dev), _u(rng, (n, k), dev).t()
+    else:
+        a, b = _u(rng, (m, k), dev), _u(rng, (k, n), dev)
+    out = gr.gemm_refined(a, b, policy=policy)
+    torch.cuda.synchronize()
+    ref = gr.gemm_refined_plain(a, b, policy)
+    oracle = a.double() @ b.double()
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
+    assert (out.double() - oracle).abs().max().item() <= LADDER_BOUNDS[policy]
+
+
+@pytest.mark.parametrize("policy", af.FUSED_POLICIES)
+@pytest.mark.parametrize("mask", ["causal", "window", "full", "softcap"])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, policy, mask, hd, dtype):
+    rng = np.random.default_rng(hd)
+    b, sq, kv, g = 2, 150, 2, 2
+    q = (_u(rng, (b, sq, kv, g, hd), dev) * hd ** -0.5).to(dtype)
+    k, v = _u(rng, (b, sq, kv, hd), dev, dtype), _u(rng, (b, sq, kv, hd), dev, dtype)
+    kw = dict(causal=mask != "full", window=40 if mask == "window" else None,
+              softcap=5.0 if mask == "softcap" else None, precision=policy)
+    out = af.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = af.flash_attention_plain(q, k, v, **kw)
+    assert out.shape == q.shape
+    assert (out - ref).abs().max().item() <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("policy", af.FUSED_POLICIES)
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_matches_plain(dev, policy, ring, dtype):
+    rng = np.random.default_rng(3)
+    b, s, kv, g, hd = 4, 80, 1, 4, 256
+    q = (_u(rng, (b, 1, kv, g, hd), dev) * hd ** -0.5).to(dtype)
+    k, v = _u(rng, (b, s, kv, hd), dev, dtype), _u(rng, (b, s, kv, hd), dev, dtype)
+    # positions before and after the ring wraps (and past a linear cache)
+    pos = torch.tensor([3, 79, 80, 200] if ring else [0, 31, 32, 79],
+                       dtype=torch.int32, device=dev)
+    kw = dict(window=s if ring else None, softcap=None, precision=policy)
+    out = af.flash_decode(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    ref = af.flash_decode_plain(q, k, v, pos, **kw)
+    assert (out - ref).abs().max().item() <= ATTN_ATOL
+
+
+def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
+    """A CUDA operand launches the kernel (the count moves) and never the
+    plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+    monkeypatch.setattr(gt, "gemm_tiled_plain", boom)
+    before = gt.LAUNCHES
+    gt.gemm_tiled(torch.ones(4, 8, device=dev), torch.ones(8, 4, device=dev))
+    assert gt.LAUNCHES == before + 1
