@@ -14,14 +14,16 @@ Phases, each printing one JSON line:
    the plain version's time and a yardstick PyTorch call's time (CUDA
    events, in turns plain, kernel, kernel, plain), and the least time
    the card could take (the larger of FLOPs / 989 TFLOP/s and bytes /
-   3.35 TB/s).
+   3.35 TB/s).  The windowed flash check also shows that its bound sees
+   a window one key short.
 4. serve   — gemma3-1b at full width and depth (random weights from a
    seeded generator) behind the continuous-batching engine on the
    kernel routes: 8 requests of 16-700 prompt tokens, 32 new tokens
    each, 4 slots, 1024-token context.  Every request must finish and
    every kernel must have launched during this phase; one prompt's
    prefill logits are held against the same engine on the ``torch``
-   reference routes.
+   reference routes (bound and greedy token), and two faulty reference
+   runs, fp8 MLPs and a window one key short, must land outside it.
 5. profile — a 700-token prefill and one 4-slot decode tick: host
    wall time against the CUDA kernels' time (torch.profiler), the
    device's idle share, and the kernels that take the most of it.
@@ -34,6 +36,7 @@ this file, nothing is measured and the script exits 1.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,10 +52,13 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 # a probability that may round to the neighbouring bf16 value.
 GEMM_BOUND = 1e-3
 ATTN_BOUND = 2e-3
-# serve prefill logits, kernel routes vs torch reference routes, bf16
-# activations over 52 sublayers: measured 0.064 between the packages on
-# the 16-sublayer CPU smoke model; 26 layers at d_model 1152 get room.
-LOGITS_BOUND = 0.25
+# serve prefill logits (|logits| <= 4.64), kernel routes vs torch
+# reference routes: 0.0887 on the H100 in every run (the flash kernels
+# round probabilities against a 32-row running max, the reference
+# against its chunk's, so bf16 activations round apart now and then).
+# Two faulty controls on the reference routes read 0.148 (a window one
+# key short) and 0.581 (fp8 MLPs); every run checks that both land above.
+LOGITS_BOUND = 0.12
 
 
 def fail(msg: str) -> None:
@@ -142,20 +148,27 @@ def main() -> None:
     checks: dict[str, list[dict]] = {"gemm_tiled": [], "gemm_refined": [],
                                      "flash_attention": [], "flash_decode": []}
 
-    def check(name, what, kernel, plain, library, err_bound, flops, nbytes):
+    def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None):
+        """``control``: a plain version with a deliberate fault, which
+        must land outside ``err_bound`` of the kernel."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize(dev)
         if out.shape != ref.shape or not torch.isfinite(out).all():
             fail(f"{name} {what}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite")
         err = (out - ref).abs().max().item()
+        control_err = (out - control()).abs().max().item() if control else None
         ms, plain_ms = in_turns(plain, kernel)
         lib_ms = timed(library) if library is not None else None
         b_ms, b_by = bound(flops, nbytes)
         row = dict(what=what, max_abs_err=err, err_bound=err_bound, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if control:
+            row["control_err"] = control_err
         emit(phase="check", kernel=name, **row)
         if not err <= err_bound:
             fail(f"{name} {what}: max |kernel - plain| {err} > {err_bound}")
+        if control and not control_err > err_bound:
+            fail(f"{name} {what}: the faulty control is within the bound ({control_err})")
         checks[name].append(row)
 
     cfg = get_config("gemma3-1b")
@@ -172,6 +185,20 @@ def main() -> None:
           2 * m * d * ff, x.numel() * 2 + w.numel() * 4 + m * ff * 4)
     del w, w16
 
+    # gemm_tiled at the decode linears (M = 4 slots): the MLP's up and down
+    # projections, bf16 activations x f32 weights
+    x4 = randn((4, d), dtype=torch.bfloat16)
+    h4 = randn((4, ff), dtype=torch.bfloat16)
+    for a4, kk, nn in ((x4, d, ff), (h4, ff, d)):
+        w = randn((kk, nn), kk ** -0.5)
+        w16 = w.to(torch.bfloat16)
+        check("gemm_tiled", f"decode mlp 4x{kk}x{nn}",
+              lambda a4=a4, w=w: gt.gemm_tiled(a4, w),
+              lambda a4=a4, w=w: gt.gemm_tiled_plain(a4, w),
+              lambda a4=a4, w16=w16: torch.matmul(a4, w16), GEMM_BOUND,
+              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4)
+    del w, w16
+
     # the decode unembed: (4 x 1152) bf16 against the (262144 x 1152) f32 table, NT
     xb = randn((4, d), dtype=torch.bfloat16)
     table = randn((vocab, d), d ** -0.5)
@@ -180,9 +207,11 @@ def main() -> None:
     check("gemm_tiled", f"decode unembed 4x{d}x{vocab} NT", lambda: gt.gemm_tiled(xb, table.t()),
           lambda: gt.gemm_tiled_plain(xb, table.t()), lambda: torch.matmul(xb, table16.t()),
           GEMM_BOUND, 2 * 4 * d * vocab, unembed_bytes)
+    # library: one f32 SGEMM (TF32 is off), the function refine_ab approximates
     check("gemm_refined", f"decode unembed refine_ab 4x{d}x{vocab} NT",
           lambda: gr.gemm_refined(xb, table.t(), policy="refine_ab"),
-          lambda: gr.gemm_refined_plain(xb, table.t(), "refine_ab"), None, GEMM_BOUND,
+          lambda: gr.gemm_refined_plain(xb, table.t(), "refine_ab"),
+          lambda: torch.matmul(xb.float(), table.t()), GEMM_BOUND,
           num_passes("refine_ab") * 2 * 4 * d * vocab, unembed_bytes)
     del table, table16
 
@@ -205,7 +234,10 @@ def main() -> None:
               lambda w=window: af.flash_attention(q, k, v, causal=True, window=w),
               lambda w=window: af.flash_attention_plain(q, k, v, causal=True, window=w),
               sdpa, ATTN_BOUND, 4 * pairs * hd * heads,
-              (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4)
+              (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
+              control=None if window is None else (
+                  lambda w=window: af.flash_attention_plain(q, k, v, causal=True,
+                                                            window=w - 1)))
 
     # flash decode: 4 rows, a 512-slot ring (local layers) and a 1024-row
     # linear cache (global layers), positions below and above the window
@@ -280,6 +312,18 @@ def main() -> None:
     if lk.shape != (1, 1, vocab) or not torch.isfinite(lk).all():
         fail(f"prefill logits shape {tuple(lk.shape)} or non-finite")
     logit_err = (lk - lr).abs().max().item()
+    # faulty controls on the torch routes, which the bound must see: a
+    # rung fault (fp8 MLPs) and a mask fault (a window one key short)
+    with torch.no_grad():
+        l_fp8, _ = serve_step.make_prefill(
+            cfg, ops.ExecutionPolicy(default="bf16", mlp="fp8", logits="refine_ab"),
+            s_ctx=1024)(params, prompt)
+        l_win, _ = serve_step.make_prefill(
+            dataclasses.replace(cfg, window=cfg.window - 1), ref_policy,
+            s_ctx=1024)(params, prompt)
+    fp8_err = (l_fp8 - lr).abs().max().item()
+    window_err = (l_win - lr).abs().max().item()
+    top2 = lr.flatten().topk(2).values
     emit(phase="serve", arch=cfg.name, params=n_params, weights_gb=n_params * 4 / 1e9,
          init_s=init_s, requests=stats["requests"], prompt_lens=[int(n) for n in lens],
          tokens=stats["tokens"], ticks=stats["ticks"], wall_s=stats["wall_s"],
@@ -288,9 +332,16 @@ def main() -> None:
          launches=launches, prefill_logits_max_abs_err=logit_err,
          prefill_logits_bound=LOGITS_BOUND,
          prefill_argmax_agrees=bool(lk.argmax() == lr.argmax()),
+         reference_top2_gap=(top2[0] - top2[1]).item(),
+         control_fp8_mlp_err=fp8_err, control_window_short_err=window_err,
          logits_absmax=lr.abs().max().item())
     if not logit_err <= LOGITS_BOUND:
         fail(f"prefill logits: kernel routes vs torch routes {logit_err} > {LOGITS_BOUND}")
+    if lk.argmax() != lr.argmax():
+        fail("prefill logits: the kernel routes pick another greedy token than the torch routes")
+    for control, err in (("fp8-MLP", fp8_err), ("short-window", window_err)):
+        if not err > LOGITS_BOUND:
+            fail(f"prefill logits: the {control} control ({err}) is within {LOGITS_BOUND}")
 
     # ----------------------------------------------------------- 5 profile
     # Where a 700-token prefill and a 4-slot decode tick spend their time:

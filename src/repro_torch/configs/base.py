@@ -16,7 +16,6 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.ops.route import ExecutionPolicy, normalize_backends
-from repro_torch.core.ops.tiles import TileConfig
 
 __all__ = ["Segment", "ModelConfig", "execution_policy_for", "layer_kinds"]
 
@@ -82,7 +81,6 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 
 def execution_policy_for(cfg: ModelConfig, *, default: str = "bf16",
                          logits: str | None = None, backends=None,
-                         tiles: TileConfig | None = None,
                          fallback: bool = False,
                          require=None) -> ExecutionPolicy:
     """Precision knobs plus the ``backends`` mapping (CLI overrides
@@ -90,5 +88,5 @@ def execution_policy_for(cfg: ModelConfig, *, default: str = "bf16",
     merged = dict(cfg.backends)
     merged.update(dict(normalize_backends(backends or ())))
     return ExecutionPolicy(default=default, logits=logits, backends=merged,
-                           tiles=tiles, fallback=fallback,
+                           fallback=fallback,
                            require=require or ())

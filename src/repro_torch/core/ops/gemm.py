@@ -31,7 +31,6 @@ from repro_torch.core.ops import registry
 from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
                                            register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
-from repro_torch.core.ops.tiles import TileConfig, pad2, tile_for
 from repro_torch.kernels.gemm_refined import gemm_refined
 from repro_torch.kernels.gemm_tiled import gemm_tiled
 
@@ -52,7 +51,7 @@ def _oracle(problem: dict) -> np.ndarray:
 
 register_family(OpSpec(
     family="gemm",
-    contract="fn(a (..., m, k), b (..., k, n), *, policy, tiles) -> f32 "
+    contract="fn(a (..., m, k), b (..., k, n), *, policy) -> f32 "
              "(..., m, n); at most one leading batch dim",
     reference="torch",
     label="backend",
@@ -85,18 +84,16 @@ def torch_policy_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
 
 
 @register_impl("gemm", "torch", fused_policies=prec.POLICIES, features=("vjp",))
-def _torch_gemm(a, b, *, policy, tiles):
-    del tiles
+def _torch_gemm(a, b, *, policy):
     return torch_policy_einsum("...mk,...kn->...mn", a, b, policy)
 
 
-# The kernels read operands through their strides and mask ragged edges,
-# so the router hands them views (pads_to_tiles=False): the unembed's
-# transposed 262144 x 1152 table is never copied.
+# The kernels read operands through their strides, mask ragged edges and
+# pick their own tiles, so the router hands them views: the unembed's
+# transposed 262144 x 1152 table is never copied or padded.
 @register_impl("gemm", "cuda",
                fused_policies=("bf16", "refine_a", "bf16x3", "refine_ab"))
-def _cuda_gemm(a, b, *, policy, tiles):
-    del tiles
+def _cuda_gemm(a, b, *, policy):
     if policy == "bf16":
         return gemm_tiled(a, b)
     return gemm_refined(a, b, policy=policy)
@@ -193,29 +190,23 @@ def _impl_gemm_2d(impl: registry.KernelImpl, a: torch.Tensor, b: torch.Tensor,
     """One policy-routed 2-D GEMM on an arbitrary-shape problem; a leading
     batch dim (a batched plan) passes through to the impl, which launches
     once with a batch stride where the JAX router vmaps."""
-    m, k = a.shape[-2:]
-    n = b.shape[-1]
     caps = impl.capabilities
     precision = route.precision
     if precision == "f32" and "f32" not in caps.fused_policies:
         # no narrow-pass decomposition exists for exact f32: reference path
         return torch_policy_einsum("...mk,...kn->...mn", a, b, "f32")
 
-    tiles = (route.tiles or tile_for(impl.name, m, n, k)).clamp(m, n, k)
-    if caps.pads_to_tiles:
-        a, b = pad2(a, tiles.bm, tiles.bk), pad2(b, tiles.bk, tiles.bn)
-
     if precision in caps.fused_policies:
-        out = impl.fn(a, b, policy=precision, tiles=tiles)
+        out = impl.fn(a, b, policy=precision)
     else:
         # Paper Fig. 5: refinement as chained narrow GEMMs through the
         # requested impl, summed smallest first.
         a_terms, b_terms = prec.operand_terms(a, b, precision)
         out = None
         for ta, tb in prec.policy_terms(precision):
-            part = impl.fn(a_terms[ta], b_terms[tb], policy="bf16", tiles=tiles)
+            part = impl.fn(a_terms[ta], b_terms[tb], policy="bf16")
             out = part if out is None else out + part
-    return out[..., :m, :n]
+    return out
 
 
 def _execute_plan(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
@@ -235,7 +226,7 @@ def _execute_plan(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
 
 def routed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
                   policy: str | Route = "bf16") -> torch.Tensor:
-    """Two-operand einsum under a (precision, backends, tiles) route.
+    """Two-operand einsum under a (precision, backends) route.
 
     f32 out always.  Non-reference impls need a 2-D-reducible spec;
     anything else runs the reference, so the call never fails on spec
@@ -253,8 +244,7 @@ def routed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, policy: str | Route = "bf16",
-         backend: str | None = None,
-         tiles: TileConfig | None = None) -> torch.Tensor:
+         backend: str | None = None) -> torch.Tensor:
     """Policy-routed C = A @ B through a registry impl (2-D entry)."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm expects (m,k) x (k,n); got {tuple(a.shape)} x "
@@ -262,6 +252,4 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, policy: str | Route = "bf16",
     route = as_route(policy)
     if backend is not None:
         route = route.with_impl("gemm", backend)
-    if tiles is not None:
-        route = dataclasses.replace(route, tiles=tiles)
     return routed_einsum("mk,kn->mn", a, b, route)

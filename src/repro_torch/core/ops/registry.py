@@ -53,13 +53,11 @@ LADDER_BOUNDS = {
 class Capabilities:
     """Declarative metadata for one registered impl: the rungs it serves
     (``policies``), the subset it runs in one fused call
-    (``fused_policies``), feature tags, and whether the router pads
-    operands to tile multiples for it."""
+    (``fused_policies``) and feature tags."""
 
     policies: frozenset[str] = ALL_POLICIES
     fused_policies: frozenset[str] = frozenset()
     features: frozenset[str] = frozenset()
-    pads_to_tiles: bool = False
 
     def has(self, feature: str) -> bool:
         return feature in self.features
@@ -112,8 +110,7 @@ def register_impl(family: str, name: str, *,
                   capabilities: Capabilities | None = None,
                   policies: Iterable[str] | None = None,
                   fused_policies: Iterable[str] = (),
-                  features: Iterable[str] = (),
-                  pads_to_tiles: bool = False):
+                  features: Iterable[str] = ()):
     """Decorator registering ``fn`` as impl ``name`` of ``family``."""
     if family not in _FAMILIES:
         raise ValueError(
@@ -123,7 +120,6 @@ def register_impl(family: str, name: str, *,
         policies=(ALL_POLICIES if policies is None else frozenset(policies)),
         fused_policies=frozenset(fused_policies),
         features=frozenset(features),
-        pads_to_tiles=pads_to_tiles,
     )
 
     def wrap(fn):

@@ -16,7 +16,6 @@ import warnings
 from collections.abc import Mapping
 
 from repro_torch.core.ops import registry
-from repro_torch.core.ops.tiles import TileConfig
 from repro_torch.core.precision import PrecisionPolicy
 
 __all__ = [
@@ -41,11 +40,10 @@ LAYER_FAMILIES = tuple(f for f in PrecisionPolicy._PRECISION_FIELDS
 
 @dataclasses.dataclass(frozen=True)
 class Route:
-    """Everything one contraction needs: precision x impls x tiles."""
+    """Everything one contraction needs: precision x impls."""
 
     precision: str = "bf16"
     backends: tuple[tuple[str, str], ...] = ()
-    tiles: TileConfig | None = None
 
     def __post_init__(self) -> None:
         object.__setattr__(
@@ -138,7 +136,6 @@ class ExecutionPolicy(PrecisionPolicy):
     """
 
     backends: tuple[tuple[str, str], ...] = ()
-    tiles: TileConfig | None = None
     fallback: bool = False
     require: tuple[tuple[str, tuple[str, ...]], ...] = ()
 
@@ -167,7 +164,7 @@ class ExecutionPolicy(PrecisionPolicy):
             if scoped == layer_family:
                 chosen[fam] = name
         return Route(precision=PrecisionPolicy.for_(self, layer_family),
-                     backends=chosen, tiles=self.tiles)
+                     backends=chosen)
 
     def for_(self, layer_family: str) -> Route:  # type: ignore[override]
         return self.route(layer_family)

@@ -1,6 +1,8 @@
 """Tiling helpers (twin of ``repro.core.ops.tiles``): the (bm, bn, bk)
 block shape, pad-to-tile helpers and the shape-keyed tile cache.
-Autotune and JSON persistence wait for their slice."""
+No impl reads a ``TileConfig`` yet: the CUDA GEMM kernels pick their
+tiles from the problem's M and read unpadded views, so the router
+passes no tiles.  Autotune and JSON persistence wait for their slice."""
 
 from __future__ import annotations
 
