@@ -10,12 +10,16 @@ Phases, each printing one JSON line:
 2. build   — compiles every CUDA kernel of the serve path from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
 3. check   — each kernel against its plain PyTorch version on seeded
-   inputs at the serve path's shapes, with its stated bound, its time,
-   the plain version's time and a yardstick PyTorch call's time (CUDA
-   events, in turns plain, kernel, kernel, plain), and the least time
-   the card could take (the larger of FLOPs / 989 TFLOP/s and bytes /
-   3.35 TB/s).  The windowed flash check also shows that its bound sees
-   a window one key short.
+   inputs at the serve and train paths' shapes, with its stated bound,
+   its time, the plain version's time and a yardstick PyTorch call's
+   time (CUDA events, in turns plain, kernel, kernel, plain), and the
+   least time the card could take (the larger of FLOPs / 989 TFLOP/s and
+   bytes / 3.35 TB/s).  The windowed flash checks, forward and backward,
+   also show that their bound sees a window one key short.  The GEMMs
+   are checked too at the two operand layouts the training backward
+   hands them (an M-contiguous A for dW, a K-major B for dX) and at the
+   refine_ab unembed's backward (K = 262144 for dX, N = 262144 for the
+   table's gradient).
 4. serve   — gemma3-1b at full width and depth (random weights from a
    seeded generator) behind the continuous-batching engine on the
    kernel routes: 8 requests of 16-700 prompt tokens, 32 new tokens
@@ -27,7 +31,17 @@ Phases, each printing one JSON line:
 5. profile — a 700-token prefill and one 4-slot decode tick: host
    wall time against the CUDA kernels' time (torch.profiler), the
    device's idle share, and the kernels that take the most of it.
-6. kernels — one line listing each kernel's launches, error and times.
+6. train   — gemma3-1b at full width and depth trains 3 AdamW steps
+   (batch 2 x 1024 tokens, past the 512 window; remat on; warmup 1)
+   through ``TrainLoop`` on the kernel routes, every kernel of the path
+   launched during it: loss and grad norm per step, median step time,
+   tokens/s, peak memory, and one profiled step.  Before it, step 0's
+   loss and five gradient leaves on the kernel routes are held against
+   the ``torch`` routes on the same params and batch, and a faulty
+   ``torch``-route control (the window one key short) must land outside
+   those bounds.
+7. kernels — one line listing each kernel's launches (per path), error
+   and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a GPU, or without ``src/repro_torch`` beside
@@ -38,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -59,6 +74,49 @@ ATTN_BOUND = 2e-3
 # Two faulty controls on the reference routes read 0.148 (a window one
 # key short) and 0.581 (fp8 MLPs); every run checks that both land above.
 LOGITS_BOUND = 0.12
+# flash backward kernels vs their plain versions at the train shapes
+# (max |kernel - plain|; |dO| ~ 1e-2): the same bf16 terms with f32 sums
+# in another order.  dq (rms 1.7e-2) and dk/dv (rms 2.2e-3 to 2.5e-3)
+# each have a bound of their own.  Measured on the H100 at window 512:
+# dq 1.0e-4, dk/dv 6.6e-6; the plain version at window 511 reads 0.041
+# (dq) and 0.0023 (dk/dv), and every run requires it above the bound.
+ATTN_BWD_DQ_BOUND = 1e-3
+ATTN_BWD_DKV_BOUND = 1e-4
+# step 0 on full-size gemma3-1b (2 x 1024 tokens), kernel routes vs torch
+# routes: the largest difference of one token's loss, and the largest
+# ||g_kernel - g_torch|| / ||g_torch|| over five gradient leaves.  The mean
+# loss cannot tell the two routes from the faulty control (window one key
+# short): 3.9e-4 against 4.3e-4 on the H100.  The gradients read at most
+# 0.030 (kernel routes) against 0.041-0.10 (control).
+STEP0_TOKEN_LOSS_BOUND = 0.1
+STEP0_GRAD_BOUND = 5e-2
+
+
+TRAIN_STEPS = 3
+# kernel -> (source under src/repro_torch/csrc, the TPU kernel it replaces)
+KERNELS = {
+    "gemm_tiled": ("gemm_tiled.cu", "src/repro/kernels/gemm_tiled.py:31"),
+    "gemm_refined": ("gemm_refined.cu", "src/repro/kernels/gemm_refined.py:50"),
+    "flash_attention": ("attention_fused.cu", "src/repro/kernels/attention_fused.py:167"),
+    "flash_decode": ("attention_fused.cu", "src/repro/kernels/attention_fused.py:485"),
+    "flash_attention_bwd_dq": ("attention_bwd.cu", "src/repro/kernels/attention_fused.py:272"),
+    "flash_attention_bwd_dkv": ("attention_bwd.cu", "src/repro/kernels/attention_fused.py:302"),
+}
+SERVE_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_decode")
+TRAIN_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def zero_launches(gt, gr, af) -> None:
+    gt.LAUNCHES = 0
+    gr.LAUNCHES = 0
+    for key in af.LAUNCHES:
+        af.LAUNCHES[key] = 0
+
+
+def read_launches(gt, gr, af) -> dict:
+    return {"gemm_tiled": gt.LAUNCHES, "gemm_refined": gr.LAUNCHES, **af.LAUNCHES}
 
 
 def fail(msg: str) -> None:
@@ -92,8 +150,13 @@ def main() -> None:
     from repro_torch.kernels import attention_fused as af
     from repro_torch.kernels import gemm_refined as gr
     from repro_torch.kernels import gemm_tiled as gt
+    from repro_torch.configs.base import execution_policy_for
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.launch.serve import Request, ServeEngine
-    from repro_torch.models import api
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import adamw
+    from repro_torch.models import api, transformer
     from repro_torch.runtime import serve_step
     from repro_torch.runtime.device import resolve_device
 
@@ -145,22 +208,33 @@ def main() -> None:
         p1, k1, k2, p2 = timed(plain), timed(kernel), timed(kernel), timed(plain)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
-    checks: dict[str, list[dict]] = {"gemm_tiled": [], "gemm_refined": [],
-                                     "flash_attention": [], "flash_decode": []}
+    checks: dict[str, list[dict]] = {name: [] for name in KERNELS}
+
+    def max_err(outs, refs) -> float:
+        return max((o - r).abs().max().item() for o, r in zip(outs, refs))
 
     def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None):
         """``control``: a plain version with a deliberate fault, which
-        must land outside ``err_bound`` of the kernel."""
+        must land outside ``err_bound`` of the kernel.  A kernel may
+        return a tuple of tensors; the error is the largest over them."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize(dev)
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            fail(f"{name} {what}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite")
-        err = (out - ref).abs().max().item()
-        control_err = (out - control()).abs().max().item() if control else None
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for o, r in zip(out, ref):
+            if o.shape != r.shape or not torch.isfinite(o).all():
+                fail(f"{name} {what}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite")
+        err = max_err(out, ref)
+        ref_rms = [r.float().square().mean().sqrt().item() for r in ref]
+        control_err = None
+        if control:
+            c = control()
+            control_err = max_err(out, c if isinstance(c, tuple) else (c,))
+        del out, ref
         ms, plain_ms = in_turns(plain, kernel)
         lib_ms = timed(library) if library is not None else None
         b_ms, b_by = bound(flops, nbytes)
-        row = dict(what=what, max_abs_err=err, err_bound=err_bound, ms=ms,
+        row = dict(what=what, max_abs_err=err, err_bound=err_bound, ref_rms=ref_rms, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if control:
             row["control_err"] = control_err
@@ -232,12 +306,12 @@ def main() -> None:
         check("flash_attention", f"prefill S={s} H={heads} Kv={kvh} hd={hd} "
               + ("causal" if window is None else f"window {window}"),
               lambda w=window: af.flash_attention(q, k, v, causal=True, window=w),
-              lambda w=window: af.flash_attention_plain(q, k, v, causal=True, window=w),
+              lambda w=window: af.flash_attention_plain(q, k, v, causal=True, window=w)[0],
               sdpa, ATTN_BOUND, 4 * pairs * hd * heads,
               (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
               control=None if window is None else (
                   lambda w=window: af.flash_attention_plain(q, k, v, causal=True,
-                                                            window=w - 1)))
+                                                            window=w - 1)[0]))
 
     # flash decode: 4 rows, a 512-slot ring (local layers) and a 1024-row
     # linear cache (global layers), positions below and above the window
@@ -263,6 +337,92 @@ def main() -> None:
               sdpa_d, ATTN_BOUND, 4 * n_live * grp * hd * kvh,
               qd.numel() * 2 + 2 * n_live * kvh * hd * 2 + qd.numel() * 4)
     del q, k, v, qh, kh, vh, kc, vc
+
+    # flash backward at the train shapes: B=2, S=1024, 4 heads on 1 kv
+    # head, hd 256, bf16 inputs, on the forward kernel's own out and lse.
+    # Yardstick: SDPA's backward with the same mask through autograd.
+    bt, st = 2, 1024
+    q = randn((bt, st, kvh, grp, hd), hd ** -0.5, torch.bfloat16)
+    k, v = randn((bt, st, kvh, hd), dtype=torch.bfloat16), randn((bt, st, kvh, hd), dtype=torch.bfloat16)
+    do = randn((bt, st, kvh, grp, hd), 1e-2)
+    rows = torch.arange(st, device=dev)
+    for window in (cfg.window, None):
+        kw = dict(causal=True, window=window)
+        out, lse = af.flash_attention_fwd(q, k, v, **kw)
+        di = af.bwd_delta(out, do)
+        keep = rows[None, :] <= rows[:, None]
+        if window is not None:
+            keep &= rows[None, :] > rows[:, None] - window
+        pairs = int(keep.sum()) * bt * heads
+        qh = q.reshape(bt, st, heads, hd).transpose(1, 2).detach().requires_grad_(True)
+        kl = k.transpose(1, 2).detach().requires_grad_(True)
+        vl = v.transpose(1, 2).detach().requires_grad_(True)
+        sd_out = torch.nn.functional.scaled_dot_product_attention(
+            qh, kl.expand(bt, heads, st, hd), vl.expand(bt, heads, st, hd),
+            attn_mask=keep, scale=1.0)
+        do_h = do.reshape(bt, st, heads, hd).transpose(1, 2).to(torch.bfloat16)
+        in_bytes = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 + 2 * lse.numel() * 4
+        tag = f"train S={st} B={bt} H={heads} Kv={kvh} hd={hd} " + (
+            "causal" if window is None else f"window {window}")
+        short = dict(causal=True, window=cfg.window - 1)
+        check("flash_attention_bwd_dq", tag,
+              lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dq(q, k, v, do, lse, di, **kw),
+              lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dq_plain(
+                  q, k, v, do, lse, di, **kw),
+              lambda sd_out=sd_out, qh=qh, do_h=do_h: torch.autograd.grad(
+                  sd_out, (qh,), do_h, retain_graph=True),
+              ATTN_BWD_DQ_BOUND, 6 * pairs * hd, in_bytes + q.numel() * 4,
+              control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dq_plain(
+                  q, k, v, do, lse, di, **short))
+        check("flash_attention_bwd_dkv", tag,
+              lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
+              lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dkv_plain(
+                  q, k, v, do, lse, di, **kw),
+              lambda sd_out=sd_out, kl=kl, vl=vl, do_h=do_h: torch.autograd.grad(
+                  sd_out, (kl, vl), do_h, retain_graph=True),
+              ATTN_BWD_DKV_BOUND, 8 * pairs * hd, in_bytes + 2 * k.numel() * 4,
+              control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dkv_plain(
+                  q, k, v, do, lse, di, **short))
+        del sd_out, qh, kl, vl
+    del q, k, v, do, out, lse, di
+
+    # the GEMM layouts of the training backward (2048 = 2 x 1024 tokens),
+    # library: one torch.matmul on the same layout (TF32 off), on bf16
+    # copies for the bf16 rung and on the f32 operands for refine_ab
+    m = bt * st
+    g_down = randn((m, d), d ** -0.5)                  # grad of the down projection's output
+    w_down = randn((ff, d), ff ** -0.5)
+    check("gemm_tiled", f"train dX mlp down {m}x{d}x{ff} K-major B",
+          lambda: gt.gemm_tiled(g_down, w_down.t()),
+          lambda: gt.gemm_tiled_plain(g_down, w_down.t()),
+          lambda g16=g_down.to(torch.bfloat16), w16=w_down.to(torch.bfloat16): torch.matmul(
+              g16, w16.t()),
+          GEMM_BOUND, 2 * m * d * ff, (g_down.numel() + w_down.numel() + m * ff) * 4)
+    x_up = randn((m, d), dtype=torch.bfloat16)
+    g_up = randn((m, ff), m ** -0.5)
+    check("gemm_tiled", f"train dW mlp up {d}x{m}x{ff} M-contiguous A",
+          lambda: gt.gemm_tiled(x_up.t(), g_up),
+          lambda: gt.gemm_tiled_plain(x_up.t(), g_up),
+          lambda g16=g_up.to(torch.bfloat16): torch.matmul(x_up.t(), g16),
+          GEMM_BOUND, 2 * d * m * ff, x_up.numel() * 2 + (g_up.numel() + d * ff) * 4)
+    del g_down, w_down, x_up, g_up
+    torch.cuda.empty_cache()
+    g_log = randn((m, vocab), vocab ** -0.5)            # grad of the logits
+    table = randn((vocab, d), d ** -0.5)
+    x_fin = randn((m, d), dtype=torch.bfloat16)
+    check("gemm_refined", f"train unembed dX refine_ab {m}x{vocab}x{d}",
+          lambda: gr.gemm_refined(g_log, table, policy="refine_ab"),
+          lambda: gr.gemm_refined_plain(g_log, table, "refine_ab"),
+          lambda: torch.matmul(g_log, table),
+          GEMM_BOUND, num_passes("refine_ab") * 2 * m * vocab * d,
+          (g_log.numel() + table.numel() + m * d) * 4)
+    check("gemm_refined", f"train unembed dTable refine_ab {d}x{m}x{vocab} M-contiguous A",
+          lambda: gr.gemm_refined(x_fin.t(), g_log, policy="refine_ab"),
+          lambda: gr.gemm_refined_plain(x_fin.t(), g_log, "refine_ab"),
+          lambda: torch.matmul(x_fin.t().float(), g_log),
+          GEMM_BOUND, num_passes("refine_ab") * 2 * d * m * vocab,
+          x_fin.numel() * 2 + (g_log.numel() + d * vocab) * 4)
+    del g_log, table, x_fin
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 4 serve
@@ -273,7 +433,7 @@ def main() -> None:
     t0 = time.monotonic()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize(dev)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     init_s = time.monotonic() - t0
     eng = ServeEngine(cfg, batch_size=4, max_ctx=1024, policy=policy, device=dev)
     eng.load(params)
@@ -284,22 +444,17 @@ def main() -> None:
     lens[:2] = rng.integers(513, 701, size=2)     # two prompts past the 512 window
     reqs = [Request(rid=i, prompt=rng.integers(2, vocab, int(n)).astype(np.int32),
                     max_new_tokens=32) for i, n in enumerate(lens)]
-    gt.LAUNCHES = 0
-    gr.LAUNCHES = 0
-    for key in af.LAUNCHES:
-        af.LAUNCHES[key] = 0
+    zero_launches(gt, gr, af)
     torch.cuda.reset_peak_memory_stats(dev)
     stats = eng.run(reqs)
-    launches = {"gemm_tiled": gt.LAUNCHES, "gemm_refined": gr.LAUNCHES,
-                "flash_attention": af.LAUNCHES["flash_attention"],
-                "flash_decode": af.LAUNCHES["flash_decode"]}
+    launches = read_launches(gt, gr, af)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if not all(r.done and len(r.out_tokens) == 32 for r in reqs):
         fail(f"not every request finished with 32 tokens: "
              f"{[(r.rid, r.done, len(r.out_tokens)) for r in reqs]}")
     if any(not 0 <= t < vocab for r in reqs for t in r.out_tokens):
         fail("a token outside the vocabulary")
-    if not all(n > 0 for n in launches.values()):
+    if not all(launches[n] > 0 for n in SERVE_KERNELS):
         fail(f"a kernel of the serve path never launched: {launches}")
 
     # one prompt's prefill logits: kernel routes vs torch reference routes
@@ -347,6 +502,7 @@ def main() -> None:
     # Where a 700-token prefill and a 4-slot decode tick spend their time:
     # the host clock of the window against the CUDA kernels' own time
     # (torch.profiler, summed by name; one stream, so they do not overlap).
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def profile_window(fn) -> dict:
@@ -360,9 +516,12 @@ def main() -> None:
             torch.cuda.synchronize(dev)
         per_kernel: dict[str, float] = {}
         for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
+            # device-side kernel events only: a PyTorch op's CPU event and
+            # an autograd.Function's annotation range carry the time of
+            # the kernels they launched as well
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            us = e.self_device_time_total
             if us > 0:
                 per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
         device_ms = sum(per_kernel.values())
@@ -381,19 +540,108 @@ def main() -> None:
     eng.run([])
     emit(phase="profile", prefill_tokens=int(long_prompt["tokens"].shape[1]),
          prefill=prefill_prof, decode_tick=tick_prof)
+    del eng, params
+    torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 6 kernels
-    meta = {
-        "gemm_tiled": ("gemm_tiled.cu", "src/repro/kernels/gemm_tiled.py:31"),
-        "gemm_refined": ("gemm_refined.cu", "src/repro/kernels/gemm_refined.py:50"),
-        "flash_attention": ("attention_fused.cu", "src/repro/kernels/attention_fused.py:167"),
-        "flash_decode": ("attention_fused.cu", "src/repro/kernels/attention_fused.py:485"),
-    }
+    # ------------------------------------------------------------- 6 train
+    tpolicy = execution_policy_for(
+        cfg, default="bf16", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"},
+        require={fam: ("vjp",) for fam in ops.families()})
+    loop = TrainLoop(cfg, policy=tpolicy,
+                     opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                     data_cfg=DataConfig(global_batch=bt, seq_len=st, vocab_size=vocab),
+                     remat=True, device=dev)
+
+    # step 0: kernel routes vs torch routes on the same params and batch,
+    # and a faulty torch-route control (a window one key short)
+    tparams, _, _ = loop.init_or_restore(0)
+    batch0 = loop.batch(SyntheticLMDataset(loop.data_cfg), 0)
+    five = {"embed": tparams["embed"]["table"],
+            "local_attn_q": tparams["layers"][0]["wq"]["w"],
+            "global_attn_q": tparams["layers"][10]["wq"]["w"],
+            "mlp_down": tparams["layers"][1]["wo"]["w"],
+            "unembed": tparams["unembed"]["table"]}
+
+    def loss_and_grads(c, pol):
+        """(loss, per-token losses, gradients of the five leaves) of one
+        forward, as ``lm_loss`` reckons them: f32 logsumexp minus the
+        label logit."""
+        logits, _ = transformer.forward(tparams, batch0["tokens"], c, policy=pol,
+                                        mode="train", remat=True)
+        logits = logits.float()
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+            -1, batch0["labels"].long()[..., None])[..., 0]
+        del logits
+        loss = nll.mean()
+        grads = torch.autograd.grad(loss, list(five.values()))
+        return loss.item(), nll.detach(), grads
+
+    ref_policy_t = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+    loss_k, nll_k, grads_k = loss_and_grads(cfg, tpolicy)
+    loss_t, nll_t, grads_t = loss_and_grads(cfg, ref_policy_t)
+    loss_c, nll_c, grads_c = loss_and_grads(dataclasses.replace(cfg, window=cfg.window - 1),
+                                            ref_policy_t)
+
+    def rel(a, b):
+        return {k: ((x - y).norm() / y.norm()).item() for k, x, y in zip(five, a, b)}
+
+    step0 = {"loss_kernel": loss_k, "loss_torch": loss_t, "loss_err": abs(loss_k - loss_t),
+             "token_loss_max_err": (nll_k - nll_t).abs().max().item(),
+             "grad_rel_err": rel(grads_k, grads_t),
+             "control_window_short_loss_err": abs(loss_c - loss_t),
+             "control_window_short_token_loss_max_err": (nll_c - nll_t).abs().max().item(),
+             "control_window_short_grad_rel_err": rel(grads_c, grads_t),
+             "token_loss_bound": STEP0_TOKEN_LOSS_BOUND, "grad_bound": STEP0_GRAD_BOUND}
+    del tparams, five, grads_k, grads_t, grads_c, nll_k, nll_t, nll_c
+    torch.cuda.empty_cache()
+    emit(phase="train_step0", **step0)
+    # read after the train phase, so that one run reports both
+    step0_faults = []
+    if not (math.isfinite(loss_k) and step0["token_loss_max_err"] <= STEP0_TOKEN_LOSS_BOUND
+            and max(step0["grad_rel_err"].values()) <= STEP0_GRAD_BOUND):
+        step0_faults.append("kernel routes vs torch routes out of bounds")
+    if not (step0["control_window_short_token_loss_max_err"] > STEP0_TOKEN_LOSS_BOUND
+            and max(step0["control_window_short_grad_rel_err"].values()) > STEP0_GRAD_BOUND):
+        step0_faults.append("the short-window control lands within the bounds")
+
+    zero_launches(gt, gr, af)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    tparams, topt, history = loop.run(TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize(dev)
+    train_wall = time.monotonic() - t0
+    train_launches = read_launches(gt, gr, af)
+    train_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = sorted(r["step_s"] for r in loop.log)[len(loop.log) // 2]
+    ds = SyntheticLMDataset(loop.data_cfg)
+    train_prof = profile_window(
+        lambda: loop.step_fn(tparams, topt, loop.batch(ds, TRAIN_STEPS))[2]["loss"].item())
+    emit(phase="train", arch=cfg.name, steps=TRAIN_STEPS, batch=bt, seq=st, remat=True,
+         policy="default=bf16 logits=refine_ab", loss=history,
+         grad_norm=[r["grad_norm"] for r in loop.log], lr=[r["lr"] for r in loop.log],
+         step_s=[r["step_s"] for r in loop.log], median_step_s=step_s,
+         tok_per_s=bt * st / step_s, wall_s=train_wall, peak_mem_gb=train_peak_gb,
+         launches=train_launches, profile_step=train_prof)
+    if not all(train_launches[n] > 0 for n in TRAIN_KERNELS):
+        fail(f"a kernel of the train path never launched: {train_launches}")
+    if not all(math.isfinite(x) for r in loop.log for x in (r["loss"], r["grad_norm"])):
+        fail(f"non-finite loss or grad norm: {loop.log}")
+    if step0_faults:
+        fail(f"step 0: {'; '.join(step0_faults)}: {step0}")
+    del tparams, topt
+
+    # ----------------------------------------------------------- 7 kernels
     rows = []
-    for name, (src, replaces) in meta.items():
+    for name, (src, replaces) in KERNELS.items():
+        # the row's headline check: the windowed (local-layer) case for
+        # attention, the path's first shape otherwise
         first = checks[name][-1] if name == "flash_attention" else checks[name][0]
+        path_launches = train_launches if name in TRAIN_ONLY else launches
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": path_launches[name],
+                     "launches_by_path": {"serve": launches[name],
+                                          "train": train_launches[name]},
                      "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -403,17 +651,6 @@ def main() -> None:
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

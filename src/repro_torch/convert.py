@@ -30,7 +30,9 @@ def _tensors(tree, index, device):
     x = np.asarray(tree)
     if index is not None:
         x = x[index]
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+    # a copy: the port's optimizer updates params in place, and must not
+    # write through into the caller's arrays
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C", copy=True)).to(device)
 
 
 def from_jax_numpy(tree: dict, cfg: ModelConfig,

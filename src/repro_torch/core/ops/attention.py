@@ -8,7 +8,8 @@ fused op, not a 2-D-reducible einsum.
   ``cuda_fused``  the hand-written flash-attention kernels
                   (``kernels.attention_fused``): the score tile never
                   leaves shared memory and the ladder is fused in the
-                  kernel.  Twin of ``pallas_fused``.  It declares only
+                  kernel; the backward runs the dq and dk/dv kernels
+                  (``vjp``).  Twin of ``pallas_fused``.  It declares only
                   the rungs its kernels fuse (bf16, refine_a, bf16x3,
                   refine_ab, f32), so a route asking it for bf16x6 or a
                   quantized rung fails at route build with the rung named.
@@ -119,7 +120,7 @@ register_impl("attention", "torch", fused_policies=(),
 register_impl("attention", "cuda_fused",
               policies=attention_fused.FUSED_POLICIES,
               fused_policies=attention_fused.FUSED_POLICIES,
-              features=FEATURES)(
+              features=("vjp", *FEATURES))(
     AttentionOps(forward=_fused_forward, decode=_fused_decode))
 
 

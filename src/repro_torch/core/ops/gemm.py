@@ -13,8 +13,12 @@ The router (``routed_einsum``) lowers a two-operand spec to one
 runs f32 on the reference (no narrow-pass decomposition exists for it),
 and decomposes every rung an impl does not fuse into bf16 passes through
 that impl, summed smallest first (bf16x6 and the fp8/int8 rungs on
-``cuda``).  Specs that are not 2-D-reducible go to the reference.  The
-custom VJP through the routed impl waits for the training slice.
+``cuda``).  Specs that are not 2-D-reducible go to the reference.
+Gradients of a lowered einsum run through the same route (``_LoweredEinsum``,
+the twin of ``_lowered_einsum``): dA and dB are two more routed einsums,
+at the route's precision on the route's impl, so a model trains on the
+kernels it serves on.  Their transposed operands reach the kernels as
+views: ``dW = x^T.g`` has an M-contiguous A, ``dX = g.W^T`` a K-major B.
 """
 
 from __future__ import annotations
@@ -92,7 +96,8 @@ def _torch_gemm(a, b, *, policy):
 # pick their own tiles, so the router hands them views: the unembed's
 # transposed 262144 x 1152 table is never copied or padded.
 @register_impl("gemm", "cuda",
-               fused_policies=("bf16", "refine_a", "bf16x3", "refine_ab"))
+               fused_policies=("bf16", "refine_a", "bf16x3", "refine_ab"),
+               features=("vjp",))
 def _cuda_gemm(a, b, *, policy):
     if policy == "bf16":
         return gemm_tiled(a, b)
@@ -224,6 +229,31 @@ def _execute_plan(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
     return out.reshape(plan.out_shape).permute(plan.out_perm)
 
 
+class _LoweredEinsum(torch.autograd.Function):
+    """A lowered einsum whose backward contractions run the same route.
+    For a two-operand spec with unique labels, dA = einsum(out, b -> a)
+    and dB = einsum(a, out -> b); autograd through the impl would not
+    reproduce the JAX backward's arithmetic."""
+
+    @staticmethod
+    def forward(ctx, spec, route, plan, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.spec, ctx.route = spec, route
+        return _execute_plan(plan, a, b, route)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        lhs, out = _expand_ellipsis(ctx.spec, a.dim(), b.dim()).split("->")
+        a_spec, b_spec = lhs.split(",")
+        da = db = None
+        if ctx.needs_input_grad[3]:
+            da = routed_einsum(f"{out},{b_spec}->{a_spec}", g, b, ctx.route).to(a.dtype)
+        if ctx.needs_input_grad[4]:
+            db = routed_einsum(f"{a_spec},{out}->{b_spec}", a, g, ctx.route).to(b.dtype)
+        return None, None, None, da, db
+
+
 def routed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
                   policy: str | Route = "bf16") -> torch.Tensor:
     """Two-operand einsum under a (precision, backends) route.
@@ -240,7 +270,7 @@ def routed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     plan = _plan_2d(spec, tuple(a.shape), tuple(b.shape))
     if plan is None:
         return torch_policy_einsum(spec, a, b, route.precision)
-    return _execute_plan(plan, a, b, route)
+    return _LoweredEinsum.apply(spec, route, plan, a, b)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, policy: str | Route = "bf16",

@@ -157,6 +157,14 @@ class ExecutionPolicy(PrecisionPolicy):
         return {getattr(self, f) or self.default
                 for f in self._PRECISION_FIELDS}
 
+    def impl_for(self, op_family: str, layer_family: str | None = None) -> str:
+        """The impl ``op_family`` runs (for ``layer_family``, when a
+        layer-scoped key names one)."""
+        d = dict(self.backends)
+        if layer_family is not None and f"{op_family}@{layer_family}" in d:
+            return d[f"{op_family}@{layer_family}"]
+        return d.get(op_family, registry.reference_impl(op_family))
+
     def route(self, layer_family: str) -> Route:
         chosen = {fam: name for fam, name in self.backends if "@" not in fam}
         for key, name in self.backends:

@@ -6,6 +6,8 @@
 //
 // Layouts are the model's: q (B, Sq, Kv, G, hd) pre-scaled, k/v
 // (B, Skv, Kv, hd), out like q in f32.  Inputs are all f32 or all bf16.
+// The forward also writes lse = m + log l, (B, Kv*G, Sq) f32, which the
+// backward kernels (attention_bwd.cu) rebuild the probabilities from.
 //
 // One block walks the KV sequence in BKV = 32 row tiles for BQ query rows,
 // keeping the online-softmax state (running max m, running sum l, the
@@ -41,6 +43,7 @@ struct AttnArgs {
   const void* k;
   const void* v;
   float* o;
+  float* lse;      // forward: (B, Kv*G, Sq) log-sum-exp of each row, or null
   const int* pos;  // decode: (B,) positions
   int in_bf16;
   int B, Sq, Skv, Kv, G, hd;
@@ -48,26 +51,6 @@ struct AttnArgs {
   int ring;            // decode: ring-buffer mask, else linear
   float softcap;       // <= 0: none
 };
-
-// Eight consecutive elements (16 bytes of bf16, 32 of f32) as f32; the
-// caller guarantees 8-element alignment (hd is a multiple of 16).
-__device__ __forceinline__ void load8(const void* p, long long i, int is_bf16, float (&x)[8]) {
-  if (is_bf16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p) + i);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
-      x[2 * j] = __low2float(h);
-      x[2 * j + 1] = __high2float(h);
-    }
-  } else {
-    const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
-    const float4 f0 = f[0], f1 = f[1];
-    x[0] = f0.x; x[1] = f0.y; x[2] = f0.z; x[3] = f0.w;
-    x[4] = f1.x; x[5] = f1.y; x[6] = f1.z; x[7] = f1.w;
-  }
-}
 
 // Byte offsets of the shared-memory sections for BQ rows at head dim hd.
 struct AttnSmem {
@@ -281,6 +264,10 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
     int r = idx / hd, d = idx % hd;
     a.o[q_index(r, d)] = O[r * ldo + d] / fmaxf(L[r], 1e-30f);
   }
+  if (!DECODE && a.lse != nullptr) {
+    for (int r = tid; r < rows; r += ATT_NT)
+      a.lse[((long long)b * H + h) * a.Sq + q0 + r] = M[r] + logf(fmaxf(L[r], 1e-30f));
+  }
 }
 
 template <int POL, int BQ, bool DECODE>
@@ -309,12 +296,12 @@ int dispatch_attn(const AttnArgs& a, int policy, dim3 grid, cudaStream_t stream)
 }  // namespace rt
 
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v, float* o,
-                                    int in_bf16, int B, int Sq, int Skv, int Kv, int G, int hd,
+                                    float* lse, int in_bf16, int B, int Sq, int Skv, int Kv, int G, int hd,
                                     int causal, int window, float softcap, int policy,
                                     void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  rt::AttnArgs a{q, k, v, o, nullptr, in_bf16, B, Sq, Skv, Kv, G, hd, causal, window, 0, softcap};
+  rt::AttnArgs a{q, k, v, o, lse, nullptr, in_bf16, B, Sq, Skv, Kv, G, hd, causal, window, 0, softcap};
   dim3 grid((Sq + 63) / 64, Kv * G, B);
   return rt::dispatch_attn<64, false>(a, policy, grid, static_cast<cudaStream_t>(stream));
 }
@@ -325,7 +312,7 @@ extern "C" int attention_decode_launch(const void* q, const void* k, const void*
                                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  rt::AttnArgs a{q, k, v, o, pos, in_bf16, B, 1, S, Kv, G, hd, 0, 0, ring, softcap};
+  rt::AttnArgs a{q, k, v, o, nullptr, pos, in_bf16, B, 1, S, Kv, G, hd, 0, 0, ring, softcap};
   dim3 grid(Kv, B);
   return rt::dispatch_attn<16, true>(a, policy, grid, static_cast<cudaStream_t>(stream));
 }

@@ -33,7 +33,8 @@ template <int POL> struct Splits {
   static constexpr bool b_lo = POL == P_BF16X3 || POL == P_REFINE_AB;
 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+template <typename Layout = wmma::row_major>
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, Layout>;
 template <typename Layout>
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, Layout>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -52,17 +53,18 @@ __device__ __forceinline__ void store_split(bf16* hi, bf16* lo, long long i, flo
   if constexpr (with_lo) lo[i] = __float2bfloat16_rn(x - __bfloat162float(h));
 }
 
-// One 16-deep step of the policy's passes into (small, main).
-template <int POL, typename LayoutB>
+// One 16-deep step of the policy's passes into (small, main).  A is read
+// row-major unless LayoutA says col_major (a transposed tile in place).
+template <int POL, typename LayoutB, typename LayoutA = wmma::row_major>
 __device__ __forceinline__ void policy_mma(FragC& small, FragC& main,
                                            const bf16* a_hi, const bf16* a_lo, unsigned lda,
                                            const bf16* b_hi, const bf16* b_lo, unsigned ldb) {
-  FragA ahi;
+  FragA<LayoutA> ahi;
   FragB<LayoutB> bhi;
   wmma::load_matrix_sync(ahi, a_hi, lda);
   wmma::load_matrix_sync(bhi, b_hi, ldb);
   if constexpr (Splits<POL>::a_lo) {
-    FragA alo;
+    FragA<LayoutA> alo;
     wmma::load_matrix_sync(alo, a_lo, lda);
     if constexpr (Splits<POL>::b_lo) {
       FragB<LayoutB> blo;
@@ -75,6 +77,26 @@ __device__ __forceinline__ void policy_mma(FragC& small, FragC& main,
     }
   }
   wmma::mma_sync(main, ahi, bhi, main);
+}
+
+// Eight consecutive elements (16 bytes of bf16, 32 of f32) as f32; the
+// caller guarantees 8-element alignment.
+__device__ __forceinline__ void load8(const void* p, long long i, int is_bf16, float (&x)[8]) {
+  if (is_bf16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p) + i);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+      x[2 * j] = __low2float(h);
+      x[2 * j + 1] = __high2float(h);
+    }
+  } else {
+    const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+    const float4 f0 = f[0], f1 = f[1];
+    x[0] = f0.x; x[1] = f0.y; x[2] = f0.z; x[3] = f0.w;
+    x[4] = f1.x; x[5] = f1.y; x[6] = f1.z; x[7] = f1.w;
+  }
 }
 
 // Round a shared-memory section size up so every section starts 128-byte aligned

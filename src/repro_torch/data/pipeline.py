@@ -1,0 +1,85 @@
+"""Deterministic synthetic LM data (twin of ``repro.data.pipeline``).
+
+Batch i is a pure function of (seed, i, proc): the same numpy stream
+``SeedSequence([seed, i, proc])`` as the JAX package draws, so the two
+packages train on bit-equal batches, and a restart needs no data state
+(the checkpoint stores only the step).  Batches are host numpy arrays;
+the train loop moves them to the device.  Host sharding across
+processes (``host_slice``) waits for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from collections.abc import Iterator
+
+import numpy as np
+
+__all__ = ["DataConfig", "SyntheticLMDataset", "Prefetcher"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    global_batch: int
+    seq_len: int
+    vocab_size: int
+    seed: int = 0
+
+
+class SyntheticLMDataset:
+    """batch(i) -> {"tokens", "labels"} int32 (B, seq_len) numpy arrays for
+    process ``proc`` of ``nproc``."""
+
+    def __init__(self, cfg: DataConfig, proc: int = 0, nproc: int = 1):
+        if cfg.global_batch % nproc:
+            raise ValueError("global_batch must divide across hosts")
+        self.cfg = cfg
+        self.proc, self.nproc = proc, nproc
+        self.local_batch = cfg.global_batch // nproc
+
+    def batch(self, i: int) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, i, self.proc]))
+        shape = (self.local_batch, cfg.seq_len + 1)
+        stream = rng.integers(0, cfg.vocab_size, size=shape, dtype=np.int32)
+        return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        i = 0
+        while True:
+            yield self.batch(i)
+            i += 1
+
+
+class Prefetcher:
+    """Background-thread prefetch (depth-bounded) over a dataset iterator."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def worker():
+            for item in it:
+                if self._stop.is_set():
+                    return
+                self.q.put(item)
+
+        self.t = threading.Thread(target=worker, daemon=True)
+        self.t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass

@@ -1,34 +1,54 @@
-"""Flash attention on the Hopper tensor cores: prefill forward and
-single-token decode (``csrc/attention_fused.cu``).
+"""Flash attention on the Hopper tensor cores: prefill forward,
+single-token decode (``csrc/attention_fused.cu``) and the training
+backward (``csrc/attention_bwd.cu``).
 
 Replaces the TPU kernels ``repro/kernels/attention_fused.py:_fwd_kernel``
-(``pallas_call`` at ``:224``, via ``_fwd_impl``) and ``:_decode_kernel``
-(``pallas_call`` at ``:579``).  Both walk the KV sequence in tiles of
+(``pallas_call`` at ``:224``, via ``_fwd_impl``), ``:_decode_kernel``
+(``pallas_call`` at ``:579``), ``:_bwd_dq_kernel`` (``pallas_call`` at
+``:354``) and ``:_bwd_dkv_kernel`` (``pallas_call`` at ``:374``, both via
+``_bwd_impl``).  The forward and decode walk the KV sequence in tiles of
 ``BKV`` = 32 rows with the online softmax (running max m, running sum l,
 unnormalised output), so the (Sq, Skv) score tensor never reaches device
-memory; both contractions (Q.K^T and P.V) run the precision ladder on
-the tensor cores (bf16 / refine_a / bf16x3 / refine_ab; f32 on the CUDA
-cores).  Masks: causal, sliding window and tail padding for the forward;
-the ring-buffer slot rule ``pos - ((pos - c) mod S) >= 0`` (a floor mod)
-or the linear ``c <= pos`` for decode, at a per-row ``pos``.  GQA:
-query head h reads kv head ``h // G``; decode gives one block per
-(row, kv head) covering the group's G query heads so K/V are read once
-per group.  Softcap ``cap * tanh(s / cap)`` before masking.
+memory; the forward also writes ``lse = m + log l`` per row.  Every
+contraction runs the precision ladder on the tensor cores (bf16 /
+refine_a / bf16x3 / refine_ab; f32 on the CUDA cores).  Masks: causal,
+sliding window and tail padding for the forward and backward; the
+ring-buffer slot rule ``pos - ((pos - c) mod S) >= 0`` (a floor mod) or
+the linear ``c <= pos`` for decode, at a per-row ``pos``.  GQA: query
+head h reads kv head ``h // G``; decode gives one block per (row, kv
+head) covering the group's G query heads so K/V are read once per group.
+Softcap ``cap * tanh(s / cap)`` before masking.
 
-What bounds them on the H100: their roofline bound is bytes (a few MB
-per call, microseconds), but at gemma3-1b's head_dim 256 the design is
-bounded by shared memory: a 64 x 256 f32 tile is 64 KB, so the TPU's
-128 x 128 blocks do not fit.  The design stages Q, K and V
-as bf16 hi/lo pairs (or f32) with a 64-row q block and 32-row KV tiles,
-and keeps O in shared memory as an f32 accumulator reloaded into WMMA
+What bounds them on the H100: their roofline bound is bytes for decode
+and, at gemma3-1b's training shapes, operations for the forward and
+backward (a few GFLOP against a few MB), but at head_dim 256 the design
+is bounded by shared memory: a 64 x 256 f32 tile is 64 KB, so the TPU's
+128 x 128 blocks do not fit.  The forward stages Q, K and V as bf16
+hi/lo pairs (or f32) with a 64-row q block and 32-row KV tiles, and
+keeps O in shared memory as an f32 accumulator reloaded into WMMA
 fragments (217 KB, one block per SM); a q block walks only the KV tiles
 its mask reaches (the TPU kernel's ``_block_live`` as loop bounds).
 Decode reads the cache once per tick, so bytes bound it; the kernel
 reads it in place in its stored type and stops a linear walk at ``pos``.
 
+The backward rebuilds ``p = exp(s' - lse)`` (``s'`` the softcapped score)
+instead of storing it, with ``di = rowsum(dO * O)`` computed outside the
+kernels as one tensor op, as the TPU code does.  Its two kernels take
+32-row q and KV tiles, so that at head_dim 256 four staged operand tiles
+and two f32 accumulators fit in 221 KB: ``dq`` owns 32 query rows and
+walks the live KV tiles accumulating ``dS.K``; ``dk/dv`` owns 32 KV rows
+and walks, for each of the group's G query heads in turn, the live q
+tiles accumulating ``P^T.dO`` and ``dS^T.Q``, reading the transposed
+tiles in place as col-major fragments.  Folding the group inside the
+block writes ``(B, Skv, Kv, hd)`` directly (the TPU code writes per-query
+-head gradients and sums them); every output tile has one owner, so
+there are no atomics and the result is deterministic.
+
 Each wrapper has a plain PyTorch twin (``*_plain``) that walks the same
-32-row tiles with the same online softmax, so kernel and plain version
-round p to bf16 at the same points.
+32-row tiles in the same order, so kernel and plain version round to
+bf16 at the same points.  ``flash_attention`` is differentiable: its
+``autograd.Function`` saves (q, k, v, out, lse) and runs the backward
+kernels (twin of ``_flash`` / ``_flash_fwd`` / ``_flash_bwd``).
 """
 
 from __future__ import annotations
@@ -42,16 +62,21 @@ from repro_torch.core import precision as prec
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemm_tiled import on_cpu
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
-           "flash_decode_plain", "FUSED_POLICIES", "BKV", "LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "bwd_delta", "flash_decode", "flash_decode_plain", "FUSED_POLICIES", "BKV",
+           "LAUNCHES"]
 
 BKV = 32
 NEG_INF = -1e30
 POLICY_CODES = {"bf16": 0, "refine_a": 1, "bf16x3": 2, "refine_ab": 3, "f32": 4}
 FUSED_POLICIES = tuple(POLICY_CODES)
 
-# Launch counts of the two kernels, keyed by entry point.
-LAUNCHES = {"flash_attention": 0, "flash_decode": 0}
+# Launch counts of the kernels, keyed by kernel.
+LAUNCHES = {"flash_attention": 0, "flash_decode": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 # ------------------------------------------------------------ plain twins
@@ -78,7 +103,7 @@ def _pad_kv(x: torch.Tensor) -> torch.Tensor:
 def _online_softmax(q, k, v, keep_fn, softcap, precision):
     """The kernels' KV walk: q (B,Sq,Kv,G,hd), k/v (B,Skv,Kv,hd) padded to
     BKV rows; keep_fn(cols) -> bool mask broadcastable to (B,Kv,G,Sq,BKV).
-    Returns (B,Sq,Kv,G,hd) f32."""
+    Returns (out (B,Sq,Kv,G,hd) f32, lse (B,Kv*G,Sq) f32)."""
     b, sq, kvh, g, hd = q.shape
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
@@ -96,29 +121,131 @@ def _online_softmax(q, k, v, keep_fn, softcap, precision):
         pv = _policy_dot("bkgqs,bskd->bkgqd", p, v[:, k0:k0 + BKV], precision)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4)
+    l = torch.clamp(l, min=1e-30)
+    out = acc / l[..., None]
+    lse = (m + torch.log(l)).reshape(b, kvh * g, sq)
+    return out.permute(0, 3, 1, 2, 4), lse
+
+
+def _keep(rows, cols, sq, skv, causal, window):
+    """The forward and backward keep-mask for global row / col indices."""
+    keep = (cols < skv) & (rows < sq)
+    if causal:
+        keep = keep & (cols <= rows)
+        if window is not None:
+            keep = keep & (cols > rows - window)
+    return keep
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           softcap: float | None = None,
-                          precision: str = "bf16") -> torch.Tensor:
-    """Plain PyTorch twin of the forward kernel (same tiles, same masks)."""
+                          precision: str = "bf16"):
+    """Plain PyTorch twin of the forward kernel (same tiles, same masks).
+    Returns (out (B,Sq,Kv,G,hd) f32, lse (B,Kv*G,Sq) f32)."""
     sq, skv = q.shape[1], k.shape[1]
     if not causal:
         window = None
     rows = torch.arange(sq, device=q.device)[:, None]
+    return _online_softmax(
+        q, _pad_kv(k), _pad_kv(v),
+        lambda cols: _keep(rows, cols[None, :], sq, skv, causal, window),
+        softcap, precision)
 
-    def keep_fn(cols):
-        keep = (cols[None, :] < skv) & (rows < sq)
-        if causal:
-            keep = keep & (cols[None, :] <= rows)
-            if window is not None:
-                keep = keep & (cols[None, :] > rows - window)
-        return keep
 
-    return _online_softmax(q, _pad_kv(k), _pad_kv(v), keep_fn, softcap, precision)
+def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(dO * O) in the kernels' (B, Kv*G, Sq) layout."""
+    b, sq, kvh, g, _ = out.shape
+    di = (out.float() * do.float()).sum(dim=-1)
+    return di.reshape(b, sq, kvh * g).transpose(1, 2).contiguous()
+
+
+def _probs(s, lse, dp, di, keep, softcap):
+    """Rebuild p from the scores and lse under the mask, and form
+    ds = p (dp - di), through the softcap's chain term."""
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    p = torch.where(keep, torch.exp(s - lse), torch.zeros_like(s))
+    ds = p * (dp - di)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    return p, ds
+
+
+def _bwd_setup(q, lse, di, causal, window):
+    b, sq, kvh, g, _ = q.shape
+    return (None if not causal else window,
+            lse.float().reshape(b, kvh, g, sq), di.float().reshape(b, kvh, g, sq),
+            torch.arange(sq, device=q.device))
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, *, causal: bool = True,
+                                 window: int | None = None,
+                                 softcap: float | None = None,
+                                 precision: str = "bf16") -> torch.Tensor:
+    """Plain twin of the dq kernel: walks the 32-row KV tiles in order,
+    accumulating dS.K.  ``di`` is ``rowsum(dO * O)`` in lse's (B, Kv*G,
+    Sq) layout.  Returns dq (B, Sq, Kv, G, hd) f32."""
+    sq, skv = q.shape[1], k.shape[1]
+    window, lse4, di4, rows = _bwd_setup(q, lse, di, causal, window)
+    do = do.float()
+    kp, vp = _pad_kv(k), _pad_kv(v)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, kp.shape[1], BKV):
+        kt, vt = kp[:, k0:k0 + BKV], vp[:, k0:k0 + BKV]
+        cols = k0 + torch.arange(BKV, device=q.device)
+        keep = _keep(rows[:, None], cols[None, :], sq, skv, causal, window)
+        s = _policy_dot("bqkgd,bskd->bkgqs", q, kt, precision)
+        dp = _policy_dot("bqkgd,bskd->bkgqs", do, vt, precision)
+        _, ds = _probs(s, lse4[..., None], dp, di4[..., None], keep, softcap)
+        dq = dq + _policy_dot("bkgqs,bskd->bqkgd", ds, kt, precision)
+    return dq
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, *, causal: bool = True,
+                                  window: int | None = None,
+                                  softcap: float | None = None,
+                                  precision: str = "bf16"):
+    """Plain twin of the dk/dv kernel: for each of the group's heads in
+    turn, walks the 32-row q tiles in order, accumulating P^T.dO and
+    dS^T.Q.  Returns (dk, dv) (B, Skv, Kv, hd) f32."""
+    b, sq, kvh, g, hd = q.shape
+    skv = k.shape[1]
+    window, lse4, di4, _ = _bwd_setup(q, lse, di, causal, window)
+    pad = (0, 0, 0, 0, 0, 0, 0, (-sq) % BKV)
+    qp = torch.nn.functional.pad(q, pad)
+    dop = torch.nn.functional.pad(do.float(), pad)
+    lsep = torch.nn.functional.pad(lse4, (0, (-sq) % BKV))
+    dip = torch.nn.functional.pad(di4, (0, (-sq) % BKV))
+    cols = torch.arange(skv, device=q.device)
+    dk = torch.zeros((b, skv, kvh, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for gi in range(g):
+        for q0 in range(0, qp.shape[1], BKV):
+            qt, dot = qp[:, q0:q0 + BKV, :, gi], dop[:, q0:q0 + BKV, :, gi]
+            rows = q0 + torch.arange(BKV, device=q.device)
+            keep = _keep(rows[:, None], cols[None, :], sq, skv, causal, window)
+            s = _policy_dot("bqkd,bskd->bkqs", qt, k, precision)
+            dp = _policy_dot("bqkd,bskd->bkqs", dot, v, precision)
+            p, ds = _probs(s, lsep[:, :, gi, q0:q0 + BKV, None], dp,
+                           dip[:, :, gi, q0:q0 + BKV, None], keep, softcap)
+            dv = dv + _policy_dot("bkqs,bqkd->bskd", p, dot, precision)
+            dk = dk + _policy_dot("bkqs,bqkd->bskd", ds, qt, precision)
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = True,
+                              window: int | None = None,
+                              softcap: float | None = None,
+                              precision: str = "bf16"):
+    """Plain PyTorch twin of the backward: di, then the dq and dk/dv
+    walks.  Returns (dq, dk, dv) f32 in q's / k's / v's shapes."""
+    kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
+    di = bwd_delta(out, do)
+    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw)
+    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw))
 
 
 def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
@@ -137,7 +264,7 @@ def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
         return keep[:, None, None, None, :]                      # (B,1,1,1,BKV)
 
     return _online_softmax(q, _pad_kv(k_cache), _pad_kv(v_cache), keep_fn,
-                           softcap, precision)
+                           softcap, precision)[0]
 
 
 # ---------------------------------------------------------------- kernels
@@ -166,7 +293,7 @@ def _launchers():
     lib = _build.load("attention_fused")
     c = ctypes
     fwd, dec = lib.attention_fwd_launch, lib.attention_decode_launch
-    fwd.argtypes = [c.c_void_p] * 4 + [c.c_int] * 9 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
+    fwd.argtypes = [c.c_void_p] * 5 + [c.c_int] * 9 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
     dec.argtypes = [c.c_void_p] * 5 + [c.c_int] * 7 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
     fwd.restype = dec.restype = c.c_int
     return fwd, dec
@@ -176,15 +303,22 @@ def _device_index(x: torch.Tensor) -> int:
     return x.device.index if x.device.index is not None else torch.cuda.current_device()
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                    softcap: float | None = None,
-                    precision: str = "bf16") -> torch.Tensor:
-    """Fused flash attention in the model's GQA layout.
+def _window_arg(causal: bool, window: int | None) -> int:
+    return int(window) if (causal and window is not None) else 0
 
-    q: (B, Sq, Kv, G, hd) pre-scaled; k/v: (B, Skv, Kv, hd).  Returns
-    (B, Sq, Kv, G, hd) f32.  CPU tensors run the plain twin; CUDA
-    tensors launch the kernel or raise.
-    """
+
+def _softcap_arg(softcap: float | None) -> float:
+    return float(softcap) if softcap is not None else 0.0
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None,
+                        precision: str = "bf16"):
+    """The forward kernel: q (B, Sq, Kv, G, hd) pre-scaled, k/v (B, Skv,
+    Kv, hd).  Returns (out (B, Sq, Kv, G, hd) f32, lse (B, Kv*G, Sq) f32).
+    CPU tensors run the plain twin; CUDA tensors launch the kernel or
+    raise."""
     _check_policy(precision)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -193,15 +327,132 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     _check_head_dim(hd)
     (q, k, v), in_bf16 = _inputs(q, k, v)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    rc = _launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), in_bf16,
-            b, sq, k.shape[1], kvh, g, hd, int(causal),
-            int(window) if (causal and window is not None) else 0,
-            float(softcap) if softcap is not None else 0.0,
+    lse = torch.empty((b, kvh * g, sq), dtype=torch.float32, device=q.device)
+    rc = _launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), in_bf16, b, sq, k.shape[1], kvh, g, hd, int(causal),
+            _window_arg(causal, window), _softcap_arg(softcap),
             POLICY_CODES[precision], torch.cuda.current_stream(q.device).cuda_stream,
             _device_index(q))
     _build.check(rc, "attention_fwd_launch")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+@functools.cache
+def _bwd_launchers():
+    """(dq, dk/dv) C launchers of the built backward library, typed once."""
+    lib = _build.load("attention_bwd")
+    c = ctypes
+    dq, dkv = lib.attention_bwd_dq_launch, lib.attention_bwd_dkv_launch
+    tail = [c.c_int] * 9 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
+    dq.argtypes = [c.c_void_p] * 7 + tail
+    dkv.argtypes = [c.c_void_p] * 8 + tail
+    dq.restype = dkv.restype = c.c_int
+    return dq, dkv
+
+
+def _bwd_args(q, k, v, do, lse, di, causal, window, softcap, precision):
+    """The launchers' shared arguments: (input pointers, keep-alive
+    tensors, trailing scalars)."""
+    b, sq, kvh, g, hd = q.shape
+    _check_head_dim(hd)
+    (q, k, v), in_bf16 = _inputs(q, k, v)
+    do, lse, di = (x.float().contiguous() for x in (do, lse, di))
+    tensors = (q, k, v, do, lse, di)
+    tail = (in_bf16, b, sq, k.shape[1], kvh, g, hd, int(causal),
+            _window_arg(causal, window), _softcap_arg(softcap),
+            POLICY_CODES[precision], torch.cuda.current_stream(q.device).cuda_stream,
+            _device_index(q))
+    return [x.data_ptr() for x in tensors], tensors, tail
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           precision: str = "bf16") -> torch.Tensor:
+    """The dq kernel: dq (B, Sq, Kv, G, hd) f32 from q, k, v, the output
+    gradient ``do``, the forward's ``lse`` and ``di = rowsum(dO * O)``
+    (both (B, Kv*G, Sq)).  CPU tensors run the plain twin; CUDA tensors
+    launch the kernel or raise."""
+    _check_policy(precision)
+    kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
+    if on_cpu(q, k, v, do, lse, di):
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw)
+    ptrs, _keep_alive, tail = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
+                                        precision)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _build.check(_bwd_launchers()[0](*ptrs, dq.data_ptr(), *tail), "attention_bwd_dq_launch")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
+                            window: int | None = None,
+                            softcap: float | None = None,
+                            precision: str = "bf16"):
+    """The dk/dv kernel: (dk, dv) (B, Skv, Kv, hd) f32, arguments as
+    ``flash_attention_bwd_dq``."""
+    _check_policy(precision)
+    kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
+    if on_cpu(q, k, v, do, lse, di):
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
+    ptrs, _keep_alive, tail = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
+                                        precision)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    _build.check(_bwd_launchers()[1](*ptrs, dk.data_ptr(), dv.data_ptr(), *tail),
+                 "attention_bwd_dkv_launch")
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None,
+                        precision: str = "bf16"):
+    """Gradients of ``flash_attention`` with respect to q, k and v, from
+    the forward's f32 ``out`` and ``lse`` and the output gradient ``do``:
+    di = rowsum(dO * O) as one tensor op, then the dq and dk/dv kernels
+    (their plain twins on CPU tensors).  Returns (dq, dk, dv) f32 in the
+    shapes of q, k and v."""
+    kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
+    di = bwd_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the backward on the backward kernels (twin
+    of ``_flash`` / ``_flash_fwd`` / ``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, precision):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, precision=precision)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        precision=precision)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.float(), **ctx.opts)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    precision: str = "bf16") -> torch.Tensor:
+    """Fused flash attention in the model's GQA layout, differentiable.
+
+    q: (B, Sq, Kv, G, hd) pre-scaled; k/v: (B, Skv, Kv, hd).  Returns
+    (B, Sq, Kv, G, hd) f32.  CPU tensors run the plain twins; CUDA
+    tensors launch the kernels or raise.
+    """
+    _check_policy(precision)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, precision)
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, window: int | None = None,

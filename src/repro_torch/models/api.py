@@ -13,7 +13,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import transformer as T
 
-__all__ = ["init_params", "init_cache", "prefill", "decode"]
+__all__ = ["init_params", "init_cache", "loss_fn", "prefill", "decode"]
 
 
 def _dense(cfg: ModelConfig) -> None:
@@ -33,6 +33,19 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                device: torch.device | str = "cpu") -> list:
     _dense(cfg)
     return T.init_cache(cfg, batch, s_ctx, dtype, device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
+            policy: PrecisionPolicy, remat: bool = False,
+            ) -> tuple[torch.Tensor, dict]:
+    """Training loss for one (micro)batch of tokens and labels (B, S).
+    Returns (total, {"loss", "aux_loss"}); the dense family has no
+    auxiliary loss, so total is the LM loss."""
+    _dense(cfg)
+    logits, _ = T.forward(params, batch["tokens"], cfg, policy=policy,
+                          mode="train", remat=remat)
+    loss = T.lm_loss(logits, batch["labels"])
+    return loss, {"loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, *,

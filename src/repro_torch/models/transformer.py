@@ -6,6 +6,10 @@ The JAX package stacks each segment's params on a ``count`` axis and
 runs ``lax.scan``; the port keeps one flat list of sublayers in the same
 execution order (``configs.base.layer_kinds``) and runs a Python loop.
 ``params["layers"][i]`` and ``cache[i]`` belong to sublayer ``i``.
+With ``remat`` each period of a segment's pattern (one scan step in the
+JAX package, which wraps it in ``jax.checkpoint``) runs under
+``torch.utils.checkpoint``: its activations are recomputed in the
+backward instead of kept.
 """
 
 from __future__ import annotations
@@ -13,13 +17,14 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.attention import AttnCache, attention, init_attn
 
-__all__ = ["init_params", "forward", "init_cache"]
+__all__ = ["init_params", "forward", "init_cache", "lm_loss"]
 
 _ATTN_KINDS = ("attn", "attn_local")
 
@@ -89,38 +94,75 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
     return cache
 
 
+def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
+              policy: PrecisionPolicy, mode: str, cache, pos):
+    """One pre-norm residual sublayer.  Returns (x, new cache or None)."""
+    xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
+    if kind in _ATTN_KINDS:
+        out, nc = attention(
+            p, xn, mode=mode, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            policy=policy.for_("attention"), rope_theta=cfg.rope_theta,
+            window=cfg.window if kind == "attn_local" else None,
+            softcap=cfg.attn_logit_softcap,
+            cache=cache if mode == "decode" else None, pos=pos)
+        return x + out, (nc if mode != "train" else None)
+    return x + L.mlp(p, xn, cfg.mlp_kind, policy.for_("mlp")), None
+
+
+def _periods(cfg: ModelConfig) -> list[tuple[int, int]]:
+    """[start, stop) sublayer ranges of every period of every segment."""
+    out, i = [], 0
+    for seg in cfg.segments:
+        for _ in range(seg.count):
+            out.append((i, i + len(seg.pattern)))
+            i += len(seg.pattern)
+    return out
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             policy: PrecisionPolicy, mode: str = "train",
             cache: list | None = None, pos: torch.Tensor | None = None,
-            last_only: bool = False) -> tuple[torch.Tensor, list]:
+            last_only: bool = False, remat: bool = False,
+            ) -> tuple[torch.Tensor, list]:
     """Run the LM stack.  tokens (B, S) int; mode train | prefill |
     decode; decode takes the per-row ``pos`` (B,) and updates ``cache``
     in place.  ``last_only`` projects only the last position onto the
     vocabulary (each row of the unembed is independent, so its logits
-    equal the full projection's last row).  Returns (logits f32, cache).
+    equal the full projection's last row).  ``remat`` (train) recomputes
+    each period's activations in the backward.  Returns (logits f32,
+    cache).
     """
     kinds = _check_kinds(cfg)
     dtype = getattr(torch, cfg.activation_dtype)
     x = L.embed(params["embed"], tokens, dtype)
     new_cache: list = []
-    for i, kind in enumerate(kinds):
-        p = params["layers"][i]
-        xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-        if kind in _ATTN_KINDS:
-            out, nc = attention(
-                p, xn, mode=mode, num_heads=cfg.num_heads,
-                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                policy=policy.for_("attention"), rope_theta=cfg.rope_theta,
-                window=cfg.window if kind == "attn_local" else None,
-                softcap=cfg.attn_logit_softcap,
-                cache=cache[i] if mode == "decode" else None, pos=pos)
-            x = x + out
-            new_cache.append(nc if mode != "train" else None)
+    for start, stop in _periods(cfg):
+        def period(x, start=start, stop=stop):
+            ncs = []
+            for i in range(start, stop):
+                x, nc = _sublayer(kinds[i], params["layers"][i], x, cfg=cfg,
+                                  policy=policy, mode=mode, pos=pos,
+                                  cache=cache[i] if cache is not None else None)
+                ncs.append(nc)
+            return x, ncs
+
+        if remat and mode == "train":
+            x, ncs = checkpoint(period, x, use_reentrant=False)
         else:
-            x = x + L.mlp(p, xn, cfg.mlp_kind, policy.for_("mlp"))
-            new_cache.append(None)
+            x, ncs = period(x)
+        new_cache.extend(ncs)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     table = params["embed" if cfg.tie_embeddings else "unembed"]
     return L.unembed(table, x, policy.for_("logits")), new_cache
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy in f32 (labels already shifted): the mean
+    of logsumexp minus the label logit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - ll).mean()

@@ -3,7 +3,9 @@
 ``make_prefill`` ingests a context and returns a cache padded to the
 decode capacity; ``make_engine_tick`` decodes one token for every slot
 at its own position and applies the per-slot lifecycle masks on the
-device, so the host reads back only (B,) vectors per tick.
+device, so the host reads back only (B,) vectors per tick.  The steps
+run under ``torch.no_grad``: params that carry ``requires_grad`` (a
+trained model) build no autograd graph while serving.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def pad_cache(cache: list, cfg: ModelConfig, s_ctx: int) -> list:
 def make_prefill(cfg: ModelConfig, policy: PrecisionPolicy, *, s_ctx: int):
     """prefill(params, batch) -> (next-token logits, capacity cache)."""
 
+    @torch.no_grad()
     def prefill(params, batch):
         logits, cache = api.prefill(params, batch, cfg, policy=policy)
         return logits, pad_cache(cache, cfg, s_ctx)
@@ -46,6 +49,7 @@ def make_prefill(cfg: ModelConfig, policy: PrecisionPolicy, *, s_ctx: int):
 def make_decode(cfg: ModelConfig, policy: PrecisionPolicy):
     """decode(params, cache, tokens (B,1), pos (B,)) -> (logits, cache)."""
 
+    @torch.no_grad()
     def decode(params, cache, tokens, pos):
         return api.decode(params, cache, tokens, pos, cfg, policy=policy)
 
@@ -65,6 +69,7 @@ def make_engine_tick(cfg: ModelConfig, policy: PrecisionPolicy, *,
     token of budget, and finish on EOS, budget or context exhaustion.
     """
 
+    @torch.no_grad()
     def tick(params, cache, last_tok, pos, active, remaining):
         logits, cache = api.decode(params, cache, last_tok[:, None], pos, cfg,
                                    policy=policy)

@@ -27,6 +27,10 @@ GEMM_ATOL = 1e-3
 # Same tiles and softmax steps; f32 sum order and expf ulps differ, and a
 # probability can round to the neighbouring bf16 value.
 ATTN_ATOL = 2e-3
+# The backward multiplies p and ds (rounded to bf16 in both versions) by
+# |dO|, |q|, |k| <= 1 over up to 150 rows: a p or ds that rounds to the
+# neighbouring bf16 value in one version moves a sum by ~2^-8 of one term.
+BWD_ATOL = 1e-2
 
 
 @pytest.fixture
@@ -93,7 +97,7 @@ def test_flash_attention_matches_plain(dev, policy, mask, hd, dtype):
               softcap=5.0 if mask == "softcap" else None, precision=policy)
     out = af.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    ref = af.flash_attention_plain(q, k, v, **kw)
+    ref, _ = af.flash_attention_plain(q, k, v, **kw)
     assert out.shape == q.shape
     assert (out - ref).abs().max().item() <= ATTN_ATOL
 
@@ -114,6 +118,77 @@ def test_flash_decode_matches_plain(dev, policy, ring, dtype):
     torch.cuda.synchronize()
     ref = af.flash_decode_plain(q, k, v, pos, **kw)
     assert (out - ref).abs().max().item() <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("policy", af.FUSED_POLICIES)
+@pytest.mark.parametrize("mask", ["causal", "window", "full", "softcap"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_bwd_matches_plain(dev, policy, mask, g, hd):
+    """The dq and dk/dv kernels against their plain version, on the
+    forward kernel's own out and lse (which are held against the plain
+    forward's first), at ragged lengths and bf16 inputs."""
+    rng = np.random.default_rng(hd + g)
+    b, sq, kv = 2, 150, 2
+    q = (_u(rng, (b, sq, kv, g, hd), dev) * hd ** -0.5).to(torch.bfloat16)
+    k, v = (_u(rng, (b, sq, kv, hd), dev, torch.bfloat16) for _ in range(2))
+    do = _u(rng, (b, sq, kv, g, hd), dev)
+    kw = dict(causal=mask != "full", window=40 if mask == "window" else None,
+              softcap=5.0 if mask == "softcap" else None, precision=policy)
+    out, lse = af.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    out_p, lse_p = af.flash_attention_plain(q, k, v, **kw)
+    # 2^-8: one probability (<= 1) rounding to the neighbouring bf16 value
+    # in one version moves an output (|v| <= 1) by up to that much; with G
+    # = 4 heads of 150 rows such a flip happens (2.09e-3 measured on the
+    # H100 at hd 256).
+    assert (out - out_p).abs().max().item() <= 2 ** -8
+    assert lse.shape == (b, kv * g, sq)
+    assert (lse - lse_p).abs().max().item() <= ATTN_ATOL
+    grads = af.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    refs = af.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert x.shape == ref.shape and torch.isfinite(x).all(), name
+        assert (x - ref).abs().max().item() <= BWD_ATOL, name
+
+
+def test_flash_attention_autograd_runs_the_backward_kernels(dev):
+    rng = np.random.default_rng(5)
+    q = (_u(rng, (1, 70, 1, 4, 64), dev) * 0.125).requires_grad_(True)
+    k, v = (_u(rng, (1, 70, 1, 64), dev).requires_grad_(True) for _ in range(2))
+    before = dict(af.LAUNCHES)
+    out = af.flash_attention(q, k, v, causal=True, window=24)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    for key in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert af.LAUNCHES[key] == before[key] + 1, key
+    out_p, lse_p = af.flash_attention_plain(q.detach(), k.detach(), v.detach(), causal=True,
+                                            window=24)
+    refs = af.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out_p, lse_p,
+                                        2 * out_p, causal=True, window=24)
+    for x, ref in zip(grads, refs):
+        assert (x - ref).abs().max().item() <= BWD_ATOL
+
+
+@pytest.mark.parametrize("layout", ["m_contig_a", "k_major_b"])
+@pytest.mark.parametrize("policy", ["bf16", "refine_a", "bf16x3", "refine_ab"])
+@pytest.mark.parametrize("m,n,k", [(72, 200, 130), (300, 48, 520)])
+def test_gemm_backward_layouts_match_plain(dev, layout, policy, m, n, k):
+    """The two operand layouts the routed-GEMM backward hands the kernels:
+    dW = x^T.g reads an M-contiguous A (x is (k, m) row-major), dX =
+    g.W^T a K-major B (W is (n, k) row-major)."""
+    rng = np.random.default_rng(m + k)
+    if layout == "m_contig_a":
+        a, b = _u(rng, (k, m), dev, torch.bfloat16).t(), _u(rng, (k, n), dev)
+    else:
+        a, b = _u(rng, (m, k), dev), _u(rng, (n, k), dev).t()
+    if policy == "bf16":
+        out, ref = gt.gemm_tiled(a, b), gt.gemm_tiled_plain(a, b)
+    else:
+        out, ref = gr.gemm_refined(a, b, policy=policy), gr.gemm_refined_plain(a, b, policy)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
 
 
 def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):

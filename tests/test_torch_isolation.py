@@ -42,3 +42,11 @@ def test_port_has_modules():
 def test_no_jax_and_no_repro_imports(path):
     bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_training_modules_are_checked():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()
+             if "repro_torch" in p.parts}
+    for module in ("optim/adamw.py", "data/pipeline.py", "checkpoint/manager.py",
+                   "launch/train.py", "runtime/train_step.py", "runtime/monitor.py"):
+        assert module in names
