@@ -13,9 +13,12 @@ Phases, each printing one JSON line:
    inputs at the serve and train paths' shapes, with its stated bound,
    its time, the plain version's time and a yardstick PyTorch call's
    time (CUDA events, in turns plain, kernel, kernel, plain), and the
-   least time the card could take (the larger of FLOPs / 989 TFLOP/s and
-   bytes / 3.35 TB/s).  The windowed flash checks, forward and backward,
-   also show that their bound sees a window one key short.  The GEMMs
+   least time the card could take (the larger of FLOPs / 989 TFLOP/s, or
+   / 1979 TFLOP/s for the fp8/int8 GEMM, and bytes / 3.35 TB/s).  The
+   windowed flash checks, forward and backward, and the paged decode
+   also show that their bound sees a window (or a history) one key
+   short; the quantized GEMM, that it sees a quantization grid of
+   bk = 128 in place of 256.  The GEMMs
    are checked too at the two operand layouts the training backward
    hands them (an M-contiguous A for dW, a K-major B for dX) and at the
    refine_ab unembed's backward (K = 262144 for dX, N = 262144 for the
@@ -28,10 +31,20 @@ Phases, each printing one JSON line:
    prefill logits are held against the same engine on the ``torch``
    reference routes (bound and greedy token), and two faulty reference
    runs, fp8 MLPs and a window one key short, must land outside it.
-5. profile — a 700-token prefill and one 4-slot decode tick: host
-   wall time against the CUDA kernels' time (torch.profiler), the
-   device's idle share, and the kernels that take the most of it.
-6. train   — gemma3-1b at full width and depth trains 3 AdamW steps
+5. serve_paged — the same model, requests and slots from a paged KV
+   cache (8-row pages): (a) bf16 pages on the serve policy, whose tokens
+   must equal the dense serve's for every request and which must hand
+   every page back; (b) int8 pages with fp8x3 MLPs
+   (``ExecutionPolicy(default="bf16", mlp="fp8x3", logits="refine_ab")``),
+   where every request must finish, the paged decode and the quantized
+   GEMM kernels must both launch, and one prompt's prefill logits are held
+   against the bf16-MLP kernel routes, with the single-pass fp8 MLP on the
+   same routes as the control above the bound.
+6. profile — a 700-token prefill and one 4-slot decode tick, dense and
+   paged (bf16 and int8 pages): host wall time against the CUDA kernels'
+   time (torch.profiler), the device's idle share, and the kernels that
+   take the most of it.
+7. train   — gemma3-1b at full width and depth trains 3 AdamW steps
    (batch 2 x 1024 tokens, past the 512 window; remat on; warmup 1)
    through ``TrainLoop`` on the kernel routes, every kernel of the path
    launched during it: loss and grad norm per step, median step time,
@@ -40,7 +53,7 @@ Phases, each printing one JSON line:
    the ``torch`` routes on the same params and batch, and a faulty
    ``torch``-route control (the window one key short) must land outside
    those bounds.
-7. kernels — one line listing each kernel's launches (per path), error
+8. kernels — one line listing each kernel's launches (per path), error
    and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -60,6 +73,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_LOWP_OPS = 1979e12       # H100 SXM dense fp8 / int8 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 
 # kernel-vs-plain bounds (max |kernel - plain|): same bf16 terms, exact
@@ -90,6 +104,18 @@ ATTN_BWD_DKV_BOUND = 1e-4
 # 0.030 (kernel routes) against 0.041-0.10 (control).
 STEP0_TOKEN_LOSS_BOUND = 0.1
 STEP0_GRAD_BOUND = 5e-2
+# quantized GEMM vs its plain version (|C| <= ~6 at these shapes): int8
+# sums exact integers and dequantizes in the plain version's order of
+# roundings; e4m3 partial sums round in f32 in another order.  On the H100:
+# int8x3 0 (bit-equal), fp8x3 4.8e-7 and 9.5e-7; the control, the plain
+# version on a grid of bk = 128, reads 3.7e-4 and 6.7e-4 (int8x3), 5.3e-3
+# and 6.6e-3 (fp8x3), and every run requires it above the bound.
+LOWP_BOUND = 2e-5
+# serve_paged (b): prefill logits with fp8x3 MLPs on the kernel routes
+# against the bf16-MLP kernel routes (|logits| <= 4.64).  Set after reading
+# them on the H100: fp8x3 0.0778, and 0.576 for the single-pass fp8 MLP on
+# the same routes, the control that every run requires above the bound.
+FP8X3_LOGITS_BOUND = 0.2
 
 
 TRAIN_STEPS = 3
@@ -101,22 +127,30 @@ KERNELS = {
     "flash_decode": ("attention_fused.cu", "src/repro/kernels/attention_fused.py:485"),
     "flash_attention_bwd_dq": ("attention_bwd.cu", "src/repro/kernels/attention_fused.py:272"),
     "flash_attention_bwd_dkv": ("attention_bwd.cu", "src/repro/kernels/attention_fused.py:302"),
+    "flash_paged_decode": ("attention_paged.cu", "src/repro/kernels/attention_paged.py:44"),
+    "gemm_lowp": ("gemm_lowp.cu", "src/repro/kernels/gemm_lowp.py:65"),
 }
 SERVE_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_decode")
+PAGED_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_paged_decode")
+PAGED_INT8_KERNELS = PAGED_KERNELS + ("gemm_lowp",)
 TRAIN_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
-def zero_launches(gt, gr, af) -> None:
-    gt.LAUNCHES = 0
-    gr.LAUNCHES = 0
-    for key in af.LAUNCHES:
-        af.LAUNCHES[key] = 0
+def zero_launches(mods) -> None:
+    """mods: the kernel modules by kernel name (a dict of counts for the
+    module that holds several kernels)."""
+    for name, mod in mods.items():
+        if isinstance(mod.LAUNCHES, dict):
+            mod.LAUNCHES[name] = 0
+        else:
+            mod.LAUNCHES = 0
 
 
-def read_launches(gt, gr, af) -> dict:
-    return {"gemm_tiled": gt.LAUNCHES, "gemm_refined": gr.LAUNCHES, **af.LAUNCHES}
+def read_launches(mods) -> dict:
+    return {name: (mod.LAUNCHES[name] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES)
+            for name, mod in mods.items()}
 
 
 def fail(msg: str) -> None:
@@ -128,8 +162,8 @@ def emit(**obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -147,7 +181,10 @@ def main() -> None:
     from repro_torch.core import ops
     from repro_torch.core.precision import num_passes
     from repro_torch.kernels import _build
+    from repro_torch.core.ops import paged
     from repro_torch.kernels import attention_fused as af
+    from repro_torch.kernels import attention_paged as ap
+    from repro_torch.kernels import gemm_lowp as gl
     from repro_torch.kernels import gemm_refined as gr
     from repro_torch.kernels import gemm_tiled as gt
     from repro_torch.configs.base import execution_policy_for
@@ -159,6 +196,9 @@ def main() -> None:
     from repro_torch.models import api, transformer
     from repro_torch.runtime import serve_step
     from repro_torch.runtime.device import resolve_device
+
+    mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
+            "flash_paged_decode": ap, "gemm_lowp": gl}
 
     # ------------------------------------------------------------ 1 device
     dev = resolve_device("cuda")
@@ -213,7 +253,8 @@ def main() -> None:
     def max_err(outs, refs) -> float:
         return max((o - r).abs().max().item() for o, r in zip(outs, refs))
 
-    def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None):
+    def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None,
+              peak=PEAK_BF16_FLOPS, library_call=None):
         """``control``: a plain version with a deliberate fault, which
         must land outside ``err_bound`` of the kernel.  A kernel may
         return a tuple of tensors; the error is the largest over them."""
@@ -233,9 +274,11 @@ def main() -> None:
         del out, ref
         ms, plain_ms = in_turns(plain, kernel)
         lib_ms = timed(library) if library is not None else None
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, peak)
         row = dict(what=what, max_abs_err=err, err_bound=err_bound, ref_rms=ref_rms, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if library_call:
+            row["library_call"] = library_call
         if control:
             row["control_err"] = control_err
         emit(phase="check", kernel=name, **row)
@@ -337,6 +380,91 @@ def main() -> None:
               sdpa_d, ATTN_BOUND, 4 * n_live * grp * hd * kvh,
               qd.numel() * 2 + 2 * n_live * kvh * hd * 2 + qd.numel() * 4)
     del q, k, v, qh, kh, vh, kc, vc
+
+    # paged decode at the same rows and positions: 8-row pages behind a
+    # shuffled page table, logical pages past a row's history on the trash
+    # page (as the engine allocates them), bf16 pages and int8 pages with
+    # per-row scales.  Yardstick: SDPA on the cache gathered dense
+    # beforehand (the gather is not timed).  Control: the plain version
+    # one key short (each row's newest key dropped, pos - 1; it moves the
+    # rows whose ring has not wrapped and every linear row).
+    ps = 8
+    for s_cache, window in ((cfg.window, cfg.window), (1024, None)):
+        n_log = paged.num_logical_pages(s_cache, ps)
+        table = (1 + torch.randperm(4 * n_log, generator=gen, device=dev)).reshape(4, n_log)
+        hist = torch.clamp(pos.long(), max=s_cache - 1)[:, None]
+        table = torch.where(torch.arange(n_log, device=dev)[None, :] * ps <= hist, table,
+                            torch.zeros_like(table)).to(torch.int32)
+        n_pages = int((table > 0).sum())
+        col = torch.arange(s_cache, device=dev)[None, :]
+        p64 = pos.long()[:, None]
+        live = (p64 - torch.remainder(p64 - col, s_cache) >= 0) if window else (col <= p64)
+        n_live = int(live.sum())
+        dmask = live[:, None, None, :].expand(4, heads, 1, s_cache)
+        for quant in (None, "int8"):
+            cache = paged.init_paged(4, s_cache, kvh, hd, page_size=ps,
+                                     num_pages=1 + 4 * n_log, quant=quant, device=dev)
+            cache.page_table = table
+            rows_k = randn((1 + 4 * n_log, ps, kvh, hd))
+            rows_v = randn((1 + 4 * n_log, ps, kvh, hd))
+            if quant:
+                cache.k_pages, cache.k_scale = paged.quantize_rows(rows_k)
+                cache.v_pages, cache.v_scale = paged.quantize_rows(rows_v)
+            else:
+                cache.k_pages, cache.v_pages = rows_k.to(torch.bfloat16), rows_v.to(torch.bfloat16)
+            del rows_k, rows_v
+            kd, vd = (x.to(torch.bfloat16) for x in paged.gather_dense(cache))
+            sdpa_p = lambda kd=kd, vd=vd, dmask=dmask, n=s_cache: (  # noqa: E731
+                torch.nn.functional.scaled_dot_product_attention(
+                    qd.reshape(4, 1, heads, hd).transpose(1, 2),
+                    kd.transpose(1, 2).expand(4, heads, n, hd),
+                    vd.transpose(1, 2).expand(4, heads, n, hd), attn_mask=dmask, scale=1.0))
+            row_bytes = kvh * hd * (1 if quant else 2) + (kvh * 4 if quant else 0)
+            check("flash_paged_decode",
+                  f"paged decode B=4 {'ring' if window else 'linear'} {s_cache} page {ps} "
+                  f"{quant or 'bf16'} pages",
+                  lambda c=cache, w=window: ap.flash_paged_decode(qd, c, pos, window=w),
+                  lambda c=cache, w=window: ap.flash_paged_decode_plain(qd, c, pos, window=w),
+                  sdpa_p, ATTN_BOUND, 4 * n_live * grp * hd * kvh,
+                  qd.numel() * 2 + 2 * n_live * row_bytes + n_pages * 4 + qd.numel() * 4,
+                  control=lambda c=cache, w=window: ap.flash_paged_decode_plain(
+                      qd, c, pos - 1, window=w),
+                  library_call="scaled_dot_product_attention on the cache gathered dense "
+                               "(bf16), gather not timed")
+            del cache, kd, vd
+    del qd
+
+    # the quantized GEMM at the MLP's up projection, decode (M = 4 slots)
+    # and prefill (700 tokens): bf16 activations x f32 weights, fp8x3 and
+    # int8x3, on repro's grid (TileConfig(256, 256, 256) clamped).  No
+    # PyTorch call computes per-tile scales: the yardstick is one
+    # torch._scaled_mm pass on e4m3 copies with tensor-wise scales (M
+    # padded to 16 rows, which it requires; the casts are not timed).
+    # Control: the plain version on a grid of bk = 128.
+    for m in (4, 700):
+        x = randn((m, d), dtype=torch.bfloat16)
+        w = randn((d, ff), d ** -0.5)
+        t = ops.tile_for("cuda", m, ff, d).clamp(m, ff, d)
+        m16 = -(-m // 16) * 16
+        x8 = torch.nn.functional.pad(x.float(), (0, 0, 0, m16 - m)).to(torch.float8_e4m3fn)
+        w8 = w.t().contiguous().to(torch.float8_e4m3fn).t()
+        one = torch.ones((), device=dev)
+        scaled_mm = lambda x8=x8, w8=w8, one=one: torch._scaled_mm(  # noqa: E731
+            x8, w8, scale_a=one, scale_b=one, out_dtype=torch.bfloat16)
+        for rung in ("fp8x3", "int8x3"):
+            check("gemm_lowp", f"{'decode' if m == 4 else 'prefill'} mlp {rung} {m}x{d}x{ff} "
+                  f"grid {t.bm}x{t.bn}x{t.bk}",
+                  lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp(x, w, policy=r, bm=t.bm, bn=t.bn,
+                                                             bk=t.bk),
+                  lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp_plain(x, w, r, t.bm, t.bn, t.bk),
+                  scaled_mm, LOWP_BOUND, num_passes(rung) * 2 * m * d * ff,
+                  x.numel() * 2 + w.numel() * 4 + m * ff * 4,
+                  control=lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp_plain(x, w, r, t.bm,
+                                                                           t.bn, 128),
+                  peak=PEAK_LOWP_OPS,
+                  library_call="torch._scaled_mm, one e4m3 pass, tensor-wise scales, "
+                               "M padded to 16")
+        del x, w, x8, w8
 
     # flash backward at the train shapes: B=2, S=1024, 4 heads on 1 kv
     # head, hd 256, bf16 inputs, on the forward kernel's own out and lse.
@@ -444,10 +572,10 @@ def main() -> None:
     lens[:2] = rng.integers(513, 701, size=2)     # two prompts past the 512 window
     reqs = [Request(rid=i, prompt=rng.integers(2, vocab, int(n)).astype(np.int32),
                     max_new_tokens=32) for i, n in enumerate(lens)]
-    zero_launches(gt, gr, af)
+    zero_launches(mods)
     torch.cuda.reset_peak_memory_stats(dev)
     stats = eng.run(reqs)
-    launches = read_launches(gt, gr, af)
+    launches = read_launches(mods)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if not all(r.done and len(r.out_tokens) == 32 for r in reqs):
         fail(f"not every request finished with 32 tokens: "
@@ -498,7 +626,78 @@ def main() -> None:
         if not err > LOGITS_BOUND:
             fail(f"prefill logits: the {control} control ({err}) is within {LOGITS_BOUND}")
 
-    # ----------------------------------------------------------- 5 profile
+    # ------------------------------------------------------- 5 serve_paged
+    # The same model, requests and slots from a paged KV cache: (a) bf16
+    # pages on the serve policy, token for token the dense engine's; (b)
+    # int8 pages with fp8x3 MLPs, every request finished.
+    def serve_paged(pol, quant):
+        e = ServeEngine(cfg, batch_size=4, max_ctx=1024, policy=pol, device=dev,
+                        kv_layout="paged", kv_page_size=8, kv_quant=quant)
+        e.load(params)
+        e.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+        rs = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in reqs]
+        zero_launches(mods)
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = e.run(rs)
+        run_launches = read_launches(mods)
+        tables_clear = all(not bool(t.any()) for t in e._tables.values())
+        return e, rs, st, run_launches, {
+            "requests": st["requests"], "tokens": st["tokens"], "ticks": st["ticks"],
+            "wall_s": st["wall_s"], "tok_per_s": st["tok_per_s"],
+            "ttft_mean_s": st["ttft_mean_s"], "latency_mean_s": st["latency_mean_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "pages_outstanding": e.pages_outstanding(), "tables_clear": tables_clear,
+            "launches": run_launches}
+
+    paged_policy = ops.ExecutionPolicy(
+        default="bf16", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"},
+        require={"attention": ("decode", "paged_decode")})
+    eng_pa, reqs_a, _, launches_pa, line_a = serve_paged(paged_policy, None)
+    tokens_equal = [r.out_tokens for r in reqs_a] == [r.out_tokens for r in reqs]
+    int8_policy = ops.ExecutionPolicy(
+        default="bf16", mlp="fp8x3", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"},
+        require={"attention": ("decode", "paged_decode")})
+    eng_pb, reqs_b, _, launches_pb, line_b = serve_paged(int8_policy, "int8")
+    # one prompt's prefill logits with fp8x3 MLPs against the bf16-MLP
+    # kernel routes (lk), and the single-pass fp8 control on the same routes
+    fp8_kernel_policy = ops.ExecutionPolicy(
+        default="bf16", mlp="fp8", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"})
+    with torch.no_grad():
+        l_x3, _ = serve_step.make_prefill(cfg, int8_policy, s_ctx=1024)(params, prompt)
+        l_f8, _ = serve_step.make_prefill(cfg, fp8_kernel_policy, s_ctx=1024)(params, prompt)
+    torch.cuda.synchronize(dev)
+    x3_err = (l_x3 - lk).abs().max().item()
+    f8_err = (l_f8 - lk).abs().max().item()
+    emit(phase="serve_paged", page_size=8,
+         bf16_pages=dict(line_a, policy="default=bf16 logits=refine_ab",
+                         tokens_equal_dense=tokens_equal),
+         int8_pages=dict(line_b, policy="default=bf16 mlp=fp8x3 logits=refine_ab",
+                         finished=[len(r.out_tokens) for r in reqs_b],
+                         prefill_logits_fp8x3_err=x3_err,
+                         prefill_logits_bound=FP8X3_LOGITS_BOUND,
+                         prefill_argmax_agrees=bool(l_x3.argmax() == lk.argmax()),
+                         control_fp8_mlp_err=f8_err))
+    if not tokens_equal:
+        fail("serve_paged (a): the paged engine's tokens differ from the dense engine's: "
+             f"{[(r.rid, r.out_tokens[:4]) for r in reqs_a]}")
+    for tag, line, need in (("a", line_a, PAGED_KERNELS), ("b", line_b, PAGED_INT8_KERNELS)):
+        if line["pages_outstanding"] or not line["tables_clear"]:
+            fail(f"serve_paged ({tag}): pages still held after the run: {line}")
+        if not all(line["launches"][n] > 0 for n in need):
+            fail(f"serve_paged ({tag}): a kernel of the path never launched: {line['launches']}")
+    if not all(r.done and len(r.out_tokens) == 32 for r in reqs_b):
+        fail(f"serve_paged (b): not every request finished with 32 tokens: "
+             f"{[(r.rid, r.done, len(r.out_tokens)) for r in reqs_b]}")
+    if any(not 0 <= t < vocab for r in reqs_b for t in r.out_tokens):
+        fail("serve_paged (b): a token outside the vocabulary")
+    if not (math.isfinite(x3_err) and x3_err <= FP8X3_LOGITS_BOUND < f8_err):
+        fail(f"serve_paged (b): fp8x3 prefill logits {x3_err} against the bound "
+             f"{FP8X3_LOGITS_BOUND}, whose fp8 control reads {f8_err}")
+
+    # ----------------------------------------------------------- 6 profile
     # Where a 700-token prefill and a 4-slot decode tick spend their time:
     # the host clock of the window against the CUDA kernels' own time
     # (torch.profiler, summed by name; one stream, so they do not overlap).
@@ -533,17 +732,22 @@ def main() -> None:
     long_prompt = {"tokens": torch.as_tensor(reqs[1].prompt, device=dev)[None].long()}
     with torch.no_grad():
         prefill_prof = profile_window(lambda: eng._prefill(params, long_prompt))
-    for i in range(4):
-        eng.submit(Request(rid=100 + i, prompt=reqs[i].prompt, max_new_tokens=16))
-    eng.step()                                   # admit (prefill) all four
-    tick_prof = profile_window(eng.tick)
-    eng.run([])
+
+    def tick_profile(e):
+        for i in range(4):
+            e.submit(Request(rid=100 + i, prompt=reqs[i].prompt, max_new_tokens=16))
+        e.step()                                 # admit (prefill) all four
+        prof = profile_window(e.tick)
+        e.run([])
+        return prof
+
     emit(phase="profile", prefill_tokens=int(long_prompt["tokens"].shape[1]),
-         prefill=prefill_prof, decode_tick=tick_prof)
-    del eng, params
+         prefill=prefill_prof, decode_tick=tick_profile(eng),
+         paged_decode_tick=tick_profile(eng_pa), paged_int8_fp8x3_decode_tick=tick_profile(eng_pb))
+    del eng, eng_pa, eng_pb, params
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 6 train
+    # ------------------------------------------------------------- 7 train
     tpolicy = execution_policy_for(
         cfg, default="bf16", logits="refine_ab",
         backends={"gemm": "cuda", "attention": "cuda_fused"},
@@ -605,13 +809,13 @@ def main() -> None:
             and max(step0["control_window_short_grad_rel_err"].values()) > STEP0_GRAD_BOUND):
         step0_faults.append("the short-window control lands within the bounds")
 
-    zero_launches(gt, gr, af)
+    zero_launches(mods)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
     tparams, topt, history = loop.run(TRAIN_STEPS, log_every=0)
     torch.cuda.synchronize(dev)
     train_wall = time.monotonic() - t0
-    train_launches = read_launches(gt, gr, af)
+    train_launches = read_launches(mods)
     train_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     step_s = sorted(r["step_s"] for r in loop.log)[len(loop.log) // 2]
     ds = SyntheticLMDataset(loop.data_cfg)
@@ -631,21 +835,30 @@ def main() -> None:
         fail(f"step 0: {'; '.join(step0_faults)}: {step0}")
     del tparams, topt
 
-    # ----------------------------------------------------------- 7 kernels
+    # ----------------------------------------------------------- 8 kernels
     rows = []
+    by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
+               "serve_paged_int8_fp8x3": launches_pb, "train": train_launches}
     for name, (src, replaces) in KERNELS.items():
         # the row's headline check: the windowed (local-layer) case for
         # attention, the path's first shape otherwise
         first = checks[name][-1] if name == "flash_attention" else checks[name][0]
-        path_launches = train_launches if name in TRAIN_ONLY else launches
+        if name in TRAIN_ONLY:
+            path_launches = train_launches[name]
+        elif name == "flash_paged_decode":
+            path_launches = launches_pa[name] + launches_pb[name]
+        elif name == "gemm_lowp":
+            path_launches = launches_pb[name]
+        else:
+            path_launches = launches[name]
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-                     "replaces": replaces, "launches": path_launches[name],
-                     "launches_by_path": {"serve": launches[name],
-                                          "train": train_launches[name]},
+                     "replaces": replaces, "launches": path_launches,
+                     "launches_by_path": {p: ls[name] for p, ls in by_path.items()},
                      "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "shape": first["what"],
+                     **({"library_call": first["library_call"]} if "library_call" in first else {}),
                      "checks": checks[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

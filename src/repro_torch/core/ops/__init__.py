@@ -33,6 +33,7 @@ from repro_torch.core.ops.attention import (
     AttentionOps,
     attention_decode,
     attention_forward,
+    attention_paged_decode,
 )
 
 __all__ = [
@@ -44,4 +45,5 @@ __all__ = [
     "TileConfig", "pad2", "round_up", "set_tiles", "tile_for",
     "gemm", "routed_einsum", "torch_policy_einsum",
     "AttentionOps", "attention_decode", "attention_forward",
+    "attention_paged_decode",
 ]

@@ -13,11 +13,14 @@ fused op, not a 2-D-reducible einsum.
                   the rungs its kernels fuse (bf16, refine_a, bf16x3,
                   refine_ab, f32), so a route asking it for bf16x6 or a
                   quantized rung fails at route build with the rung named.
+                  Its paged decode runs ``kernels.attention_paged``.
 
-The impl object is an ``AttentionOps(forward, decode)`` pair:
-forward(q, k, v, *, causal, window, softcap, route, kv_chunk) and
-decode(q, k_cache, v_cache, pos, *, window, softcap, route); q
-(B,Sq,Kv,G,hd) pre-scaled, k/v (B,Skv,Kv,hd), f32 out.
+The impl object is an ``AttentionOps(forward, decode, paged_decode)``
+triple: forward(q, k, v, *, causal, window, softcap, route, kv_chunk),
+decode(q, k_cache, v_cache, pos, *, window, softcap, route) and the
+optional paged_decode(q, cache, pos, *, window, softcap, route) against a
+``core.ops.paged.PagedKVCache``; q (B,Sq,Kv,G,hd) pre-scaled, k/v
+(B,Skv,Kv,hd), f32 out.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ from repro_torch.core.ops import registry
 from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
                                            register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
-from repro_torch.kernels import attention_fused
+from repro_torch.kernels import attention_fused, attention_paged
 
-__all__ = ["AttentionOps", "attention_forward", "attention_decode"]
+__all__ = ["AttentionOps", "attention_forward", "attention_decode",
+           "attention_paged_decode"]
 
 
 class AttentionOps(NamedTuple):
@@ -42,10 +46,11 @@ class AttentionOps(NamedTuple):
 
     forward: Callable
     decode: Callable
+    paged_decode: Callable | None = None
 
 
-FEATURES = ("decode", "gqa", "softcap", "masks:causal", "masks:sliding",
-            "masks:full")
+FEATURES = ("decode", "paged_decode", "gqa", "softcap", "masks:causal",
+            "masks:sliding", "masks:full")
 
 
 def _make_problem(seed: int) -> dict:
@@ -100,6 +105,12 @@ def _torch_decode(q, k_cache, v_cache, pos, *, window, softcap, route):
                             softcap=softcap, policy=route)
 
 
+def _torch_paged_decode(q, cache, pos, *, window, softcap, route):
+    from repro_torch.models.attention import reference_paged_decode
+    return reference_paged_decode(q, cache, pos, window=window,
+                                  softcap=softcap, policy=route)
+
+
 def _fused_forward(q, k, v, *, causal, window, softcap, route, kv_chunk=2048):
     del kv_chunk
     return attention_fused.flash_attention(
@@ -113,15 +124,23 @@ def _fused_decode(q, k_cache, v_cache, pos, *, window, softcap, route):
         precision=route.precision)
 
 
+def _fused_paged_decode(q, cache, pos, *, window, softcap, route):
+    return attention_paged.flash_paged_decode(
+        q, cache, pos, window=window, softcap=softcap,
+        precision=route.precision)
+
+
 register_impl("attention", "torch", fused_policies=(),
               features=("vjp", *FEATURES))(
-    AttentionOps(forward=_torch_forward, decode=_torch_decode))
+    AttentionOps(forward=_torch_forward, decode=_torch_decode,
+                 paged_decode=_torch_paged_decode))
 
 register_impl("attention", "cuda_fused",
               policies=attention_fused.FUSED_POLICIES,
               fused_policies=attention_fused.FUSED_POLICIES,
               features=("vjp", *FEATURES))(
-    AttentionOps(forward=_fused_forward, decode=_fused_decode))
+    AttentionOps(forward=_fused_forward, decode=_fused_decode,
+                 paged_decode=_fused_paged_decode))
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -151,3 +170,23 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
             f"'decode' (features: {sorted(impl.capabilities.features)})")
     return impl.fn.decode(q, k_cache, v_cache, pos, window=window,
                           softcap=softcap, route=route)
+
+
+def attention_paged_decode(q: torch.Tensor, cache, pos: torch.Tensor, *,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           policy: str | Route = "bf16") -> torch.Tensor:
+    """Single-token decode against a post-write paged KV cache
+    (``core.ops.paged.PagedKVCache``, the current row already written
+    through the page table) at the per-row (B,) ``pos``.  Logical rows
+    mean what dense rows mean, so the masks are ``attention_decode``'s."""
+    route = as_route(policy)
+    impl = registry.get_impl("attention", route.impl("attention"))
+    if not impl.capabilities.has("paged_decode") or impl.fn.paged_decode is None:
+        raise ValueError(
+            f"attention impl {impl.name!r} does not support capability "
+            f"'paged_decode' (features: {sorted(impl.capabilities.features)}); "
+            f"route decode to a paged-capable impl, e.g. "
+            f"{registry.reference_impl('attention')!r}")
+    return impl.fn.paged_decode(q, cache, pos, window=window, softcap=softcap,
+                                route=route)

@@ -6,14 +6,16 @@ einsums over registered GEMM impls.
              twin of ``xla``).  Parity oracle and fallback target.
   ``cuda``   the hand-written Hopper kernels (the twin of ``pallas``):
              ``gemm_tiled`` for bf16, the fused ``gemm_refined`` for
-             refine_a / bf16x3 / refine_ab.
+             refine_a / bf16x3 / refine_ab, and ``gemm_lowp`` for fp8 /
+             int8 / fp8x3 / int8x3 with per-tile scales on ``repro``'s
+             quantization grid (``tiles.tile_for``).
 
 The router (``routed_einsum``) lowers a two-operand spec to one
 (batched) 2-D GEMM by permuting and reshaping (views where possible),
 runs f32 on the reference (no narrow-pass decomposition exists for it),
 and decomposes every rung an impl does not fuse into bf16 passes through
-that impl, summed smallest first (bf16x6 and the fp8/int8 rungs on
-``cuda``).  Specs that are not 2-D-reducible go to the reference.
+that impl, summed smallest first (bf16x6 on ``cuda``; the fp8/int8 rungs
+on ``torch``, with one power-of-two scale per tensor).  Specs that are not 2-D-reducible go to the reference.
 Gradients of a lowered einsum run through the same route (``_LoweredEinsum``,
 the twin of ``_lowered_einsum``): dA and dB are two more routed einsums,
 at the route's precision on the route's impl, so a model trains on the
@@ -35,6 +37,8 @@ from repro_torch.core.ops import registry
 from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
                                            register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
+from repro_torch.core.ops.tiles import tile_for
+from repro_torch.kernels.gemm_lowp import LOWP_POLICIES, gemm_lowp
 from repro_torch.kernels.gemm_refined import gemm_refined
 from repro_torch.kernels.gemm_tiled import gemm_tiled
 
@@ -94,13 +98,21 @@ def _torch_gemm(a, b, *, policy):
 
 # The kernels read operands through their strides, mask ragged edges and
 # pick their own tiles, so the router hands them views: the unembed's
-# transposed 262144 x 1152 table is never copied or padded.
+# transposed 262144 x 1152 table is never copied or padded.  The quantized
+# rungs take repro's quantization grid, TileConfig(256, 256, 256) clamped
+# to the problem, as its router picks it for the pallas impl; the kernel
+# masks the ragged tile where repro pads it with zeros.
 @register_impl("gemm", "cuda",
-               fused_policies=("bf16", "refine_a", "bf16x3", "refine_ab"),
+               fused_policies=("fp8", "int8", "fp8x3", "int8x3",
+                               "bf16", "refine_a", "bf16x3", "refine_ab"),
                features=("vjp",))
 def _cuda_gemm(a, b, *, policy):
     if policy == "bf16":
         return gemm_tiled(a, b)
+    if policy in LOWP_POLICIES:
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        t = tile_for("cuda", m, n, k).clamp(m, n, k)
+        return gemm_lowp(a, b, policy=policy, bm=t.bm, bn=t.bn, bk=t.bk)
     return gemm_refined(a, b, policy=policy)
 
 

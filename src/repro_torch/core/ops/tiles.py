@@ -1,8 +1,12 @@
 """Tiling helpers (twin of ``repro.core.ops.tiles``): the (bm, bn, bk)
 block shape, pad-to-tile helpers and the shape-keyed tile cache.
-No impl reads a ``TileConfig`` yet: the CUDA GEMM kernels pick their
-tiles from the problem's M and read unpadded views, so the router
-passes no tiles.  Autotune and JSON persistence wait for their slice."""
+The ``cuda`` gemm impl reads a ``TileConfig`` for its quantized rungs
+only: ``tile_for("cuda", m, n, k)`` is the quantization grid of
+``gemm_lowp`` (each (bm, bk) tile of A and (bk, bn) tile of B gets its
+own scale), the grid ``repro``'s router gives its ``pallas`` impl.  The
+other CUDA GEMM kernels pick their own tiles from the problem's M and
+read unpadded views.  Autotune and JSON persistence wait for their
+slice."""
 
 from __future__ import annotations
 

@@ -1,0 +1,331 @@
+// The flash-attention kernel shared by attention_fused.cu (prefill forward
+// and dense-cache decode) and attention_paged.cu (paged-cache decode), the
+// precision ladder fused into both contractions.
+//
+// Layouts are the model's: q (B, Sq, Kv, G, hd) pre-scaled, k/v
+// (B, Skv, Kv, hd), out like q in f32.  q is f32 or bf16; k/v are f32 or
+// bf16 (kv_type 0 / 1), or, for a paged pool, int8 with one f32 scale per
+// (page row, kv head) (kv_type 2), dequantized on the way into shared
+// memory.  The forward also writes lse = m + log l, (B, Kv*G, Sq) f32,
+// which the backward kernels (attention_bwd.cu) rebuild the probabilities
+// from.
+//
+// One block walks the KV sequence in BKV = 32 row tiles for BQ query rows,
+// keeping the online-softmax state (running max m, running sum l, the
+// unnormalised output O) in shared memory, so the score tile never reaches
+// device memory:
+//   S = Q.K^T            (WMMA, policy passes)      -> smem
+//   m' = max(m, rowmax S); p = exp(S - m'); l = l e^{m-m'} + rowsum p
+//   O = O e^{m-m'} + P.V (WMMA, policy passes; O reloaded as an accumulator)
+// A warp owns one score row per step and a lane one column (BKV == 32),
+// so row max and row sum are warp shuffles.  f32 runs the same walk on the
+// CUDA cores (exact f32 dots).
+//
+// Forward: grid (ceil(Sq/64), Kv*G, B); a q block visits only the KV tiles
+// its causal / sliding-window mask can reach (the TPU kernel's
+// _block_live skip, as loop bounds).  At hd 256 the block holds Q, K and V
+// as bf16 hi+lo (or f32) plus O in f32: 217 KB of shared memory, one block
+// per SM.
+// Decode: grid (Kv, B), one block per (row, kv head) whose 16 query rows
+// are the G heads of that group, so K and V are read once per group.
+// Ring layers keep slot c when pos - ((pos - c) mod S) >= 0 (a floor mod);
+// linear layers keep c <= pos and stop walking after pos.  A paged decode
+// (PAGED) reads logical row c of slot b from physical row
+// table[b, c / ps] * ps + c % ps of the pool, each row of the 32-row tile
+// through its own table entry, so the tiles, masks and sums are those of
+// the dense decode and a bf16 pool gives the dense kernel's result bit for
+// bit.
+#pragma once
+
+#include "common.cuh"
+
+namespace rt {
+
+constexpr int BKV = 32;
+constexpr int ATT_WARPS = 8;
+constexpr int ATT_NT = ATT_WARPS * 32;
+constexpr float NEG_INF = -1e30f;
+
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  float* o;
+  float* lse;      // forward: (B, Kv*G, Sq) log-sum-exp of each row, or null
+  const int* pos;  // decode: (B,) positions
+  int in_bf16;     // q (and, for the dense kernels, k and v) is bf16
+  int B, Sq, Skv, Kv, G, hd;
+  int causal, window;  // forward masks; window <= 0: none
+  int ring;            // decode: ring-buffer mask, else linear
+  float softcap;       // <= 0: none
+  int kv_type;         // k/v payload: 0 f32, 1 bf16, 2 int8 (paged pools)
+  const int* table;    // paged decode: (B, n_log) page table
+  const float* k_scale;  // int8 pools: (P, ps, Kv) per-row scales
+  const float* v_scale;
+  int n_log, ps;       // paged decode: logical pages per slot, rows per page
+};
+
+// Eight consecutive int8 values (8 bytes, 8-element aligned) as f32.
+__device__ __forceinline__ void load8_i8(const void* p, long long i, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const signed char*>(p) + i);
+  const unsigned w[2] = {u.x, u.y};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = (float)(signed char)((w[j / 4] >> (8 * (j % 4))) & 0xffu);
+}
+
+// Byte offsets of the shared-memory sections for BQ rows at head dim hd.
+struct AttnSmem {
+  size_t q, k, v, s, p, o, m, l, total;
+  __host__ __device__ AttnSmem(int bq, int hd) {
+    size_t ldq = hd + 8;
+    q = 0;
+    k = q + align128(bq * ldq * 4);  // bf16 hi+lo, or f32
+    v = k + align128(BKV * ldq * 4);
+    s = v + align128(BKV * ldq * 4);
+    p = s + align128(bq * (BKV + 4) * 4);
+    o = p + align128(bq * (BKV + 8) * 4);
+    m = o + align128(bq * (hd + 4) * 4);
+    l = m + align128(bq * 4);
+    total = l + align128(bq * 4);
+  }
+};
+
+template <int POL, int BQ, bool DECODE, bool PAGED>
+__global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const AttnSmem sm(BQ, a.hd);
+  const int hd = a.hd, ldq = hd + 8, ldo = hd + 4, lds = BKV + 4, ldp = BKV + 8;
+  const int H = a.Kv * a.G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  int b, kvh, h, q0, rows, pos = 0;
+  if (DECODE) {
+    kvh = blockIdx.x; b = blockIdx.y; h = kvh * a.G; q0 = 0; rows = a.G;
+    pos = a.pos[b];
+  } else {
+    q0 = blockIdx.x * BQ; h = blockIdx.y; b = blockIdx.z; kvh = h / a.G;
+    rows = min(BQ, a.Sq - q0);
+  }
+
+  bf16* q_hi = reinterpret_cast<bf16*>(smem + sm.q);
+  bf16* q_lo = q_hi + BQ * ldq;
+  float* q_f = reinterpret_cast<float*>(smem + sm.q);
+  bf16* k_hi = reinterpret_cast<bf16*>(smem + sm.k);
+  bf16* k_lo = k_hi + BKV * ldq;
+  float* k_f = reinterpret_cast<float*>(smem + sm.k);
+  bf16* v_hi = reinterpret_cast<bf16*>(smem + sm.v);
+  bf16* v_lo = v_hi + BKV * ldq;
+  float* v_f = reinterpret_cast<float*>(smem + sm.v);
+  float* S = reinterpret_cast<float*>(smem + sm.s);
+  bf16* p_hi = reinterpret_cast<bf16*>(smem + sm.p);
+  bf16* p_lo = p_hi + BQ * ldp;
+  float* p_f = reinterpret_cast<float*>(smem + sm.p);
+  float* O = reinterpret_cast<float*>(smem + sm.o);
+  float* M = reinterpret_cast<float*>(smem + sm.m);
+  float* L = reinterpret_cast<float*>(smem + sm.l);
+
+  // Element (row r, dim d) of q and out: decode rows are the group's heads,
+  // forward rows are positions of head h.
+  auto q_index = [&](int r, int d) -> long long {
+    if (DECODE) return ((long long)b * H + h + r) * hd + d;
+    return (((long long)b * a.Sq + q0 + r) * H + h) * hd + d;
+  };
+
+  const int hd8 = hd / 8;
+  for (int idx = tid; idx < BQ * hd8; idx += ATT_NT) {
+    const int r = idx / hd8, d0 = (idx % hd8) * 8;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < rows) load8(a.q, q_index(r, d0), a.in_bf16, x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if constexpr (POL == P_F32) q_f[r * ldq + d0 + e] = x[e];
+      else store_split<Splits<POL>::a_lo>(q_hi, q_lo, r * ldq + d0 + e, x[e]);
+      O[r * ldo + d0 + e] = 0.f;
+    }
+  }
+  for (int r = tid; r < BQ; r += ATT_NT) {
+    M[r] = NEG_INF;
+    L[r] = 0.f;
+  }
+
+  // The KV tiles this block's mask can reach.
+  int j_lo = 0, j_hi = a.Skv;
+  if (DECODE) {
+    if (!a.ring) j_hi = min(a.Skv, pos + 1);
+  } else if (a.causal) {
+    j_hi = min(a.Skv, q0 + rows);
+    if (a.window > 0) j_lo = max(0, q0 - a.window + 1);
+  }
+  const int t_lo = j_lo / BKV, t_hi = (j_hi + BKV - 1) / BKV;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BKV;
+    __syncthreads();  // previous step done with K, V, S and P
+    for (int idx = tid; idx < BKV * hd8; idx += ATT_NT) {
+      const int j = idx / hd8, d0 = (idx % hd8) * 8, gj = k0 + j;
+      float kx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float vx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (gj < a.Skv) {
+        // the row of the cache (dense) or of the page pool (paged)
+        long long row = (long long)b * a.Skv + gj;
+        if constexpr (PAGED) row = (long long)a.table[(long long)b * a.n_log + gj / a.ps] * a.ps + gj % a.ps;
+        const long long gi = (row * a.Kv + kvh) * hd + d0;
+        if (PAGED && a.kv_type == 2) {
+          load8_i8(a.k, gi, kx);
+          load8_i8(a.v, gi, vx);
+          const float ks = a.k_scale[row * a.Kv + kvh], vs = a.v_scale[row * a.Kv + kvh];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            kx[e] = __fmul_rn(kx[e], ks);  // rounded before the split, as the plain twin
+            vx[e] = __fmul_rn(vx[e], vs);
+          }
+        } else {
+          load8(a.k, gi, a.kv_type, kx);
+          load8(a.v, gi, a.kv_type, vx);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int o = j * ldq + d0 + e;
+        if constexpr (POL == P_F32) {
+          k_f[o] = kx[e];
+          v_f[o] = vx[e];
+        } else {
+          store_split<Splits<POL>::b_lo>(k_hi, k_lo, o, kx[e]);
+          store_split<Splits<POL>::b_lo>(v_hi, v_lo, o, vx[e]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T
+    if constexpr (POL == P_F32) {
+      for (int idx = tid; idx < BQ * BKV; idx += ATT_NT) {
+        int r = idx / BKV, c = idx % BKV;
+        float acc = 0.f;
+        for (int d = 0; d < hd; ++d) acc = fmaf(q_f[r * ldq + d], k_f[c * ldq + d], acc);
+        S[r * lds + c] = acc;
+      }
+    } else {
+      constexpr int FC = BKV / 16;
+      for (int f = warp; f < (BQ / 16) * FC; f += ATT_WARPS) {
+        int fr = f / FC, fc = f % FC;
+        FragC small, main;
+        wmma::fill_fragment(small, 0.f);
+        wmma::fill_fragment(main, 0.f);
+        for (int d = 0; d < hd; d += 16) {
+          int qo = fr * 16 * ldq + d, ko = fc * 16 * ldq + d;
+          policy_mma<POL, wmma::col_major>(small, main, q_hi + qo, q_lo + qo, ldq,
+                                           k_hi + ko, k_lo + ko, ldq);
+        }
+        for (int e = 0; e < main.num_elements; ++e) main.x[e] = small.x[e] + main.x[e];
+        wmma::store_matrix_sync(S + fr * 16 * lds + fc * 16, main, lds, wmma::mem_row_major);
+      }
+    }
+    __syncthreads();
+
+    // Online softmax: warp per row, lane per column.
+    for (int r = warp; r < BQ; r += ATT_WARPS) {
+      const int c = k0 + lane;
+      float s = S[r * lds + lane];
+      if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
+      bool keep = c < a.Skv;
+      if (DECODE) {
+        if (a.ring) {
+          int mod = ((pos - c) % a.Skv + a.Skv) % a.Skv;
+          keep = keep && pos - mod >= 0;
+        } else {
+          keep = keep && c <= pos;
+        }
+      } else {
+        const int qr = q0 + r;
+        keep = keep && qr < a.Sq;
+        if (a.causal) {
+          keep = keep && c <= qr;
+          if (a.window > 0) keep = keep && c > qr - a.window;
+        }
+      }
+      s = keep ? s : NEG_INF;
+      float mx = s;
+      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = M[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float alpha = expf(m_prev - m_new);
+      const float p = expf(s - m_new);
+      float sum = p;
+      for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if constexpr (POL == P_F32) p_f[r * ldp + lane] = p;
+      else store_split<Splits<POL>::a_lo>(p_hi, p_lo, r * ldp + lane, p);
+      for (int d = lane; d < hd; d += 32) O[r * ldo + d] *= alpha;
+      __syncwarp();
+      if (lane == 0) {
+        M[r] = m_new;
+        L[r] = L[r] * alpha + sum;
+      }
+    }
+    __syncthreads();
+
+    // O += P V
+    if constexpr (POL == P_F32) {
+      for (int idx = tid; idx < BQ * hd; idx += ATT_NT) {
+        int r = idx / hd, d = idx % hd;
+        float acc = 0.f;
+        for (int j = 0; j < BKV; ++j) acc = fmaf(p_f[r * ldp + j], v_f[j * ldq + d], acc);
+        O[r * ldo + d] += acc;
+      }
+    } else {
+      const int fd_n = hd / 16;
+      for (int f = warp; f < (BQ / 16) * fd_n; f += ATT_WARPS) {
+        int fr = f / fd_n, fd = f % fd_n;
+        FragC small, main, acc;
+        wmma::fill_fragment(small, 0.f);
+        wmma::fill_fragment(main, 0.f);
+#pragma unroll
+        for (int kk = 0; kk < BKV; kk += 16) {
+          int po = fr * 16 * ldp + kk, vo = kk * ldq + fd * 16;
+          policy_mma<POL, wmma::row_major>(small, main, p_hi + po, p_lo + po, ldp,
+                                           v_hi + vo, v_lo + vo, ldq);
+        }
+        float* o_tile = O + fr * 16 * ldo + fd * 16;
+        wmma::load_matrix_sync(acc, o_tile, ldo, wmma::mem_row_major);
+        for (int e = 0; e < acc.num_elements; ++e) acc.x[e] = acc.x[e] + (small.x[e] + main.x[e]);
+        wmma::store_matrix_sync(o_tile, acc, ldo, wmma::mem_row_major);
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < rows * hd; idx += ATT_NT) {
+    int r = idx / hd, d = idx % hd;
+    a.o[q_index(r, d)] = O[r * ldo + d] / fmaxf(L[r], 1e-30f);
+  }
+  if (!DECODE && a.lse != nullptr) {
+    for (int r = tid; r < rows; r += ATT_NT)
+      a.lse[((long long)b * H + h) * a.Sq + q0 + r] = M[r] + logf(fmaxf(L[r], 1e-30f));
+  }
+}
+
+template <int POL, int BQ, bool DECODE, bool PAGED>
+int run_attn(const AttnArgs& a, dim3 grid, cudaStream_t stream) {
+  AttnSmem sm(BQ, a.hd);
+  auto kern = flash_kernel<POL, BQ, DECODE, PAGED>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sm.total);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, ATT_NT, sm.total, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BQ, bool DECODE, bool PAGED = false>
+int dispatch_attn(const AttnArgs& a, int policy, dim3 grid, cudaStream_t stream) {
+  switch (policy) {
+    case P_BF16: return run_attn<P_BF16, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_REFINE_A: return run_attn<P_REFINE_A, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_BF16X3: return run_attn<P_BF16X3, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_REFINE_AB: return run_attn<P_REFINE_AB, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_F32: return run_attn<P_F32, BQ, DECODE, PAGED>(a, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace rt

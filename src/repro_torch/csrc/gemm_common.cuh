@@ -77,26 +77,34 @@ __device__ __forceinline__ void fetch_tile(float (&r)[PER_T], const char* base, 
   }
 }
 
-// Round (and split) a fetched tile into shared memory: element (o, i) goes
-// to o * ld_o + i * ld_i.
-template <int OUTER, int INNER, int NT, int PER_T, bool WITH_LO>
-__device__ __forceinline__ void stage_tile(const float (&r)[PER_T], bf16* hi, bf16* lo,
-                                           int ld_o, int ld_i, bool vec) {
+// Hand each fetched element to store(smem index, value): element (o, i)
+// of the tile goes to o * ld_o + i * ld_i (fetch_tile's mapping).
+template <int OUTER, int INNER, int NT, int PER_T, class Store>
+__device__ __forceinline__ void stage_each(const float (&r)[PER_T], int ld_o, int ld_i, bool vec,
+                                           Store store) {
   if (vec) {
 #pragma unroll
     for (int g = 0; g < PER_T / 4; ++g) {
       const int gi = threadIdx.x + g * NT;
       const int o = gi / (INNER / 4), i = (gi % (INNER / 4)) * 4;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) store_split<WITH_LO>(hi, lo, o * ld_o + (i + j) * ld_i, r[g * 4 + j]);
+      for (int j = 0; j < 4; ++j) store(o * ld_o + (i + j) * ld_i, r[g * 4 + j]);
     }
   } else {
 #pragma unroll
     for (int e = 0; e < PER_T; ++e) {
       const int ei = threadIdx.x + e * NT;
-      store_split<WITH_LO>(hi, lo, (ei / INNER) * ld_o + (ei % INNER) * ld_i, r[e]);
+      store((ei / INNER) * ld_o + (ei % INNER) * ld_i, r[e]);
     }
   }
+}
+
+// Round (and split) a fetched tile into shared memory.
+template <int OUTER, int INNER, int NT, int PER_T, bool WITH_LO>
+__device__ __forceinline__ void stage_tile(const float (&r)[PER_T], bf16* hi, bf16* lo,
+                                           int ld_o, int ld_i, bool vec) {
+  stage_each<OUTER, INNER, NT>(r, ld_o, ld_i, vec,
+                               [&](int i, float x) { store_split<WITH_LO>(hi, lo, i, x); });
 }
 
 template <int BM_, int BN_, int BK_, int WM, int WN, bool B_KMAJOR>

@@ -1,7 +1,9 @@
-"""Batched serving entry point (twin of ``repro.launch.serve``), dense KV.
+"""Batched serving entry point (twin of ``repro.launch.serve``).
 
   * requests enter an admission queue; a free batch slot is assigned;
-  * prefill ingests the prompt and copies the slot's cache rows in;
+  * prefill ingests the prompt and copies the slot's cache rows in (or,
+    with ``kv_layout="paged"``, scatters them into pages reserved for the
+    request before its prefill, int8-quantized with ``kv_quant="int8"``);
   * every engine tick decodes ONE token for ALL slots at their own
     per-slot positions (``serve_step.make_engine_tick``);
   * per-slot active/EOS/length masking happens on the device; the host
@@ -9,11 +11,13 @@
   * finished slots are recycled for queued requests.
 
 A staggered batch produces token for token the same outputs as serving
-each request alone.  Paged KV, replicas, the gateway, meshes, metrics
-and the tile cache wait for their slices (their flags are absent).
+each request alone, and an unquantized paged engine the same outputs as
+the dense one.  Replicas, the gateway, meshes, metrics and the tile cache
+wait for their slices (their flags are absent).
 
     python -m repro_torch.launch.serve --arch gemma3-1b \\
-        --backend gemm=cuda --backend attention=cuda_fused
+        --backend gemm=cuda --backend attention=cuda_fused \\
+        [--kv-layout paged [--kv-quant int8]]
 """
 
 from __future__ import annotations
@@ -25,16 +29,44 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.configs.base import execution_policy_for, layer_kinds
 from repro_torch.core import ops
+from repro_torch.core.ops import paged as paged_kv
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import api
 from repro_torch.runtime import serve_step
 from repro_torch.runtime.device import resolve_device
 
 __all__ = ["ServeEngine", "Request", "QueueFull", "RecoveryMismatch", "main"]
+
+
+class _PageAllocator:
+    """Host-side free list over ONE paged-pool capacity class.
+
+    Physical page 0 is the reserved trash page (freed table entries point
+    there) and is never handed out.  ``alloc`` is all-or-nothing: a
+    request it cannot satisfy whole gets None and stays queued instead of
+    holding pages it cannot use (frees are whole-request too, so a
+    blocked head request fits once enough slots recycle)."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free = list(range(num_pages - 1, 0, -1))
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> list[int] | None:
+        if n > len(self._free):
+            return None
+        return [self._free.pop() for _ in range(n)]
+
+    def free(self, pages: list[int]) -> None:
+        self._free.extend(pages)
 
 
 class QueueFull(RuntimeError):
@@ -109,11 +141,29 @@ class ServeEngine:
     lives on the device as (B,) tensors and the tick advances all of it.
     The host touches per-slot state only at admission (prefill + cache
     copy) and when draining the per-tick token/finished vectors.
+
+    ``kv_layout="paged"`` replaces each attention cache by a shared page
+    pool (``kv_page_size`` rows per page, ``kv_quant`` None or "int8",
+    ``kv_pages`` pages per capacity class, default full capacity); the
+    engine owns the per-class free lists and each slot's pages.
     """
 
     def __init__(self, cfg, *, batch_size: int, max_ctx: int,
                  policy: PrecisionPolicy | None = None, eos_id: int = 1,
-                 max_queue: int | None = None, device: str | torch.device = "cuda"):
+                 max_queue: int | None = None, device: str | torch.device = "cuda",
+                 kv_layout: str = "dense", kv_page_size: int = 8,
+                 kv_quant: str | None = None, kv_pages: int | None = None):
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}; one of ('dense', 'paged')")
+        if kv_quant is not None and kv_layout != "paged":
+            raise ValueError("kv_quant requires kv_layout='paged'")
+        self.kv_layout = kv_layout
+        self.kv_page_size = kv_page_size
+        self.kv_quant = kv_quant
+        self.kv_pages = kv_pages
+        self._allocators: dict[int, _PageAllocator] = {}
+        self._tables: dict[int, torch.Tensor] = {}
+        self._slot_pages: list[dict[int, list[int]] | None] = [None] * batch_size
         self.cfg = cfg
         self.batch = batch_size
         self.max_ctx = max_ctx
@@ -140,9 +190,21 @@ class ServeEngine:
         """Take params already on the engine's device; allocate the cache
         in the activation dtype (decode writes activation rows into it)."""
         self.params = params
-        self.cache = api.init_cache(self.cfg, self.batch, self.max_ctx,
-                                    getattr(torch, self.cfg.activation_dtype),
-                                    self.device)
+        dtype = getattr(torch, self.cfg.activation_dtype)
+        if self.kv_layout == "paged":
+            self.cache = serve_step.init_paged_cache(
+                self.cfg, self.batch, self.max_ctx, page_size=self.kv_page_size,
+                quant=self.kv_quant, num_pages=self.kv_pages, dtype=dtype,
+                device=self.device)
+            classes = serve_step.paged_classes(
+                self.cfg, self.batch, self.max_ctx, page_size=self.kv_page_size,
+                num_pages=self.kv_pages)
+            self._allocators = {cap: _PageAllocator(n) for cap, n in classes.items()}
+            self._tables = {cap: self.cache[i].page_table
+                            for i, _, cap in serve_step.attn_cache_walk(self.cfg, self.max_ctx)}
+        else:
+            self.cache = api.init_cache(self.cfg, self.batch, self.max_ctx, dtype,
+                                        self.device)
 
     # ------------------------------------------------------------ slots
 
@@ -158,6 +220,79 @@ class ServeEngine:
         if plen >= self.max_ctx:
             raise ValueError(f"request {req.rid}: prompt length {plen} does not "
                              f"fit the engine context (max_ctx={self.max_ctx})")
+
+    # -------------------------------------------------------- paged KV
+
+    def _pages_needed(self, req: Request, cap: int) -> int:
+        """Worst-case page demand of one request in a capacity class:
+        linear layers touch rows [0, prompt + budget), ring layers at most
+        ``cap`` slots, so ``min(cap, total)`` covers both."""
+        total = len(req.prompt) + req.max_new_tokens
+        return paged_kv.num_logical_pages(min(cap, total), self.kv_page_size)
+
+    def _alloc_pages(self, req: Request) -> dict[int, list[int]] | None:
+        """All-or-nothing allocation across every capacity class."""
+        got: dict[int, list[int]] = {}
+        for cap, alloc in self._allocators.items():
+            pages = alloc.alloc(self._pages_needed(req, cap))
+            if pages is None:
+                for c, p in got.items():
+                    self._allocators[c].free(p)
+                return None
+            got[cap] = pages
+        return got
+
+    def _free_pages(self, alloc_map: dict[int, list[int]], *,
+                    slot: int | None = None) -> None:
+        """Return a request's pages to the free lists; when the slot's
+        table rows were written (it decoded), repoint them at the trash
+        page, so that the stale slot's continuing writes in the tick can
+        never reach the freed pages."""
+        for cap, pages in alloc_map.items():
+            self._allocators[cap].free(pages)
+        if slot is not None:
+            for table in self._tables.values():
+                table[slot] = 0
+
+    def _splice_paged(self, cache1: list, slot: int,
+                      alloc_map: dict[int, list[int]]) -> None:
+        """Write the slot's page-table rows and scatter its padded dense
+        prefill KV into the allocated pages, quantizing in int8 pools.
+        Every layer of a capacity class uses the same page ids, each in
+        its own pool."""
+        ps = self.kv_page_size
+        pages = {cap: torch.as_tensor(p, dtype=torch.long, device=self.device)
+                 for cap, p in alloc_map.items()}
+        for i, _, cap in serve_step.attn_cache_walk(self.cfg, self.max_ctx):
+            leaf, dense = self.cache[i], cache1[i]      # dense: AttnCache (1, cap, Kv, hd)
+            n = len(alloc_map[cap])
+
+            def to_pages(x):
+                # (1, cap, Kv, hd) -> the first n logical pages (n, ps, Kv, hd)
+                x = x[0].float()
+                x = F.pad(x, (0, 0, 0, 0, 0, n * ps - x.shape[0])) if n * ps > x.shape[0] else x
+                return x[:n * ps].reshape(n, ps, *x.shape[1:])
+
+            kp, vp = to_pages(dense.k), to_pages(dense.v)
+            if leaf.quantized:
+                qk, sk = paged_kv.quantize_rows(kp)
+                qv, sv = paged_kv.quantize_rows(vp)
+                leaf.k_pages[pages[cap]] = qk
+                leaf.v_pages[pages[cap]] = qv
+                leaf.k_scale[pages[cap]] = sk
+                leaf.v_scale[pages[cap]] = sv
+            else:
+                leaf.k_pages[pages[cap]] = kp.to(leaf.k_pages.dtype)
+                leaf.v_pages[pages[cap]] = vp.to(leaf.v_pages.dtype)
+        for cap, table in self._tables.items():
+            row = torch.zeros(table.shape[1], dtype=torch.int32)
+            row[:len(alloc_map[cap])] = torch.as_tensor(alloc_map[cap], dtype=torch.int32)
+            table[slot] = row.to(self.device)           # the tail stays on the trash page
+
+    def pages_outstanding(self) -> int:
+        """KV pages currently held by slots (0 on an idle engine; a dense
+        engine reports 0)."""
+        return sum(a.num_pages - 1 - a.available for a in self._allocators.values())
 
     def submit(self, req: Request) -> None:
         """Queue a request; ValueError for prompts that cannot fit,
@@ -187,6 +322,14 @@ class ServeEngine:
         if req.t_submit is None:
             req.t_submit = time.monotonic()
             req.wall_time = time.time()
+        alloc_map = None
+        if self.kv_layout == "paged":
+            # reserve pages before the prefill: the demand is a function of
+            # prompt length and budget (a recovery's too), so a refusal
+            # costs nothing and leaves no first token to roll back
+            alloc_map = self._alloc_pages(req)
+            if alloc_map is None:
+                return False
         resume = len(req.out_tokens) > 0
         toks = (np.concatenate([np.asarray(req.prompt, np.int32),
                                 np.asarray(req.out_tokens[:-1], np.int32)])
@@ -196,6 +339,8 @@ class ServeEngine:
         first = int(torch.argmax(logits[0, -1]))
         if resume:
             if first != req.out_tokens[-1]:
+                if alloc_map is not None:
+                    self._free_pages(alloc_map)
                 raise RecoveryMismatch(req.rid, len(req.out_tokens) - 1,
                                        req.out_tokens[-1], first)
         else:
@@ -207,12 +352,18 @@ class ServeEngine:
                 or len(req.out_tokens) >= req.max_new_tokens):
             req.done = True
             req.t_done = time.monotonic()
+            if alloc_map is not None:       # tables never written: no repointing
+                self._free_pages(alloc_map)
             return True
         # the slot will decode: copy its prefill KV into the batch cache
-        for full, one in zip(self.cache, cache1):
-            if full is not None:
-                full.k[slot] = one.k[0].to(full.k.dtype)
-                full.v[slot] = one.v[0].to(full.v.dtype)
+        if alloc_map is not None:
+            self._splice_paged(cache1, slot, alloc_map)
+            self._slot_pages[slot] = alloc_map
+        else:
+            for full, one in zip(self.cache, cache1):
+                if full is not None:
+                    full.k[slot] = one.k[0].to(full.k.dtype)
+                    full.v[slot] = one.v[0].to(full.v.dtype)
         self.slot_req[slot] = req
         self.last_tok[slot] = req.out_tokens[-1]
         self.pos[slot] = len(toks)
@@ -242,6 +393,9 @@ class ServeEngine:
                 r.done = True
                 r.t_done = now
                 self.slot_req[i] = None
+                if self._slot_pages[i]:
+                    self._free_pages(self._slot_pages[i], slot=int(i))
+                    self._slot_pages[i] = None
         self.ticks += 1
         self.tokens_generated += n_active
         return n_active
@@ -266,9 +420,14 @@ class ServeEngine:
     # ------------------------------------------------- fault tolerance
 
     def _release_slot(self, slot: int) -> None:
+        """Slot teardown outside the normal finish (cancel, expiry,
+        evacuation): unmask the slot in the tick and reclaim its pages."""
         self.slot_req[slot] = None
         self.active[slot] = False
         self.remaining[slot] = 0
+        if self._slot_pages[slot]:
+            self._free_pages(self._slot_pages[slot], slot=slot)
+            self._slot_pages[slot] = None
 
     def _finish(self, req: Request, *, cancelled: bool = False,
                 expired: bool = False) -> None:
@@ -376,6 +535,20 @@ def main(argv=None) -> None:
                     help="op-registry routing, repeatable: 'family=impl' "
                          f"(families: {', '.join(ops.families())}; impls: "
                          "gemm torch|cuda, attention torch|cuda_fused)")
+    ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
+                    help="attention KV cache layout: 'dense' per-slot ring "
+                         "buffers, or 'paged' fixed-size pages behind a "
+                         "per-slot page table (allocated on admission, "
+                         "freed on slot recycle)")
+    ap.add_argument("--kv-page-size", type=int, default=8,
+                    help="rows per KV page (paged layout only)")
+    ap.add_argument("--kv-quant", choices=("none", "int8"), default="none",
+                    help="paged-page payload: int8 pages with per-(row, "
+                         "kv-head) f32 scales, dequantized at read time")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="pages per pool class (default: full capacity + the "
+                         "trash page; smaller pools trade admission "
+                         "backpressure for memory)")
     ap.add_argument("--deadline-ticks", type=int, default=None,
                     help="per-request deadline in engine ticks")
     ap.add_argument("--max-queue", type=int, default=None,
@@ -387,15 +560,23 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    # the tick decodes against the KV cache every step: demand the
+    # attention impl's decode (and paged_decode) capability up front
+    attn_caps = ("decode", "paged_decode") if args.kv_layout == "paged" else ("decode",)
     policy = execution_policy_for(
         cfg, default=args.policy, backends=ops.parse_backend_flags(args.backend),
-        require={"attention": ("decode",)})
+        require={"attention": attn_caps})
     print(f"arch={cfg.name} layers={len(layer_kinds(cfg))} device={device} "
-          f"backends={dict(policy.backends)} policy={args.policy}", flush=True)
+          f"backends={dict(policy.backends)} policy={args.policy} "
+          f"kv={args.kv_layout}{'/' + args.kv_quant if args.kv_layout == 'paged' else ''}",
+          flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     params = api.init_params(cfg, gen, device)
     eng = ServeEngine(cfg, batch_size=args.batch, max_ctx=args.max_ctx,
-                      policy=policy, max_queue=args.max_queue, device=device)
+                      policy=policy, max_queue=args.max_queue, device=device,
+                      kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
+                      kv_quant=None if args.kv_quant == "none" else args.kv_quant,
+                      kv_pages=args.kv_pages)
     eng.load(params)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,

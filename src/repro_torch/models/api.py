@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import transformer as T
+from repro_torch.runtime.device import resolve_device
 
 __all__ = ["init_params", "init_cache", "loss_fn", "prefill", "decode"]
 
@@ -30,9 +31,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> list:
+               device: torch.device | str = "cuda") -> list:
+    """Dense decode cache (an ``AttnCache`` per attention sublayer) on
+    ``device``: the card unless the caller asks for the CPU."""
     _dense(cfg)
-    return T.init_cache(cfg, batch, s_ctx, dtype, device)
+    return T.init_cache(cfg, batch, s_ctx, dtype, resolve_device(device))
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,

@@ -11,8 +11,10 @@ applied at write time with absolute positions).
 
 The decode path writes the current token's K/V row into the cache IN
 PLACE (the JAX package returns an updated copy); ``attention`` returns
-the same cache object.  Cross-attention and paged caches wait for their
-slices.
+the same cache object.  A decode cache may also be a paged pool
+(``core.ops.paged.PagedKVCache``): the row goes through the page table
+to the same logical slot, and the decode runs the family's
+``paged_decode``.  Cross-attention waits for its slice.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ import torch
 
 from repro_torch.core import ops
 from repro_torch.core.ops import Route
+from repro_torch.core.ops import paged as paged_kv
+from repro_torch.core.ops.paged import PagedKVCache
 from repro_torch.core.refined_matmul import peinsum
 from repro_torch.models import layers as L
 
 __all__ = ["init_attn", "attention", "AttnCache", "rope_table", "apply_rope",
-           "reference_forward", "reference_decode"]
+           "reference_forward", "reference_decode", "reference_paged_decode"]
 
 NEG_INF = -1e30
 
@@ -155,15 +159,28 @@ def reference_decode(q, k_cache, v_cache, pos, *, window: int | None,
     return _values(pr.to(q.dtype), v_cache, policy)
 
 
+def reference_paged_decode(q, cache: PagedKVCache, pos, *,
+                           window: int | None, softcap: float | None, policy):
+    """Paged decode = page-table gather + the unchanged dense decode.
+
+    The gather reproduces the dense per-slot layout row for row (trash
+    rows land where never-written dense rows sit and are masked alike), so
+    an unquantized paged decode is bitwise the dense decode; int8 pools are
+    dequantized by their stored per-row scales first."""
+    k, v = paged_kv.gather_dense(cache)
+    return reference_decode(q, k.to(q.dtype), v.to(q.dtype), pos,
+                            window=window, softcap=softcap, policy=policy)
+
+
 # ------------------------------------------------------------- attention
 
 def attention(p: dict, x: torch.Tensor, *, mode: str, num_heads: int,
               num_kv_heads: int, head_dim: int, policy: str | Route,
               rope_theta: float | None = 10_000.0,
               window: int | None = None, softcap: float | None = None,
-              causal: bool = True, cache: AttnCache | None = None,
+              causal: bool = True, cache: AttnCache | PagedKVCache | None = None,
               pos: torch.Tensor | None = None, kv_chunk: int = 2048,
-              ) -> tuple[torch.Tensor, AttnCache | None]:
+              ) -> tuple[torch.Tensor, AttnCache | PagedKVCache | None]:
     """Returns (output (B,S,D) in x.dtype, new or updated cache or None).
     mode: "train" | "prefill" | "decode"."""
     b, s, _ = x.shape
@@ -200,7 +217,8 @@ def attention(p: dict, x: torch.Tensor, *, mode: str, num_heads: int,
         if cache is None or pos is None or s != 1:
             raise ValueError("decode needs a cache, a (B,) pos and one token")
         pos = pos.expand(b)
-        s_cache = cache.k.shape[1]
+        is_paged = isinstance(cache, PagedKVCache)
+        s_cache = cache.s_cache if is_paged else cache.k.shape[1]
         if rope_theta is not None:
             sin, cos = rope_table(pos[:, None], head_dim, rope_theta, dtype)
             q = apply_rope(q.reshape(b, 1, num_heads, head_dim), sin, cos
@@ -208,12 +226,19 @@ def attention(p: dict, x: torch.Tensor, *, mode: str, num_heads: int,
             k = apply_rope(k.to(dtype), sin, cos)
         k, v = k.to(dtype), v.to(dtype)
         slot = torch.remainder(pos, s_cache) if window is not None else pos
-        row = torch.arange(b, device=x.device)
-        cache.k[row, slot] = k[:, 0].to(cache.k.dtype)      # in place
-        cache.v[row, slot] = v[:, 0].to(cache.v.dtype)
         new_cache = cache
-        out = ops.attention_decode(q, cache.k.to(dtype), cache.v.to(dtype), pos,
-                                   window=window, softcap=softcap, policy=policy)
+        if is_paged:
+            # the dense write's logical row, through the page table
+            # (inactive rows land on the trash page), in place
+            paged_kv.write_kv(cache, k[:, 0], v[:, 0], slot)
+            out = ops.attention_paged_decode(q, cache, pos, window=window,
+                                             softcap=softcap, policy=policy)
+        else:
+            row = torch.arange(b, device=x.device)
+            cache.k[row, slot] = k[:, 0].to(cache.k.dtype)      # in place
+            cache.v[row, slot] = v[:, 0].to(cache.v.dtype)
+            out = ops.attention_decode(q, cache.k.to(dtype), cache.v.to(dtype), pos,
+                                       window=window, softcap=softcap, policy=policy)
     else:
         raise ValueError(f"unknown mode {mode!r}")
 

@@ -78,10 +78,9 @@ def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
-               dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> list:
-    """Pre-allocated decode cache: an ``AttnCache`` per attention
-    sublayer, None per mlp sublayer."""
+               dtype: torch.dtype, device: torch.device | str) -> list:
+    """Pre-allocated decode cache on ``device``: an ``AttnCache`` per
+    attention sublayer, None per mlp sublayer."""
     cache: list = []
     for kind in _check_kinds(cfg):
         cap = cache_capacity(kind, cfg, s_ctx)

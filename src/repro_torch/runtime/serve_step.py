@@ -1,11 +1,16 @@
-"""Serve-step constructors (twin of ``repro.runtime.serve_step``), dense KV.
+"""Serve-step constructors (twin of ``repro.runtime.serve_step``).
 
-``make_prefill`` ingests a context and returns a cache padded to the
-decode capacity; ``make_engine_tick`` decodes one token for every slot
-at its own position and applies the per-slot lifecycle masks on the
+``make_prefill`` ingests a context and returns a dense cache padded to
+the decode capacity; ``make_engine_tick`` decodes one token for every
+slot at its own position and applies the per-slot lifecycle masks on the
 device, so the host reads back only (B,) vectors per tick.  The steps
 run under ``torch.no_grad``: params that carry ``requires_grad`` (a
 trained model) build no autograd graph while serving.
+
+``init_paged_cache`` builds the paged decode cache: a page pool per
+attention sublayer, and one page table per capacity class (global layers
+at the context, local layers at the window) shared by the layers of that
+class; ``paged_classes`` sizes the pools.
 """
 
 from __future__ import annotations
@@ -15,16 +20,66 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.ops import paged as paged_kv
 from repro_torch.models import api
 from repro_torch.models.attention import AttnCache
 from repro_torch.models.transformer import cache_capacity
+from repro_torch.runtime.device import resolve_device
 
-__all__ = ["pad_cache", "make_prefill", "make_decode", "make_engine_tick"]
+__all__ = ["pad_cache", "make_prefill", "make_decode", "make_engine_tick",
+           "attn_cache_walk", "paged_classes", "init_paged_cache"]
+
+
+def attn_cache_walk(cfg: ModelConfig, s_ctx: int):
+    """Yield ``(index, kind, cap)`` for every attention sublayer of the
+    flat layer list: the capacity classes of the paged pools."""
+    for i, kind in enumerate(layer_kinds(cfg)):
+        cap = cache_capacity(kind, cfg, s_ctx)
+        if cap is not None:
+            yield i, kind, cap
+
+
+def paged_classes(cfg: ModelConfig, batch: int, s_ctx: int, *,
+                  page_size: int, num_pages: int | None = None) -> dict[int, int]:
+    """Each capacity class (global context, local window) -> its pool
+    size in pages.  The default, full capacity plus the trash page, never
+    refuses a request; smaller pools trade admission backpressure for
+    memory."""
+    caps = sorted({cap for *_, cap in attn_cache_walk(cfg, s_ctx)})
+    return {cap: (num_pages if num_pages is not None
+                  else 1 + batch * paged_kv.num_logical_pages(cap, page_size))
+            for cap in caps}
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
+                     page_size: int, quant: str | None = None,
+                     num_pages: int | None = None,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: torch.device | str = "cuda") -> list:
+    """The decode cache with a ``PagedKVCache`` pool per attention
+    sublayer (None per mlp sublayer), on ``device``.  Every table entry
+    starts on the trash page (0); the engine owns allocation
+    (``launch/serve.py``).  The layers of one capacity class share one
+    page-table tensor: a slot's page ids are the same in each of their
+    pools."""
+    dev = resolve_device(device)
+    classes = paged_classes(cfg, batch, s_ctx, page_size=page_size,
+                            num_pages=num_pages)
+    tables = {cap: torch.zeros((batch, paged_kv.num_logical_pages(cap, page_size)),
+                               dtype=torch.int32, device=dev) for cap in classes}
+    cache: list = [None] * len(layer_kinds(cfg))
+    for i, _, cap in attn_cache_walk(cfg, s_ctx):
+        cache[i] = paged_kv.init_paged(
+            batch, cap, cfg.num_kv_heads, cfg.head_dim, page_size=page_size,
+            num_pages=classes[cap], quant=quant, dtype=dtype, device=dev,
+            page_table=tables[cap])
+    return cache
 
 
 def pad_cache(cache: list, cfg: ModelConfig, s_ctx: int) -> list:
-    """Pad every attention cache along its sequence dim to its decode
-    capacity (ring caches are already window-sized)."""
+    """Pad every dense attention cache along its sequence dim to its
+    decode capacity (ring caches are already window-sized); paged pools
+    pass through untouched."""
     out = []
     for kind, c in zip(layer_kinds(cfg), cache):
         cap = cache_capacity(kind, cfg, s_ctx)

@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.ops import paged
 from repro_torch.core.ops.registry import LADDER_BOUNDS
 from repro_torch.kernels import attention_fused as af
+from repro_torch.kernels import attention_paged as ap
+from repro_torch.kernels import gemm_lowp as gl
 from repro_torch.kernels import gemm_refined as gr
 from repro_torch.kernels import gemm_tiled as gt
 
@@ -27,6 +30,11 @@ GEMM_ATOL = 1e-3
 # Same tiles and softmax steps; f32 sum order and expf ulps differ, and a
 # probability can round to the neighbouring bf16 value.
 ATTN_ATOL = 2e-3
+# Quantized GEMM, relative to the output's largest value: int8 sums exact
+# integers and dequantizes in the plain version's order of roundings (so it
+# should agree to the last bit); e4m3 partial sums round in f32 in another
+# order.
+LOWP_REL = 1e-5
 # The backward multiplies p and ds (rounded to bf16 in both versions) by
 # |dO|, |q|, |k| <= 1 over up to 150 rows: a p or ds that rounds to the
 # neighbouring bf16 value in one version moves a sum by ~2^-8 of one term.
@@ -200,3 +208,95 @@ def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
     before = gt.LAUNCHES
     gt.gemm_tiled(torch.ones(4, 8, device=dev), torch.ones(8, 4, device=dev))
     assert gt.LAUNCHES == before + 1
+
+
+def _paged_pool(rng, dev, b, s_cache, kv, hd, ps, quant, dtype):
+    """A pool of random rows behind a shuffled page table whose tail
+    pages of slot 0 point at the trash page."""
+    n_log = paged.num_logical_pages(s_cache, ps)
+    cache = paged.init_paged(b, s_cache, kv, hd, page_size=ps, num_pages=1 + b * n_log,
+                             quant=quant, dtype=dtype, device=dev)
+    table = 1 + torch.from_numpy(rng.permutation(b * n_log).reshape(b, n_log).astype(np.int32))
+    table[0, n_log // 2:] = 0
+    cache.page_table = table.to(dev)
+    rows = _u(rng, (1 + b * n_log, ps, kv, hd), dev)
+    if quant:
+        cache.k_pages, cache.k_scale = paged.quantize_rows(rows)
+        cache.v_pages, cache.v_scale = paged.quantize_rows(rows.flip(-1))
+    else:
+        cache.k_pages, cache.v_pages = rows.to(dtype), rows.flip(-1).to(dtype)
+    return cache
+
+
+@pytest.mark.parametrize("policy", af.FUSED_POLICIES)
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("ps", [8, 5])
+def test_flash_paged_decode_matches_plain(dev, policy, ring, pool, ps):
+    rng = np.random.default_rng(ps)
+    b, s, kv, g, hd = 4, 80, 1, 4, 256
+    dtype = torch.float32 if pool == "f32" else torch.bfloat16
+    cache = _paged_pool(rng, dev, b, s, kv, hd, ps, "int8" if pool == "int8" else None, dtype)
+    q = (_u(rng, (b, 1, kv, g, hd), dev) * hd ** -0.5).to(torch.bfloat16)
+    pos = torch.tensor([3, 79, 80, 200] if ring else [0, 31, 32, 79],
+                       dtype=torch.int32, device=dev)
+    kw = dict(window=s if ring else None, softcap=None, precision=policy)
+    before = ap.LAUNCHES
+    out = ap.flash_paged_decode(q, cache, pos, **kw)
+    torch.cuda.synchronize()
+    assert ap.LAUNCHES == before + 1
+    ref = ap.flash_paged_decode_plain(q, cache, pos, **kw)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ATTN_ATOL
+
+
+def test_paged_decode_of_a_bf16_pool_is_the_dense_decode(dev):
+    """Pages that divide the 32-row KV tile sum in the dense kernel's
+    order: the paged kernel gives the dense kernel's bits."""
+    rng = np.random.default_rng(7)
+    b, s, kv, g, hd = 4, 512, 1, 4, 256
+    cache = _paged_pool(rng, dev, b, s, kv, hd, 8, None, torch.bfloat16)
+    cache.page_table[0] = 1 + torch.arange(cache.page_table.shape[1], device=dev)
+    q = (_u(rng, (b, 1, kv, g, hd), dev) * hd ** -0.5).to(torch.bfloat16)
+    pos = torch.tensor([40, 300, 611, 1000], dtype=torch.int32, device=dev)
+    k, v = paged.gather_dense(cache)
+    out = ap.flash_paged_decode(q, cache, pos, window=s)
+    dense = af.flash_decode(q, k.to(torch.bfloat16), v.to(torch.bfloat16), pos, window=s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.parametrize("policy", gl.LOWP_POLICIES)
+@pytest.mark.parametrize("m,n,k,grid", [(4, 1000, 1152, (8, 256, 256)),
+                                        (300, 270, 520, (256, 256, 256)),
+                                        (48, 40, 132, (48, 128, 256)),
+                                        (700, 384, 300, (128, 128, 128))])
+def test_gemm_lowp_matches_plain(dev, policy, m, n, k, grid):
+    rng = np.random.default_rng(m + n)
+    a, b = _u(rng, (m, k), dev, torch.bfloat16), _u(rng, (k, n), dev)
+    before = gl.LAUNCHES
+    out = gl.gemm_lowp(a, b, policy=policy, bm=grid[0], bn=grid[1], bk=grid[2])
+    torch.cuda.synchronize()
+    assert gl.LAUNCHES == before + 1
+    ref = gl.gemm_lowp_plain(a, b, policy, *grid)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= LOWP_REL * ref.abs().max().item()
+
+
+def test_gemm_lowp_batched_and_routed(dev):
+    """A batched plan launches once with the batch in the grid, and the
+    cuda gemm impl sends the quantized rungs to gemm_lowp."""
+    from repro_torch.core.ops import Route, routed_einsum
+    rng = np.random.default_rng(11)
+    a, b = _u(rng, (3, 20, 300), dev), _u(rng, (3, 300, 40), dev)
+    out = gl.gemm_lowp(a, b, policy="fp8x3", bm=24, bn=128, bk=256)
+    torch.cuda.synchronize()
+    ref = gl.gemm_lowp_plain(a, b, "fp8x3", 24, 128, 256)
+    assert (out - ref).abs().max().item() <= LOWP_REL * ref.abs().max().item()
+    before = gl.LAUNCHES
+    x, w = _u(rng, (2, 150, 272), dev), _u(rng, (272, 300), dev)
+    y = routed_einsum("...i,io->...o", x, w, Route(precision="int8x3", backends={"gemm": "cuda"}))
+    torch.cuda.synchronize()
+    assert gl.LAUNCHES == before + 1
+    y_ref = gl.gemm_lowp_plain(x.reshape(300, 272), w, "int8x3", 256, 256, 256).reshape(2, 150, 300)
+    assert (y - y_ref).abs().max().item() <= LOWP_REL * y_ref.abs().max().item()

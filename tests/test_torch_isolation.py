@@ -50,3 +50,10 @@ def test_training_modules_are_checked():
     for module in ("optim/adamw.py", "data/pipeline.py", "checkpoint/manager.py",
                    "launch/train.py", "runtime/train_step.py", "runtime/monitor.py"):
         assert module in names
+
+
+def test_paged_and_lowp_modules_are_checked():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()
+             if "repro_torch" in p.parts}
+    for module in ("core/ops/paged.py", "kernels/attention_paged.py", "kernels/gemm_lowp.py"):
+        assert module in names
