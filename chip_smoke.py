@@ -53,8 +53,32 @@ Phases, each printing one JSON line:
    the ``torch`` routes on the same params and batch, and a faulty
    ``torch``-route control (the window one key short) must land outside
    those bounds.
-8. kernels — one line listing each kernel's launches (per path), error
+8. serve_moe — Mixtral 8x7B at full width, depth cut to 4 layers (random
+   f32 weights from a seeded generator, 24 GB), behind the same engine on
+   the kernel routes with the grouped experts on ``cuda_grouped``: the
+   same 8 prompt lengths (ids within its 32000 vocabulary), 32 new tokens
+   each, 4 slots, 1024-token context.  Every request must finish and every
+   kernel of the path launch; one prompt's prefill logits are held against
+   the ``torch`` routes at a dropless capacity (capacity_factor = E / k),
+   with the same greedy token, and the same reference with one layer's
+   expert stack rolled by one (a wrong expert per group) must land above
+   the bound.  Then a profile of a 700-token prefill and a 4-slot decode
+   tick (``profile_moe``).
+9. train_moe — Mixtral at full width, depth 2, trains 3 AdamW steps
+   (batch 1 x 1024, remat, warmup 1) on the kernel routes, the grouped
+   forward, dx and dW kernels included; step 0's per-token loss, aux loss
+   and five gradient leaves are held against the ``torch`` routes
+   (dropless capacity), with the rolled-experts control above the bounds.
+10. kernels — one line listing each kernel's launches (per path), error
    and times.
+
+The ``check`` phase also holds the flash kernels at Mixtral's head shape
+(hd 128, 32 heads on 8 kv heads) and the grouped GEMMs at its widths: the
+forward at the prefill's wi and wo (T*k = 1400) at bf16 and refine_ab, a
+decode (T*k = 8), the backward's dx (``trans_w``, T*k = 2048) and dW,
+with group sizes from a seeded skewed draw and a faulty control (every
+group against its neighbouring expert; for dW, run boundaries moved by
+one tile) above the bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a GPU, or without ``src/repro_torch`` beside
@@ -96,6 +120,14 @@ LOGITS_BOUND = 0.12
 # (dq) and 0.0023 (dk/dv), and every run requires it above the bound.
 ATTN_BWD_DQ_BOUND = 1e-3
 ATTN_BWD_DKV_BOUND = 1e-4
+# dk/dv at Mixtral's head shape (hd 128, 32 heads on 8 kv, 1 x 1024
+# causal; rms 2.1e-3 and 2.5e-3): 1.15e-4 on the H100, above the gemma3
+# bound: the first causal rows put probabilities near 1 on few keys, so a
+# p that rounds to the neighbouring bf16 value in one version moves dv by
+# up to 2^-8 |dO|.  Set after that reading; the plain version at window
+# 512 (half the keys of the later rows) is the control every run requires
+# above it, for dq (ATTN_BWD_DQ_BOUND) as for dk/dv.
+MIXTRAL_ATTN_BWD_DKV_BOUND = 5e-4
 # step 0 on full-size gemma3-1b (2 x 1024 tokens), kernel routes vs torch
 # routes: the largest difference of one token's loss, and the largest
 # ||g_kernel - g_torch|| / ||g_torch|| over five gradient leaves.  The mean
@@ -116,6 +148,24 @@ LOWP_BOUND = 2e-5
 # them on the H100: fp8x3 0.0778, and 0.576 for the single-pass fp8 MLP on
 # the same routes, the control that every run requires above the bound.
 FP8X3_LOGITS_BOUND = 0.2
+# serve_moe: Mixtral (depth 4) prefill logits (|logits| <= 4.48), kernel
+# routes vs torch routes at a dropless capacity: 0.052 on the H100, the
+# rolled-experts control 2.86, which every run requires above the bound
+# (gemma3's, kept).
+MOE_LOGITS_BOUND = 0.12
+# train_moe step 0 (1 x 1024 tokens, depth 2), kernel routes vs torch
+# routes, both on the experts the kernel routes picked (the torch routes
+# replay those ids and gate with their own probabilities, so a top-2 that
+# rounding would flip between the routes is taken out of the comparison;
+# the line counts such tokens): one token's loss and the five gradient
+# leaves (relative) are held to gemma3's step-0 bounds, and the aux loss
+# to its own.  The rolled-experts control, on the same picks, must read
+# above the first two (its first MoE layer routes the same input, so the
+# aux loss need not move).  On the H100: token loss 0.026, gradients
+# 0.012-0.014, aux 4.4e-4; the control 3.66 and 1.31-1.38.
+MOE_STEP0_TOKEN_LOSS_BOUND = STEP0_TOKEN_LOSS_BOUND
+MOE_STEP0_AUX_BOUND = 1e-2
+MOE_STEP0_GRAD_BOUND = STEP0_GRAD_BOUND
 
 
 TRAIN_STEPS = 3
@@ -129,6 +179,8 @@ KERNELS = {
     "flash_attention_bwd_dkv": ("attention_bwd.cu", "src/repro/kernels/attention_fused.py:302"),
     "flash_paged_decode": ("attention_paged.cu", "src/repro/kernels/attention_paged.py:44"),
     "gemm_lowp": ("gemm_lowp.cu", "src/repro/kernels/gemm_lowp.py:65"),
+    "grouped_gemm": ("gemm_grouped.cu", "src/repro/kernels/gemm_grouped.py:131"),
+    "grouped_gemm_dw": ("gemm_grouped.cu", "src/repro/kernels/gemm_grouped.py:194"),
 }
 SERVE_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_decode")
 PAGED_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_paged_decode")
@@ -136,6 +188,9 @@ PAGED_INT8_KERNELS = PAGED_KERNELS + ("gemm_lowp",)
 TRAIN_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+SERVE_MOE_KERNELS = SERVE_KERNELS + ("grouped_gemm",)
+TRAIN_MOE_KERNELS = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_dw")
+MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 4, 2
 
 
 def zero_launches(mods) -> None:
@@ -184,21 +239,23 @@ def main() -> None:
     from repro_torch.core.ops import paged
     from repro_torch.kernels import attention_fused as af
     from repro_torch.kernels import attention_paged as ap
+    from repro_torch.kernels import gemm_grouped as gg
     from repro_torch.kernels import gemm_lowp as gl
     from repro_torch.kernels import gemm_refined as gr
     from repro_torch.kernels import gemm_tiled as gt
-    from repro_torch.configs.base import execution_policy_for
+    from repro_torch.configs.base import Segment, execution_policy_for
     from repro_torch.core.tree import leaves
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.launch.train import TrainLoop
     from repro_torch.optim import adamw
     from repro_torch.models import api, transformer
+    from repro_torch.models import moe as moe_mod
     from repro_torch.runtime import serve_step
     from repro_torch.runtime.device import resolve_device
 
     mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
-            "flash_paged_decode": ap, "gemm_lowp": gl}
+            "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES}}
 
     # ------------------------------------------------------------ 1 device
     dev = resolve_device("cuda")
@@ -553,6 +610,215 @@ def main() -> None:
     del g_log, table, x_fin
     torch.cuda.empty_cache()
 
+    # ---- Mixtral's head shape: hd 128, 32 heads on 8 kv heads (G = 4).
+    # Its window (4096) exceeds every length here, so the prefill and the
+    # train shape are causal and the decode reads a 1024-row ring.
+    mcfg_full = get_config("mixtral-8x7b")
+    m_heads, m_kvh, m_hd = mcfg_full.num_heads, mcfg_full.num_kv_heads, mcfg_full.head_dim
+    m_grp = m_heads // m_kvh
+    s = 700
+    q = randn((1, s, m_kvh, m_grp, m_hd), m_hd ** -0.5, torch.bfloat16)
+    k = randn((1, s, m_kvh, m_hd), dtype=torch.bfloat16)
+    v = randn((1, s, m_kvh, m_hd), dtype=torch.bfloat16)
+    rows = torch.arange(s, device=dev)
+    keep = rows[None, :] <= rows[:, None]
+    qh = q.reshape(1, s, m_heads, m_hd).transpose(1, 2)
+    kr, vr = (c.transpose(1, 2).repeat_interleave(m_grp, 1) for c in (k, v))
+    check("flash_attention", f"prefill S={s} H={m_heads} Kv={m_kvh} hd={m_hd} causal",
+          lambda: af.flash_attention(q, k, v, causal=True, window=mcfg_full.window),
+          lambda: af.flash_attention_plain(q, k, v, causal=True, window=mcfg_full.window)[0],
+          lambda: torch.nn.functional.scaled_dot_product_attention(
+              qh, kr, vr, attn_mask=keep, scale=1.0),
+          ATTN_BOUND, 4 * int(keep.sum()) * m_hd * m_heads,
+          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
+          library_call="scaled_dot_product_attention, kv heads repeated (not timed)")
+    del q, k, v, qh, kr, vr
+    qd = randn((4, 1, m_kvh, m_grp, m_hd), m_hd ** -0.5, torch.bfloat16)
+    s_cache = 1024
+    kc = randn((4, s_cache, m_kvh, m_hd), dtype=torch.bfloat16)
+    vc = randn((4, s_cache, m_kvh, m_hd), dtype=torch.bfloat16)
+    col = torch.arange(s_cache, device=dev)[None, :]
+    p64 = pos.long()[:, None]
+    live = p64 - torch.remainder(p64 - col, s_cache) >= 0
+    live &= p64 - torch.remainder(p64 - col, s_cache) > p64 - mcfg_full.window
+    dmask = live[:, None, None, :].expand(4, m_heads, 1, s_cache)
+    kr, vr = (c.transpose(1, 2).repeat_interleave(m_grp, 1) for c in (kc, vc))
+    check("flash_decode", f"decode B=4 ring {s_cache} window {mcfg_full.window} "
+          f"H={m_heads} Kv={m_kvh} hd={m_hd}",
+          lambda: af.flash_decode(qd, kc, vc, pos, window=mcfg_full.window),
+          lambda: af.flash_decode_plain(qd, kc, vc, pos, window=mcfg_full.window),
+          lambda: torch.nn.functional.scaled_dot_product_attention(
+              qd.reshape(4, 1, m_heads, m_hd).transpose(1, 2), kr, vr, attn_mask=dmask,
+              scale=1.0),
+          ATTN_BOUND, 4 * int(live.sum()) * m_grp * m_hd * m_kvh,
+          qd.numel() * 2 + 2 * int(live.sum()) * m_kvh * m_hd * 2 + qd.numel() * 4,
+          library_call="scaled_dot_product_attention, kv heads repeated (not timed)")
+    del qd, kc, vc, kr, vr
+    bt_m, st_m = 1, 1024
+    q = randn((bt_m, st_m, m_kvh, m_grp, m_hd), m_hd ** -0.5, torch.bfloat16)
+    k = randn((bt_m, st_m, m_kvh, m_hd), dtype=torch.bfloat16)
+    v = randn((bt_m, st_m, m_kvh, m_hd), dtype=torch.bfloat16)
+    do = randn((bt_m, st_m, m_kvh, m_grp, m_hd), 1e-2)
+    kw = dict(causal=True, window=mcfg_full.window)
+    out, lse = af.flash_attention_fwd(q, k, v, **kw)
+    di = af.bwd_delta(out, do)
+    rows = torch.arange(st_m, device=dev)
+    keep = rows[None, :] <= rows[:, None]
+    pairs = int(keep.sum()) * bt_m * m_heads
+    qh = q.reshape(bt_m, st_m, m_heads, m_hd).transpose(1, 2).detach().requires_grad_(True)
+    kl = k.transpose(1, 2).repeat_interleave(m_grp, 1).detach().requires_grad_(True)
+    vl = v.transpose(1, 2).repeat_interleave(m_grp, 1).detach().requires_grad_(True)
+    sd_out = torch.nn.functional.scaled_dot_product_attention(qh, kl, vl, attn_mask=keep,
+                                                              scale=1.0)
+    do_h = do.reshape(bt_m, st_m, m_heads, m_hd).transpose(1, 2).to(torch.bfloat16)
+    in_bytes = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 + 2 * lse.numel() * 4
+    tag = f"train S={st_m} B={bt_m} H={m_heads} Kv={m_kvh} hd={m_hd} causal"
+    lib_bwd = "SDPA backward through autograd, kv heads repeated"
+    half = dict(causal=True, window=st_m // 2)
+    check("flash_attention_bwd_dq", tag,
+          lambda: af.flash_attention_bwd_dq(q, k, v, do, lse, di, **kw),
+          lambda: af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw),
+          lambda: torch.autograd.grad(sd_out, (qh,), do_h, retain_graph=True),
+          ATTN_BWD_DQ_BOUND, 6 * pairs * m_hd, in_bytes + q.numel() * 4,
+          control=lambda: af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **half),
+          library_call=lib_bwd)
+    check("flash_attention_bwd_dkv", tag,
+          lambda: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
+          lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw),
+          lambda: torch.autograd.grad(sd_out, (kl, vl), do_h, retain_graph=True),
+          MIXTRAL_ATTN_BWD_DKV_BOUND, 8 * pairs * m_hd, in_bytes + 2 * k.numel() * 4,
+          control=lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **half),
+          library_call=lib_bwd)
+    del q, k, v, do, out, lse, di, sd_out, qh, kl, vl
+    torch.cuda.empty_cache()
+
+    # ---- the grouped GEMMs at Mixtral's widths (8 experts, 4096 x 14336,
+    # f32 expert stacks, bf16 activations).  Group sizes from a seeded
+    # skewed draw; each run aligned to the bm the MoE dispatcher picks
+    # (grouped_tiles), padding rows zero.  Control: the plain version with
+    # every group against its neighbouring expert (for dW: the runs'
+    # boundaries moved by one tile).  Bound: the bytes the function needs
+    # (the real rows, the weights of the experts that have rows, the whole
+    # output) or its operations on the real rows, whichever is larger.
+    # Yardstick: torch._grouped_mm on bf16 copies (casts not timed) with
+    # the groups' aligned ends as offs, f32 out.
+    n_exp, d_m, ff_m = mcfg_full.num_experts, mcfg_full.d_model, mcfg_full.d_ff
+    grouped_route = ops.Route("bf16", {"grouped": "cuda_grouped"})
+    lrng = np.random.default_rng(14)
+
+    def group_layout(tk, width, zero_width=None):
+        """counts (skewed draw), the alignment, offsets and a bf16 buffer."""
+        share = lrng.dirichlet(np.full(n_exp, 0.6))
+        counts = lrng.multinomial(tk, share)
+        bm = ops.grouped_tiles(grouped_route, tk, ff_m, d_m).bm
+        aligned = ops.align_group_counts(counts, bm)
+        if zero_width is not None:          # the public contract allows it
+            aligned[zero_width + 1] += aligned[zero_width]
+            counts[zero_width + 1] += counts[zero_width]
+            aligned[zero_width] = counts[zero_width] = 0
+        offsets = np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)
+        n_buf = ops.round_up(tk, bm) + n_exp * bm
+        valid = torch.zeros(n_buf, dtype=torch.bool, device=dev)
+        for g in range(n_exp):
+            valid[int(offsets[g]):int(offsets[g]) + int(counts[g])] = True
+        x = randn((n_buf, width), dtype=torch.bfloat16) * valid[:, None]
+        return counts, bm, torch.from_numpy(offsets).to(dev), x
+
+    def grouped_mm_library(a, b, offs, what):
+        """torch._grouped_mm on bf16 copies (f32 out where this build
+        takes it, else bf16 out), or a per-group matmul loop where it has
+        no grouped_mm; returns (call, its name)."""
+        errors = []
+        for out_dtype in (torch.float32, None):
+            try:
+                torch._grouped_mm(a, b, offs=offs, out_dtype=out_dtype)
+                return (lambda o=out_dtype: torch._grouped_mm(a, b, offs=offs, out_dtype=o),
+                        f"torch._grouped_mm bf16 {what}, offs = aligned group ends, "
+                        f"{'f32' if out_dtype else 'bf16'} out")
+            except (AttributeError, RuntimeError, TypeError) as e:
+                errors.append(str(e))
+        ends = [0, *offs.tolist()]
+        name = f"per-group torch.matmul loop (torch._grouped_mm refused: {errors[-1]})"[:200]
+        if a.dim() == 2 and b.dim() == 2:
+            return lambda: [a[:, i:j] @ b[i:j] for i, j in zip(ends, ends[1:])], name
+        return lambda: [a[i:j] @ b[g] for g, (i, j) in enumerate(zip(ends, ends[1:]))], name
+
+    w_in = randn((n_exp, d_m, ff_m), d_m ** -0.5)
+    w_in16 = w_in.to(torch.bfloat16)
+    w_in_rolled = w_in.roll(-1, 0)
+    for tk, phase in ((1400, "prefill"), (8, "decode")):
+        counts, bm, off, x = group_layout(tk, d_m)
+        live_w = int((counts > 0).sum()) * d_m * ff_m * 4
+        lib, lib_name = grouped_mm_library(x, w_in16, off[1:], "forward")
+        for rung in (("bf16", "refine_ab") if phase == "prefill" else ("bf16",)):
+            check("grouped_gemm", f"{phase} wi {rung} T*k={tk} {d_m}->{ff_m} E={n_exp} bm={bm} "
+                  f"counts {counts.tolist()}",
+                  lambda x=x, off=off, bm=bm, r=rung: gg.grouped_gemm(x, w_in, off, bm=bm,
+                                                                      policy=r),
+                  lambda x=x, off=off, r=rung: gg.grouped_gemm_plain(x, w_in, off, policy=r),
+                  lib, GEMM_BOUND, num_passes(rung) * 2 * tk * d_m * ff_m,
+                  tk * d_m * 2 + live_w + x.shape[0] * ff_m * 4,
+                  control=lambda x=x, off=off, r=rung: gg.grouped_gemm_plain(
+                      x, w_in_rolled, off, policy=r),
+                  library_call=lib_name)
+        del x
+    del w_in_rolled
+    # prefill wo: the activated hidden rows against the down projections
+    w_out = randn((n_exp, ff_m, d_m), ff_m ** -0.5)
+    counts, bm, off, h = group_layout(1400, ff_m)
+    lib, lib_name = grouped_mm_library(h, w_out.to(torch.bfloat16), off[1:], "forward")
+    w_out_rolled = w_out.roll(-1, 0)
+    check("grouped_gemm", f"prefill wo bf16 T*k=1400 {ff_m}->{d_m} E={n_exp} bm={bm} "
+          f"counts {counts.tolist()}",
+          lambda: gg.grouped_gemm(h, w_out, off, bm=bm),
+          lambda: gg.grouped_gemm_plain(h, w_out, off),
+          lib, GEMM_BOUND, 2 * 1400 * ff_m * d_m,
+          1400 * ff_m * 2 + int((counts > 0).sum()) * ff_m * d_m * 4 + h.shape[0] * d_m * 4,
+          control=lambda: gg.grouped_gemm_plain(h, w_out_rolled, off),
+          library_call=lib_name)
+    del w_out, w_out_rolled, h, lib
+    torch.cuda.empty_cache()
+    # the train backward at 1 x 1024 tokens (T*k = 2048): dx of the up
+    # projection (dy against w^T, read through swapped strides) and dW
+    zw = n_exp // 2                       # the zero-width group of the dW check
+    counts, bm, off, x = group_layout(2048, d_m, zero_width=zw)
+    dy = randn((x.shape[0], ff_m), 2048 ** -0.5) * (x[:, :1] != 0)
+    lib, lib_name = grouped_mm_library(dy.to(torch.bfloat16), w_in16.transpose(1, 2), off[1:],
+                                       "dx (w transposed view)")
+    w_in_rolled = w_in.roll(-1, 0)
+    live_w = int((counts > 0).sum()) * d_m * ff_m * 4
+    check("grouped_gemm", f"train dx trans_w bf16 T*k=2048 {ff_m}->{d_m} E={n_exp} bm={bm} "
+          f"counts {counts.tolist()}",
+          lambda: gg.grouped_gemm(dy, w_in, off, bm=bm, trans_w=True),
+          lambda: gg.grouped_gemm_plain(dy, w_in, off, trans_w=True),
+          lib, GEMM_BOUND, 2 * 2048 * ff_m * d_m,
+          2048 * ff_m * 4 + live_w + x.shape[0] * d_m * 4,
+          control=lambda: gg.grouped_gemm_plain(dy, w_in_rolled, off, trans_w=True),
+          library_call=lib_name)
+    del w_in, w_in16, w_in_rolled, lib
+    torch.cuda.empty_cache()
+    off_moved = off.clone()
+    off_moved[1:-1] += bm
+    lib, lib_name = grouped_mm_library(x.t(), dy.to(torch.bfloat16), off[1:], "dW (x^T view)")
+    dw_zero_exact = []
+
+    def dw_kernel():
+        dw = gg.grouped_gemm_dw(x, dy, off)
+        dw_zero_exact.append(bool((dw[zw] == 0).all()))
+        return dw
+
+    check("grouped_gemm_dw", f"train dW bf16 T*k=2048 {d_m}x{ff_m} E={n_exp} bm={bm} "
+          f"counts {counts.tolist()} (group {zw} zero-width)",
+          dw_kernel, lambda: gg.grouped_gemm_dw_plain(x, dy, off),
+          lib, GEMM_BOUND, 2 * 2048 * d_m * ff_m,
+          2048 * (d_m * 2 + ff_m * 4) + n_exp * d_m * ff_m * 4,
+          control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved),
+          library_call=lib_name)
+    if not all(dw_zero_exact):
+        fail("grouped_gemm_dw: the zero-width group's block is not exactly 0")
+    del x, dy, lib
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 4 serve
     policy = ops.ExecutionPolicy(
         default="bf16", logits="refine_ab",
@@ -771,8 +1037,8 @@ def main() -> None:
         """(loss, per-token losses, gradients of the five leaves) of one
         forward, as ``lm_loss`` reckons them: f32 logsumexp minus the
         label logit."""
-        logits, _ = transformer.forward(tparams, batch0["tokens"], c, policy=pol,
-                                        mode="train", remat=True)
+        logits, _, _ = transformer.forward(tparams, batch0["tokens"], c, policy=pol,
+                                           mode="train", remat=True)
         logits = logits.float()
         nll = torch.logsumexp(logits, dim=-1) - logits.gather(
             -1, batch0["labels"].long()[..., None])[..., 0]
@@ -835,20 +1101,260 @@ def main() -> None:
         fail(f"step 0: {'; '.join(step0_faults)}: {step0}")
     del tparams, topt
 
-    # ----------------------------------------------------------- 8 kernels
+    # ---------------------------------------------------------- 8 serve_moe
+    # Mixtral at full width, depth cut to MOE_SERVE_DEPTH layers (the 32
+    # of the full model take 186 GB in f32), on the kernel routes with the
+    # experts on cuda_grouped.
+    def mixtral(depth):
+        return dataclasses.replace(mcfg_full, num_layers=depth,
+                                   segments=(Segment(("attn_local", "moe"), depth),))
+
+    def rolled_experts(p, layer):
+        """A shallow copy of ``p`` whose layer ``layer`` routes every
+        group to the neighbouring expert's weights."""
+        q = dict(p, layers=list(p["layers"]))
+        q["layers"][layer] = dict(q["layers"][layer], **{
+            k: {"w": w.detach().roll(-1, 0).requires_grad_(w.requires_grad)}
+            for k, w in ((k, q["layers"][layer][k]["w"]) for k in ("wi", "wg", "wo"))})
+        return q
+
+    moe_faults = []
+    mcfg = mixtral(MOE_SERVE_DEPTH)
+    mvocab = mcfg.vocab_size
+    # the reference drops nothing: capacity = T (capacity_factor = E / k)
+    mcfg_dropless = dataclasses.replace(mcfg, capacity_factor=mcfg.num_experts / mcfg.top_k)
+    moe_backends = {"gemm": "cuda", "attention": "cuda_fused", "grouped": "cuda_grouped"}
+    mpolicy = ops.ExecutionPolicy(default="bf16", logits="refine_ab", backends=moe_backends,
+                                  require={"attention": ("decode",)})
+    t0 = time.monotonic()
+    mparams = api.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    m_init_s = time.monotonic() - t0
+    m_n_params = sum(t.numel() for t in leaves(mparams))
+    meng = ServeEngine(mcfg, batch_size=4, max_ctx=1024, policy=mpolicy, device=dev)
+    meng.load(mparams)
+    meng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    mrng = np.random.default_rng(1)
+    mreqs = [Request(rid=i, prompt=mrng.integers(2, mvocab, int(n)).astype(np.int32),
+                     max_new_tokens=32) for i, n in enumerate(lens)]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mstats = meng.run(mreqs)
+    launches_ms = read_launches(mods)
+    m_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(r.done and len(r.out_tokens) == 32 for r in mreqs):
+        fail(f"serve_moe: not every request finished with 32 tokens: "
+             f"{[(r.rid, r.done, len(r.out_tokens)) for r in mreqs]}")
+    if any(not 0 <= t < mvocab for r in mreqs for t in r.out_tokens):
+        fail("serve_moe: a token outside the vocabulary")
+    if not all(launches_ms[n] > 0 for n in SERVE_MOE_KERNELS):
+        fail(f"serve_moe: a kernel of the path never launched: {launches_ms}")
+
+    # one prompt's prefill logits: kernel routes vs torch routes (dropless),
+    # and the rolled-experts control; the experts each token of the first
+    # MoE layer picks, counted during the kernel-route prefill
+    mprompt = {"tokens": torch.as_tensor(mreqs[0].prompt, device=dev)[None].long()}
+    top_k_fn = moe_mod._top_k
+
+    def recording_top_k(store):
+        """moe's top-k, each call's expert ids appended to ``store``."""
+        def top_k(probs, k):
+            vals, idx = top_k_fn(probs, k)
+            store.append(idx.detach())
+            return vals, idx
+        return top_k
+
+    picked = []
+    mref_policy = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+    moe_mod._top_k = recording_top_k(picked)
+    try:
+        with torch.no_grad():
+            mlk, _ = serve_step.make_prefill(mcfg, mpolicy, s_ctx=1024)(mparams, mprompt)
+    finally:
+        moe_mod._top_k = top_k_fn
+    first_counts = torch.bincount(picked[0].flatten(), minlength=mcfg.num_experts).tolist()
+    with torch.no_grad():
+        mlr, _ = serve_step.make_prefill(mcfg_dropless, mref_policy, s_ctx=1024)(mparams, mprompt)
+        mlc, _ = serve_step.make_prefill(mcfg_dropless, mref_policy, s_ctx=1024)(
+            rolled_experts(mparams, 1), mprompt)
+    torch.cuda.synchronize(dev)
+    if mlk.shape != (1, 1, mvocab) or not torch.isfinite(mlk).all():
+        fail(f"serve_moe: prefill logits shape {tuple(mlk.shape)} or non-finite")
+    m_err = (mlk - mlr).abs().max().item()
+    m_ctrl = (mlc - mlr).abs().max().item()
+    mtop2 = mlr.flatten().topk(2).values
+    emit(phase="serve_moe", arch=mcfg.name, depth=MOE_SERVE_DEPTH, params=m_n_params,
+         weights_gb=m_n_params * 4 / 1e9, init_s=m_init_s, requests=mstats["requests"],
+         prompt_lens=[int(n) for n in lens], tokens=mstats["tokens"], ticks=mstats["ticks"],
+         wall_s=mstats["wall_s"], tok_per_s=mstats["tok_per_s"],
+         ttft_mean_s=mstats["ttft_mean_s"], latency_mean_s=mstats["latency_mean_s"],
+         peak_mem_gb=m_peak_gb, launches=launches_ms,
+         prefill_tokens=int(mprompt["tokens"].shape[1]),
+         prefill_expert_counts_first_moe_layer=first_counts,
+         prefill_logits_max_abs_err=m_err, prefill_logits_bound=MOE_LOGITS_BOUND,
+         prefill_argmax_agrees=bool(mlk.argmax() == mlr.argmax()),
+         reference_top2_gap=(mtop2[0] - mtop2[1]).item(),
+         control_rolled_experts_err=m_ctrl, logits_absmax=mlr.abs().max().item())
+    if not m_err <= MOE_LOGITS_BOUND:
+        moe_faults.append(f"serve_moe prefill logits {m_err} > {MOE_LOGITS_BOUND}")
+    if mlk.argmax() != mlr.argmax():
+        moe_faults.append("serve_moe: the kernel routes pick another greedy token")
+    if not m_ctrl > MOE_LOGITS_BOUND:
+        moe_faults.append(f"serve_moe: the rolled-experts control ({m_ctrl}) is within "
+                          f"{MOE_LOGITS_BOUND}")
+
+    long_mprompt = {"tokens": torch.as_tensor(mreqs[1].prompt, device=dev)[None].long()}
+    with torch.no_grad():
+        m_prefill_prof = profile_window(lambda: meng._prefill(mparams, long_mprompt))
+    for i in range(4):
+        meng.submit(Request(rid=100 + i, prompt=mreqs[i].prompt, max_new_tokens=16))
+    meng.step()                                 # admit (prefill) all four
+    m_tick_prof = profile_window(meng.tick)
+    meng.run([])
+    emit(phase="profile_moe", arch=mcfg.name, depth=MOE_SERVE_DEPTH,
+         prefill_tokens=int(long_mprompt["tokens"].shape[1]), prefill=m_prefill_prof,
+         decode_tick=m_tick_prof)
+    del meng, mparams, mlk, mlr, mlc
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 9 train_moe
+    tmcfg = mixtral(MOE_TRAIN_DEPTH)
+    tmcfg_dropless = dataclasses.replace(tmcfg, capacity_factor=tmcfg.num_experts / tmcfg.top_k)
+    mt_policy = execution_policy_for(
+        tmcfg, default="bf16", logits="refine_ab", backends=moe_backends,
+        require={fam: ("vjp",) for fam in ops.families()})
+    mloop = TrainLoop(tmcfg, policy=mt_policy,
+                      opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                      data_cfg=DataConfig(global_batch=1, seq_len=1024, vocab_size=mvocab),
+                      remat=True, device=dev)
+    mtparams, _, _ = mloop.init_or_restore(0)
+    mbatch0 = mloop.batch(SyntheticLMDataset(mloop.data_cfg), 0)
+    mfive = ("router", "wi", "wg", "wo", "attn_q")
+
+    def moe_leaves(p):
+        return [p["layers"][1][k]["w"] for k in ("router", "wi", "wg", "wo")] + [
+            p["layers"][0]["wq"]["w"]]
+
+    def pinned_top_k(picks, own):
+        """moe's top-k replaying ``picks`` (one per call, in call order):
+        the experts come from ``picks``, the gates are this route's own
+        probabilities there; the ids this route would pick itself are
+        appended to ``own``."""
+        calls = iter(picks)
+
+        def top_k(probs, k):
+            own.append(top_k_fn(probs, k)[1].detach())
+            idx = next(calls)
+            return probs.gather(-1, idx), idx
+        return top_k
+
+    def moe_loss_and_grads(c, pol, p, top_k):
+        """(per-token losses, aux loss, gradients of the five leaves of the
+        total loss lm + AUX_LOSS_WEIGHT aux) of one forward, with ``top_k``
+        as moe's router."""
+        moe_mod._top_k = top_k
+        try:
+            logits, _, aux = transformer.forward(p, mbatch0["tokens"], c, policy=pol,
+                                                 mode="train", remat=True)
+            logits = logits.float()
+            nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+                -1, mbatch0["labels"].long()[..., None])[..., 0]
+            del logits
+            grads = torch.autograd.grad(nll.mean() + api.AUX_LOSS_WEIGHT * aux,
+                                        moe_leaves(p))
+        finally:
+            moe_mod._top_k = top_k_fn
+        return nll.detach(), aux.item(), grads
+
+    def flipped(a, b):
+        """Tokens routed to another expert set, per MoE layer."""
+        return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b)]
+
+    # the kernel routes' picks: each MoE layer's forward, then the remat
+    # recompute in the backward (last layer first), which must repeat them
+    mp_k, mp_t = [], []
+    mnll_k, maux_k, mg_k = moe_loss_and_grads(tmcfg, mt_policy, mtparams, recording_top_k(mp_k))
+    remat_same = (len(mp_k) == 2 * MOE_TRAIN_DEPTH
+                  and flipped(mp_k[:MOE_TRAIN_DEPTH], mp_k[MOE_TRAIN_DEPTH:][::-1])
+                  == [0] * MOE_TRAIN_DEPTH)
+    mnll_t, maux_t, mg_t = moe_loss_and_grads(tmcfg_dropless, mref_policy, mtparams,
+                                              pinned_top_k(mp_k, mp_t))
+    mnll_c, maux_c, mg_c = moe_loss_and_grads(tmcfg_dropless, mref_policy,
+                                              rolled_experts(mtparams, 1),
+                                              pinned_top_k(mp_k, []))
+
+    def mrel(a, b):
+        return {k: ((x - y).norm() / y.norm()).item() for k, x, y in zip(mfive, a, b)}
+
+    mstep0 = {"loss_kernel": mnll_k.mean().item(), "loss_torch": mnll_t.mean().item(),
+              "aux_kernel": maux_k, "aux_torch": maux_t, "aux_err": abs(maux_k - maux_t),
+              "token_loss_max_err": (mnll_k - mnll_t).abs().max().item(),
+              "grad_rel_err": mrel(mg_k, mg_t),
+              "remat_recompute_routes_same": remat_same,
+              "tokens_torch_routes_would_route_apart_per_layer": flipped(
+                  mp_k[:MOE_TRAIN_DEPTH], mp_t[:MOE_TRAIN_DEPTH]),
+              "control_rolled_experts_aux_err": abs(maux_c - maux_t),
+              "control_rolled_experts_token_loss_max_err": (mnll_c - mnll_t).abs().max().item(),
+              "control_rolled_experts_grad_rel_err": mrel(mg_c, mg_t),
+              "token_loss_bound": MOE_STEP0_TOKEN_LOSS_BOUND, "aux_bound": MOE_STEP0_AUX_BOUND,
+              "grad_bound": MOE_STEP0_GRAD_BOUND}
+    del mtparams, mg_k, mg_t, mg_c, mnll_k, mnll_t, mnll_c, mp_k, mp_t
+    torch.cuda.empty_cache()
+    emit(phase="train_moe_step0", arch=tmcfg.name, depth=MOE_TRAIN_DEPTH, **mstep0)
+    if not (math.isfinite(mstep0["loss_kernel"]) and remat_same
+            and mstep0["token_loss_max_err"] <= MOE_STEP0_TOKEN_LOSS_BOUND
+            and mstep0["aux_err"] <= MOE_STEP0_AUX_BOUND
+            and max(mstep0["grad_rel_err"].values()) <= MOE_STEP0_GRAD_BOUND):
+        moe_faults.append("train_moe step 0: kernel routes vs torch routes out of bounds")
+    if not (mstep0["control_rolled_experts_token_loss_max_err"] > MOE_STEP0_TOKEN_LOSS_BOUND
+            and max(mstep0["control_rolled_experts_grad_rel_err"].values())
+            > MOE_STEP0_GRAD_BOUND):
+        moe_faults.append("train_moe step 0: the rolled-experts control lands within the bounds")
+
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    _, _, mhistory = mloop.run(TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize(dev)
+    mtrain_wall = time.monotonic() - t0
+    launches_mt = read_launches(mods)
+    mt_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    mstep_s = sorted(r["step_s"] for r in mloop.log)[len(mloop.log) // 2]
+    emit(phase="train_moe", arch=tmcfg.name, depth=MOE_TRAIN_DEPTH, steps=TRAIN_STEPS, batch=1,
+         seq=1024, remat=True, policy="default=bf16 logits=refine_ab", loss=mhistory,
+         aux_loss=[r["aux_loss"] for r in mloop.log],
+         grad_norm=[r["grad_norm"] for r in mloop.log], lr=[r["lr"] for r in mloop.log],
+         step_s=[r["step_s"] for r in mloop.log], median_step_s=mstep_s,
+         tok_per_s=1024 / mstep_s, wall_s=mtrain_wall, peak_mem_gb=mt_peak_gb,
+         launches=launches_mt)
+    if not all(launches_mt[n] > 0 for n in TRAIN_MOE_KERNELS):
+        fail(f"train_moe: a kernel of the path never launched: {launches_mt}")
+    if not all(math.isfinite(x) for r in mloop.log
+               for x in (r["loss"], r["aux_loss"], r["grad_norm"])):
+        fail(f"train_moe: non-finite loss or grad norm: {mloop.log}")
+    if moe_faults:
+        fail("; ".join(moe_faults) + f": {mstep0}")
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 10 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
-               "serve_paged_int8_fp8x3": launches_pb, "train": train_launches}
+               "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
+               "serve_moe": launches_ms, "train_moe": launches_mt}
     for name, (src, replaces) in KERNELS.items():
-        # the row's headline check: the windowed (local-layer) case for
-        # attention, the path's first shape otherwise
-        first = checks[name][-1] if name == "flash_attention" else checks[name][0]
+        # the row's headline check: gemma3's windowed (local-layer) case for
+        # the flash forward, the path's first shape otherwise
+        first = checks[name][1] if name == "flash_attention" else checks[name][0]
         if name in TRAIN_ONLY:
             path_launches = train_launches[name]
         elif name == "flash_paged_decode":
             path_launches = launches_pa[name] + launches_pb[name]
         elif name == "gemm_lowp":
             path_launches = launches_pb[name]
+        elif name == "grouped_gemm":
+            path_launches = launches_ms[name] + launches_mt[name]
+        elif name == "grouped_gemm_dw":
+            path_launches = launches_mt[name]
         else:
             path_launches = launches[name]
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",

@@ -1,6 +1,7 @@
 """Architecture registry (twin of ``repro.configs``).
 
-Only ``gemma3-1b`` is ported so far; ``input_specs`` (JAX abstract
+Ported so far: ``gemma3-1b`` (dense), ``mixtral-8x7b`` and ``dbrx-132b``
+(moe); ``input_specs`` (JAX abstract
 shapes for the dry-run) has no counterpart yet.
 """
 
@@ -14,6 +15,8 @@ __all__ = ["ARCHS", "get_config", "get_smoke"]
 
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)

@@ -7,8 +7,9 @@ keeps one flat list of sublayers in execution order
 (``layer_kinds``): ``for seg in segments: for c in range(count): for
 kind in pattern``.
 
-Ported kinds: ``attn`` (global GQA self-attention), ``attn_local``
-(sliding-window attention with a ring-buffer cache) and ``mlp``.
+Ported families: ``dense`` and ``moe``.  Ported kinds: ``attn`` (global
+GQA self-attention), ``attn_local`` (sliding-window attention with a
+ring-buffer cache), ``mlp`` and ``moe`` (top-k routed experts).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class Segment:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense | moe are ported
     d_model: int
     num_layers: int                  # mixer sublayers (bookkeeping)
     segments: tuple[Segment, ...]
@@ -46,6 +47,10 @@ class ModelConfig:
     d_ff: int = 0
     mlp_kind: str = "swiglu"         # swiglu | squared_relu | gelu
     mlp_bias: bool = False
+    # moe
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     activation_dtype: str = "bfloat16"

@@ -2,8 +2,10 @@
 
 ``from_jax_numpy(tree, cfg, device)`` takes the tree that
 ``repro.models.api.init_params`` returns, as nested dicts of numpy
-arrays, and returns the port's params (``models.transformer`` layout),
-so both packages compute the same function in the tests.
+arrays, and returns the port's params (``models.transformer`` layout) on
+``device`` (the card unless the caller asks for the CPU), so both
+packages compute the same function in the tests.  An MoE sublayer's
+expert stacks, (count, E, D, F) in the JAX tree, become (E, D, F).
 
 The JAX tree stacks each segment's sublayer params on a leading
 ``count`` axis (``seg{i}/pos{j}/...``) and scans the periods, running
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime.device import resolve_device
 
 __all__ = ["from_jax_numpy"]
 
@@ -36,8 +39,9 @@ def _tensors(tree, index, device):
 
 
 def from_jax_numpy(tree: dict, cfg: ModelConfig,
-                   device: torch.device | str = "cpu") -> dict:
+                   device: torch.device | str = "cuda") -> dict:
     """JAX ``api.init_params`` tree (numpy leaves) -> port params."""
+    device = resolve_device(device)
     params = {"embed": _tensors(tree["embed"], None, device),
               "final_norm": _tensors(tree["final_norm"], None, device)}
     if "unembed" in tree:

@@ -1,8 +1,8 @@
 """The port's op registry and its families (twin of ``repro.core.ops``).
 
-Importing this package registers the ``gemm`` and ``attention``
-families with their ``torch`` reference impls and their hand-written
-CUDA impls (``cuda``, ``cuda_fused``).
+Importing this package registers the ``gemm``, ``attention`` and
+``grouped`` families with their ``torch`` reference impls and their
+hand-written CUDA impls (``cuda``, ``cuda_fused``, ``cuda_grouped``).
 """
 
 from repro_torch.core.ops import registry
@@ -27,7 +27,15 @@ from repro_torch.core.ops.route import (
     parse_backend_flags,
     validate_backends,
 )
-from repro_torch.core.ops.tiles import TileConfig, pad2, round_up, set_tiles, tile_for
+from repro_torch.core.ops.tiles import (
+    TileConfig,
+    align_group_counts,
+    pad2,
+    round_up,
+    set_default_tiles,
+    set_tiles,
+    tile_for,
+)
 from repro_torch.core.ops.gemm import gemm, routed_einsum, torch_policy_einsum  # noqa: I001
 from repro_torch.core.ops.attention import (
     AttentionOps,
@@ -35,6 +43,7 @@ from repro_torch.core.ops.attention import (
     attention_forward,
     attention_paged_decode,
 )
+from repro_torch.core.ops.grouped import grouped_matmul, grouped_tiles
 
 __all__ = [
     "registry", "LADDER_BOUNDS", "Capabilities", "KernelImpl", "OpSpec",
@@ -42,8 +51,9 @@ __all__ = [
     "reference_impl", "register_family", "register_impl",
     "ExecutionPolicy", "Route", "as_route", "normalize_backends",
     "parse_backend_flags", "validate_backends",
-    "TileConfig", "pad2", "round_up", "set_tiles", "tile_for",
+    "TileConfig", "align_group_counts", "pad2", "round_up", "set_default_tiles",
+    "set_tiles", "tile_for",
     "gemm", "routed_einsum", "torch_policy_einsum",
     "AttentionOps", "attention_decode", "attention_forward",
-    "attention_paged_decode",
+    "attention_paged_decode", "grouped_matmul", "grouped_tiles",
 ]

@@ -1,0 +1,148 @@
+"""The grouped family (twin of ``repro.core.ops.grouped``): the ragged
+expert GEMM of the MoE FFN.
+
+E per-expert GEMMs whose row counts are data-dependent (the paper's
+Fig.-7 batched-GEMM regime).  An impl computes
+
+    out[r] = x[r] @ w[e]   for every row r in group e's region,
+
+over a flat token buffer sorted by group with each group's region
+aligned to ``bm`` (``grouped_tiles(...).bm``): group e occupies rows
+[offsets[e], offsets[e+1]), interior offsets are bm-multiples, padding
+rows are zero and come back zero.
+
+  ``torch``         the reference (twin of ``xla``): a gather into the
+                    worst-case (E, C = N, D) dispatch tensor, one
+                    ``ecd,edf->ecf`` policy einsum and a scatter back.
+                    Dropless; the parity oracle, not a production path.
+  ``cuda_grouped``  ``kernels.gemm_grouped`` (twin of ``pallas_grouped``):
+                    one hand-written kernel walks the sorted buffer, each
+                    row tile against its group's weights, with the dx and
+                    dW kernels behind its ``autograd.Function``.  It fuses
+                    bf16, refine_a, bf16x3 and refine_ab; f32 runs the
+                    reference (no narrow-pass decomposition exists for
+                    it), and a route asking it for bf16x6 or a quantized
+                    rung fails at route build.
+
+The alignment ``bm`` travels from the dispatcher to the impl as the
+``bm`` keyword of ``grouped_matmul`` (``repro`` pins it on its route's
+tiles).  Expert-parallel ``Partitioning`` waits for the mesh slice.
+
+Impl contract: fn(x (N,D) sorted+aligned, w (E,D,F), group_offsets
+(E+1,) int32, *, route, bm) -> f32 (N,F).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.ops import registry
+from repro_torch.core.ops.gemm import torch_policy_einsum
+from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec, register_family,
+                                           register_impl)
+from repro_torch.core.ops.route import Route, as_route
+from repro_torch.core.ops.tiles import (TileConfig, align_group_counts, set_default_tiles,
+                                        tile_for)
+from repro_torch.kernels import gemm_grouped
+
+__all__ = ["grouped_matmul", "grouped_tiles"]
+
+
+def _make_problem(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    e, d, f, bm = 3, 36, 24, gemm_grouped.ROW_TILE
+    sizes = np.array([10, 0, 13])
+    aligned = align_group_counts(sizes, bm)
+    offsets = np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)
+    x = np.zeros((int(offsets[-1]), d), np.float32)
+    valid = np.zeros(int(offsets[-1]), bool)
+    for g in range(e):
+        x[offsets[g]:offsets[g] + sizes[g]] = rng.uniform(-1, 1, (sizes[g], d))
+        valid[offsets[g]:offsets[g] + sizes[g]] = True
+    return {
+        "x": torch.from_numpy(x),
+        "w": torch.from_numpy(rng.uniform(-1, 1, (e, d, f)).astype(np.float32)),
+        "offsets": torch.from_numpy(offsets),
+        "bm": bm,
+        "_valid": valid,
+    }
+
+
+def _oracle(problem: dict) -> np.ndarray:
+    x, w = problem["x"].double().numpy(), problem["w"].double().numpy()
+    off = problem["offsets"].numpy()
+    out = np.zeros((x.shape[0], w.shape[2]))
+    for g in range(w.shape[0]):
+        out[off[g]:off[g + 1]] = x[off[g]:off[g + 1]] @ w[g]
+    return out
+
+
+register_family(OpSpec(
+    family="grouped",
+    contract="fn(x (N,D) sorted+aligned, w (E,D,F), group_offsets (E+1,) int32, *, "
+             "route, bm) -> f32 (N,F); bm is the group alignment",
+    reference="torch",
+    label="grouped backend",
+    layer_families=("moe",),
+    make_problem=_make_problem,
+    run=lambda problem, route: grouped_matmul(problem["x"], problem["w"], problem["offsets"],
+                                              policy=route, bm=problem["bm"]),
+    oracle=_oracle,
+    error_bound=lambda policy: LADDER_BOUNDS[policy],
+))
+
+
+def grouped_tiles(policy: str | Route, m: int, n: int, k: int) -> TileConfig:
+    """The tiles the grouped impl runs (m, n, k) with: ``bm`` is the
+    group alignment the dispatcher pads each run to.  m is the real
+    token-assignment count."""
+    return tile_for(as_route(policy).impl("grouped"), m, n, k)
+
+
+@register_impl("grouped", "torch", fused_policies=registry.ALL_POLICIES, features=("vjp",))
+def _torch_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int):
+    """Reference: gather into the worst-case (E, C = N, D) dispatch
+    tensor, one policy einsum, scatter back (C = N: every group could own
+    every row, so this is the memory-heavy oracle)."""
+    n = x.shape[0]
+    off = group_offsets.long()
+    idx = off[:-1, None] + torch.arange(n, device=x.device)[None]      # (E, C)
+    valid = idx < off[1:, None]
+    idx_c = idx.clamp(max=n - 1)
+    xe = torch.where(valid[..., None], x[idx_c], torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+    he = torch_policy_einsum("ecd,edf->ecf", xe, w, route.precision)
+    contrib = torch.where(valid[..., None], he, 0.0)
+    out = torch.zeros((n, w.shape[2]), dtype=torch.float32, device=x.device)
+    return out.index_add(0, idx_c.reshape(-1), contrib.reshape(-1, w.shape[2]))
+
+
+# The kernel reads bm only: the alignment, at least one 16-row WMMA
+# fragment (repro's clamp gives 8 at a 4-slot decode).
+set_default_tiles("cuda_grouped", TileConfig(bm=128), row_quantum=gemm_grouped.ROW_TILE)
+
+
+@register_impl("grouped", "cuda_grouped",
+               policies=("bf16", "refine_a", "bf16x3", "refine_ab", "f32"),
+               fused_policies=tuple(gemm_grouped.POLICY_CODES), features=("vjp",))
+def _cuda_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int):
+    if route.precision == "f32":
+        return _torch_grouped_matmul(x, w, group_offsets, route=route, bm=bm)
+    return gemm_grouped.grouped(x, w, group_offsets, bm=bm, policy=route.precision)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
+                   policy: str | Route = "bf16", bm: int) -> torch.Tensor:
+    """Ragged grouped-GEMM dispatch (the MoE expert contraction).
+
+    x: (N, D) token rows sorted by group, runs aligned to ``bm``; w: (E,
+    D, F); group_offsets: (E+1,) int32.  Returns f32 (N, F).  ``policy``
+    is a precision string (the reference impl) or a route whose grouped
+    entry names a registered impl; ``bm`` is the alignment the dispatcher
+    padded each run to (``grouped_tiles(policy, N, F, D).bm``).
+    Differentiable on every impl.
+    """
+    route = as_route(policy)
+    impl = registry.get_impl("grouped", route.impl("grouped"))
+    return impl.fn(x, w, group_offsets, route=route, bm=bm)

@@ -57,6 +57,9 @@ class Route:
                 return name
         return registry.reference_impl(family)
 
+    def uses_reference(self, family: str) -> bool:
+        return self.impl(family) == registry.reference_impl(family)
+
     def with_impl(self, family: str, name: str) -> Route:
         d = dict(self.backends)
         d[family] = name

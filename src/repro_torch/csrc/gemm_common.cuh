@@ -16,6 +16,15 @@
 // elements (16 or 8 bytes) per thread where strides and alignment allow.
 // Each warp owns a WM x WN sub-tile of 16x16 WMMA fragments; the bf16
 // rung keeps one accumulator per fragment, the refined rungs two.
+//
+// The grouped GEMMs (gemm_grouped.cu) run the same kernel in one of two
+// group modes, reading `groups` from device memory:
+//   G_ROWS  groups[blockIdx.y] is the group of the block's BM rows; B is
+//           batch `group` (w[g], through the batch stride); a group id
+//           of num_groups marks a dead tile, which stores zeros.
+//   G_K     blockIdx.z is the group; groups holds the (num_groups + 1)
+//           offsets, and the block contracts rows [groups[z],
+//           groups[z + 1]) of A's K and B's K (an empty run stores 0).
 #pragma once
 
 #include <type_traits>
@@ -33,7 +42,11 @@ struct GemmArgs {
   int a_bf16, b_bf16;
   int a_vec, b_vec;         // 4-wide loads along the contiguous dim are safe
   int m, n, k;
+  const int* groups;        // group modes only (see above)
+  int num_groups;
 };
+
+enum GroupMode { G_NONE = 0, G_ROWS = 1, G_K = 2 };
 
 // Fetch an OUTER x INNER tile whose INNER index is contiguous in global
 // memory when `vec`, else strided by s_inner (zeros off the edge).
@@ -152,7 +165,7 @@ __device__ __forceinline__ void stage_ab(const float (&ra)[T::A_PER_T],
              Splits<POL>::b_lo>(rb, b_hi, b_lo, T::LDB, 1, g.b_vec);
 }
 
-template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL>
+template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL, int MODE = G_NONE>
 __global__ void __launch_bounds__(GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>::NT)
 gemm_kernel(GemmArgs g) {
   using T = GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>;
@@ -170,9 +183,26 @@ gemm_kernel(GemmArgs g) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const long long bz = blockIdx.z;
+  long long a_off = bz * g.sab, b_off = bz * g.sbb;
+  if constexpr (MODE == G_ROWS) {
+    const int gid = g.groups[blockIdx.y];
+    if (gid >= g.num_groups) {  // dead tile: zeros, no tensor-core work
+      for (int e = threadIdx.x; e < BM * BN; e += T::NT) {
+        const int gm = m0 + e / BN, gn = n0 + e % BN;
+        if (gm < g.m && gn < g.n) g.c[(long long)gm * g.n + gn] = 0.f;
+      }
+      return;
+    }
+    b_off = gid * g.sbb;
+  } else if constexpr (MODE == G_K) {
+    const int k0 = g.groups[blockIdx.z];
+    g.k = g.groups[blockIdx.z + 1] - k0;
+    a_off = k0 * g.sak;
+    b_off = k0 * g.sbk;
+  }
   const bool a_kcontig = g.sak == 1;
-  const char* a_base = static_cast<const char*>(g.a) + bz * g.sab * (g.a_bf16 ? 2 : 4);
-  const char* b_base = static_cast<const char*>(g.b) + bz * g.sbb * (g.b_bf16 ? 2 : 4);
+  const char* a_base = static_cast<const char*>(g.a) + a_off * (g.a_bf16 ? 2 : 4);
+  const char* b_base = static_cast<const char*>(g.b) + b_off * (g.b_bf16 ? 2 : 4);
 
   float ra[T::A_PER_T], rb[T::B_PER_T];
   const int wm = warp / (BN / WN), wn = warp % (BN / WN);
@@ -232,10 +262,10 @@ gemm_kernel(GemmArgs g) {
     }
 }
 
-template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL>
+template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL, int MODE = G_NONE>
 int run_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
   using T = GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>;
-  auto kern = gemm_kernel<BM, BN, BK, WM, WN, B_KMAJOR, POL>;
+  auto kern = gemm_kernel<BM, BN, BK, WM, WN, B_KMAJOR, POL, MODE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::smem);
   if (err != cudaSuccess) return (int)err;
@@ -279,6 +309,7 @@ inline GemmArgs make_args(const void* a, int a_bf16, long long sab, long long sa
   g.sbb = sbb; g.sbk = sbk; g.sbn = sbn;
   g.a_bf16 = a_bf16; g.b_bf16 = b_bf16;
   g.m = m; g.n = n; g.k = k;
+  g.groups = nullptr; g.num_groups = 0;
   g.a_vec = vec4_ok(a, a_bf16, sak, sam, sab, k);
   g.b_vec = sbk < sbn ? vec4_ok(b, b_bf16, sbk, sbn, sbb, k) : vec4_ok(b, b_bf16, sbn, sbk, sbb, n);
   return g;

@@ -1,0 +1,243 @@
+"""Grouped (ragged) expert GEMMs of the MoE FFN on the Hopper tensor cores
+(``csrc/gemm_grouped.cu``), forward, dx and dW.
+
+Replaces two TPU kernels of ``repro/kernels/gemm_grouped.py``:
+
+  ``_gmm_kernel`` (``pallas_call`` at :184, via ``_gmm_call``)
+      ``grouped_gemm``: out[r] = x[r] . w[g(r)] over a token buffer
+      sorted by group, each group's run padded to the alignment ``bm``;
+      with ``trans_w`` the same walk against w[g]^T (the backward's dx).
+  ``_dw_kernel`` (``pallas_call`` at :246, via ``_dw_call``)
+      ``grouped_gemm_dw``: dw[g] = x_g^T . dy_g over group g's run.
+
+Both run the bf16 ladder's fused rungs (bf16, refine_a, bf16x3,
+refine_ab) through ``gemm_common.cuh``'s tiled kernel.  The TPU
+scalar-prefetched a per-tile group id; here each block of the forward
+loads its own from ``tile_group_ids`` (computed on the device with
+``searchsorted`` at the kernel's CTA row tile, no host sync): a dead tile
+(id E, past ``offsets[E]``) stores zeros and issues no tensor-core work,
+a live one walks K against ``w + gid * stride_E``.  dx reads ``w[g]``
+through swapped strides (a K-major B); no transpose is written.  The dW
+grid is (E, D/64, F/128): each block walks its own group's run as K,
+reading x through the M-contiguous A layout, so no sum is carried
+between blocks and no atomics are used (the same result on every run);
+an empty run stores zeros, where the TPU left the block unwritten and
+masked it afterwards.
+
+What bounds them on the H100: bytes.  Every expert owns at least one
+tile (``align_group_counts``), so each forward call streams all E expert
+weight matrices: at Mixtral's 8 x 4096 x 14336 in f32, 1.88 GB, 0.56 ms at
+3.35 TB/s, against 0.17 ms of bf16 tensor-core work at a 700-token
+prefill; a decode call is the same weight stream.  dW writes the same
+1.88 GB.  The design reads the f32 expert stack in place and rounds (or
+splits) it on the way into shared memory, as ``gemm_tiled`` does: no bf16
+copy of the stack is ever written.  WMMA bf16 16x16x16 fragments;
+``wgmma``/TMA, skipping tiles that hold only padding and keeping bf16
+expert weights come later.
+
+Layout contract: the alignment ``bm`` must be a multiple of 16 (a WMMA
+fragment's rows); the forward's CTA row tile is 64 where 64 divides
+``bm``, else 16.  Each output row is its own dot product, so the row tile
+does not change results.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gemm_refined import POLICY_CODES as _REFINED_CODES
+from repro_torch.kernels.gemm_refined import gemm_refined_plain
+from repro_torch.kernels.gemm_tiled import gemm_tiled_plain, on_cpu
+
+__all__ = ["grouped_gemm", "grouped_gemm_dw", "grouped_gemm_plain", "grouped_gemm_dw_plain",
+           "grouped", "tile_group_ids", "cta_rows", "LAUNCHES", "POLICY_CODES", "ROW_TILE"]
+
+LAUNCHES = {"grouped_gemm": 0, "grouped_gemm_dw": 0}
+POLICY_CODES = {"bf16": 0, **_REFINED_CODES}
+ROW_TILE = 16          # the smallest CTA row tile: the alignment must be a multiple
+
+
+def tile_group_ids(group_offsets: torch.Tensor, n_rows: int, bm: int) -> torch.Tensor:
+    """(ceil(n_rows / bm),) int32 group id per row tile; tiles past
+    ``offsets[-1]`` get E.  Each tile lies in one group because interior
+    offsets are multiples of ``bm``; an empty group claims no tile."""
+    starts = torch.arange(-(-n_rows // bm), dtype=torch.int32,
+                          device=group_offsets.device) * bm
+    return torch.searchsorted(group_offsets.to(torch.int32), starts, right=True,
+                              out_int32=True) - 1
+
+
+def cta_rows(bm: int) -> int:
+    """The forward kernel's CTA row tile for alignment ``bm``; raises on
+    an alignment it cannot serve."""
+    if bm <= 0 or bm % ROW_TILE:
+        raise ValueError(f"grouped_gemm needs a group alignment that is a multiple of "
+                         f"{ROW_TILE}; got bm={bm}")
+    return 64 if bm % 64 == 0 else ROW_TILE
+
+
+def _check_policy(policy: str) -> None:
+    if policy not in POLICY_CODES:
+        raise ValueError(f"grouped_gemm fuses {sorted(POLICY_CODES)}; got {policy!r}")
+
+
+def _ladder_matmul(a: torch.Tensor, b: torch.Tensor, policy: str) -> torch.Tensor:
+    """a @ b on the rung: the dense GEMM kernels' plain versions."""
+    return gemm_tiled_plain(a, b) if policy == "bf16" else gemm_refined_plain(a, b, policy)
+
+
+def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
+                       policy: str = "bf16", trans_w: bool = False) -> torch.Tensor:
+    """The same function in plain PyTorch: a loop over groups of the
+    ladder's product of each run against its expert; rows past
+    ``offsets[E]`` are zero."""
+    _check_policy(policy)
+    off = group_offsets.tolist()
+    out = torch.zeros((x.shape[0], w.shape[1] if trans_w else w.shape[2]),
+                      dtype=torch.float32, device=x.device)
+    for g in range(w.shape[0]):
+        if off[g + 1] > off[g]:
+            wg = w[g].t() if trans_w else w[g]
+            out[off[g]:off[g + 1]] = _ladder_matmul(x[off[g]:off[g + 1]], wg, policy)
+    return out
+
+
+def grouped_gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
+                          policy: str = "bf16") -> torch.Tensor:
+    """dw[g] = x_g^T . dy_g in plain PyTorch, zero for an empty run."""
+    _check_policy(policy)
+    off = group_offsets.tolist()
+    e = len(off) - 1
+    dw = torch.zeros((e, x.shape[1], dy.shape[1]), dtype=torch.float32, device=x.device)
+    for g in range(e):
+        if off[g + 1] > off[g]:
+            dw[g] = _ladder_matmul(x[off[g]:off[g + 1]].t(), dy[off[g]:off[g + 1]], policy)
+    return dw
+
+
+@functools.cache
+def _launchers():
+    lib = _build.load("gemm_grouped")
+    c = ctypes
+    fwd, dw = lib.grouped_gemm_launch, lib.grouped_gemm_dw_launch
+    fwd.argtypes = [c.c_void_p, c.c_int, c.c_longlong, c.c_longlong,               # x
+                    c.c_void_p, c.c_int, c.c_longlong, c.c_longlong, c.c_longlong,  # w
+                    c.c_void_p, c.c_int, c.c_void_p,                                # gids, E, out
+                    c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_int]
+    dw.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p,
+                   c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_int]
+    fwd.restype = dw.restype = c.c_int
+    return fwd, dw
+
+
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """f32 or bf16, contiguous rows."""
+    x = x if x.dtype in (torch.float32, torch.bfloat16) else x.float()
+    return x.contiguous()
+
+
+def _device_index(x: torch.Tensor) -> int:
+    return x.device.index if x.device.index is not None else torch.cuda.current_device()
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
+                 bm: int, policy: str = "bf16", trans_w: bool = False) -> torch.Tensor:
+    """out[r] = x[r] @ w[g] (``trans_w``: @ w[g]^T) for the rows r of
+    group g; f32 (N, F) (or (N, D)).
+
+    x: (N, D) (or (N, F)) sorted by group, runs aligned to ``bm``,
+    padding rows zero; w: (E, D, F) f32 or bf16; group_offsets: (E+1,)
+    int32.  CPU tensors run ``grouped_gemm_plain``; CUDA tensors launch
+    the kernel or raise.
+    """
+    _check_policy(policy)
+    cta = cta_rows(bm)
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"grouped_gemm expects (N,K) x (E,K,F); got {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    k_dim = w.shape[2] if trans_w else w.shape[1]
+    if x.shape[1] != k_dim or group_offsets.shape != (w.shape[0] + 1,):
+        raise ValueError(f"grouped_gemm shapes: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"trans_w={trans_w}, offsets {tuple(group_offsets.shape)}")
+    if on_cpu(x, w, group_offsets):
+        return grouped_gemm_plain(x, w, group_offsets, policy=policy, trans_w=trans_w)
+    x, w = _operand(x), _operand(w)
+    e, d, f = w.shape
+    n_rows = x.shape[0]
+    n_out = d if trans_w else f
+    out = torch.empty((n_rows, n_out), dtype=torch.float32, device=x.device)
+    if out.numel():
+        gids = tile_group_ids(group_offsets, n_rows, cta)
+        # B = w[g] (K x N): row-major (k-stride F) or, for dx, w[g]^T (k-stride 1)
+        sbk, sbn = (1, f) if trans_w else (f, 1)
+        rc = _launchers()[0](
+            x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0), 1,
+            w.data_ptr(), int(w.dtype == torch.bfloat16), d * f, sbk, sbn,
+            gids.data_ptr(), e, out.data_ptr(), n_rows, n_out, x.shape[1], cta,
+            POLICY_CODES[policy], torch.cuda.current_stream(x.device).cuda_stream,
+            _device_index(x))
+        _build.check(rc, "grouped_gemm_launch")
+        LAUNCHES["grouped_gemm"] += 1
+    return out
+
+
+def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
+                    policy: str = "bf16") -> torch.Tensor:
+    """dw[g] = x_g^T @ dy_g over group g's rows [offsets[g], offsets[g+1]);
+    f32 (E, D, F), zero for an empty run.  x: (N, D), dy: (N, F).  CPU
+    tensors run ``grouped_gemm_dw_plain``; CUDA tensors launch the
+    kernel or raise."""
+    _check_policy(policy)
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"grouped_gemm_dw expects (N,D), (N,F); got {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}")
+    if on_cpu(x, dy, group_offsets):
+        return grouped_gemm_dw_plain(x, dy, group_offsets, policy=policy)
+    x, dy = _operand(x), _operand(dy)
+    e = group_offsets.shape[0] - 1
+    d, f = x.shape[1], dy.shape[1]
+    dw = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
+    if dw.numel():
+        offsets = group_offsets.to(torch.int32).contiguous()
+        rc = _launchers()[1](
+            x.data_ptr(), int(x.dtype == torch.bfloat16), dy.data_ptr(),
+            int(dy.dtype == torch.bfloat16), offsets.data_ptr(), e, dw.data_ptr(), d, f,
+            POLICY_CODES[policy], torch.cuda.current_stream(x.device).cuda_stream,
+            _device_index(x))
+        _build.check(rc, "grouped_gemm_dw_launch")
+        LAUNCHES["grouped_gemm_dw"] += 1
+    return dw
+
+
+class _Grouped(torch.autograd.Function):
+    """Twin of the JAX ``_grouped`` custom VJP: dx is the forward kernel
+    against w^T (``trans_w``), dW the dW kernel, both on the forward's
+    rung; gradients come back in the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_offsets, bm, policy):
+        ctx.save_for_backward(x, w, group_offsets)
+        ctx.bm, ctx.policy = bm, policy
+        return grouped_gemm(x, w, group_offsets, bm=bm, policy=policy)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, offsets = ctx.saved_tensors
+        g = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_gemm(g, w, offsets, bm=ctx.bm, policy=ctx.policy,
+                              trans_w=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_gemm_dw(x, g, offsets, policy=ctx.policy).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def grouped(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
+            bm: int, policy: str = "bf16") -> torch.Tensor:
+    """Differentiable ``grouped_gemm`` (the ``cuda_grouped`` impl's call)."""
+    return _Grouped.apply(x, w, group_offsets, bm, policy)

@@ -18,6 +18,8 @@ wait for their slices (their flags are absent).
     python -m repro_torch.launch.serve --arch gemma3-1b \\
         --backend gemm=cuda --backend attention=cuda_fused \\
         [--kv-layout paged [--kv-quant int8]]
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --backend gemm=cuda \\
+        --backend attention=cuda_fused --backend grouped=cuda_grouped
 """
 
 from __future__ import annotations
@@ -157,6 +159,9 @@ class ServeEngine:
             raise ValueError(f"unknown kv_layout {kv_layout!r}; one of ('dense', 'paged')")
         if kv_quant is not None and kv_layout != "paged":
             raise ValueError("kv_quant requires kv_layout='paged'")
+        if kv_layout == "paged" and cfg.family != "dense":
+            raise ValueError(f"kv_layout='paged' serves the dense family only; "
+                             f"{cfg.name} is {cfg.family!r}")
         self.kv_layout = kv_layout
         self.kv_page_size = kv_page_size
         self.kv_quant = kv_quant
@@ -534,7 +539,8 @@ def main(argv=None) -> None:
                     metavar="FAMILY=IMPL",
                     help="op-registry routing, repeatable: 'family=impl' "
                          f"(families: {', '.join(ops.families())}; impls: "
-                         "gemm torch|cuda, attention torch|cuda_fused)")
+                         "gemm torch|cuda, attention torch|cuda_fused, "
+                         "grouped torch|cuda_grouped)")
     ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
                     help="attention KV cache layout: 'dense' per-slot ring "
                          "buffers, or 'paged' fixed-size pages behind a "

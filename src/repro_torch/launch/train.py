@@ -18,6 +18,7 @@ Usage (CPU-scale example):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --smoke --device cpu --steps 5 --batch 2 --seq 32 \\
       --backend gemm=cuda --backend attention=cuda_fused
+  (an MoE arch: --arch mixtral-8x7b ... --backend grouped=cuda_grouped)
 """
 
 from __future__ import annotations
@@ -105,6 +106,7 @@ class TrainLoop:
                 stats = self.monitor.stop()
                 history.append(loss)
                 self.log.append({"step": i + 1, "loss": loss,
+                                 "aux_loss": float(metrics["aux_loss"]),
                                  "grad_norm": float(metrics["grad_norm"]),
                                  "lr": float(metrics["lr"]), "step_s": stats.last_s})
                 if stats.straggler:
@@ -140,7 +142,8 @@ def main(argv=None) -> None:
                     metavar="FAMILY=IMPL",
                     help="op-registry routing, repeatable: 'family=impl' "
                          f"(families: {', '.join(ops.families())}; impls: "
-                         "gemm torch|cuda, attention torch|cuda_fused)")
+                         "gemm torch|cuda, attention torch|cuda_fused, "
+                         "grouped torch|cuda_grouped)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=3e-4)

@@ -1,6 +1,6 @@
 """Family-dispatching facade (twin of ``repro.models.api``) for the
-``dense`` family: runtime/ and launch/ talk to models only through
-this module.  ``policy`` is a ``PrecisionPolicy`` (matmuls on the
+``dense`` and ``moe`` families: runtime/ and launch/ talk to models only
+through this module.  ``policy`` is a ``PrecisionPolicy`` (matmuls on the
 ``torch`` reference) or an ``ExecutionPolicy`` (plus the
 ``backends: {family: impl}`` routing onto the CUDA kernels).
 """
@@ -14,18 +14,21 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import transformer as T
 from repro_torch.runtime.device import resolve_device
 
-__all__ = ["init_params", "init_cache", "loss_fn", "prefill", "decode"]
+__all__ = ["AUX_LOSS_WEIGHT", "init_params", "init_cache", "loss_fn", "prefill", "decode"]
+
+# weight of the MoE load-balancing loss in the training loss
+AUX_LOSS_WEIGHT = 0.01
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported; only 'dense'")
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family not in T.FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not ported; only {T.FAMILIES}")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str) -> dict:
     """Params on ``device``, drawn from ``generator``."""
-    _dense(cfg)
+    _ported(cfg)
     return T.init_params(cfg, generator, device)
 
 
@@ -34,29 +37,28 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                device: torch.device | str = "cuda") -> list:
     """Dense decode cache (an ``AttnCache`` per attention sublayer) on
     ``device``: the card unless the caller asks for the CPU."""
-    _dense(cfg)
+    _ported(cfg)
     return T.init_cache(cfg, batch, s_ctx, dtype, resolve_device(device))
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
-            policy: PrecisionPolicy, remat: bool = False,
-            ) -> tuple[torch.Tensor, dict]:
+            policy: PrecisionPolicy, remat: bool = False) -> tuple[torch.Tensor, dict]:
     """Training loss for one (micro)batch of tokens and labels (B, S).
-    Returns (total, {"loss", "aux_loss"}); the dense family has no
-    auxiliary loss, so total is the LM loss."""
-    _dense(cfg)
-    logits, _ = T.forward(params, batch["tokens"], cfg, policy=policy,
-                          mode="train", remat=remat)
+    Returns (loss + AUX_LOSS_WEIGHT * aux, {"loss", "aux_loss"}); the aux
+    loss is the MoE load-balancing loss (0 for the dense family)."""
+    _ported(cfg)
+    logits, _, aux = T.forward(params, batch["tokens"], cfg, policy=policy,
+                               mode="train", remat=remat)
     loss = T.lm_loss(logits, batch["labels"])
-    return loss, {"loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
+    return loss + AUX_LOSS_WEIGHT * aux, {"loss": loss, "aux_loss": aux}
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, *,
             policy: PrecisionPolicy):
     """Context ingestion.  Returns (last-position logits (B,1,V), cache)."""
-    _dense(cfg)
-    logits, cache = T.forward(params, batch["tokens"], cfg, policy=policy,
-                              mode="prefill", last_only=True)
+    _ported(cfg)
+    logits, cache, _ = T.forward(params, batch["tokens"], cfg, policy=policy,
+                                 mode="prefill", last_only=True)
     return logits, cache
 
 
@@ -64,9 +66,10 @@ def decode(params: dict, cache: list, tokens: torch.Tensor, pos, cfg: ModelConfi
            *, policy: PrecisionPolicy):
     """One decode step: tokens (B,1), ``pos`` the per-row position vector
     (B,) (a scalar broadcasts).  Updates ``cache`` in place."""
-    _dense(cfg)
+    _ported(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.dim() == 0:
         pos = pos.expand(tokens.shape[0])
-    return T.forward(params, tokens, cfg, policy=policy, mode="decode",
-                     cache=cache, pos=pos)
+    logits, cache, _ = T.forward(params, tokens, cfg, policy=policy, mode="decode",
+                                 cache=cache, pos=pos)
+    return logits, cache

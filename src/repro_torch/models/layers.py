@@ -34,11 +34,13 @@ def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
-                bias: bool = False, scale: float | None = None) -> Params:
+                bias: bool = False, scale: float | None = None,
+                stack: tuple[int, ...] = ()) -> Params:
+    """A (*stack, d_in, d_out) weight (``stack``: the experts of an MoE)."""
     scale = (d_in ** -0.5) if scale is None else scale
-    p = {"w": _normal(gen, (d_in, d_out), scale)}
+    p = {"w": _normal(gen, (*stack, d_in, d_out), scale)}
     if bias:
-        p["b"] = torch.zeros(d_out, dtype=torch.float32, device=gen.device)
+        p["b"] = torch.zeros((*stack, d_out), dtype=torch.float32, device=gen.device)
     return p
 
 

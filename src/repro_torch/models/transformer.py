@@ -1,11 +1,13 @@
 """Decoder-only LM over the config's segment programs (twin of
-``repro.models.transformer``), dense kinds only: ``attn``,
-``attn_local`` and ``mlp``.
+``repro.models.transformer``), for the dense and moe families: kinds
+``attn``, ``attn_local``, ``mlp`` and ``moe``.
 
 The JAX package stacks each segment's params on a ``count`` axis and
 runs ``lax.scan``; the port keeps one flat list of sublayers in the same
 execution order (``configs.base.layer_kinds``) and runs a Python loop.
 ``params["layers"][i]`` and ``cache[i]`` belong to sublayer ``i``.
+``forward`` returns the MoE sublayers' load-balancing loss summed over
+the stack, as the JAX package's third value.
 With ``remat`` each period of a segment's pattern (one scan step in the
 JAX package, which wraps it in ``jax.checkpoint``) runs under
 ``torch.utils.checkpoint``: its activations are recomputed in the
@@ -22,19 +24,21 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.attention import AttnCache, attention, init_attn
 
 __all__ = ["init_params", "forward", "init_cache", "lm_loss"]
 
 _ATTN_KINDS = ("attn", "attn_local")
+FAMILIES = ("dense", "moe")
 
 
 def _check_kinds(cfg: ModelConfig) -> list[str]:
     kinds = layer_kinds(cfg)
-    bad = sorted({k for k in kinds if k not in (*_ATTN_KINDS, "mlp")})
-    if bad or cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: the port runs dense attn/attn_local/mlp "
-                         f"stacks; got family {cfg.family!r}, kinds {bad}")
+    bad = sorted({k for k in kinds if k not in (*_ATTN_KINDS, "mlp", "moe")})
+    if bad or cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: the port runs {FAMILIES} stacks of "
+                         f"attn/attn_local/mlp/moe; got family {cfg.family!r}, kinds {bad}")
     return kinds
 
 
@@ -59,6 +63,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                            **init_attn(generator, cfg.d_model, cfg.num_heads,
                                        cfg.num_kv_heads, cfg.head_dim,
                                        bias=cfg.qkv_bias)})
+        elif kind == "moe":
+            layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
+                           **M.init_moe(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.num_experts, cfg.mlp_kind)})
         else:
             layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
                            **L.init_mlp(generator, cfg.d_model, cfg.d_ff,
@@ -80,7 +88,7 @@ def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype, device: torch.device | str) -> list:
     """Pre-allocated decode cache on ``device``: an ``AttnCache`` per
-    attention sublayer, None per mlp sublayer."""
+    attention sublayer, None per mlp or moe sublayer."""
     cache: list = []
     for kind in _check_kinds(cfg):
         cap = cache_capacity(kind, cfg, s_ctx)
@@ -95,7 +103,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
 
 def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
               policy: PrecisionPolicy, mode: str, cache, pos):
-    """One pre-norm residual sublayer.  Returns (x, new cache or None)."""
+    """One pre-norm residual sublayer.  Returns (x, new cache or None,
+    aux loss or None)."""
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     if kind in _ATTN_KINDS:
         out, nc = attention(
@@ -105,8 +114,14 @@ def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
             window=cfg.window if kind == "attn_local" else None,
             softcap=cfg.attn_logit_softcap,
             cache=cache if mode == "decode" else None, pos=pos)
-        return x + out, (nc if mode != "train" else None)
-    return x + L.mlp(p, xn, cfg.mlp_kind, policy.for_("mlp")), None
+        return x + out, (nc if mode != "train" else None), None
+    if kind == "moe":
+        out, aux = M.moe_ffn(
+            p, xn, num_experts=cfg.num_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,
+            policy=policy.for_("moe"), dropless=(mode == "decode"))
+        return x + out, None, aux
+    return x + L.mlp(p, xn, cfg.mlp_kind, policy.for_("mlp")), None, None
 
 
 def _periods(cfg: ModelConfig) -> list[tuple[int, int]]:
@@ -123,39 +138,43 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             policy: PrecisionPolicy, mode: str = "train",
             cache: list | None = None, pos: torch.Tensor | None = None,
             last_only: bool = False, remat: bool = False,
-            ) -> tuple[torch.Tensor, list]:
+            ) -> tuple[torch.Tensor, list, torch.Tensor]:
     """Run the LM stack.  tokens (B, S) int; mode train | prefill |
     decode; decode takes the per-row ``pos`` (B,) and updates ``cache``
     in place.  ``last_only`` projects only the last position onto the
     vocabulary (each row of the unembed is independent, so its logits
     equal the full projection's last row).  ``remat`` (train) recomputes
     each period's activations in the backward.  Returns (logits f32,
-    cache).
+    cache, aux loss f32: the MoE sublayers' sum, 0 without them).
     """
     kinds = _check_kinds(cfg)
     dtype = getattr(torch, cfg.activation_dtype)
     x = L.embed(params["embed"], tokens, dtype)
     new_cache: list = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for start, stop in _periods(cfg):
         def period(x, start=start, stop=stop):
-            ncs = []
+            ncs, a = [], torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(start, stop):
-                x, nc = _sublayer(kinds[i], params["layers"][i], x, cfg=cfg,
-                                  policy=policy, mode=mode, pos=pos,
-                                  cache=cache[i] if cache is not None else None)
+                x, nc, ai = _sublayer(kinds[i], params["layers"][i], x, cfg=cfg,
+                                      policy=policy, mode=mode, pos=pos,
+                                      cache=cache[i] if cache is not None else None)
                 ncs.append(nc)
-            return x, ncs
+                if ai is not None:
+                    a = a + ai
+            return x, ncs, a
 
         if remat and mode == "train":
-            x, ncs = checkpoint(period, x, use_reentrant=False)
+            x, ncs, a = checkpoint(period, x, use_reentrant=False)
         else:
-            x, ncs = period(x)
+            x, ncs, a = period(x)
         new_cache.extend(ncs)
+        aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     table = params["embed" if cfg.tie_embeddings else "unembed"]
-    return L.unembed(table, x, policy.for_("logits")), new_cache
+    return L.unembed(table, x, policy.for_("logits")), new_cache, aux
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

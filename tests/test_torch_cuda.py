@@ -18,6 +18,7 @@ from repro_torch.core.ops import paged
 from repro_torch.core.ops.registry import LADDER_BOUNDS
 from repro_torch.kernels import attention_fused as af
 from repro_torch.kernels import attention_paged as ap
+from repro_torch.kernels import gemm_grouped as gg
 from repro_torch.kernels import gemm_lowp as gl
 from repro_torch.kernels import gemm_refined as gr
 from repro_torch.kernels import gemm_tiled as gt
@@ -208,6 +209,11 @@ def test_cuda_tensors_never_take_the_plain_path(dev, monkeypatch):
     before = gt.LAUNCHES
     gt.gemm_tiled(torch.ones(4, 8, device=dev), torch.ones(8, 4, device=dev))
     assert gt.LAUNCHES == before + 1
+    monkeypatch.setattr(gg, "grouped_gemm_plain", boom)
+    monkeypatch.setattr(gg, "grouped_gemm_dw_plain", boom)
+    off = torch.tensor([0, 16, 32], dtype=torch.int32, device=dev)
+    gg.grouped_gemm(torch.ones(32, 8, device=dev), torch.ones(2, 8, 4, device=dev), off, bm=16)
+    gg.grouped_gemm_dw(torch.ones(32, 8, device=dev), torch.ones(32, 4, device=dev), off)
 
 
 def _paged_pool(rng, dev, b, s_cache, kv, hd, ps, quant, dtype):
@@ -300,3 +306,89 @@ def test_gemm_lowp_batched_and_routed(dev):
     assert gl.LAUNCHES == before + 1
     y_ref = gl.gemm_lowp_plain(x.reshape(300, 272), w, "int8x3", 256, 256, 256).reshape(2, 150, 300)
     assert (y - y_ref).abs().max().item() <= LOWP_REL * y_ref.abs().max().item()
+
+
+def _grouped_layout(rng, sizes, bm, d, dev, dtype, noise=False):
+    """x sorted by group, runs aligned to bm (at least one tile), padding
+    rows zero (or noise, for the dead-tile check), plus 2 dead tiles."""
+    aligned = np.maximum(-(-np.asarray(sizes) // bm) * bm, bm)
+    offsets = np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)
+    x = np.zeros((int(offsets[-1]) + 2 * bm, d), np.float32)
+    if noise:
+        x[:] = rng.uniform(-1, 1, x.shape)
+    for g, sz in enumerate(sizes):
+        x[offsets[g]:offsets[g] + sz] = rng.uniform(-1, 1, (sz, d))
+    return (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(offsets).to(dev))
+
+
+@pytest.mark.parametrize("policy", list(gg.POLICY_CODES))
+@pytest.mark.parametrize("sizes,bm", [([17, 3, 0, 40], 16), ([70, 0, 5], 64),
+                                      ([100, 130, 1], 128)])
+@pytest.mark.parametrize("trans_w", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_matches_plain(dev, policy, sizes, bm, trans_w, dtype):
+    """Forward and dx (w^T through swapped strides), an empty group, ragged
+    D and F, both CTA row tiles; dead tiles (past offsets[E]) store 0."""
+    rng = np.random.default_rng(len(sizes) + bm)
+    d, f = 132, 200
+    x, off = _grouped_layout(rng, sizes, bm, f if trans_w else d, dev, dtype)
+    w = _u(rng, (len(sizes), d, f), dev)
+    before = gg.LAUNCHES["grouped_gemm"]
+    out = gg.grouped_gemm(x, w, off, bm=bm, policy=policy, trans_w=trans_w)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES["grouped_gemm"] == before + 1
+    ref = gg.grouped_gemm_plain(x, w, off, policy=policy, trans_w=trans_w)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
+    assert not out[int(off[-1]):].any()
+
+
+def test_grouped_gemm_dead_tiles_skip_their_rows(dev):
+    """Rows past offsets[E] come back zero whatever they hold."""
+    rng = np.random.default_rng(3)
+    x, off = _grouped_layout(rng, [20, 9], 16, 64, dev, torch.float32, noise=True)
+    w = _u(rng, (2, 64, 48), dev)
+    out = gg.grouped_gemm(x, w, off, bm=16)
+    torch.cuda.synchronize()
+    assert not out[int(off[-1]):].any()
+    ref = gg.grouped_gemm_plain(x, w, off)
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
+
+
+@pytest.mark.parametrize("policy", list(gg.POLICY_CODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_dw_matches_plain(dev, policy, dtype):
+    """dw[g] over each group's run; an empty run's block is exactly 0."""
+    rng = np.random.default_rng(5)
+    sizes, bm = [37, 0, 64, 5], 16
+    x, off = _grouped_layout(rng, sizes, bm, 130, dev, dtype)
+    dy = _u(rng, (x.shape[0], 72), dev)
+    before = gg.LAUNCHES["grouped_gemm_dw"]
+    dw = gg.grouped_gemm_dw(x, dy, off, policy=policy)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES["grouped_gemm_dw"] == before + 1
+    ref = gg.grouped_gemm_dw_plain(x, dy, off, policy=policy)
+    assert dw.shape == ref.shape == (4, 130, 72) and torch.isfinite(dw).all()
+    # |terms| <= 1, runs of up to 64 rows: f32 sums in another order
+    assert (dw - ref).abs().max().item() <= GEMM_ATOL
+    assert not dw[1].any()
+
+
+def test_grouped_autograd_runs_the_kernels(dev):
+    """The routed grouped matmul's backward is the dx and dW kernels."""
+    from repro_torch.core import ops
+    rng = np.random.default_rng(9)
+    x, off = _grouped_layout(rng, [30, 2, 0], 16, 96, dev, torch.float32)
+    w = _u(rng, (3, 96, 80), dev).requires_grad_(True)
+    x.requires_grad_(True)
+    route = ops.Route("bf16", {"grouped": "cuda_grouped"})
+    before = dict(gg.LAUNCHES)
+    out = ops.grouped_matmul(x, w, off, policy=route, bm=16)
+    dx, dw = torch.autograd.grad(out.square().sum(), (x, w))
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES["grouped_gemm"] == before["grouped_gemm"] + 2
+    assert gg.LAUNCHES["grouped_gemm_dw"] == before["grouped_gemm_dw"] + 1
+    g = 2 * out.detach()
+    assert (dx - gg.grouped_gemm_plain(g, w.detach(), off, trans_w=True)).abs().max() <= 1e-2
+    assert (dw - gg.grouped_gemm_dw_plain(x.detach(), g, off)).abs().max() <= 1e-2
+    assert not dw[2].any()

@@ -273,7 +273,7 @@ def test_train_step_matches_repro(jparams, repro_kv_tile, route, activation_dtyp
     assert abs(float(tm["loss"]) - float(jm["loss"])) <= (F32_ATOL if f32 else BF16_LOSS_ATOL)
     assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
                                                    rel=F32_RTOL if f32 else BF16_GRAD_REL)
-    jg = dict(leaves_with_paths(from_jax_numpy(jax.tree.map(np.asarray, jgrads), tcfg)))
+    jg = dict(leaves_with_paths(from_jax_numpy(jax.tree.map(np.asarray, jgrads), tcfg, "cpu")))
     assert list(jg) == [p for p, _ in leaves_with_paths(tnew)]
     for (path, ref), got in zip(jg.items(), tgrads):
         ref, got = ref.numpy(), got.numpy()
@@ -282,8 +282,8 @@ def test_train_step_matches_repro(jparams, repro_kv_tile, route, activation_dtyp
         else:
             rel = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
             assert rel <= BF16_GRAD_REL, (path, rel)
-    jp = dict(leaves_with_paths(from_jax_numpy(jax.tree.map(np.asarray, jnew), tcfg)))
-    p0 = dict(leaves_with_paths(from_jax_numpy(jax.tree.map(np.asarray, jparams), tcfg)))
+    jp = dict(leaves_with_paths(from_jax_numpy(jax.tree.map(np.asarray, jnew), tcfg, "cpu")))
+    p0 = dict(leaves_with_paths(from_jax_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")))
     lr, wd = OPT["lr"], 0.1
     for (path, ref), got in zip(jp.items(), leaves(tnew)):
         ref, got = ref.numpy(), got.detach().numpy()
