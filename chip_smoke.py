@@ -69,7 +69,41 @@ Phases, each printing one JSON line:
    forward, dx and dW kernels included; step 0's per-token loss, aux loss
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
-10. kernels — one line listing each kernel's launches (per path), error
+Phases 10 and 11 run right after 6, while gemma3's params are loaded;
+12 runs after 9, once Mixtral is freed.
+
+10. serve_naive — gemma3-1b again (full width and depth, the serve
+   phase's params, requests, slots and context) on the paper's unstaged
+   GEMM: ``gemm=cuda_naive, attention=cuda_fused`` with the serve policy,
+   so the refine_ab unembed runs as four naive bf16 passes.  Every request
+   must finish; the naive GEMM and both flash kernels must launch and the
+   tiled and refined GEMMs must not; one prompt's prefill logits are held
+   against the ``torch`` routes (the serve phase's bound, same greedy
+   token); a decode tick is profiled.
+11. batched — the paper's Fig. 7 path through its entry point,
+   ``kernels.ops.gemm_batched``, at n = 16 and G = 256, 1024, 4096 and
+   16384 on ``torch``, ``cuda`` (packed) and ``cuda_naive`` (a warp per
+   matrix), beside f32 ``torch.bmm`` with TF32 off (the paper's batched
+   SGEMM): ms and TFLOP/s per backend, each kernel output held against
+   ``torch``.
+12. serve_rwkv — RWKV-6 7B at full width and depth (32 layers, d_model
+   4096, 64 heads of 64, d_ff 14336, vocab 65536; random f32 weights from a
+   seeded generator, 30.2 GB) behind the same engine on ``gemm=cuda`` with
+   the serve policy: the same 8 prompt lengths (ids within 65536), 32 new
+   tokens each, 4 slots.  Every request must finish and the tiled and
+   refined GEMMs launch.  On the prompt whose last token sits earliest in
+   its 64-step WKV chunk, every layer at the serve policy (the same input
+   on both routes) and the prefill logits at f32 activations on the
+   refine_ab rung are held against the ``torch`` routes (the serve
+   policy's logits, which this random 32-layer stack scatters by ~1 from
+   any summation order, are not checked), each with a faulty reference (the
+   WKV state reset at every chunk boundary) above its bound.  The ``wkv6``
+   kernel, which the model does
+   not call (as in the JAX package), is driven through its own entry point
+   on each prompt's first-layer r/k/v/logw/u (the ``wkv6`` path) and held
+   against the model's chunked form at f32; its check row takes the
+   665-token prompt's.  Then a profiled prefill and decode tick.
+13. kernels — one line listing each kernel's launches (per path), error
    and times.
 
 The ``check`` phase also holds the flash kernels at Mixtral's head shape
@@ -80,6 +114,15 @@ with group sizes from a seeded skewed draw and a faulty control (every
 group against its neighbouring expert; for dW, run boundaries moved by
 one tile) above the bound.
 
+The ``check`` phase also holds the paper's naive GEMM at gemma3's prefill
+MLP and decode unembed and at a square 4096^3 point (Fig. 6, with the
+tiled kernel, bf16 cuBLAS and f32 SGEMM beside it), both batched kernels
+at n = 16 (G = 256 and 16384) and n = 8, 32, 64 (G = 4096) with the B
+batch rolled by one matrix as their control, and ``wkv6`` at B = 4,
+S = 1024, H = 64 on the JAX test's input recipe, against its chunked plain
+version and the sequential recurrence, with the state reset at every
+chunk boundary as its control (its bound on the f32 CUDA-core rate).
+
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a GPU, or without ``src/repro_torch`` beside
 this file, nothing is measured and the script exits 1.
@@ -88,6 +131,7 @@ this file, nothing is measured and the script exits 1.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -99,6 +143,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_LOWP_OPS = 1979e12       # H100 SXM dense fp8 / int8 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32 rate on the CUDA cores (no tensor cores)
 
 # kernel-vs-plain bounds (max |kernel - plain|): same bf16 terms, exact
 # products, f32 sums in another order; for attention also expf ulps and
@@ -168,6 +213,33 @@ MOE_STEP0_AUX_BOUND = 1e-2
 MOE_STEP0_GRAD_BOUND = STEP0_GRAD_BOUND
 
 
+# batched small GEMMs vs their plain versions (n <= 64, |terms| ~ 1): the
+# same exact bf16 products, f32 sums in another order.
+BATCHED_BOUND = 1e-4
+# wkv6 vs its chunked plain version and the sequential recurrence: f32
+# throughout, sums in other orders and exp ulps (TestWKV6Kernel's 1e-4).
+# Absolute on the JAX test's input recipe; on the model's layer inputs,
+# relative to the largest |out| (and |state|) of the plain version.
+WKV_BOUND = 1e-4
+# serve_rwkv.  This random full-size stack amplifies a rounding difference
+# some 300-fold over its 32 layers: on the H100 the serve policy's two
+# routes, each running on its own outputs, part by one bf16 ulp (0.125 at
+# |x| 30) after layer 0 and by 43 (at |x| 173) after layer 31, and their
+# prefill logits by 1.04 (0.60 at f32 activations) with another greedy
+# token, each route 2.0 from the f32 model (PERF.md records these
+# readings); so the serve policy's logits cannot tell a fault from a
+# summation order, and are not checked.  Gated, each with the
+# chunk-reset control above it: (a) every layer at the serve policy on the
+# same input on both routes, max |kernel - torch| over the layer's max
+# |out| (one layer read 0.004-0.009); (b) the prefill logits on f32
+# activations at the refine_ab rung (every projection, WKV contraction and
+# the unembed on gemm_refined), against the torch routes at that rung, with
+# the same greedy token.  On the H100: (a) 0.0029-0.0072 over the 32
+# layers, every layer's control 0.13-0.68; (b) 0.0024, the control 6.3.
+RWKV_LAYER_BOUND = 2 ** -5
+RWKV_LOGITS_BOUND = 2e-2
+
+
 TRAIN_STEPS = 3
 # kernel -> (source under src/repro_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
@@ -181,6 +253,10 @@ KERNELS = {
     "gemm_lowp": ("gemm_lowp.cu", "src/repro/kernels/gemm_lowp.py:65"),
     "grouped_gemm": ("gemm_grouped.cu", "src/repro/kernels/gemm_grouped.py:131"),
     "grouped_gemm_dw": ("gemm_grouped.cu", "src/repro/kernels/gemm_grouped.py:194"),
+    "gemm_naive": ("gemm_naive.cu", "src/repro/kernels/gemm_naive.py:29"),
+    "batched_gemm": ("batched_gemm.cu", "src/repro/kernels/batched_gemm.py:42"),
+    "batched_gemm_naive": ("batched_gemm.cu", "src/repro/kernels/batched_gemm.py:105"),
+    "wkv6": ("wkv6.cu", "src/repro/kernels/wkv6.py:37"),
 }
 SERVE_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_decode")
 PAGED_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_paged_decode")
@@ -191,6 +267,9 @@ TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 SERVE_MOE_KERNELS = SERVE_KERNELS + ("grouped_gemm",)
 TRAIN_MOE_KERNELS = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_dw")
 MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 4, 2
+SERVE_NAIVE_KERNELS = ("gemm_naive", "flash_attention", "flash_decode")
+BATCHED_KERNELS = ("batched_gemm", "batched_gemm_naive")
+SERVE_RWKV_KERNELS = ("gemm_tiled", "gemm_refined")
 
 
 def zero_launches(mods) -> None:
@@ -239,10 +318,15 @@ def main() -> None:
     from repro_torch.core.ops import paged
     from repro_torch.kernels import attention_fused as af
     from repro_torch.kernels import attention_paged as ap
+    from repro_torch.kernels import batched_gemm as bg
     from repro_torch.kernels import gemm_grouped as gg
     from repro_torch.kernels import gemm_lowp as gl
+    from repro_torch.kernels import gemm_naive as gn
     from repro_torch.kernels import gemm_refined as gr
     from repro_torch.kernels import gemm_tiled as gt
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.configs.base import Segment, execution_policy_for
     from repro_torch.core.tree import leaves
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
@@ -250,12 +334,15 @@ def main() -> None:
     from repro_torch.launch.train import TrainLoop
     from repro_torch.optim import adamw
     from repro_torch.models import api, transformer
+    from repro_torch.models import layers as layers_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rwkv as rwkv_mod
     from repro_torch.runtime import serve_step
     from repro_torch.runtime.device import resolve_device
 
     mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
-            "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES}}
+            "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES},
+            "gemm_naive": gn, **{k: bg for k in bg.LAUNCHES}, "wkv6": wk}
 
     # ------------------------------------------------------------ 1 device
     dev = resolve_device("cuda")
@@ -305,16 +392,47 @@ def main() -> None:
         p1, k1, k2, p2 = timed(plain), timed(kernel), timed(kernel), timed(plain)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
+    # A window's host clock against the CUDA kernels' own time
+    # (torch.profiler, summed by name; one stream, so they do not overlap).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profile_window(fn) -> dict:
+        torch.cuda.synchronize(dev)
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize(dev)
+        plain_wall = time.monotonic() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        per_kernel: dict[str, float] = {}
+        for e in prof.key_averages():
+            # device-side kernel events only: a PyTorch op's CPU event and
+            # an autograd.Function's annotation range carry the time of
+            # the kernels they launched as well
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            us = e.self_device_time_total
+            if us > 0:
+                per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
+        device_ms = sum(per_kernel.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+        return {"wall_ms": plain_wall * 1e3, "device_ms": device_ms,
+                "idle_share": 1.0 - device_ms / (plain_wall * 1e3),
+                "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
+
     checks: dict[str, list[dict]] = {name: [] for name in KERNELS}
 
     def max_err(outs, refs) -> float:
         return max((o - r).abs().max().item() for o, r in zip(outs, refs))
 
     def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None,
-              peak=PEAK_BF16_FLOPS, library_call=None):
+              peak=PEAK_BF16_FLOPS, library_call=None, extra=None):
         """``control``: a plain version with a deliberate fault, which
         must land outside ``err_bound`` of the kernel.  A kernel may
-        return a tuple of tensors; the error is the largest over them."""
+        return a tuple of tensors; the error is the largest over them.
+        ``extra``: more fields for the row."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize(dev)
         out = out if isinstance(out, tuple) else (out,)
@@ -336,6 +454,8 @@ def main() -> None:
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if library_call:
             row["library_call"] = library_call
+        if extra:
+            row.update(extra)
         if control:
             row["control_err"] = control_err
         emit(phase="check", kernel=name, **row)
@@ -819,6 +939,102 @@ def main() -> None:
     del x, dy, lib
     torch.cuda.empty_cache()
 
+    # ---- the paper's naive GEMM (Listing 1: a warp per 16 x 16 tile, no
+    # shared memory) at the shapes serve_naive hands it: gemma3's prefill
+    # MLP and decode unembed, f32 weights rounded to a bf16 copy per call.
+    # Then one square point of Fig. 6 on bf16 operands, with the tiled
+    # kernel (the CUTLASS column), bf16 cuBLAS (the library column) and f32
+    # SGEMM with TF32 off beside it.
+    m = 700
+    x = randn((m, d), dtype=torch.bfloat16)
+    w = randn((d, ff), d ** -0.5)
+    w16 = w.to(torch.bfloat16)
+    check("gemm_naive", f"prefill mlp {m}x{d}x{ff}", lambda: gn.gemm_naive(x, w),
+          lambda: gn.gemm_naive_plain(x, w), lambda: torch.matmul(x, w16), GEMM_BOUND,
+          2 * m * d * ff, x.numel() * 2 + w.numel() * 4 + m * ff * 4)
+    del w, w16
+    table = randn((vocab, d), d ** -0.5)
+    table16 = table.to(torch.bfloat16)
+    check("gemm_naive", f"decode unembed 4x{d}x{vocab} NT", lambda: gn.gemm_naive(xb, table.t()),
+          lambda: gn.gemm_naive_plain(xb, table.t()), lambda: torch.matmul(xb, table16.t()),
+          GEMM_BOUND, 2 * 4 * d * vocab, unembed_bytes)
+    del table, table16
+    torch.cuda.empty_cache()
+    sq = 4096
+    a_sq = randn((sq, sq), dtype=torch.bfloat16)
+    b_sq = randn((sq, sq), sq ** -0.5, torch.bfloat16)
+    a_sq32, b_sq32 = a_sq.float(), b_sq.float()
+    fig6 = {"tiled_ms": timed(lambda: gt.gemm_tiled(a_sq, b_sq)),
+            "sgemm_f32_ms": timed(lambda: torch.matmul(a_sq32, b_sq32))}
+    check("gemm_naive", f"square {sq}x{sq}x{sq} bf16 operands (Fig. 6)",
+          lambda: gn.gemm_naive(a_sq, b_sq), lambda: gn.gemm_naive_plain(a_sq, b_sq),
+          lambda: torch.matmul(a_sq, b_sq), GEMM_BOUND, 2 * sq ** 3, 2 * sq * sq * 2 + sq * sq * 4,
+          library_call="torch.matmul bf16 (cuBLAS); tiled_ms: gemm_tiled; sgemm_f32_ms: "
+                       "torch.matmul f32, TF32 off", extra=fig6)
+    del a_sq, b_sq, a_sq32, b_sq32
+
+    # ---- the batched small GEMMs (Fig. 7): bf16 operands, f32 out, n = 16
+    # at G = 256 and 16384, n = 8, 32 and 64 at G = 4096.  Yardstick:
+    # torch.bmm on the bf16 operands (bf16 out).  Control: the plain
+    # version on the B batch rolled by one matrix.
+    for n_b, g_b in ((16, 256), (16, 16384), (8, 4096), (32, 4096), (64, 4096)):
+        a_b = randn((g_b, n_b, n_b), dtype=torch.bfloat16)
+        b_b = randn((g_b, n_b, n_b), dtype=torch.bfloat16)
+        b_roll = b_b.roll(1, 0)
+        for name, kern, plain in (
+                ("batched_gemm", bg.batched_gemm, bg.batched_gemm_plain),
+                ("batched_gemm_naive", bg.batched_gemm_naive, bg.batched_gemm_naive_plain)):
+            check(name, f"G={g_b} n={n_b} bf16", lambda a=a_b, b=b_b, f=kern: f(a, b),
+                  lambda a=a_b, b=b_b, f=plain: f(a, b), lambda a=a_b, b=b_b: torch.bmm(a, b),
+                  BATCHED_BOUND, 2 * g_b * n_b ** 3, g_b * n_b * n_b * (2 + 2 + 4),
+                  control=lambda a=a_b, b=b_roll, f=plain: f(a, b),
+                  library_call="torch.bmm bf16 (bf16 out); device_ms: the kernel's own "
+                               "time in one profiled call (null: the profiler caught no kernel)",
+                  extra={"device_ms": profile_window(lambda a=a_b, b=b_b, f=kern: f(a, b))[
+                      "device_ms"] or None})
+    del a_b, b_b, b_roll
+
+    # ---- wkv6 at a full grid: B = 4, S = 1024, H = 64 (256 blocks), K = 64,
+    # chunk 64, inputs by tests/test_kernels.py's TestWKV6Kernel recipe,
+    # against the chunked plain version and the sequential recurrence
+    # (absolute).  No PyTorch call computes WKV6.  Control: the plain
+    # version with the state reset at every chunk boundary.
+    def wkv_reset_each_chunk(r, k, v, logw, u, chunk):
+        """wkv6_plain with the state reset at every chunk boundary (a fault)."""
+        parts = [wk.wkv6_plain(*(t[:, c0:c0 + chunk] for t in (r, k, v, logw)), u, chunk=chunk)
+                 for c0 in range(0, r.shape[1], chunk)]
+        return torch.cat([o for o, _ in parts], 1), parts[-1][1]
+
+    def wkv_cost(b, s, h, kd, chunk):
+        """(operations, bytes) of the chunked form: per (b, h) and chunk the
+        state read and update (2 C K^2 each), the strictly-lower scores
+        (C(C-1)/2 K terms of an exp, two products and a sum) and their
+        product with v (C(C-1)/2 K multiply-adds); r, k, v, logw read once,
+        u, out and the final state."""
+        pairs = chunk * (chunk - 1) // 2
+        per_chunk = 4 * chunk * kd * kd + pairs * kd * 4 + 2 * pairs * kd + 3 * chunk * kd
+        return (b * h * (s // chunk) * per_chunk,
+                4 * (5 * b * s * h * kd + h * kd + b * h * kd * kd))
+
+    def wkv_recipe(b, s, h, kd):
+        r, k, v = (randn((b, s, h, kd), 0.5) for _ in range(3))
+        return r, k, v, -torch.exp(randn((b, s, h, kd), 0.5) - 0.7), randn((h, kd), 0.1)
+
+    wkv_in = wkv_recipe(4, 1024, 64, 64)
+    o_k, s_k = wk.wkv6(*wkv_in, chunk=64)
+    o_r, s_r = kref.wkv6_ref(*wkv_in)
+    wkv_ref_err = max((o_k - o_r).abs().max().item(), (s_k - s_r).abs().max().item())
+    del o_k, s_k, o_r, s_r
+    check("wkv6", "recipe B=4 S=1024 H=64 K=64 chunk 64", lambda: wk.wkv6(*wkv_in, chunk=64),
+          lambda: wk.wkv6_plain(*wkv_in, chunk=64), None, WKV_BOUND,
+          *wkv_cost(4, 1024, 64, 64, 64), control=lambda: wkv_reset_each_chunk(*wkv_in, 64),
+          peak=PEAK_F32_FLOPS, library_call="none",
+          extra={"sequential_ref_err": wkv_ref_err})
+    if not wkv_ref_err <= WKV_BOUND:
+        fail(f"wkv6: max |kernel - sequential recurrence| {wkv_ref_err} > {WKV_BOUND}")
+    del wkv_in
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 4 serve
     policy = ops.ExecutionPolicy(
         default="bf16", logits="refine_ab",
@@ -964,37 +1180,8 @@ def main() -> None:
              f"{FP8X3_LOGITS_BOUND}, whose fp8 control reads {f8_err}")
 
     # ----------------------------------------------------------- 6 profile
-    # Where a 700-token prefill and a 4-slot decode tick spend their time:
-    # the host clock of the window against the CUDA kernels' own time
-    # (torch.profiler, summed by name; one stream, so they do not overlap).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def profile_window(fn) -> dict:
-        torch.cuda.synchronize(dev)
-        t = time.monotonic()
-        fn()
-        torch.cuda.synchronize(dev)
-        plain_wall = time.monotonic() - t
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize(dev)
-        per_kernel: dict[str, float] = {}
-        for e in prof.key_averages():
-            # device-side kernel events only: a PyTorch op's CPU event and
-            # an autograd.Function's annotation range carry the time of
-            # the kernels they launched as well
-            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-                continue
-            us = e.self_device_time_total
-            if us > 0:
-                per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-        device_ms = sum(per_kernel.values())
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-        return {"wall_ms": plain_wall * 1e3, "device_ms": device_ms,
-                "idle_share": 1.0 - device_ms / (plain_wall * 1e3),
-                "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
-
+    # Where a 700-token prefill and a 4-slot decode tick spend their time
+    # (profile_window, defined with the timers).
     long_prompt = {"tokens": torch.as_tensor(reqs[1].prompt, device=dev)[None].long()}
     with torch.no_grad():
         prefill_prof = profile_window(lambda: eng._prefill(params, long_prompt))
@@ -1010,7 +1197,91 @@ def main() -> None:
     emit(phase="profile", prefill_tokens=int(long_prompt["tokens"].shape[1]),
          prefill=prefill_prof, decode_tick=tick_profile(eng),
          paged_decode_tick=tick_profile(eng_pa), paged_int8_fp8x3_decode_tick=tick_profile(eng_pb))
-    del eng, eng_pa, eng_pb, params
+    del eng_pa, eng_pb
+
+    # ------------------------------------------------------ 10 serve_naive
+    # The same model, requests, slots and context on the paper's unstaged
+    # GEMM (gemm=cuda_naive; the refine_ab unembed as four naive bf16
+    # passes summed at the router).  No tiled or refined GEMM may launch.
+    naive_policy = ops.ExecutionPolicy(
+        default="bf16", logits="refine_ab",
+        backends={"gemm": "cuda_naive", "attention": "cuda_fused"},
+        require={"attention": ("decode",)})
+    eng_n = ServeEngine(cfg, batch_size=4, max_ctx=1024, policy=naive_policy, device=dev)
+    eng_n.load(params)
+    eng_n.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    reqs_n = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in reqs]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats_n = eng_n.run(reqs_n)
+    launches_n = read_launches(mods)
+    naive_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with torch.no_grad():
+        l_naive, _ = serve_step.make_prefill(cfg, naive_policy, s_ctx=1024)(params, prompt)
+    torch.cuda.synchronize(dev)
+    naive_err = (l_naive - lr).abs().max().item()
+    emit(phase="serve_naive", arch=cfg.name, policy="default=bf16 logits=refine_ab",
+         backends=dict(naive_policy.backends), requests=stats_n["requests"],
+         tokens=stats_n["tokens"], ticks=stats_n["ticks"], wall_s=stats_n["wall_s"],
+         tok_per_s=stats_n["tok_per_s"], ttft_mean_s=stats_n["ttft_mean_s"],
+         latency_mean_s=stats_n["latency_mean_s"], peak_mem_gb=naive_peak_gb,
+         launches=launches_n, finished=[len(r.out_tokens) for r in reqs_n],
+         requests_with_the_serve_phases_tokens=sum(
+             a.out_tokens == b.out_tokens for a, b in zip(reqs_n, reqs)),
+         prefill_logits_max_abs_err=naive_err, prefill_logits_bound=LOGITS_BOUND,
+         prefill_argmax_agrees=bool(l_naive.argmax() == lr.argmax()),
+         decode_tick=tick_profile(eng_n))
+    if not all(r.done and len(r.out_tokens) == 32 for r in reqs_n):
+        fail(f"serve_naive: not every request finished with 32 tokens: "
+             f"{[(r.rid, r.done, len(r.out_tokens)) for r in reqs_n]}")
+    if any(not 0 <= t < vocab for r in reqs_n for t in r.out_tokens):
+        fail("serve_naive: a token outside the vocabulary")
+    if not all(launches_n[k] > 0 for k in SERVE_NAIVE_KERNELS):
+        fail(f"serve_naive: a kernel of the path never launched: {launches_n}")
+    if launches_n["gemm_tiled"] or launches_n["gemm_refined"]:
+        fail(f"serve_naive: a tiled or refined GEMM launched on the naive route: {launches_n}")
+    if not naive_err <= LOGITS_BOUND or l_naive.argmax() != lr.argmax():
+        fail(f"serve_naive: prefill logits {naive_err} against {LOGITS_BOUND}, or another "
+             f"greedy token than the torch routes")
+    del eng, eng_n, params, l_naive
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 11 batched
+    # The Fig. 7 path through its entry point, kernels.ops.gemm_batched, at
+    # n = 16 on torch (one bmm), cuda (packed) and cuda_naive (a warp per
+    # matrix), beside f32 torch.bmm with TF32 off (the paper's batched
+    # SGEMM).  One call per (G, backend) is the path's run; then the timings.
+    batched_in = {g_b: (randn((g_b, 16, 16), dtype=torch.bfloat16),
+                        randn((g_b, 16, 16), dtype=torch.bfloat16))
+                  for g_b in (256, 1024, 4096, 16384)}
+    zero_launches(mods)
+    batched_out = {g_b: {be: kops.gemm_batched(a_b, b_b, backend=be)
+                         for be in ("torch", "cuda", "cuda_naive")}
+                   for g_b, (a_b, b_b) in batched_in.items()}
+    torch.cuda.synchronize(dev)
+    launches_bt = read_launches(mods)
+    batched_rows = []
+    for g_b, (a_b, b_b) in batched_in.items():
+        outs = batched_out[g_b]
+        a32, b32 = a_b.float(), b_b.float()
+        ms = {be: timed(lambda be=be: kops.gemm_batched(a_b, b_b, backend=be))
+              for be in ("torch", "cuda", "cuda_naive")}
+        ms["sgemm_f32_bmm"] = timed(lambda: torch.bmm(a32, b32))
+        flops_b = 2 * g_b * 16 ** 3
+        batched_rows.append({
+            "G": g_b, "n": 16, "ms": ms,
+            "tflops": {be: flops_b / (t * 1e-3) / 1e12 for be, t in ms.items()},
+            "max_abs_err_vs_torch": {be: (outs[be] - outs["torch"]).abs().max().item()
+                                     for be in ("cuda", "cuda_naive")}})
+    # ms: CUDA events around back-to-back calls, host-bound where a call's
+    # launch outlasts its kernel (the check rows' device_ms has the kernels')
+    emit(phase="batched", n=16, rows=batched_rows, launches=launches_bt, bound=BATCHED_BOUND)
+    if not all(launches_bt[k] > 0 for k in BATCHED_KERNELS):
+        fail(f"batched: a kernel of the path never launched: {launches_bt}")
+    if not all(e <= BATCHED_BOUND for r in batched_rows
+               for e in r["max_abs_err_vs_torch"].values()):
+        fail(f"batched: a kernel output differs from torch beyond {BATCHED_BOUND}")
+    del batched_in, batched_out
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 7 train
@@ -1334,17 +1605,215 @@ def main() -> None:
         fail(f"train_moe: non-finite loss or grad norm: {mloop.log}")
     if moe_faults:
         fail("; ".join(moe_faults) + f": {mstep0}")
+    # free Mixtral (the training loop's last optimizer state is bound to _)
+    _ = None
+    del mloop, mbatch0
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 10 kernels
+    # ------------------------------------------------------- 12 serve_rwkv
+    # RWKV-6 7B at full width and depth on gemm=cuda with the serve policy.
+    rcfg = get_config("rwkv6-7b")
+    rvocab, rchunk, rhd = rcfg.vocab_size, rcfg.rwkv_chunk, rcfg.rwkv_head_dim
+    rpolicy = ops.ExecutionPolicy(default="bf16", logits="refine_ab", backends={"gemm": "cuda"})
+    rref_policy = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+    mem_before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.monotonic()
+    rparams = api.init_params(rcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    r_init_s = time.monotonic() - t0
+    r_n_params = sum(t.numel() for t in leaves(rparams))
+    reng = ServeEngine(rcfg, batch_size=4, max_ctx=1024, policy=rpolicy, device=dev)
+    reng.load(rparams)
+    reng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    rrng = np.random.default_rng(2)
+    rreqs = [Request(rid=i, prompt=rrng.integers(2, rvocab, int(n)).astype(np.int32),
+                     max_new_tokens=32) for i, n in enumerate(lens)]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rstats = reng.run(rreqs)
+    launches_rw = read_launches(mods)
+    r_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    rwkv_faults = []
+    if not all(r.done and len(r.out_tokens) == 32 for r in rreqs):
+        rwkv_faults.append(f"not every request finished with 32 tokens: "
+                           f"{[(r.rid, r.done, len(r.out_tokens)) for r in rreqs]}")
+    if any(not 0 <= t < rvocab for r in rreqs for t in r.out_tokens):
+        rwkv_faults.append("a token outside the vocabulary")
+    if not all(launches_rw[k] > 0 for k in SERVE_RWKV_KERNELS):
+        rwkv_faults.append(f"a kernel of the path never launched: {launches_rw}")
+
+    # the comparisons with the torch routes take the prompt (past the first
+    # chunk) whose last token sits earliest in its WKV chunk: there the
+    # carried state weighs most, so the chunk-reset control shows
+    pick = min((i for i, n in enumerate(lens) if n > rchunk), key=lambda i: (lens[i] - 1) % rchunk)
+    rprompt = {"tokens": torch.as_tensor(rreqs[pick].prompt, device=dev)[None].long()}
+    real_chunked = rwkv_mod._wkv_chunked
+
+    def chunked_reset_each_chunk(r, k, v, logw, u, chunk, policy="bf16"):
+        """The model's chunked WKV with the state reset at every chunk
+        boundary (a fault)."""
+        parts = [real_chunked(*(t[:, c0:c0 + chunk] for t in (r, k, v, logw)), u, chunk,
+                              policy=policy) for c0 in range(0, r.shape[1], chunk)]
+        return torch.cat([o for o, _ in parts], 1), parts[-1][1]
+
+    def prefill_logits(c, pol, reset=False):
+        rwkv_mod._wkv_chunked = chunked_reset_each_chunk if reset else real_chunked
+        try:
+            with torch.no_grad():
+                return serve_step.make_prefill(c, pol, s_ctx=1024)(rparams, rprompt)[0]
+        finally:
+            rwkv_mod._wkv_chunked = real_chunked
+
+    # (b) f32 activations, the refine_ab rung on every contraction
+    rcfg32 = dataclasses.replace(rcfg, activation_dtype="float32")
+    ab_kernel = ops.ExecutionPolicy(default="refine_ab", backends={"gemm": "cuda"})
+    ab_torch = ops.ExecutionPolicy(default="refine_ab")
+    rlk = prefill_logits(rcfg32, ab_kernel)
+    rlr = prefill_logits(rcfg32, ab_torch)
+    rlc = prefill_logits(rcfg32, ab_torch, reset=True)
+    if rlk.shape != (1, 1, rvocab) or not torch.isfinite(rlk).all():
+        rwkv_faults.append(f"prefill logits shape {tuple(rlk.shape)} or non-finite")
+    r_err = (rlk - rlr).abs().max().item()
+    r_ctrl = (rlc - rlr).abs().max().item()
+    if not r_err <= RWKV_LOGITS_BOUND:
+        rwkv_faults.append(f"refine_ab prefill logits {r_err} > {RWKV_LOGITS_BOUND}")
+    if rlk.argmax() != rlr.argmax():
+        rwkv_faults.append("the kernel routes pick another greedy token at refine_ab")
+    if not r_ctrl > RWKV_LOGITS_BOUND:
+        rwkv_faults.append(f"the chunk-reset control ({r_ctrl}) is within {RWKV_LOGITS_BOUND}")
+    # (a) every layer at the serve policy, both routes (and the control) on
+    # the torch route's input to that layer
+    layer_errs, layer_ctrl = [], []
+    kw = dict(head_dim=rhd, chunk=rchunk, norm_eps=rcfg.norm_eps)
+    with torch.no_grad():
+        x = layers_mod.embed(rparams["embed"], rprompt["tokens"],
+                             getattr(torch, rcfg.activation_dtype))
+        for p in rparams["layers"]:
+            x_in = x
+            out_k = rwkv_mod.rwkv6_layer(p, x_in, policy=rpolicy.for_("mlp"), **kw)[0].float()
+            x = rwkv_mod.rwkv6_layer(p, x_in, policy=rref_policy.for_("mlp"), **kw)[0]
+            rwkv_mod._wkv_chunked = chunked_reset_each_chunk
+            try:
+                out_c = rwkv_mod.rwkv6_layer(p, x_in, policy=rref_policy.for_("mlp"),
+                                             **kw)[0].float()
+            finally:
+                rwkv_mod._wkv_chunked = real_chunked
+            scale = x.float().abs().max()
+            layer_errs.append(((out_k - x.float()).abs().max() / scale).item())
+            layer_ctrl.append(((out_c - x.float()).abs().max() / scale).item())
+        del x, x_in, out_k, out_c
+    if not max(layer_errs) <= RWKV_LAYER_BOUND:
+        rwkv_faults.append(f"a layer on the kernel routes {max(layer_errs)} > {RWKV_LAYER_BOUND}")
+    if not min(layer_ctrl) > RWKV_LAYER_BOUND:
+        rwkv_faults.append(f"the chunk-reset control of a layer ({min(layer_ctrl)}) is within "
+                           f"{RWKV_LAYER_BOUND}")
+
+    # the wkv6 kernel on the model's first-layer r/k/v/logw/u, padded to the
+    # chunk with identity steps as _wkv_chunked pads
+    def layer0_wkv_inputs(prompt_ids):
+        toks = torch.as_tensor(prompt_ids, device=dev)[None].long()
+        x0 = layers_mod.embed(rparams["embed"], toks, getattr(torch, rcfg.activation_dtype))
+        p0 = rparams["layers"][0]
+        xn = layers_mod.rmsnorm(p0["norm_tm"], x0, rcfg.norm_eps)
+        prev = torch.nn.functional.pad(xn, (0, 0, 1, 0))[:, :-1]
+        r, k, v, _, logw, u = rwkv_mod.time_mix_inputs(p0, xn, prev, head_dim=rhd,
+                                                       policy=rpolicy.for_("mlp"))
+        pad = (0, 0, 0, 0, 0, -r.shape[1] % rchunk)
+        return [torch.nn.functional.pad(t, pad) for t in (r, k, v, logw)] + [u]
+
+    def rel_err(outs, refs, scales):
+        return max(((o - q).abs().max() / sc).item() for o, q, sc in zip(outs, refs, scales))
+
+    with torch.no_grad():
+        # the wkv6 path: the kernel's own entry point on every prompt's layer 0
+        wkv_inputs = [layer0_wkv_inputs(r.prompt) for r in rreqs]
+        zero_launches(mods)
+        wkv_outs = [wk.wkv6(*xs, chunk=rchunk) for xs in wkv_inputs]
+        torch.cuda.synchronize(dev)
+        launches_wkv = read_launches(mods)
+        wkv_path_err = []
+        for r, xs, (o, st) in zip(rreqs, wkv_inputs, wkv_outs):
+            n = len(r.prompt)
+            oc, sc = real_chunked(*(t[:, :n] for t in xs[:4]), xs[4], rchunk, policy="f32")
+            wkv_path_err.append(rel_err((o[:, :n], st), (oc, sc),
+                                        (oc.abs().max(), sc.abs().max())))
+        del wkv_outs
+        if not all(launches_wkv["wkv6"] == len(rreqs) and e <= WKV_BOUND
+                   for e in wkv_path_err):
+            rwkv_faults.append(f"wkv6 path: launches {launches_wkv['wkv6']}, errors relative "
+                               f"to the model's chunked form at f32 {wkv_path_err}")
+        # the check row: the 665-token prompt (B=1, H=64, K=64, padded to 704)
+        long_i = int(np.argmax(lens))
+        xs = wkv_inputs[long_i]
+        n_long = int(lens[long_i])
+        o_p, s_p = wk.wkv6_plain(*xs, chunk=rchunk)
+        scales = (o_p.abs().max(), s_p.abs().max())
+        o_r, s_r = kref.wkv6_ref(*xs)
+        o_c, s_c = real_chunked(*(t[:, :n_long] for t in xs[:4]), xs[4], rchunk, policy="f32")
+        o_k, s_k = wk.wkv6(*xs, chunk=rchunk)
+        model_errs = {"sequential_ref_rel_err": rel_err((o_k, s_k), (o_r, s_r), scales),
+                      "model_chunked_f32_rel_err": rel_err((o_k[:, :n_long], s_k), (o_c, s_c),
+                                                           scales)}
+        del o_p, s_p, o_r, s_r, o_c, s_c, o_k, s_k
+
+        def scaled(res):
+            return tuple(t / sc for t, sc in zip(res, scales))
+
+        check("wkv6", f"rwkv6-7b layer 0, {n_long}-token prompt padded to {xs[0].shape[1]}: "
+              f"B=1 H={xs[0].shape[2]} K={rhd} chunk {rchunk}, errors relative to max|out|, "
+              f"max|state|",
+              lambda: scaled(wk.wkv6(*xs, chunk=rchunk)),
+              lambda: scaled(wk.wkv6_plain(*xs, chunk=rchunk)), None, WKV_BOUND,
+              *wkv_cost(1, xs[0].shape[1], xs[0].shape[2], rhd, rchunk),
+              control=lambda: scaled(wkv_reset_each_chunk(*xs, rchunk)),
+              peak=PEAK_F32_FLOPS, library_call="none", extra=model_errs)
+        if not max(model_errs.values()) <= WKV_BOUND:
+            rwkv_faults.append(f"wkv6 on the model's inputs: {model_errs}")
+    del wkv_inputs, xs
+
+    long_rprompt = {"tokens": torch.as_tensor(rreqs[long_i].prompt, device=dev)[None].long()}
+    with torch.no_grad():
+        r_prefill_prof = profile_window(lambda: reng._prefill(rparams, long_rprompt))
+    for i in range(4):
+        reng.submit(Request(rid=100 + i, prompt=rreqs[i].prompt, max_new_tokens=16))
+    reng.step()                                 # admit (prefill) all four
+    r_tick_prof = profile_window(reng.tick)
+    reng.run([])
+    rtop2 = rlr.flatten().topk(2).values
+    emit(phase="serve_rwkv", arch=rcfg.name, layers=len(rparams["layers"]), params=r_n_params,
+         weights_gb=r_n_params * 4 / 1e9, mem_before_load_gb=mem_before_gb, init_s=r_init_s,
+         requests=rstats["requests"], prompt_lens=[int(n) for n in lens],
+         tokens=rstats["tokens"], ticks=rstats["ticks"], wall_s=rstats["wall_s"],
+         tok_per_s=rstats["tok_per_s"], ttft_mean_s=rstats["ttft_mean_s"],
+         latency_mean_s=rstats["latency_mean_s"], peak_mem_gb=r_peak_gb,
+         launches=launches_rw, logits_prompt_len=int(lens[pick]),
+         prefill_logits_policy="f32 activations, default=refine_ab",
+         prefill_logits_max_abs_err=r_err, prefill_logits_bound=RWKV_LOGITS_BOUND,
+         prefill_argmax_agrees=bool(rlk.argmax() == rlr.argmax()),
+         reference_top2_gap=(rtop2[0] - rtop2[1]).item(),
+         control_chunk_reset_err=r_ctrl, logits_absmax=rlr.abs().max().item(),
+         layer_rel_err=layer_errs, layer_bound=RWKV_LAYER_BOUND,
+         layer_control_rel_err=layer_ctrl,
+         wkv6_path_launches=launches_wkv["wkv6"], wkv6_path_rel_err=wkv_path_err,
+         prefill_tokens=int(long_rprompt["tokens"].shape[1]), prefill=r_prefill_prof,
+         decode_tick=r_tick_prof)
+    if rwkv_faults:
+        fail("serve_rwkv: " + "; ".join(rwkv_faults))
+    del reng, rparams, rlk, rlr, rlc
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 13 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
-               "serve_moe": launches_ms, "train_moe": launches_mt}
+               "serve_moe": launches_ms, "train_moe": launches_mt, "serve_naive": launches_n,
+               "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv}
     for name, (src, replaces) in KERNELS.items():
         # the row's headline check: gemma3's windowed (local-layer) case for
-        # the flash forward, the path's first shape otherwise
-        first = checks[name][1] if name == "flash_attention" else checks[name][0]
+        # the flash forward, the model's inputs for wkv6, the path's first
+        # shape otherwise
+        first = checks[name][{"flash_attention": 1, "wkv6": -1}.get(name, 0)]
         if name in TRAIN_ONLY:
             path_launches = train_launches[name]
         elif name == "flash_paged_decode":
@@ -1355,6 +1824,12 @@ def main() -> None:
             path_launches = launches_ms[name] + launches_mt[name]
         elif name == "grouped_gemm_dw":
             path_launches = launches_mt[name]
+        elif name == "gemm_naive":
+            path_launches = launches_n[name]
+        elif name in BATCHED_KERNELS:
+            path_launches = launches_bt[name]
+        elif name == "wkv6":
+            path_launches = launches_wkv[name]
         else:
             path_launches = launches[name]
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",

@@ -8,8 +8,10 @@ Hopper (``csrc/*.cu``), built with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/_build.py``).
 
 Registry impl names map onto the JAX ones: ``xla`` -> ``torch`` (the
-reference), ``pallas`` -> ``cuda`` (gemm kernels), ``pallas_fused`` ->
-``cuda_fused`` (flash-attention kernels).  Entry points run on ``cuda``
+reference), ``pallas`` -> ``cuda`` (gemm kernels), ``pallas_naive`` ->
+``cuda_naive`` (the paper's unstaged GEMM), ``pallas_fused`` ->
+``cuda_fused`` (flash-attention kernels), ``pallas_grouped`` ->
+``cuda_grouped`` (grouped expert GEMMs).  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors every kernel
 wrapper runs its plain PyTorch version.
 """

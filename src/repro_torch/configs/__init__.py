@@ -1,7 +1,7 @@
 """Architecture registry (twin of ``repro.configs``).
 
 Ported so far: ``gemma3-1b`` (dense), ``mixtral-8x7b`` and ``dbrx-132b``
-(moe); ``input_specs`` (JAX abstract
+(moe), ``rwkv6-7b`` (ssm, RWKV-6); ``input_specs`` (JAX abstract
 shapes for the dry-run) has no counterpart yet.
 """
 
@@ -17,6 +17,7 @@ _MODULES = {
     "gemma3-1b": "gemma3_1b",
     "mixtral-8x7b": "mixtral_8x7b",
     "dbrx-132b": "dbrx_132b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)

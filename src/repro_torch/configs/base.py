@@ -7,9 +7,12 @@ keeps one flat list of sublayers in execution order
 (``layer_kinds``): ``for seg in segments: for c in range(count): for
 kind in pattern``.
 
-Ported families: ``dense`` and ``moe``.  Ported kinds: ``attn`` (global
-GQA self-attention), ``attn_local`` (sliding-window attention with a
-ring-buffer cache), ``mlp`` and ``moe`` (top-k routed experts).
+Ported families: ``dense``, ``moe`` and the ``ssm`` family's RWKV-6
+stacks.  Ported kinds: ``attn`` (global GQA self-attention),
+``attn_local`` (sliding-window attention with a ring-buffer cache),
+``mlp``, ``moe`` (top-k routed experts) and ``rwkv6`` (RWKV-6 time-mix +
+channel-mix layer).  ``mamba2`` and ``shared_attn`` (zamba2) count as
+mixers, as in the JAX package, but no model of the port runs them.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ class Segment:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe are ported
+    family: str                      # dense | moe | ssm (rwkv6) are ported
     d_model: int
     num_layers: int                  # mixer sublayers (bookkeeping)
     segments: tuple[Segment, ...]
@@ -51,6 +54,9 @@ class ModelConfig:
     num_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # rwkv6
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 64             # WKV chunk of the chunked parallel form
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     activation_dtype: str = "bfloat16"
@@ -60,8 +66,11 @@ class ModelConfig:
     def __post_init__(self) -> None:
         object.__setattr__(self, "backends",
                            normalize_backends(self.backends))
+        # "num_layers" counts mixer sublayers (attn / mamba2 / rwkv6 /
+        # shared_attn); mlp / moe sublayers ride along in the same layer
         mixers = sum(
-            s.count * sum(k in ("attn", "attn_local") for k in s.pattern)
+            s.count * sum(k in ("attn", "attn_local", "mamba2", "rwkv6",
+                                "shared_attn") for k in s.pattern)
             for s in self.segments)
         if mixers != self.num_layers:
             raise ValueError(

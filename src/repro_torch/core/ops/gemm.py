@@ -9,6 +9,9 @@ einsums over registered GEMM impls.
              refine_a / bf16x3 / refine_ab, and ``gemm_lowp`` for fp8 /
              int8 / fp8x3 / int8x3 with per-tile scales on ``repro``'s
              quantization grid (``tiles.tile_for``).
+  ``cuda_naive``  the paper's unstaged Listing-1 kernel, ``gemm_naive``
+             (the twin of ``pallas_naive``): bf16 only; every other
+             rung runs as bf16 passes through it, f32 on the reference.
 
 The router (``routed_einsum``) lowers a two-operand spec to one
 (batched) 2-D GEMM by permuting and reshaping (views where possible),
@@ -39,6 +42,7 @@ from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
 from repro_torch.core.ops.route import Route, as_route
 from repro_torch.core.ops.tiles import tile_for
 from repro_torch.kernels.gemm_lowp import LOWP_POLICIES, gemm_lowp
+from repro_torch.kernels.gemm_naive import gemm_naive
 from repro_torch.kernels.gemm_refined import gemm_refined
 from repro_torch.kernels.gemm_tiled import gemm_tiled
 
@@ -114,6 +118,14 @@ def _cuda_gemm(a, b, *, policy):
         t = tile_for("cuda", m, n, k).clamp(m, n, k)
         return gemm_lowp(a, b, policy=policy, bm=t.bm, bn=t.bn, bk=t.bk)
     return gemm_refined(a, b, policy=policy)
+
+
+# The paper's Fig. 6 "WMMA without shared memory" column: the refine_ab
+# unembed on this impl is four naive bf16 passes summed at the router.
+@register_impl("gemm", "cuda_naive", fused_policies=("bf16",), features=("vjp",))
+def _cuda_naive_gemm(a, b, *, policy):
+    assert policy == "bf16", policy
+    return gemm_naive(a, b)
 
 
 # ============================================================ einsum router

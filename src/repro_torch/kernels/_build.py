@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm_tiled", "gemm_refined", "attention_fused", "attention_bwd", "attention_paged",
-           "gemm_lowp", "gemm_grouped")
+           "gemm_lowp", "gemm_grouped", "gemm_naive", "batched_gemm", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -20,6 +20,7 @@ wait for their slices (their flags are absent).
         [--kv-layout paged [--kv-quant int8]]
     python -m repro_torch.launch.serve --arch mixtral-8x7b --backend gemm=cuda \\
         --backend attention=cuda_fused --backend grouped=cuda_grouped
+    python -m repro_torch.launch.serve --arch rwkv6-7b --backend gemm=cuda
 """
 
 from __future__ import annotations
@@ -365,10 +366,11 @@ class ServeEngine:
             self._splice_paged(cache1, slot, alloc_map)
             self._slot_pages[slot] = alloc_map
         else:
+            # every leaf of the slot's state, KV rows or recurrent state alike
             for full, one in zip(self.cache, cache1):
                 if full is not None:
-                    full.k[slot] = one.k[0].to(full.k.dtype)
-                    full.v[slot] = one.v[0].to(full.v.dtype)
+                    for dst, src in zip(full, one):
+                        dst[slot] = src[0].to(dst.dtype)
         self.slot_req[slot] = req
         self.last_tok[slot] = req.out_tokens[-1]
         self.pos[slot] = len(toks)
@@ -539,7 +541,7 @@ def main(argv=None) -> None:
                     metavar="FAMILY=IMPL",
                     help="op-registry routing, repeatable: 'family=impl' "
                          f"(families: {', '.join(ops.families())}; impls: "
-                         "gemm torch|cuda, attention torch|cuda_fused, "
+                         "gemm torch|cuda|cuda_naive, attention torch|cuda_fused, "
                          "grouped torch|cuda_grouped)")
     ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
                     help="attention KV cache layout: 'dense' per-slot ring "

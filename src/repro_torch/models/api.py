@@ -1,6 +1,6 @@
 """Family-dispatching facade (twin of ``repro.models.api``) for the
-``dense`` and ``moe`` families: runtime/ and launch/ talk to models only
-through this module.  ``policy`` is a ``PrecisionPolicy`` (matmuls on the
+``dense`` and ``moe`` families and the ``ssm`` family's RWKV-6 stacks:
+runtime/ and launch/ talk to models only through this module.  ``policy`` is a ``PrecisionPolicy`` (matmuls on the
 ``torch`` reference) or an ``ExecutionPolicy`` (plus the
 ``backends: {family: impl}`` routing onto the CUDA kernels).
 """
@@ -21,8 +21,7 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in T.FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported; only {T.FAMILIES}")
+    T.check_kinds(cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -35,8 +34,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda") -> list:
-    """Dense decode cache (an ``AttnCache`` per attention sublayer) on
-    ``device``: the card unless the caller asks for the CPU."""
+    """Dense decode cache (an ``AttnCache`` per attention sublayer, an
+    ``RWKVState`` per rwkv6 sublayer) on ``device``: the card unless the
+    caller asks for the CPU."""
     _ported(cfg)
     return T.init_cache(cfg, batch, s_ctx, dtype, resolve_device(device))
 

@@ -1,6 +1,8 @@
 """Decoder-only LM over the config's segment programs (twin of
-``repro.models.transformer``), for the dense and moe families: kinds
-``attn``, ``attn_local``, ``mlp`` and ``moe``.
+``repro.models.transformer``), for the dense and moe families (kinds
+``attn``, ``attn_local``, ``mlp`` and ``moe``) and the ssm family's
+RWKV-6 stacks (every kind ``rwkv6``; zamba2's ``mamba2`` /
+``shared_attn`` are not ported and raise).
 
 The JAX package stacks each segment's params on a ``count`` axis and
 runs ``lax.scan``; the port keeps one flat list of sublayers in the same
@@ -25,20 +27,28 @@ from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rwkv as R
 from repro_torch.models.attention import AttnCache, attention, init_attn
 
 __all__ = ["init_params", "forward", "init_cache", "lm_loss"]
 
 _ATTN_KINDS = ("attn", "attn_local")
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm")
+# the kinds each ported family may hold
+_FAMILY_KINDS = {"dense": (*_ATTN_KINDS, "mlp", "moe"), "moe": (*_ATTN_KINDS, "mlp", "moe"),
+                 "ssm": ("rwkv6",)}
 
 
-def _check_kinds(cfg: ModelConfig) -> list[str]:
+def check_kinds(cfg: ModelConfig) -> list[str]:
+    """The flat layer kinds of a ported stack; raises on a family or a
+    kind the port does not run (zamba2's mamba2 / shared_attn among them)."""
     kinds = layer_kinds(cfg)
-    bad = sorted({k for k in kinds if k not in (*_ATTN_KINDS, "mlp", "moe")})
-    if bad or cfg.family not in FAMILIES:
-        raise ValueError(f"{cfg.name}: the port runs {FAMILIES} stacks of "
-                         f"attn/attn_local/mlp/moe; got family {cfg.family!r}, kinds {bad}")
+    allowed = _FAMILY_KINDS.get(cfg.family, ())
+    bad = sorted({k for k in kinds if k not in allowed})
+    if bad or not allowed:
+        raise ValueError(f"{cfg.name}: the port runs dense/moe stacks of attn/attn_local/"
+                         f"mlp/moe and ssm stacks of rwkv6; got family {cfg.family!r}, "
+                         f"kinds {bad}")
     return kinds
 
 
@@ -46,7 +56,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str) -> dict:
     """Random params on ``device``, drawn from ``generator`` (which must
     live there), with the JAX package's shapes and scales."""
-    kinds = _check_kinds(cfg)
+    kinds = check_kinds(cfg)
     dev = torch.device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} cannot draw params on {dev}")
@@ -67,6 +77,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
                            **M.init_moe(generator, cfg.d_model, cfg.d_ff,
                                         cfg.num_experts, cfg.mlp_kind)})
+        elif kind == "rwkv6":
+            layers.append(R.init_rwkv6(generator, cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim))
         else:
             layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
                            **L.init_mlp(generator, cfg.d_model, cfg.d_ff,
@@ -88,9 +100,14 @@ def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype, device: torch.device | str) -> list:
     """Pre-allocated decode cache on ``device``: an ``AttnCache`` per
-    attention sublayer, None per mlp or moe sublayer."""
+    attention sublayer, an f32 ``RWKVState`` per rwkv6 sublayer, None per
+    mlp or moe sublayer."""
     cache: list = []
-    for kind in _check_kinds(cfg):
+    for kind in check_kinds(cfg):
+        if kind == "rwkv6":
+            cache.append(R.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_head_dim,
+                                           device=device))
+            continue
         cap = cache_capacity(kind, cfg, s_ctx)
         if cap is None:
             cache.append(None)
@@ -104,7 +121,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
 def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
               policy: PrecisionPolicy, mode: str, cache, pos):
     """One pre-norm residual sublayer.  Returns (x, new cache or None,
-    aux loss or None)."""
+    aux loss or None).  An rwkv6 layer carries its own two norms and
+    residuals, so it is dispatched before the shared pre-norm."""
+    if kind == "rwkv6":
+        x, st = R.rwkv6_layer(p, x, head_dim=cfg.rwkv_head_dim, policy=policy.for_("mlp"),
+                              state=cache if mode == "decode" else None, chunk=cfg.rwkv_chunk,
+                              norm_eps=cfg.norm_eps, return_state=(mode == "prefill"))
+        return x, st, None
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     if kind in _ATTN_KINDS:
         out, nc = attention(
@@ -147,7 +170,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     each period's activations in the backward.  Returns (logits f32,
     cache, aux loss f32: the MoE sublayers' sum, 0 without them).
     """
-    kinds = _check_kinds(cfg)
+    kinds = check_kinds(cfg)
     dtype = getattr(torch, cfg.activation_dtype)
     x = L.embed(params["embed"], tokens, dtype)
     new_cache: list = []

@@ -79,7 +79,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
 def pad_cache(cache: list, cfg: ModelConfig, s_ctx: int) -> list:
     """Pad every dense attention cache along its sequence dim to its
     decode capacity (ring caches are already window-sized); paged pools
-    pass through untouched."""
+    and recurrent ``RWKVState`` leaves (O(1) in the context) pass through
+    untouched."""
     out = []
     for kind, c in zip(layer_kinds(cfg), cache):
         cap = cache_capacity(kind, cfg, s_ctx)

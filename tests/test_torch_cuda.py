@@ -17,11 +17,16 @@ import torch
 from repro_torch.core.ops import paged
 from repro_torch.core.ops.registry import LADDER_BOUNDS
 from repro_torch.kernels import attention_fused as af
+from repro_torch.kernels import batched_gemm as bg
 from repro_torch.kernels import attention_paged as ap
 from repro_torch.kernels import gemm_grouped as gg
 from repro_torch.kernels import gemm_lowp as gl
+from repro_torch.kernels import gemm_naive as gn
 from repro_torch.kernels import gemm_refined as gr
 from repro_torch.kernels import gemm_tiled as gt
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import wkv6 as wk
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +41,12 @@ ATTN_ATOL = 2e-3
 # should agree to the last bit); e4m3 partial sums round in f32 in another
 # order.
 LOWP_REL = 1e-5
+# Batched small GEMMs (n <= 64, |terms| <= 1): the same bf16 products,
+# f32 sums in another order.
+BATCHED_ATOL = 1e-4
+# WKV6 against its chunked plain form and the sequential recurrence:
+# f32 throughout, sums in other orders, exp ulps (TestWKV6Kernel's).
+WKV_TOL = 1e-4
 # The backward multiplies p and ds (rounded to bf16 in both versions) by
 # |dO|, |q|, |k| <= 1 over up to 150 rows: a p or ds that rounds to the
 # neighbouring bf16 value in one version moves a sum by ~2^-8 of one term.
@@ -392,3 +403,118 @@ def test_grouped_autograd_runs_the_kernels(dev):
     assert (dx - gg.grouped_gemm_plain(g, w.detach(), off, trans_w=True)).abs().max() <= 1e-2
     assert (dw - gg.grouped_gemm_dw_plain(x.detach(), g, off)).abs().max() <= 1e-2
     assert not dw[2].any()
+
+
+@pytest.mark.parametrize("m,n,k", [(48, 40, 132), (4, 1000, 1152), (200, 300, 70), (1, 17, 5)])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "batched"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_naive_matches_plain(dev, m, n, k, layout, dtype):
+    """The unstaged kernel at ragged shapes (the wrapper pads to 16), with
+    a transposed A or B read in place as a column-major fragment."""
+    rng = np.random.default_rng(m + 5 * n)
+    if layout == "batched":
+        a, b = _u(rng, (3, m, k), dev, dtype), _u(rng, (3, k, n), dev, dtype)
+    elif layout == "nt":
+        a, b = _u(rng, (m, k), dev, dtype), _u(rng, (n, k), dev, dtype).t()
+    elif layout == "tn":
+        a, b = _u(rng, (k, m), dev, dtype).t(), _u(rng, (k, n), dev, dtype)
+    else:
+        a, b = _u(rng, (m, k), dev, dtype), _u(rng, (k, n), dev, dtype)
+    before = gn.LAUNCHES
+    out = gn.gemm_naive(a, b)
+    torch.cuda.synchronize()
+    assert gn.LAUNCHES == before + 1
+    ref = gn.gemm_naive_plain(a, b)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
+
+
+@pytest.mark.parametrize("policy", ["bf16", "refine_ab"])
+def test_cuda_naive_route_matches_the_oracle(dev, policy):
+    from repro_torch.core import ops
+    rng = np.random.default_rng(1)
+    a, b = _u(rng, (100, 130), dev), _u(rng, (50, 130), dev).t()
+    before = gn.LAUNCHES
+    out = ops.gemm(a, b, policy=policy, backend="cuda_naive")
+    torch.cuda.synchronize()
+    assert gn.LAUNCHES == before + (1 if policy == "bf16" else 4)
+    assert (out.double() - a.double() @ b.double()).abs().max().item() <= LADDER_BOUNDS[policy]
+
+
+@pytest.mark.parametrize("n", bg.PACKED_N)
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_matches_plain(dev, n, groups, dtype):
+    rng = np.random.default_rng(n + groups)
+    g = groups * 128 // n
+    a, b = _u(rng, (g, n, n), dev, dtype), _u(rng, (g, n, n), dev, dtype)
+    out = bg.batched_gemm(a, b)
+    torch.cuda.synchronize()
+    ref = bg.batched_gemm_plain(a, b)
+    assert out.shape == (g, n, n) and (out - ref).abs().max().item() <= BATCHED_ATOL
+    a2 = a.clone()
+    a2[1] = 0
+    out2 = bg.batched_gemm(a2, b)
+    assert not out2[1].any() and (out2[0] - out[0]).abs().max().item() <= BATCHED_ATOL
+
+
+@pytest.mark.parametrize("n", [8, 16, 24, 37, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_naive_matches_plain(dev, n, dtype):
+    """One warp per matrix at any n: ragged fragments zero-filled."""
+    rng = np.random.default_rng(n)
+    a, b = _u(rng, (13, n, n), dev, dtype), _u(rng, (13, n, n), dev, dtype)
+    out = bg.batched_gemm_naive(a, b)
+    torch.cuda.synchronize()
+    assert (out - bg.batched_gemm_naive_plain(a, b)).abs().max().item() <= BATCHED_ATOL
+
+
+def test_gemm_batched_dispatch_on_the_card(dev):
+    rng = np.random.default_rng(2)
+    a, b = _u(rng, (37, 16, 16), dev), _u(rng, (37, 16, 16), dev)
+    ref = kref.batched_gemm_ref(a, b)
+    before = dict(bg.LAUNCHES)
+    for backend in ("cuda", "cuda_naive", "torch"):
+        out = kops.gemm_batched(a, b, backend=backend)
+        assert out.shape == (37, 16, 16) and (out - ref).abs().max().item() <= BATCHED_ATOL
+    assert bg.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    with pytest.raises(ValueError, match="takes n in"):
+        bg.batched_gemm(torch.zeros(32, 4, 4, device=dev), torch.zeros(32, 4, 4, device=dev))
+
+
+def _wkv_inputs(rng, b, s, h, kd, dev, decay_scale=0.7):
+    r, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, kd)).astype(np.float32) * 0.5).to(dev)
+               for _ in range(3))
+    logw = -torch.exp(torch.from_numpy(rng.normal(size=(b, s, h, kd)).astype(np.float32)).to(dev)
+                      * 0.5 - decay_scale)
+    u = torch.from_numpy(rng.normal(size=(h, kd)).astype(np.float32) * 0.1).to(dev)
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 64), (128, 64), (256, 32), (128, 128), (96, 16),
+                                     (192, 96), (160, 80)])
+@pytest.mark.parametrize("kd", wk.HEAD_DIMS)
+def test_wkv6_matches_plain_and_the_recurrence(dev, s, chunk, kd):
+    rng = np.random.default_rng(s + kd)
+    xs = _wkv_inputs(rng, 2, s, 3, kd, dev)
+    before = wk.LAUNCHES
+    out, st = wk.wkv6(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES == before + 1
+    for ro, rs in (wk.wkv6_plain(*xs, chunk=chunk), kref.wkv6_ref(*xs)):
+        assert out.shape == ro.shape and st.shape == rs.shape == (2, 3, kd, kd)
+        torch.testing.assert_close(out, ro, rtol=WKV_TOL, atol=WKV_TOL)
+        torch.testing.assert_close(st, rs, rtol=WKV_TOL, atol=WKV_TOL)
+
+
+def test_wkv6_strong_decay_and_its_limits(dev):
+    rng = np.random.default_rng(9)
+    xs = _wkv_inputs(rng, 2, 128, 2, 64, dev, decay_scale=-1.5)
+    out, _ = wk.wkv6(*xs, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, kref.wkv6_ref(*xs)[0], rtol=WKV_TOL, atol=WKV_TOL)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        wk.wkv6(*xs, chunk=96)
+    with pytest.raises(ValueError, match="shared memory"):
+        wk.wkv6(*_wkv_inputs(rng, 1, 256, 1, 64, dev), chunk=256)

@@ -57,3 +57,11 @@ def test_paged_and_lowp_modules_are_checked():
              if "repro_torch" in p.parts}
     for module in ("core/ops/paged.py", "kernels/attention_paged.py", "kernels/gemm_lowp.py"):
         assert module in names
+
+
+def test_slice5_modules_are_checked():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()
+             if "repro_torch" in p.parts}
+    for module in ("kernels/gemm_naive.py", "kernels/batched_gemm.py", "kernels/wkv6.py",
+                   "kernels/ref.py", "kernels/ops.py", "models/rwkv.py", "configs/rwkv6_7b.py"):
+        assert module in names
