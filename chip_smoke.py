@@ -63,7 +63,9 @@ Phases, each printing one JSON line:
    with the same greedy token, and the same reference with one layer's
    expert stack rolled by one (a wrong expert per group) must land above
    the bound.  Then a profile of a 700-token prefill and a 4-slot decode
-   tick (``profile_moe``).
+   tick (``profile_moe``), and ``serve_moe_paged``: the same requests from
+   8-row bf16 pages, whose tokens must equal the dense run's and which
+   must hand every page back.
 9. train_moe — Mixtral at full width, depth 2, trains 3 AdamW steps
    (batch 1 x 1024, remat, warmup 1) on the kernel routes, the grouped
    forward, dx and dW kernels included; step 0's per-token loss, aux loss
@@ -103,8 +105,11 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    on each prompt's first-layer r/k/v/logw/u (the ``wkv6`` path) and held
    against the model's chunked form at f32; its check row takes the
    665-token prompt's.  Then a profiled prefill and decode tick.
-13. kernels — one line listing each kernel's launches (per path), error
-   and times.
+13. kernels — a ``mainloops`` line (which GEMM mainloop each
+   ``gemm_tiled`` and ``grouped_gemm`` check ran: every M > 16 shape and
+   every 64/128-row bf16 grouped shape must run the wgmma one, ``sm90``;
+   each check asserts it), then one line listing each kernel's launches
+   (per path), error and times.
 
 The ``check`` phase also holds the flash kernels at Mixtral's head shape
 (hd 128, 32 heads on 8 kv heads) and the grouped GEMMs at its widths: the
@@ -114,9 +119,16 @@ with group sizes from a seeded skewed draw and a faulty control (every
 group against its neighbouring expert; for dW, run boundaries moved by
 one tile) above the bound.
 
+The ``check`` phase also holds one rung that the flash and grouped kernels
+carry from f32 tiles per kernel (flash bf16x6 forward and backward, int8x3
+decode, fp8x3 paged decode, fp8x3 grouped forward, int8x3 dW), the
+forward's bf16x6 and the grouped fp8x3 also against the ``torch`` route at
+that rung, and the grouped forward at alignments 128 and 64 (the wgmma
+mainloop's two row tiles).
+
 The ``check`` phase also holds the paper's naive GEMM at gemma3's prefill
 MLP and decode unembed and at a square 4096^3 point (Fig. 6, with the
-tiled kernel, bf16 cuBLAS and f32 SGEMM beside it), both batched kernels
+tiled kernel checked there too, bf16 cuBLAS and f32 SGEMM beside it), both batched kernels
 at n = 16 (G = 256 and 16384) and n = 8, 32, 64 (G = 4096) with the B
 batch rolled by one matrix as their control, and ``wkv6`` at B = 4,
 S = 1024, H = 64 on the JAX test's input recipe, against its chunked plain
@@ -188,6 +200,17 @@ STEP0_GRAD_BOUND = 5e-2
 # version on a grid of bk = 128, reads 3.7e-4 and 6.7e-4 (int8x3), 5.3e-3
 # and 6.6e-3 (fp8x3), and every run requires it above the bound.
 LOWP_BOUND = 2e-5
+# the flash kernels' quantized x3 rungs vs their plain versions (one check
+# each: int8x3 decode, fp8x3 paged decode; |out| rms 0.12-0.14): the same
+# tiles and pow2 scales, so they differ only where a sum in another order
+# moves a probability across a quantization step, and the lo term makes up
+# all but its own step (2^-13 for int8).  The H100 read 1.5e-4 (int8x3)
+# and 1.2e-7 (fp8x3) before this bound was set.  Control: the plain
+# version at the one-pass rung (the third pass dropped), 0.014 and 0.045
+# there, which every run requires above it.  The grouped kernels'
+# quantized rows keep GEMM_BOUND (their terms are bit-equal: nothing
+# derived is quantized; one-pass controls 0.21 and 0.051).
+QUANT_ATTN_BOUND = 1e-3
 # serve_paged (b): prefill logits with fp8x3 MLPs on the kernel routes
 # against the bf16-MLP kernel routes (|logits| <= 4.64).  Set after reading
 # them on the H100: fp8x3 0.0778, and 0.576 for the single-pass fp8 MLP on
@@ -252,7 +275,7 @@ KERNELS = {
     "flash_paged_decode": ("attention_paged.cu", "src/repro/kernels/attention_paged.py:44"),
     "gemm_lowp": ("gemm_lowp.cu", "src/repro/kernels/gemm_lowp.py:65"),
     "grouped_gemm": ("gemm_grouped.cu", "src/repro/kernels/gemm_grouped.py:131"),
-    "grouped_gemm_dw": ("gemm_grouped.cu", "src/repro/kernels/gemm_grouped.py:194"),
+    "grouped_gemm_dw": ("gemm_grouped_dw.cu", "src/repro/kernels/gemm_grouped.py:194"),
     "gemm_naive": ("gemm_naive.cu", "src/repro/kernels/gemm_naive.py:29"),
     "batched_gemm": ("batched_gemm.cu", "src/repro/kernels/batched_gemm.py:42"),
     "batched_gemm_naive": ("batched_gemm.cu", "src/repro/kernels/batched_gemm.py:105"),
@@ -265,6 +288,7 @@ TRAIN_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_attenti
                  "flash_attention_bwd_dkv")
 TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 SERVE_MOE_KERNELS = SERVE_KERNELS + ("grouped_gemm",)
+SERVE_MOE_PAGED_KERNELS = PAGED_KERNELS + ("grouped_gemm",)
 TRAIN_MOE_KERNELS = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_dw")
 MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 4, 2
 SERVE_NAIVE_KERNELS = ("gemm_naive", "flash_attention", "flash_decode")
@@ -292,8 +316,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.monotonic()
+
+
 def emit(**obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.monotonic() - _T0, 1)}), flush=True)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -316,6 +344,7 @@ def main() -> None:
     from repro_torch.core.precision import num_passes
     from repro_torch.kernels import _build
     from repro_torch.core.ops import paged
+    from repro_torch.core.ops.registry import LADDER_BOUNDS
     from repro_torch.kernels import attention_fused as af
     from repro_torch.kernels import attention_paged as ap
     from repro_torch.kernels import batched_gemm as bg
@@ -363,14 +392,15 @@ def main() -> None:
     log = _build.BUILD_DIR / "nvcc.log"
     log.write_text("\n".join(f"=== {k}\n{v['log']}" for k, v in built.items()))
     emit(phase="build", seconds=round(build_s, 3),
-         sources={k: {"cached": v["cached"]} for k, v in built.items()},
+         sources={k: {"cached": v["cached"], "seconds": round(v["seconds"], 1)}
+                  for k, v in built.items()},
          log=str(log.relative_to(ROOT)))
 
     # ------------------------------------------------------------- 3 check
     gen = torch.Generator(device=dev).manual_seed(1234)
 
-    def randn(shape, scale=1.0, dtype=torch.float32):
-        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    def randn(shape, scale=1.0, dtype=torch.float32, generator=None):
+        return (scale * torch.randn(shape, generator=generator or gen, device=dev)).to(dtype)
 
     def timed(fn) -> float:
         """ms per call: warm up, then CUDA events around enough calls."""
@@ -427,13 +457,32 @@ def main() -> None:
     def max_err(outs, refs) -> float:
         return max((o - r).abs().max().item() for o, r in zip(outs, refs))
 
+    loop_rows: list[dict] = []
+
     def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None,
-              peak=PEAK_BF16_FLOPS, library_call=None, extra=None):
+              peak=PEAK_BF16_FLOPS, library_call=None, extra=None, sm90=None,
+              rung_control=None):
         """``control``: a plain version with a deliberate fault, which
-        must land outside ``err_bound`` of the kernel.  A kernel may
+        must land outside ``err_bound`` of the kernel; ``rung_control``:
+        the plain version at a wrong rung (one pass for an x3 rung), which
+        must land outside it as well.  A kernel may
         return a tuple of tensors; the error is the largest over them.
-        ``extra``: more fields for the row."""
-        out, ref = kernel(), plain()
+        ``extra``: more fields for the row.  ``sm90``: whether the GEMM's
+        first call must run the wgmma mainloop (True) or the WMMA one
+        (False); the row records which ran."""
+        loops0 = {**{f"gemm_tiled.{k}": v for k, v in gt.LAUNCHES_BY_LOOP.items()},
+                  **{f"grouped_gemm.{k}": v for k, v in gg.LAUNCHES_BY_LOOP.items()}}
+        out = kernel()
+        loops1 = {**{f"gemm_tiled.{k}": v for k, v in gt.LAUNCHES_BY_LOOP.items()},
+                  **{f"grouped_gemm.{k}": v for k, v in gg.LAUNCHES_BY_LOOP.items()}}
+        ran = sorted({k.split(".")[1] for k in loops1 if loops1[k] > loops0[k]})
+        if name in ("gemm_tiled", "grouped_gemm"):
+            loop_rows.append({"kernel": name, "what": what, "mainloop": ran})
+            if sm90 is not None and ran != (["sm90"] if sm90 else ["wmma"]):
+                fail(f"{name} {what}: ran the {ran} mainloop, expected "
+                     f"{'sm90' if sm90 else 'wmma'}")
+            extra = {**(extra or {}), "mainloop": ran}
+        ref = plain()
         torch.cuda.synchronize(dev)
         out = out if isinstance(out, tuple) else (out,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -442,10 +491,13 @@ def main() -> None:
                 fail(f"{name} {what}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite")
         err = max_err(out, ref)
         ref_rms = [r.float().square().mean().sqrt().item() for r in ref]
-        control_err = None
+        control_err = rung_err = None
         if control:
             c = control()
             control_err = max_err(out, c if isinstance(c, tuple) else (c,))
+        if rung_control:
+            c = rung_control()
+            rung_err = max_err(out, c if isinstance(c, tuple) else (c,))
         del out, ref
         ms, plain_ms = in_turns(plain, kernel)
         lib_ms = timed(library) if library is not None else None
@@ -458,11 +510,15 @@ def main() -> None:
             row.update(extra)
         if control:
             row["control_err"] = control_err
+        if rung_control:
+            row["rung_control_err"] = rung_err
         emit(phase="check", kernel=name, **row)
         if not err <= err_bound:
             fail(f"{name} {what}: max |kernel - plain| {err} > {err_bound}")
         if control and not control_err > err_bound:
             fail(f"{name} {what}: the faulty control is within the bound ({control_err})")
+        if rung_control and not rung_err > err_bound:
+            fail(f"{name} {what}: the wrong-rung control is within the bound ({rung_err})")
         checks[name].append(row)
 
     cfg = get_config("gemma3-1b")
@@ -476,7 +532,7 @@ def main() -> None:
     w16 = w.to(torch.bfloat16)
     check("gemm_tiled", f"prefill mlp {m}x{d}x{ff}", lambda: gt.gemm_tiled(x, w),
           lambda: gt.gemm_tiled_plain(x, w), lambda: torch.matmul(x, w16), GEMM_BOUND,
-          2 * m * d * ff, x.numel() * 2 + w.numel() * 4 + m * ff * 4)
+          2 * m * d * ff, x.numel() * 2 + w.numel() * 4 + m * ff * 4, sm90=True)
     del w, w16
 
     # gemm_tiled at the decode linears (M = 4 slots): the MLP's up and down
@@ -490,7 +546,7 @@ def main() -> None:
               lambda a4=a4, w=w: gt.gemm_tiled(a4, w),
               lambda a4=a4, w=w: gt.gemm_tiled_plain(a4, w),
               lambda a4=a4, w16=w16: torch.matmul(a4, w16), GEMM_BOUND,
-              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4)
+              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4, sm90=False)
     del w, w16
 
     # the decode unembed: (4 x 1152) bf16 against the (262144 x 1152) f32 table, NT
@@ -500,7 +556,7 @@ def main() -> None:
     unembed_bytes = xb.numel() * 2 + table.numel() * 4 + 4 * vocab * 4
     check("gemm_tiled", f"decode unembed 4x{d}x{vocab} NT", lambda: gt.gemm_tiled(xb, table.t()),
           lambda: gt.gemm_tiled_plain(xb, table.t()), lambda: torch.matmul(xb, table16.t()),
-          GEMM_BOUND, 2 * 4 * d * vocab, unembed_bytes)
+          GEMM_BOUND, 2 * 4 * d * vocab, unembed_bytes, sm90=False)
     # library: one f32 SGEMM (TF32 is off), the function refine_ab approximates
     check("gemm_refined", f"decode unembed refine_ab 4x{d}x{vocab} NT",
           lambda: gr.gemm_refined(xb, table.t(), policy="refine_ab"),
@@ -532,6 +588,25 @@ def main() -> None:
               control=None if window is None else (
                   lambda w=window: af.flash_attention_plain(q, k, v, causal=True,
                                                             window=w - 1)[0]))
+    # one carried rung through the forward: bf16x6 (the 3-way split, six
+    # passes from f32 tiles) against its plain version, its distance to the
+    # torch route's bf16x6 recorded and held to the rung's ladder bound (the
+    # route on f32 copies of the bf16 inputs: on bf16 inputs it returns bf16)
+    torch_x6 = ops.attention_forward(q.float(), k.float(), v.float(), causal=True,
+                                     window=cfg.window, policy=ops.Route("bf16x6"))
+    check("flash_attention", f"prefill S={s} H={heads} Kv={kvh} hd={hd} window {cfg.window} "
+          f"bf16x6", lambda: af.flash_attention(q, k, v, causal=True, window=cfg.window,
+                                                precision="bf16x6"),
+          lambda: af.flash_attention_plain(q, k, v, causal=True, window=cfg.window,
+                                           precision="bf16x6")[0],
+          sdpa, ATTN_BOUND, num_passes("bf16x6") * 4 * pairs * hd * heads,
+          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
+          extra={"torch_route_err": max_err(
+              (af.flash_attention(q, k, v, causal=True, window=cfg.window, precision="bf16x6"),),
+              (torch_x6,))})
+    if not checks["flash_attention"][-1]["torch_route_err"] <= LADDER_BOUNDS["bf16x6"]:
+        fail("flash_attention bf16x6: farther from the torch route than the rung's bound")
+    del torch_x6
 
     # flash decode: 4 rows, a 512-slot ring (local layers) and a 1024-row
     # linear cache (global layers), positions below and above the window
@@ -556,6 +631,17 @@ def main() -> None:
               lambda kc=kc, vc=vc, w=window: af.flash_decode_plain(qd, kc, vc, pos, window=w),
               sdpa_d, ATTN_BOUND, 4 * n_live * grp * hd * kvh,
               qd.numel() * 2 + 2 * n_live * kvh * hd * 2 + qd.numel() * 4)
+        if window is None:   # one quantized rung: int8x3, scales per tile
+            check("flash_decode", f"decode B=4 linear {s_cache} int8x3",
+                  lambda kc=kc, vc=vc: af.flash_decode(qd, kc, vc, pos, precision="int8x3"),
+                  lambda kc=kc, vc=vc: af.flash_decode_plain(qd, kc, vc, pos,
+                                                             precision="int8x3"),
+                  sdpa_d, QUANT_ATTN_BOUND, num_passes("int8x3") * 4 * n_live * grp * hd * kvh,
+                  qd.numel() * 2 + 2 * n_live * kvh * hd * 2 + qd.numel() * 4,
+                  control=lambda kc=kc, vc=vc: af.flash_decode_plain(qd, kc, vc, pos - 1,
+                                                                     precision="int8x3"),
+                  rung_control=lambda kc=kc, vc=vc: af.flash_decode_plain(qd, kc, vc, pos,
+                                                                          precision="int8"))
     del q, k, v, qh, kh, vh, kc, vc
 
     # paged decode at the same rows and positions: 8-row pages behind a
@@ -608,6 +694,20 @@ def main() -> None:
                       qd, c, pos - 1, window=w),
                   library_call="scaled_dot_product_attention on the cache gathered dense "
                                "(bf16), gather not timed")
+            if quant is None and window:   # one quantized rung: fp8x3, scales per tile
+                check("flash_paged_decode", f"paged decode B=4 ring {s_cache} page {ps} "
+                      f"bf16 pages fp8x3",
+                      lambda c=cache: ap.flash_paged_decode(qd, c, pos, window=window,
+                                                            precision="fp8x3"),
+                      lambda c=cache: ap.flash_paged_decode_plain(qd, c, pos, window=window,
+                                                                  precision="fp8x3"),
+                      sdpa_p, QUANT_ATTN_BOUND,
+                      num_passes("fp8x3") * 4 * n_live * grp * hd * kvh,
+                      qd.numel() * 2 + 2 * n_live * row_bytes + n_pages * 4 + qd.numel() * 4,
+                      control=lambda c=cache: ap.flash_paged_decode_plain(
+                          qd, c, pos // 2, window=window, precision="fp8x3"),
+                      rung_control=lambda c=cache: ap.flash_paged_decode_plain(
+                          qd, c, pos, window=window, precision="fp8"))
             del cache, kd, vd
     del qd
 
@@ -688,6 +788,22 @@ def main() -> None:
               ATTN_BWD_DKV_BOUND, 8 * pairs * hd, in_bytes + 2 * k.numel() * 4,
               control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dkv_plain(
                   q, k, v, do, lse, di, **short))
+        if window is not None:   # one carried rung through the backward: bf16x6
+            kx6 = dict(kw, precision="bf16x6")
+            out6, lse6 = af.flash_attention_fwd(q, k, v, **kx6)
+            di6 = af.bwd_delta(out6, do)
+            for name, kern, plain, b_err, fl, by in (
+                    ("flash_attention_bwd_dq", af.flash_attention_bwd_dq,
+                     af.flash_attention_bwd_dq_plain, ATTN_BWD_DQ_BOUND, 6 * pairs * hd,
+                     in_bytes + q.numel() * 4),
+                    ("flash_attention_bwd_dkv", af.flash_attention_bwd_dkv,
+                     af.flash_attention_bwd_dkv_plain, ATTN_BWD_DKV_BOUND, 8 * pairs * hd,
+                     in_bytes + 2 * k.numel() * 4)):
+                check(name, tag + " bf16x6",
+                      lambda f=kern: f(q, k, v, do, lse6, di6, **kx6),
+                      lambda f=plain: f(q, k, v, do, lse6, di6, **kx6), None, b_err,
+                      num_passes("bf16x6") * fl, by)
+            del out6, lse6, di6
         del sd_out, qh, kl, vl
     del q, k, v, do, out, lse, di
 
@@ -702,14 +818,14 @@ def main() -> None:
           lambda: gt.gemm_tiled_plain(g_down, w_down.t()),
           lambda g16=g_down.to(torch.bfloat16), w16=w_down.to(torch.bfloat16): torch.matmul(
               g16, w16.t()),
-          GEMM_BOUND, 2 * m * d * ff, (g_down.numel() + w_down.numel() + m * ff) * 4)
+          GEMM_BOUND, 2 * m * d * ff, (g_down.numel() + w_down.numel() + m * ff) * 4, sm90=True)
     x_up = randn((m, d), dtype=torch.bfloat16)
     g_up = randn((m, ff), m ** -0.5)
     check("gemm_tiled", f"train dW mlp up {d}x{m}x{ff} M-contiguous A",
           lambda: gt.gemm_tiled(x_up.t(), g_up),
           lambda: gt.gemm_tiled_plain(x_up.t(), g_up),
           lambda g16=g_up.to(torch.bfloat16): torch.matmul(x_up.t(), g16),
-          GEMM_BOUND, 2 * d * m * ff, x_up.numel() * 2 + (g_up.numel() + d * ff) * 4)
+          GEMM_BOUND, 2 * d * m * ff, x_up.numel() * 2 + (g_up.numel() + d * ff) * 4, sm90=True)
     del g_down, w_down, x_up, g_up
     torch.cuda.empty_cache()
     g_log = randn((m, vocab), vocab ** -0.5)            # grad of the logits
@@ -825,12 +941,18 @@ def main() -> None:
     n_exp, d_m, ff_m = mcfg_full.num_experts, mcfg_full.d_model, mcfg_full.d_ff
     grouped_route = ops.Route("bf16", {"grouped": "cuda_grouped"})
     lrng = np.random.default_rng(14)
+    # the alignment rows (128 and 64) draw from their own generators, so
+    # every other check keeps the inputs it had before they were added
+    align_rng = np.random.default_rng(16)
+    align_gen = torch.Generator(device=dev).manual_seed(16)
 
-    def group_layout(tk, width, zero_width=None):
-        """counts (skewed draw), the alignment, offsets and a bf16 buffer."""
-        share = lrng.dirichlet(np.full(n_exp, 0.6))
-        counts = lrng.multinomial(tk, share)
-        bm = ops.grouped_tiles(grouped_route, tk, ff_m, d_m).bm
+    def group_layout(tk, width, zero_width=None, bm=None, rng=None, generator=None):
+        """counts (skewed draw), the alignment (the dispatcher's, unless
+        given), offsets and a bf16 buffer."""
+        rng = rng or lrng
+        share = rng.dirichlet(np.full(n_exp, 0.6))
+        counts = rng.multinomial(tk, share)
+        bm = bm or ops.grouped_tiles(grouped_route, tk, ff_m, d_m).bm
         aligned = ops.align_group_counts(counts, bm)
         if zero_width is not None:          # the public contract allows it
             aligned[zero_width + 1] += aligned[zero_width]
@@ -841,7 +963,7 @@ def main() -> None:
         valid = torch.zeros(n_buf, dtype=torch.bool, device=dev)
         for g in range(n_exp):
             valid[int(offsets[g]):int(offsets[g]) + int(counts[g])] = True
-        x = randn((n_buf, width), dtype=torch.bfloat16) * valid[:, None]
+        x = randn((n_buf, width), dtype=torch.bfloat16, generator=generator) * valid[:, None]
         return counts, bm, torch.from_numpy(offsets).to(dev), x
 
     def grouped_mm_library(a, b, offs, what):
@@ -866,21 +988,51 @@ def main() -> None:
     w_in = randn((n_exp, d_m, ff_m), d_m ** -0.5)
     w_in16 = w_in.to(torch.bfloat16)
     w_in_rolled = w_in.roll(-1, 0)
-    for tk, phase in ((1400, "prefill"), (8, "decode")):
-        counts, bm, off, x = group_layout(tk, d_m)
+    # the prefill at the dispatcher's alignment and at 128 and 64 (the
+    # wgmma mainloop's two CTA row tiles), the decode at 16 (WMMA); one
+    # quantized rung (fp8x3, its scales per tile) against its plain version
+    # at GEMM_BOUND with the one-pass fp8 as its wrong-rung control, its
+    # error against the torch route's fp8x3 (per-tensor scales) recorded
+    # and held to the rung's ladder bound.
+    for tk, phase, bm_at in ((1400, "prefill", None), (1400, "prefill", 128),
+                             (1400, "prefill", 64), (8, "decode", None)):
+        counts, bm, off, x = (group_layout(tk, d_m, bm=bm_at, rng=align_rng, generator=align_gen)
+                              if bm_at else group_layout(tk, d_m))
         live_w = int((counts > 0).sum()) * d_m * ff_m * 4
         lib, lib_name = grouped_mm_library(x, w_in16, off[1:], "forward")
-        for rung in (("bf16", "refine_ab") if phase == "prefill" else ("bf16",)):
+        rungs = ("bf16", "refine_ab") if bm_at is None and phase == "prefill" else ("bf16",)
+        for rung in rungs:
             check("grouped_gemm", f"{phase} wi {rung} T*k={tk} {d_m}->{ff_m} E={n_exp} bm={bm} "
                   f"counts {counts.tolist()}",
                   lambda x=x, off=off, bm=bm, r=rung: gg.grouped_gemm(x, w_in, off, bm=bm,
                                                                       policy=r),
-                  lambda x=x, off=off, r=rung: gg.grouped_gemm_plain(x, w_in, off, policy=r),
+                  lambda x=x, off=off, r=rung, bm=bm: gg.grouped_gemm_plain(x, w_in, off,
+                                                                            policy=r, bm=bm),
                   lib, GEMM_BOUND, num_passes(rung) * 2 * tk * d_m * ff_m,
                   tk * d_m * 2 + live_w + x.shape[0] * ff_m * 4,
-                  control=lambda x=x, off=off, r=rung: gg.grouped_gemm_plain(
-                      x, w_in_rolled, off, policy=r),
-                  library_call=lib_name)
+                  control=lambda x=x, off=off, r=rung, bm=bm: gg.grouped_gemm_plain(
+                      x, w_in_rolled, off, policy=r, bm=bm),
+                  library_call=lib_name,
+                  sm90=rung == "bf16" and gg.cta_rows(bm, rung) in (64, 128))
+        if bm_at is None and phase == "prefill":
+            route_fp8 = ops.grouped_matmul(x, w_in, off, bm=bm, policy=ops.Route("fp8x3"))
+            check("grouped_gemm", f"{phase} wi fp8x3 T*k={tk} {d_m}->{ff_m} E={n_exp} bm={bm}",
+                  lambda x=x, off=off, bm=bm: gg.grouped_gemm(x, w_in, off, bm=bm,
+                                                              policy="fp8x3"),
+                  lambda x=x, off=off, bm=bm: gg.grouped_gemm_plain(x, w_in, off,
+                                                                    policy="fp8x3", bm=bm),
+                  lib, GEMM_BOUND, num_passes("fp8x3") * 2 * tk * d_m * ff_m,
+                  tk * d_m * 2 + live_w + x.shape[0] * ff_m * 4,
+                  control=lambda x=x, off=off, bm=bm: gg.grouped_gemm_plain(
+                      x, w_in_rolled, off, policy="fp8x3", bm=bm),
+                  rung_control=lambda x=x, off=off, bm=bm: gg.grouped_gemm_plain(
+                      x, w_in, off, policy="fp8", bm=bm),
+                  library_call=lib_name, sm90=False,
+                  extra={"torch_route_err": max_err(
+                      (gg.grouped_gemm(x, w_in, off, bm=bm, policy="fp8x3"),), (route_fp8,))})
+            if not checks["grouped_gemm"][-1]["torch_route_err"] <= LADDER_BOUNDS["fp8x3"]:
+                fail("grouped_gemm fp8x3: farther from the torch route than the rung's bound")
+            del route_fp8
         del x
     del w_in_rolled
     # prefill wo: the activated hidden rows against the down projections
@@ -891,11 +1043,11 @@ def main() -> None:
     check("grouped_gemm", f"prefill wo bf16 T*k=1400 {ff_m}->{d_m} E={n_exp} bm={bm} "
           f"counts {counts.tolist()}",
           lambda: gg.grouped_gemm(h, w_out, off, bm=bm),
-          lambda: gg.grouped_gemm_plain(h, w_out, off),
+          lambda: gg.grouped_gemm_plain(h, w_out, off, bm=bm),
           lib, GEMM_BOUND, 2 * 1400 * ff_m * d_m,
           1400 * ff_m * 2 + int((counts > 0).sum()) * ff_m * d_m * 4 + h.shape[0] * d_m * 4,
-          control=lambda: gg.grouped_gemm_plain(h, w_out_rolled, off),
-          library_call=lib_name)
+          control=lambda: gg.grouped_gemm_plain(h, w_out_rolled, off, bm=bm),
+          library_call=lib_name, sm90=True)
     del w_out, w_out_rolled, h, lib
     torch.cuda.empty_cache()
     # the train backward at 1 x 1024 tokens (T*k = 2048): dx of the up
@@ -910,11 +1062,11 @@ def main() -> None:
     check("grouped_gemm", f"train dx trans_w bf16 T*k=2048 {ff_m}->{d_m} E={n_exp} bm={bm} "
           f"counts {counts.tolist()}",
           lambda: gg.grouped_gemm(dy, w_in, off, bm=bm, trans_w=True),
-          lambda: gg.grouped_gemm_plain(dy, w_in, off, trans_w=True),
+          lambda: gg.grouped_gemm_plain(dy, w_in, off, trans_w=True, bm=bm),
           lib, GEMM_BOUND, 2 * 2048 * ff_m * d_m,
           2048 * ff_m * 4 + live_w + x.shape[0] * d_m * 4,
-          control=lambda: gg.grouped_gemm_plain(dy, w_in_rolled, off, trans_w=True),
-          library_call=lib_name)
+          control=lambda: gg.grouped_gemm_plain(dy, w_in_rolled, off, trans_w=True, bm=bm),
+          library_call=lib_name, sm90=True)
     del w_in, w_in16, w_in_rolled, lib
     torch.cuda.empty_cache()
     off_moved = off.clone()
@@ -936,6 +1088,17 @@ def main() -> None:
           library_call=lib_name)
     if not all(dw_zero_exact):
         fail("grouped_gemm_dw: the zero-width group's block is not exactly 0")
+    # one quantized rung through dW: int8x3, its scales per 64 x 32 tile of
+    # x^T and 32 x 128 tile of dy, held to GEMM_BOUND (bit-equal terms),
+    # the one-pass int8 its wrong-rung control
+    check("grouped_gemm_dw", f"train dW int8x3 T*k=2048 {d_m}x{ff_m} E={n_exp} bm={bm}",
+          lambda: gg.grouped_gemm_dw(x, dy, off, policy="int8x3"),
+          lambda: gg.grouped_gemm_dw_plain(x, dy, off, policy="int8x3"),
+          lib, GEMM_BOUND, num_passes("int8x3") * 2 * 2048 * d_m * ff_m,
+          2048 * (d_m * 2 + ff_m * 4) + n_exp * d_m * ff_m * 4,
+          control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved, policy="int8x3"),
+          rung_control=lambda: gg.grouped_gemm_dw_plain(x, dy, off, policy="int8"),
+          library_call=lib_name)
     del x, dy, lib
     torch.cuda.empty_cache()
 
@@ -964,8 +1127,13 @@ def main() -> None:
     a_sq = randn((sq, sq), dtype=torch.bfloat16)
     b_sq = randn((sq, sq), sq ** -0.5, torch.bfloat16)
     a_sq32, b_sq32 = a_sq.float(), b_sq.float()
-    fig6 = {"tiled_ms": timed(lambda: gt.gemm_tiled(a_sq, b_sq)),
-            "sgemm_f32_ms": timed(lambda: torch.matmul(a_sq32, b_sq32))}
+    fig6 = {"sgemm_f32_ms": timed(lambda: torch.matmul(a_sq32, b_sq32))}
+    check("gemm_tiled", f"square {sq}x{sq}x{sq} bf16 operands (Fig. 6)",
+          lambda: gt.gemm_tiled(a_sq, b_sq), lambda: gt.gemm_tiled_plain(a_sq, b_sq),
+          lambda: torch.matmul(a_sq, b_sq), GEMM_BOUND, 2 * sq ** 3, 2 * sq * sq * 2 + sq * sq * 4,
+          library_call="torch.matmul bf16 (cuBLAS); sgemm_f32_ms: torch.matmul f32, TF32 off",
+          extra=fig6, sm90=True)
+    fig6["tiled_ms"] = checks["gemm_tiled"][-1]["ms"]
     check("gemm_naive", f"square {sq}x{sq}x{sq} bf16 operands (Fig. 6)",
           lambda: gn.gemm_naive(a_sq, b_sq), lambda: gn.gemm_naive_plain(a_sq, b_sq),
           lambda: torch.matmul(a_sq, b_sq), GEMM_BOUND, 2 * sq ** 3, 2 * sq * sq * 2 + sq * sq * 4,
@@ -1485,7 +1653,38 @@ def main() -> None:
     emit(phase="profile_moe", arch=mcfg.name, depth=MOE_SERVE_DEPTH,
          prefill_tokens=int(long_mprompt["tokens"].shape[1]), prefill=m_prefill_prof,
          decode_tick=m_tick_prof)
-    del meng, mparams, mlk, mlr, mlc
+    del meng
+
+    # ---- serve_moe_paged: the same params, requests and slots from 8-row
+    # bf16 pages (the attention sublayers paged, the MoE sublayers holding
+    # nothing): every request's tokens must equal the dense serve_moe's
+    # and every page must come back.
+    peng = ServeEngine(mcfg, batch_size=4, max_ctx=1024, device=dev, kv_layout="paged",
+                       kv_page_size=8,
+                       policy=ops.ExecutionPolicy(default="bf16", logits="refine_ab",
+                                                  backends=moe_backends,
+                                                  require={"attention": ("decode",
+                                                                         "paged_decode")}))
+    peng.load(mparams)
+    preqs = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in mreqs]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pmstats = peng.run(preqs)
+    launches_pm = read_launches(mods)
+    emit(phase="serve_moe_paged", arch=mcfg.name, depth=MOE_SERVE_DEPTH, page_size=8,
+         requests=pmstats["requests"], tokens=pmstats["tokens"], ticks=pmstats["ticks"],
+         wall_s=pmstats["wall_s"], tok_per_s=pmstats["tok_per_s"],
+         ttft_mean_s=pmstats["ttft_mean_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=launches_pm,
+         tokens_equal_dense=[r.out_tokens == d.out_tokens for r, d in zip(preqs, mreqs)],
+         pages_outstanding=peng.pages_outstanding())
+    if not all(r.out_tokens == d.out_tokens for r, d in zip(preqs, mreqs)):
+        fail("serve_moe_paged: tokens differ from the dense serve_moe's")
+    if peng.pages_outstanding():
+        fail("serve_moe_paged: pages still held after every request finished")
+    if not all(launches_pm[n] > 0 for n in SERVE_MOE_PAGED_KERNELS):
+        fail(f"serve_moe_paged: a kernel of the path never launched: {launches_pm}")
+    del peng, mparams, mlk, mlr, mlc
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 9 train_moe
@@ -1807,7 +2006,8 @@ def main() -> None:
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
-               "serve_moe": launches_ms, "train_moe": launches_mt, "serve_naive": launches_n,
+               "serve_moe": launches_ms, "serve_moe_paged": launches_pm,
+               "train_moe": launches_mt, "serve_naive": launches_n,
                "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv}
     for name, (src, replaces) in KERNELS.items():
         # the row's headline check: gemma3's windowed (local-layer) case for
@@ -1817,11 +2017,11 @@ def main() -> None:
         if name in TRAIN_ONLY:
             path_launches = train_launches[name]
         elif name == "flash_paged_decode":
-            path_launches = launches_pa[name] + launches_pb[name]
+            path_launches = launches_pa[name] + launches_pb[name] + launches_pm[name]
         elif name == "gemm_lowp":
             path_launches = launches_pb[name]
         elif name == "grouped_gemm":
-            path_launches = launches_ms[name] + launches_mt[name]
+            path_launches = launches_ms[name] + launches_pm[name] + launches_mt[name]
         elif name == "grouped_gemm_dw":
             path_launches = launches_mt[name]
         elif name == "gemm_naive":
@@ -1841,6 +2041,11 @@ def main() -> None:
                      "library_ms": first["library_ms"], "shape": first["what"],
                      **({"library_call": first["library_call"]} if "library_call" in first else {}),
                      "checks": checks[name]})
+    # which mainloop each GEMM check ran (every M > 16 gemm_tiled shape and
+    # every 64/128-row bf16 grouped shape must run sm90, each check says so)
+    emit(phase="mainloops", rows=loop_rows,
+         sm90_rows=sum(r["mainloop"] == ["sm90"] for r in loop_rows),
+         wmma_rows=sum(r["mainloop"] == ["wmma"] for r in loop_rows))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

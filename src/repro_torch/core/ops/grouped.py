@@ -123,12 +123,9 @@ def _torch_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int):
 set_default_tiles("cuda_grouped", TileConfig(bm=128), row_quantum=gemm_grouped.ROW_TILE)
 
 
-@register_impl("grouped", "cuda_grouped",
-               policies=("bf16", "refine_a", "bf16x3", "refine_ab", "f32"),
+@register_impl("grouped", "cuda_grouped", policies=registry.ALL_POLICIES,
                fused_policies=tuple(gemm_grouped.POLICY_CODES), features=("vjp",))
 def _cuda_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int):
-    if route.precision == "f32":
-        return _torch_grouped_matmul(x, w, group_offsets, route=route, bm=bm)
     return gemm_grouped.grouped(x, w, group_offsets, bm=bm, policy=route.precision)
 
 

@@ -37,6 +37,7 @@ import torch
 __all__ = [
     "POLICIES",
     "QUANT_FORMATS",
+    "tile_terms",
     "PrecisionPolicy",
     "num_passes",
     "quant_format",
@@ -249,6 +250,41 @@ def split_for_policy(x: torch.Tensor, policy: str) -> tuple[torch.Tensor, ...]:
     if policy == "bf16x6":
         return split3(x)
     raise ValueError(f"policy {policy!r} has no split")
+
+
+def tile_terms(x: torch.Tensor, policy: str, tile: Sequence[int]) -> tuple[torch.Tensor, ...]:
+    """``split_for_policy`` with the quantized rungs' pow2 scales taken per
+    tile, as a kernel takes them over each tile it stages: ``tile[d]`` is
+    the extent of a tile along dim d (0: the whole dim), tiles starting at
+    index 0; the other rungs split elementwise.  A per-tensor ``qdq`` is
+    the case of one tile (every extent 0)."""
+    if policy not in ("fp8", "int8", "fp8x3", "int8x3"):
+        return split_for_policy(x, policy)
+    fmt = quant_format(policy)
+    dtype, qmax = QUANT_FORMATS[fmt]
+    x = x.float()
+    pads, blocked = [], []
+    for n, t in zip(x.shape, tile):
+        t = t or max(n, 1)
+        pads.append((-n) % t)
+        blocked += [(n + pads[-1]) // t, t]
+    xp = torch.nn.functional.pad(x, [v for p in reversed(pads) for v in (0, p)])
+    xb = xp.reshape(blocked)
+    inner = tuple(range(1, 2 * x.dim(), 2))
+
+    def one(v):
+        amax = torch.clamp(v.abs().amax(dim=inner, keepdim=True), min=1e-30)
+        e = torch.ceil(torch.log2(amax / qmax))
+        sc = torch.exp(e * torch.tensor(_LN2, dtype=torch.float32, device=e.device))
+        y = v / sc
+        q = torch.clamp(torch.round(y), -qmax, qmax).to(dtype) if fmt == "int8" else y.to(dtype)
+        return (q.float() * sc).to(torch.bfloat16)
+
+    terms = [one(xb)]
+    if policy.endswith("x3"):
+        terms.append(one(xb - terms[0].float()))
+    crop = tuple(slice(0, n) for n in x.shape)
+    return tuple(t.reshape(xp.shape)[crop] for t in terms)
 
 
 def operand_terms(a: torch.Tensor, b: torch.Tensor, policy: str,

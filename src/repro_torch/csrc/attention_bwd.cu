@@ -30,7 +30,11 @@
 // (Q.K^T, dO.V^T, dS.K, P^T.dO, dS^T.Q), so refine_a splits the same side.
 // At hd 256 the dk/dv block holds K, V, Q and dO as bf16 hi+lo (or f32),
 // dK and dV as f32, and the 32x32 score tiles: 221 KB of shared memory; the
-// dq block 183 KB.  f32 runs the same walk with CUDA-core dots.
+// dq block 183 KB.  f32 runs the same walk with CUDA-core dots.  The carried
+// rungs (bf16x6, fp8/int8, common.cuh) stage every tile in f32 and make the
+// terms per fragment through a 1 KB scratch per warp (dk/dv: 230 KB at hd
+// 256); their quantization scales are taken per staged tile: 32 x hd rows
+// of Q, dO, K and V, and each 32 x 32 P and dS tile.
 #include <type_traits>
 
 #include "common.cuh"
@@ -61,8 +65,8 @@ struct BwdArgs {
 // f32, same bytes), `acc` f32 accumulators of BT x hd, the S and dP score
 // tiles (f32), the P and dS tiles (bf16 hi+lo or f32), lse and di.
 struct BwdSmem {
-  size_t x0, x1, x2, x3, acc, s, dp, p, ds, lse, di, total;
-  __host__ __device__ BwdSmem(int hd, int n_acc) {
+  size_t x0, x1, x2, x3, acc, s, dp, p, ds, lse, di, red, scr, total;
+  __host__ __device__ BwdSmem(int hd, int n_acc, bool carried) {
     const size_t ldq = hd + 8, tile = align128(BT * ldq * 4);
     x0 = 0;
     x1 = x0 + tile;
@@ -75,7 +79,9 @@ struct BwdSmem {
     ds = p + align128(BT * (BT + 8) * 4);
     lse = ds + align128(BT * (BT + 8) * 4);
     di = lse + align128(BT * 4);
-    total = di + align128(BT * 4);
+    red = di + align128(BT * 4);                   // carried rungs: block reductions
+    scr = red + (carried ? align128(32 * 4) : 0);  // and a 1 KB term scratch per warp
+    total = scr + (carried ? BW_WARPS * 1024 : 0);
   }
 };
 
@@ -104,7 +110,7 @@ __device__ __forceinline__ void stage_rows(Tile t, const void* src, int is_bf16,
     if (r < rows) load8(src, row_index(r) + d0, is_bf16, x);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      if constexpr (POL == P_F32) t.f[r * ld + d0 + e] = x[e];
+      if constexpr (POL == P_F32 || Carried<POL>::value) t.f[r * ld + d0 + e] = x[e];
       else store_split<WITH_LO>(t.hi, t.lo, r * ld + d0 + e, x[e]);
     }
   }
@@ -113,7 +119,8 @@ __device__ __forceinline__ void stage_rows(Tile t, const void* src, int is_bf16,
 // out (BT x BT, ld BT+4) = X.Y^T over hd, X and Y staged BT x hd tiles.
 template <int POL>
 __device__ __forceinline__ void scores(float* out, Tile x, Tile y, int hd, int ld, int warp,
-                                       int n_warps, int warp0) {
+                                       int n_warps, int warp0, float2 sx, float2 sy,
+                                       bf16* scr) {
   const int lds = BT + 4;
   if constexpr (POL == P_F32) {
     for (int idx = threadIdx.x - warp0 * 32; idx < BT * BT; idx += n_warps * 32) {
@@ -131,8 +138,12 @@ __device__ __forceinline__ void scores(float* out, Tile x, Tile y, int hd, int l
       wmma::fill_fragment(main, 0.f);
       for (int d = 0; d < hd; d += 16) {
         const int xo = fr * 16 * ld + d, yo = fc * 16 * ld + d;
-        policy_mma<POL, wmma::col_major>(small, main, x.hi + xo, x.lo + xo, ld, y.hi + yo,
-                                         y.lo + yo, ld);
+        if constexpr (Carried<POL>::value)
+          fly_mma<POL, true, false>(small, main, FlyOp{x.f + xo, ld, sx}, FlyOp{y.f + yo, ld, sy},
+                                    scr);
+        else
+          policy_mma<POL, wmma::col_major>(small, main, x.hi + xo, x.lo + xo, ld, y.hi + yo,
+                                           y.lo + yo, ld);
       }
       for (int e = 0; e < main.num_elements; ++e) main.x[e] = small.x[e] + main.x[e];
       wmma::store_matrix_sync(out + fr * 16 * lds + fc * 16, main, lds, wmma::mem_row_major);
@@ -145,7 +156,8 @@ __device__ __forceinline__ void scores(float* out, Tile x, Tile y, int hd, int l
 // acc row j sums W[r][j] Y[r]), Y a staged BT x hd tile.
 template <int POL, bool TRANS>
 __device__ __forceinline__ void accumulate(float* acc, const bf16* w_hi, const bf16* w_lo,
-                                           const float* w_f, Tile y, int hd, int ld, int warp) {
+                                           const float* w_f, Tile y, int hd, int ld, int warp,
+                                           float2 sw, float2 sy, bf16* scr) {
   const int ldo = hd + 4, ldp = BT + 8;
   if constexpr (POL == P_F32) {
     for (int idx = threadIdx.x; idx < BT * hd; idx += BW_NT) {
@@ -171,8 +183,12 @@ __device__ __forceinline__ void accumulate(float* acc, const bf16* w_hi, const b
         // (i, k) = W[kk + k][fr*16 + i], a col-major tile at W[kk][fr*16].
         const int wo = TRANS ? kk * ldp + fr * 16 : fr * 16 * ldp + kk;
         const int yo = kk * ld + fd * 16;
-        policy_mma<POL, wmma::row_major, LayoutA>(small, main, w_hi + wo, w_lo + wo, ldp,
-                                                  y.hi + yo, y.lo + yo, ld);
+        if constexpr (Carried<POL>::value)
+          fly_mma<POL, !TRANS, true>(small, main, FlyOp{w_f + wo, ldp, sw},
+                                     FlyOp{y.f + yo, ld, sy}, scr);
+        else
+          policy_mma<POL, wmma::row_major, LayoutA>(small, main, w_hi + wo, w_lo + wo, ldp,
+                                                    y.hi + yo, y.lo + yo, ld);
       }
       float* tile = acc + fr * 16 * ldo + fd * 16;
       wmma::load_matrix_sync(c, tile, ldo, wmma::mem_row_major);
@@ -207,7 +223,7 @@ __device__ __forceinline__ void probs(const BwdArgs& a, const float* S, const fl
     float ds = p * (dP[r * lds + lane] - di[r]);
     if (a.softcap > 0.f) ds = ds * (1.f - t * t);
     const int o = r * ldp + lane;
-    if constexpr (POL == P_F32) {
+    if constexpr (POL == P_F32 || Carried<POL>::value) {
       if constexpr (WITH_P) p_f[o] = p;
       ds_f[o] = ds;
     } else {
@@ -220,7 +236,7 @@ __device__ __forceinline__ void probs(const BwdArgs& a, const float* S, const fl
 template <int POL>
 __global__ void __launch_bounds__(BW_NT) bwd_dq_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem sm(a.hd, 1);
+  const BwdSmem sm(a.hd, 1, Carried<POL>::value);
   const int hd = a.hd, ld = hd + 8, ldo = hd + 4;
   const int H = a.Kv * a.G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -237,10 +253,19 @@ __global__ void __launch_bounds__(BW_NT) bwd_dq_kernel(BwdArgs a) {
   float* ds_f = reinterpret_cast<float*>(smem + sm.ds);
   float* lse = reinterpret_cast<float*>(smem + sm.lse);
   float* di = reinterpret_cast<float*>(smem + sm.di);
+  float* red = reinterpret_cast<float*>(smem + sm.red);
+  bf16* scr = reinterpret_cast<bf16*>(smem + sm.scr) + warp * 512;
+  const int ldp = BT + 8;
 
   auto q_row = [&](int r) -> long long { return (((long long)b * a.Sq + q0 + r) * H + h) * hd; };
   stage_rows<POL, Q_LO>(tq, a.q, a.in_bf16, rows, hd, ld, q_row);
   stage_rows<POL, Q_LO>(tdo, a.dout, 0, rows, hd, ld, q_row);
+  float2 sq = make_float2(1.f, 1.f), sdo = sq, sk = sq, sv = sq, sds = sq;  // carried scales
+  if constexpr (Carried<POL>::quant) {
+    __syncthreads();
+    sq = tile_scales<POL>(tq.f, BT, hd, ld, red);
+    sdo = tile_scales<POL>(tdo.f, BT, hd, ld, red);
+  }
   for (int idx = threadIdx.x; idx < BT * hd; idx += BW_NT) acc[(idx / hd) * ldo + idx % hd] = 0.f;
   for (int r = threadIdx.x; r < BT; r += BW_NT) {
     const long long o = ((long long)b * H + h) * a.Sq + q0 + r;
@@ -261,14 +286,20 @@ __global__ void __launch_bounds__(BW_NT) bwd_dq_kernel(BwdArgs a) {
     stage_rows<POL, K_LO>(tk, a.k, a.in_bf16, min(BT, a.Skv - k0), hd, ld, kv_row);
     stage_rows<POL, K_LO>(tv, a.v, a.in_bf16, min(BT, a.Skv - k0), hd, ld, kv_row);
     __syncthreads();
+    if constexpr (Carried<POL>::quant) {
+      sk = tile_scales<POL>(tk.f, BT, hd, ld, red);
+      sv = tile_scales<POL>(tv.f, BT, hd, ld, red);
+    }
     // warps 0-3: S = Q.K^T; warps 4-7: dP = dO.V^T
-    if (warp < BW_WARPS / 2) scores<POL>(S, tq, tk, hd, ld, warp, BW_WARPS / 2, 0);
-    else scores<POL>(dP, tdo, tv, hd, ld, warp - BW_WARPS / 2, BW_WARPS / 2, BW_WARPS / 2);
+    if (warp < BW_WARPS / 2) scores<POL>(S, tq, tk, hd, ld, warp, BW_WARPS / 2, 0, sq, sk, scr);
+    else scores<POL>(dP, tdo, tv, hd, ld, warp - BW_WARPS / 2, BW_WARPS / 2, BW_WARPS / 2, sdo,
+                     sv, scr);
     __syncthreads();
     probs<POL, false>(a, S, dP, lse, di, nullptr, nullptr, nullptr, ds_hi, ds_lo, ds_f, q0, k0,
                       warp, lane);
     __syncthreads();
-    accumulate<POL, false>(acc, ds_hi, ds_lo, ds_f, tk, hd, ld, warp);
+    if constexpr (Carried<POL>::quant) sds = tile_scales<POL>(ds_f, BT, BT, ldp, red);
+    accumulate<POL, false>(acc, ds_hi, ds_lo, ds_f, tk, hd, ld, warp, sds, sk, scr);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < rows * hd; idx += BW_NT) {
@@ -280,7 +311,7 @@ __global__ void __launch_bounds__(BW_NT) bwd_dq_kernel(BwdArgs a) {
 template <int POL>
 __global__ void __launch_bounds__(BW_NT) bwd_dkv_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem sm(a.hd, 2);
+  const BwdSmem sm(a.hd, 2, Carried<POL>::value);
   const int hd = a.hd, ld = hd + 8, ldo = hd + 4, ldp = BT + 8;
   const int H = a.Kv * a.G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -302,10 +333,18 @@ __global__ void __launch_bounds__(BW_NT) bwd_dkv_kernel(BwdArgs a) {
   float* ds_f = reinterpret_cast<float*>(smem + sm.ds);
   float* lse = reinterpret_cast<float*>(smem + sm.lse);
   float* di = reinterpret_cast<float*>(smem + sm.di);
+  float* red = reinterpret_cast<float*>(smem + sm.red);
+  bf16* scr = reinterpret_cast<bf16*>(smem + sm.scr) + warp * 512;
 
   auto kv_row = [&](int j) -> long long { return (((long long)b * a.Skv + k0 + j) * a.Kv + kvh) * hd; };
   stage_rows<POL, K_LO>(tk, a.k, a.in_bf16, kv_rows, hd, ld, kv_row);
   stage_rows<POL, K_LO>(tv, a.v, a.in_bf16, kv_rows, hd, ld, kv_row);
+  float2 sk = make_float2(1.f, 1.f), sv = sk, sq = sk, sdo = sk, sp = sk, sds = sk;
+  if constexpr (Carried<POL>::quant) {
+    __syncthreads();
+    sk = tile_scales<POL>(tk.f, BT, hd, ld, red);
+    sv = tile_scales<POL>(tv.f, BT, hd, ld, red);
+  }
   for (int idx = threadIdx.x; idx < BT * hd; idx += BW_NT) {
     dK[(idx / hd) * ldo + idx % hd] = 0.f;
     dV[(idx / hd) * ldo + idx % hd] = 0.f;
@@ -333,14 +372,25 @@ __global__ void __launch_bounds__(BW_NT) bwd_dkv_kernel(BwdArgs a) {
         di[r] = r < rows ? a.di[o] : 0.f;
       }
       __syncthreads();
-      if (warp < BW_WARPS / 2) scores<POL>(S, tq, tk, hd, ld, warp, BW_WARPS / 2, 0);
-      else scores<POL>(dP, tdo, tv, hd, ld, warp - BW_WARPS / 2, BW_WARPS / 2, BW_WARPS / 2);
+      if constexpr (Carried<POL>::quant) {
+        sq = tile_scales<POL>(tq.f, BT, hd, ld, red);
+        sdo = tile_scales<POL>(tdo.f, BT, hd, ld, red);
+      }
+      if (warp < BW_WARPS / 2)
+        scores<POL>(S, tq, tk, hd, ld, warp, BW_WARPS / 2, 0, sq, sk, scr);
+      else
+        scores<POL>(dP, tdo, tv, hd, ld, warp - BW_WARPS / 2, BW_WARPS / 2, BW_WARPS / 2, sdo,
+                    sv, scr);
       __syncthreads();
       probs<POL, true>(a, S, dP, lse, di, p_hi, p_lo, p_f, ds_hi, ds_lo, ds_f, q0, k0, warp,
                        lane);
       __syncthreads();
-      accumulate<POL, true>(dV, p_hi, p_lo, p_f, tdo, hd, ld, warp);
-      accumulate<POL, true>(dK, ds_hi, ds_lo, ds_f, tq, hd, ld, warp);
+      if constexpr (Carried<POL>::quant) {
+        sp = tile_scales<POL>(p_f, BT, BT, ldp, red);
+        sds = tile_scales<POL>(ds_f, BT, BT, ldp, red);
+      }
+      accumulate<POL, true>(dV, p_hi, p_lo, p_f, tdo, hd, ld, warp, sp, sdo, scr);
+      accumulate<POL, true>(dK, ds_hi, ds_lo, ds_f, tq, hd, ld, warp, sds, sq, scr);
     }
   }
   __syncthreads();
@@ -353,7 +403,7 @@ __global__ void __launch_bounds__(BW_NT) bwd_dkv_kernel(BwdArgs a) {
 
 template <int POL, bool DKV>
 int run_bwd(const BwdArgs& a, dim3 grid, cudaStream_t stream) {
-  const BwdSmem sm(a.hd, DKV ? 2 : 1);
+  const BwdSmem sm(a.hd, DKV ? 2 : 1, Carried<POL>::value);
   auto kern = DKV ? bwd_dkv_kernel<POL> : bwd_dq_kernel<POL>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)sm.total);
@@ -370,6 +420,11 @@ int dispatch_bwd(const BwdArgs& a, int policy, dim3 grid, cudaStream_t stream) {
     case P_BF16X3: return run_bwd<P_BF16X3, DKV>(a, grid, stream);
     case P_REFINE_AB: return run_bwd<P_REFINE_AB, DKV>(a, grid, stream);
     case P_F32: return run_bwd<P_F32, DKV>(a, grid, stream);
+    case P_BF16X6: return run_bwd<P_BF16X6, DKV>(a, grid, stream);
+    case P_FP8: return run_bwd<P_FP8, DKV>(a, grid, stream);
+    case P_INT8: return run_bwd<P_INT8, DKV>(a, grid, stream);
+    case P_FP8X3: return run_bwd<P_FP8X3, DKV>(a, grid, stream);
+    case P_INT8X3: return run_bwd<P_INT8X3, DKV>(a, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

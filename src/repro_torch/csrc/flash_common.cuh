@@ -19,7 +19,11 @@
 //   O = O e^{m-m'} + P.V (WMMA, policy passes; O reloaded as an accumulator)
 // A warp owns one score row per step and a lane one column (BKV == 32),
 // so row max and row sum are warp shuffles.  f32 runs the same walk on the
-// CUDA cores (exact f32 dots).
+// CUDA cores (exact f32 dots).  The carried rungs (bf16x6 and the fp8/int8
+// rungs, common.cuh) stage Q, K, V and P in f32 like f32 does and make
+// their bf16 terms per fragment; their quantization scales are taken per
+// staged tile: Q's BQ x hd block (decode: the group's G heads), each KV
+// tile's 32 x hd rows of K and of V, and each BQ x 32 probability tile.
 //
 // Forward: grid (ceil(Sq/64), Kv*G, B); a q block visits only the KV tiles
 // its causal / sliding-window mask can reach (the TPU kernel's
@@ -75,8 +79,8 @@ __device__ __forceinline__ void load8_i8(const void* p, long long i, float (&x)[
 
 // Byte offsets of the shared-memory sections for BQ rows at head dim hd.
 struct AttnSmem {
-  size_t q, k, v, s, p, o, m, l, total;
-  __host__ __device__ AttnSmem(int bq, int hd) {
+  size_t q, k, v, s, p, o, m, l, red, scr, total;
+  __host__ __device__ AttnSmem(int bq, int hd, bool carried) {
     size_t ldq = hd + 8;
     q = 0;
     k = q + align128(bq * ldq * 4);  // bf16 hi+lo, or f32
@@ -86,14 +90,18 @@ struct AttnSmem {
     o = p + align128(bq * (BKV + 8) * 4);
     m = o + align128(bq * (hd + 4) * 4);
     l = m + align128(bq * 4);
-    total = l + align128(bq * 4);
+    red = l + align128(bq * 4);                  // carried rungs: block reductions
+    scr = red + (carried ? align128(32 * 4) : 0);  // and a 1 KB term scratch per warp
+    total = scr + (carried ? ATT_WARPS * 1024 : 0);
   }
 };
 
 template <int POL, int BQ, bool DECODE, bool PAGED>
 __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttnSmem sm(BQ, a.hd);
+  constexpr bool CARRIED = Carried<POL>::value;
+  constexpr bool F32TILE = POL == P_F32 || CARRIED;  // operand tiles staged in f32
+  const AttnSmem sm(BQ, a.hd, CARRIED);
   const int hd = a.hd, ldq = hd + 8, ldo = hd + 4, lds = BKV + 4, ldp = BKV + 8;
   const int H = a.Kv * a.G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -123,6 +131,8 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   float* O = reinterpret_cast<float*>(smem + sm.o);
   float* M = reinterpret_cast<float*>(smem + sm.m);
   float* L = reinterpret_cast<float*>(smem + sm.l);
+  float* red = reinterpret_cast<float*>(smem + sm.red);
+  bf16* scr = reinterpret_cast<bf16*>(smem + sm.scr) + warp * 512;
 
   // Element (row r, dim d) of q and out: decode rows are the group's heads,
   // forward rows are positions of head h.
@@ -138,7 +148,7 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
     if (r < rows) load8(a.q, q_index(r, d0), a.in_bf16, x);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      if constexpr (POL == P_F32) q_f[r * ldq + d0 + e] = x[e];
+      if constexpr (F32TILE) q_f[r * ldq + d0 + e] = x[e];
       else store_split<Splits<POL>::a_lo>(q_hi, q_lo, r * ldq + d0 + e, x[e]);
       O[r * ldo + d0 + e] = 0.f;
     }
@@ -146,6 +156,11 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   for (int r = tid; r < BQ; r += ATT_NT) {
     M[r] = NEG_INF;
     L[r] = 0.f;
+  }
+  float2 sq = make_float2(1.f, 1.f), sk = sq, sv = sq, sp = sq;  // carried: tile scales
+  if constexpr (Carried<POL>::quant) {
+    __syncthreads();
+    sq = tile_scales<POL>(q_f, BQ, hd, ldq, red);
   }
 
   // The KV tiles this block's mask can reach.
@@ -187,7 +202,7 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int o = j * ldq + d0 + e;
-        if constexpr (POL == P_F32) {
+        if constexpr (F32TILE) {
           k_f[o] = kx[e];
           v_f[o] = vx[e];
         } else {
@@ -197,6 +212,10 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
       }
     }
     __syncthreads();
+    if constexpr (Carried<POL>::quant) {
+      sk = tile_scales<POL>(k_f, BKV, hd, ldq, red);
+      sv = tile_scales<POL>(v_f, BKV, hd, ldq, red);
+    }
 
     // S = Q K^T
     if constexpr (POL == P_F32) {
@@ -215,8 +234,12 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
         wmma::fill_fragment(main, 0.f);
         for (int d = 0; d < hd; d += 16) {
           int qo = fr * 16 * ldq + d, ko = fc * 16 * ldq + d;
-          policy_mma<POL, wmma::col_major>(small, main, q_hi + qo, q_lo + qo, ldq,
-                                           k_hi + ko, k_lo + ko, ldq);
+          if constexpr (CARRIED)
+            fly_mma<POL, true, false>(small, main, FlyOp{q_f + qo, ldq, sq},
+                                      FlyOp{k_f + ko, ldq, sk}, scr);
+          else
+            policy_mma<POL, wmma::col_major>(small, main, q_hi + qo, q_lo + qo, ldq,
+                                             k_hi + ko, k_lo + ko, ldq);
         }
         for (int e = 0; e < main.num_elements; ++e) main.x[e] = small.x[e] + main.x[e];
         wmma::store_matrix_sync(S + fr * 16 * lds + fc * 16, main, lds, wmma::mem_row_major);
@@ -254,7 +277,7 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
       const float p = expf(s - m_new);
       float sum = p;
       for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if constexpr (POL == P_F32) p_f[r * ldp + lane] = p;
+      if constexpr (F32TILE) p_f[r * ldp + lane] = p;
       else store_split<Splits<POL>::a_lo>(p_hi, p_lo, r * ldp + lane, p);
       for (int d = lane; d < hd; d += 32) O[r * ldo + d] *= alpha;
       __syncwarp();
@@ -264,6 +287,7 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
       }
     }
     __syncthreads();
+    if constexpr (Carried<POL>::quant) sp = tile_scales<POL>(p_f, BQ, BKV, ldp, red);
 
     // O += P V
     if constexpr (POL == P_F32) {
@@ -283,8 +307,12 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
 #pragma unroll
         for (int kk = 0; kk < BKV; kk += 16) {
           int po = fr * 16 * ldp + kk, vo = kk * ldq + fd * 16;
-          policy_mma<POL, wmma::row_major>(small, main, p_hi + po, p_lo + po, ldp,
-                                           v_hi + vo, v_lo + vo, ldq);
+          if constexpr (CARRIED)
+            fly_mma<POL, true, true>(small, main, FlyOp{p_f + po, ldp, sp},
+                                     FlyOp{v_f + vo, ldq, sv}, scr);
+          else
+            policy_mma<POL, wmma::row_major>(small, main, p_hi + po, p_lo + po, ldp,
+                                             v_hi + vo, v_lo + vo, ldq);
         }
         float* o_tile = O + fr * 16 * ldo + fd * 16;
         wmma::load_matrix_sync(acc, o_tile, ldo, wmma::mem_row_major);
@@ -307,7 +335,7 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
 
 template <int POL, int BQ, bool DECODE, bool PAGED>
 int run_attn(const AttnArgs& a, dim3 grid, cudaStream_t stream) {
-  AttnSmem sm(BQ, a.hd);
+  AttnSmem sm(BQ, a.hd, Carried<POL>::value);
   auto kern = flash_kernel<POL, BQ, DECODE, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)sm.total);
@@ -324,6 +352,11 @@ int dispatch_attn(const AttnArgs& a, int policy, dim3 grid, cudaStream_t stream)
     case P_BF16X3: return run_attn<P_BF16X3, BQ, DECODE, PAGED>(a, grid, stream);
     case P_REFINE_AB: return run_attn<P_REFINE_AB, BQ, DECODE, PAGED>(a, grid, stream);
     case P_F32: return run_attn<P_F32, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_BF16X6: return run_attn<P_BF16X6, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_FP8: return run_attn<P_FP8, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_INT8: return run_attn<P_INT8, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_FP8X3: return run_attn<P_FP8X3, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_INT8X3: return run_attn<P_INT8X3, BQ, DECODE, PAGED>(a, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,14 @@
-// Tiled tensor-core GEMM shared by gemm_tiled.cu (the bf16 rung) and
-// gemm_refined.cu (refine_a / bf16x3 / refine_ab): C = A.B, f32 out.
+// Tiled tensor-core GEMM shared by gemm_tiled.cu (the bf16 rung at M <= 16),
+// gemm_refined.cu (refine_a / bf16x3 / refine_ab) and the grouped GEMMs
+// (gemm_grouped.cuh: every rung but the bf16 forward at 64/128-row tiles):
+// C = A.B, f32 out.  The
+// bf16 rung at M > 16 runs the Hopper mainloop of gemm_sm90.cuh instead
+// (dispatch_gemm below).  bf16x6 (a carried rung, common.cuh) stages f32
+// tiles and makes its terms per fragment; the fp8 / int8 rungs quantize
+// each K step's A and B tiles on their way into shared memory, under the
+// tile's pow2 scales (block reductions over the fetched registers), into
+// bf16 hi (and lo) planes that bf16's one pass or bf16x3's three multiply;
+// f32 multiplies the f32 tiles on the CUDA cores.
 //
 // A is (batch, M, K) and B is (batch, K, N), each f32 or bf16 with
 // arbitrary element strides, so the router hands views (the unembed's
@@ -17,7 +26,7 @@
 // Each warp owns a WM x WN sub-tile of 16x16 WMMA fragments; the bf16
 // rung keeps one accumulator per fragment, the refined rungs two.
 //
-// The grouped GEMMs (gemm_grouped.cu) run the same kernel in one of two
+// The grouped GEMMs (gemm_grouped.cuh) run the same kernel in one of two
 // group modes, reading `groups` from device memory:
 //   G_ROWS  groups[blockIdx.y] is the group of the block's BM rows; B is
 //           batch `group` (w[g], through the batch stride); a group id
@@ -44,7 +53,39 @@ struct GemmArgs {
   int m, n, k;
   const int* groups;        // group modes only (see above)
   int num_groups;
+  int q_int8;               // the P_FP8 / P_FP8X3 instantiations run int8 / int8x3
 };
+
+// The quantized rungs' planes run bf16x3's passes (x3: lo.hi + hi.lo,
+// then hi.hi) or bf16's one; every other rung runs its own.
+template <int POL> struct PlaneRung {
+  static constexpr int value = !Carried<POL>::quant ? POL : (Carried<POL>::x3 ? P_BF16X3 : P_BF16);
+};
+
+__device__ __forceinline__ bf16 qdq_fmt(float x, float s, bool fp8) {
+  return fp8 ? qdq<true>(x, s) : qdq<false>(x, s);
+}
+
+// hi = q(x) of a fetched tile held in the block's registers, under the
+// tile's pow2 scale, as tile_scales takes it over a staged tile; returns
+// the scale of the residual x - hi (x3 rungs, else 1).
+template <int POL, int PER_T>
+__device__ __forceinline__ float quant_hi(const float (&r)[PER_T], bf16 (&h)[PER_T], bool fp8,
+                                          float* red) {
+  const float qmax = fp8 ? 224.f : 127.f;
+  float m = 0.f;
+#pragma unroll
+  for (int e = 0; e < PER_T; ++e) m = fmaxf(m, fabsf(r[e]));
+  const float s_hi = pow2_scale(block_amax(m, red), qmax);
+  m = 0.f;
+#pragma unroll
+  for (int e = 0; e < PER_T; ++e) {
+    h[e] = qdq_fmt(r[e], s_hi, fp8);
+    m = fmaxf(m, fabsf(r[e] - __bfloat162float(h[e])));
+  }
+  if constexpr (Carried<POL>::x3) return pow2_scale(block_amax(m, red), qmax);
+  return 1.f;
+}
 
 enum GroupMode { G_NONE = 0, G_ROWS = 1, G_K = 2 };
 
@@ -90,26 +131,33 @@ __device__ __forceinline__ void fetch_tile(float (&r)[PER_T], const char* base, 
   }
 }
 
-// Hand each fetched element to store(smem index, value): element (o, i)
-// of the tile goes to o * ld_o + i * ld_i (fetch_tile's mapping).
+// Hand each fetched element's place to store(smem index, register
+// index): element (o, i) of the tile goes to o * ld_o + i * ld_i
+// (fetch_tile's mapping).
 template <int OUTER, int INNER, int NT, int PER_T, class Store>
-__device__ __forceinline__ void stage_each(const float (&r)[PER_T], int ld_o, int ld_i, bool vec,
-                                           Store store) {
+__device__ __forceinline__ void stage_index(int ld_o, int ld_i, bool vec, Store store) {
   if (vec) {
 #pragma unroll
     for (int g = 0; g < PER_T / 4; ++g) {
       const int gi = threadIdx.x + g * NT;
       const int o = gi / (INNER / 4), i = (gi % (INNER / 4)) * 4;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) store(o * ld_o + (i + j) * ld_i, r[g * 4 + j]);
+      for (int j = 0; j < 4; ++j) store(o * ld_o + (i + j) * ld_i, g * 4 + j);
     }
   } else {
 #pragma unroll
     for (int e = 0; e < PER_T; ++e) {
       const int ei = threadIdx.x + e * NT;
-      store((ei / INNER) * ld_o + (ei % INNER) * ld_i, r[e]);
+      store((ei / INNER) * ld_o + (ei % INNER) * ld_i, e);
     }
   }
+}
+
+// Hand each fetched element to store(smem index, value).
+template <int OUTER, int INNER, int NT, int PER_T, class Store>
+__device__ __forceinline__ void stage_each(const float (&r)[PER_T], int ld_o, int ld_i, bool vec,
+                                           Store store) {
+  stage_index<OUTER, INNER, NT, PER_T>(ld_o, ld_i, vec, [&](int i, int e) { store(i, r[e]); });
 }
 
 // Round (and split) a fetched tile into shared memory.
@@ -118,6 +166,19 @@ __device__ __forceinline__ void stage_tile(const float (&r)[PER_T], bf16* hi, bf
                                            int ld_o, int ld_i, bool vec) {
   stage_each<OUTER, INNER, NT>(r, ld_o, ld_i, vec,
                                [&](int i, float x) { store_split<WITH_LO>(hi, lo, i, x); });
+}
+
+// Quantize a fetched tile into the hi plane (and, for x3, lo = q(x - hi)
+// under the residual's scale into the lo plane).
+template <int OUTER, int INNER, int NT, int PER_T, int POL>
+__device__ __forceinline__ void stage_quant(const float (&r)[PER_T], bool fp8, float* red,
+                                            bf16* hi, bf16* lo, int ld_o, int ld_i, bool vec) {
+  bf16 h[PER_T];
+  const float s_lo = quant_hi<POL>(r, h, fp8, red);
+  stage_index<OUTER, INNER, NT, PER_T>(ld_o, ld_i, vec, [&](int i, int e) {
+    hi[i] = h[e];
+    if constexpr (Carried<POL>::x3) lo[i] = qdq_fmt(r[e] - __bfloat162float(h[e]), s_lo, fp8);
+  });
 }
 
 template <int BM_, int BN_, int BK_, int WM, int WN, bool B_KMAJOR>
@@ -131,7 +192,9 @@ struct GemmTile {
   static constexpr int B_PER_T = BK * BN / NT;
   static constexpr size_t a_bytes = align128(BM * LDA * sizeof(bf16));
   static constexpr size_t b_bytes = align128((B_KMAJOR ? BN : BK) * LDB * sizeof(bf16));
-  static constexpr size_t smem = 2 * a_bytes + 2 * b_bytes + NWARPS * 256 * sizeof(float);
+  // A and B planes (or f32 tiles), the per-warp epilogue / term scratch,
+  // 32 floats for the quantized rungs' block reductions
+  static constexpr size_t smem = 2 * a_bytes + 2 * b_bytes + NWARPS * 256 * sizeof(float) + 128;
 };
 
 // One K step of both operands into registers, then into shared memory.
@@ -154,7 +217,29 @@ template <class T, bool B_KMAJOR, int POL>
 __device__ __forceinline__ void stage_ab(const float (&ra)[T::A_PER_T],
                                          const float (&rb)[T::B_PER_T], bf16* a_hi, bf16* a_lo,
                                          bf16* b_hi, bf16* b_lo, const GemmArgs& g,
-                                         bool a_kcontig) {
+                                         bool a_kcontig, float* red) {
+  if constexpr (Carried<POL>::quant) {
+    const bool fp8 = !g.q_int8;
+    if (a_kcontig)
+      stage_quant<T::BM, T::BK, T::NT, T::A_PER_T, POL>(ra, fp8, red, a_hi, a_lo, T::LDA, 1,
+                                                         g.a_vec);
+    else
+      stage_quant<T::BK, T::BM, T::NT, T::A_PER_T, POL>(ra, fp8, red, a_hi, a_lo, 1, T::LDA,
+                                                         false);
+    stage_quant<B_KMAJOR ? T::BN : T::BK, B_KMAJOR ? T::BK : T::BN, T::NT, T::B_PER_T, POL>(
+        rb, fp8, red, b_hi, b_lo, T::LDB, 1, g.b_vec);
+    return;
+  }
+  if constexpr (POL == P_F32 || POL == P_BF16X6) {  // f32 tiles over both planes
+    float* af = reinterpret_cast<float*>(a_hi);
+    float* bf = reinterpret_cast<float*>(b_hi);
+    auto put_a = [&](int i, float x) { af[i] = x; };
+    if (a_kcontig) stage_each<T::BM, T::BK, T::NT>(ra, T::LDA, 1, g.a_vec, put_a);
+    else stage_each<T::BK, T::BM, T::NT>(ra, 1, T::LDA, false, put_a);
+    stage_each<B_KMAJOR ? T::BN : T::BK, B_KMAJOR ? T::BK : T::BN, T::NT>(
+        rb, T::LDB, 1, g.b_vec, [&](int i, float x) { bf[i] = x; });
+    return;
+  }
   if (a_kcontig)
     stage_tile<T::BM, T::BK, T::NT, T::A_PER_T, Splits<POL>::a_lo>(ra, a_hi, a_lo, T::LDA, 1,
                                                                   g.a_vec);
@@ -171,7 +256,8 @@ gemm_kernel(GemmArgs g) {
   using T = GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>;
   using LayoutB = typename std::conditional<B_KMAJOR, wmma::col_major, wmma::row_major>::type;
   constexpr int FM = WM / 16, FN = WN / 16;
-  constexpr bool SPLIT = POL != P_BF16;   // refined rungs keep a second accumulator
+  constexpr int PR = PlaneRung<POL>::value;
+  constexpr bool SPLIT = PR != P_BF16;    // refined rungs keep a second accumulator
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a_hi = reinterpret_cast<bf16*>(smem);
@@ -179,6 +265,9 @@ gemm_kernel(GemmArgs g) {
   bf16* b_hi = reinterpret_cast<bf16*>(smem + 2 * T::a_bytes);
   bf16* b_lo = reinterpret_cast<bf16*>(smem + 2 * T::a_bytes + T::b_bytes);
   float* scratch = reinterpret_cast<float*>(smem + 2 * T::a_bytes + 2 * T::b_bytes);
+  float* red = scratch + T::NWARPS * 256;
+  const float* af = reinterpret_cast<const float*>(a_hi);  // f32 and bf16x6
+  const float* bf = reinterpret_cast<const float*>(b_hi);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -206,6 +295,12 @@ gemm_kernel(GemmArgs g) {
 
   float ra[T::A_PER_T], rb[T::B_PER_T];
   const int wm = warp / (BN / WN), wn = warp % (BN / WN);
+  constexpr int FE = POL == P_F32 ? WM * WN / 32 : 1;  // f32: outputs per lane, CUDA cores
+  float facc[FE];
+#pragma unroll
+  for (int e = 0; e < FE; ++e) facc[e] = 0.f;
+  const float2 unit = make_float2(1.f, 1.f);  // bf16x6 takes no scales
+  bf16* fly_scr = reinterpret_cast<bf16*>(scratch + warp * 256);
   FragC main[FM][FN];
   FragC small[SPLIT ? FM : 1][SPLIT ? FN : 1];
 #pragma unroll
@@ -219,9 +314,23 @@ gemm_kernel(GemmArgs g) {
   const int nk = (g.k + BK - 1) / BK;
   fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, 0, a_kcontig);
   for (int t = 0; t < nk; ++t) {
-    stage_ab<T, B_KMAJOR, POL>(ra, rb, a_hi, a_lo, b_hi, b_lo, g, a_kcontig);
+    stage_ab<T, B_KMAJOR, POL>(ra, rb, a_hi, a_lo, b_hi, b_lo, g, a_kcontig, red);
     __syncthreads();
     if (t + 1 < nk) fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, (t + 1) * BK, a_kcontig);
+    if constexpr (POL == P_F32) {
+      const int c = wn * WN + lane % WN;
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        const float bv = B_KMAJOR ? bf[c * T::LDB + kk] : bf[kk * T::LDB + c];
+#pragma unroll
+        for (int e = 0; e < FE; ++e) {
+          const int r = wm * WM + (lane + 32 * e) / WN;
+          facc[e] = fmaf(af[r * T::LDA + kk], bv, facc[e]);
+        }
+      }
+      __syncthreads();
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
 #pragma unroll
@@ -231,17 +340,31 @@ gemm_kernel(GemmArgs g) {
         for (int j = 0; j < FN; ++j) {
           const int nc = wn * WN + j * 16;
           const int bo = B_KMAJOR ? nc * T::LDB + kk : kk * T::LDB + nc;
-          policy_mma<POL, LayoutB>(small[SPLIT ? i : 0][SPLIT ? j : 0], main[i][j], a_hi + ao,
-                                   a_lo + ao, T::LDA, b_hi + bo, b_lo + bo, T::LDB);
+          if constexpr (POL == P_BF16X6)
+            fly_mma<POL, true, !B_KMAJOR>(small[i][j], main[i][j], FlyOp{af + ao, T::LDA, unit},
+                                          FlyOp{bf + bo, T::LDB, unit}, fly_scr);
+          else
+            policy_mma<PR, LayoutB>(small[SPLIT ? i : 0][SPLIT ? j : 0], main[i][j], a_hi + ao,
+                                    a_lo + ao, T::LDA, b_hi + bo, b_lo + bo, T::LDB);
         }
       }
     }
     __syncthreads();
   }
 
-  // Epilogue: small terms + leading term, staged per warp, masked store.
+  // Epilogue: small terms + leading term, staged per warp, masked store
+  // (f32: each lane's outputs straight from registers).
   float* ws = scratch + warp * 256;
   float* c_base = g.c + bz * (long long)g.m * g.n;
+  if constexpr (POL == P_F32) {
+#pragma unroll
+    for (int e = 0; e < FE; ++e) {
+      const int idx = lane + 32 * e;
+      const int gm = m0 + wm * WM + idx / WN, gn = n0 + wn * WN + idx % WN;
+      if (gm < g.m && gn < g.n) c_base[(long long)gm * g.n + gn] = facc[e];
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -274,13 +397,31 @@ int run_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Tile shape by M: a skinny tile for decode (M <= 16 rows: the GEMM is a
+}  // namespace rt
+
+#include "gemm_sm90.cuh"
+
+namespace rt {
+
+// Mainloop ids reported to the wrappers (LAUNCHES_BY_LOOP).
+enum Mainloop { LOOP_WMMA = 0, LOOP_SM90 = 1 };
+
+// The bf16 rung at M > 16 runs the Hopper mainloop (gemm_sm90.cuh: BM 64
+// up to 64 rows, else 128).  Everything else runs the WMMA kernel above,
+// its tile by M: a skinny tile for decode (M <= 16 rows: the GEMM is a
 // weight stream, bounded by bytes) and a 64 x 128 one otherwise (small
 // enough in registers for two blocks per SM).  B's shared-memory layout
 // follows its contiguous dimension so that global reads stay coalesced for
 // both the NN weights and the NT unembed table.
 template <int POL>
-int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
+int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream, int* loop = nullptr) {
+  if (loop != nullptr) *loop = LOOP_WMMA;
+  if constexpr (POL == P_BF16) {
+    if (g.m > 16) {
+      if (loop != nullptr) *loop = LOOP_SM90;
+      return sm90::run<G_NONE>(g, batch, g.m <= 64 ? 64 : 128, stream);
+    }
+  }
   const bool kmajor = g.sbk < g.sbn;
   if (g.m <= 16) {
     return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL>(g, batch, stream)
@@ -310,6 +451,7 @@ inline GemmArgs make_args(const void* a, int a_bf16, long long sab, long long sa
   g.a_bf16 = a_bf16; g.b_bf16 = b_bf16;
   g.m = m; g.n = n; g.k = k;
   g.groups = nullptr; g.num_groups = 0;
+  g.q_int8 = 0;
   g.a_vec = vec4_ok(a, a_bf16, sak, sam, sab, k);
   g.b_vec = sbk < sbn ? vec4_ok(b, b_bf16, sbk, sbn, sbb, k) : vec4_ok(b, b_bf16, sbn, sbk, sbb, n);
   return g;

@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm_tiled", "gemm_refined", "attention_fused", "attention_bwd", "attention_paged",
-           "gemm_lowp", "gemm_grouped", "gemm_naive", "batched_gemm", "wkv6")
+           "gemm_lowp", "gemm_grouped", "gemm_grouped_ext", "gemm_grouped_dw", "gemm_naive",
+           "batched_gemm", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,13 +74,26 @@ def build_all(names=SOURCES) -> dict[str, dict]:
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
     failed = []
-    for name, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, path)
-        out[name] = {"seconds": time.monotonic() - t0, "cached": False, "log": log}
+    logs = {name: [] for name in procs}
+    readers = [threading.Thread(target=lambda n=n, p=p: logs[n].append(p.stdout.read()))
+               for n, (p, _, _) in procs.items()]
+    for r in readers:
+        r.start()
+    pending = dict(procs)
+    while pending:            # each source's own seconds, as it finishes
+        for name, (proc, tmp, path) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            del pending[name]
+            seconds = time.monotonic() - t0
+            readers[list(procs).index(name)].join()
+            log = "".join(logs[name])
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+                continue
+            os.replace(tmp, path)
+            out[name] = {"seconds": seconds, "cached": False, "log": log}
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out

@@ -11,7 +11,14 @@ Replaces the TPU kernels ``repro/kernels/attention_fused.py:_fwd_kernel``
 unnormalised output), so the (Sq, Skv) score tensor never reaches device
 memory; the forward also writes ``lse = m + log l`` per row.  Every
 contraction runs the precision ladder on the tensor cores (bf16 /
-refine_a / bf16x3 / refine_ab; f32 on the CUDA cores).  Masks: causal,
+refine_a / bf16x3 / refine_ab from staged bf16 hi/lo tiles; bf16x6 and
+the fp8 / int8 / fp8x3 / int8x3 rungs from f32 tiles, their bf16 terms
+made per fragment; f32 on the CUDA cores).  The quantized rungs take
+``repro``'s pow2 quantize-dequantize with one scale per staged tile, as
+the TPU kernel takes one per block: the forward's 64 x hd Q block (decode:
+the G heads of a kv head), each 32 x hd K and V tile, each 64 x 32 (decode
+G x 32) probability tile; the backward's 32-row Q, dO, K and V tiles and
+32 x 32 P and dS tiles.  The plain twins take the same tiles.  Masks: causal,
 sliding window and tail padding for the forward and backward; the
 ring-buffer slot rule ``pos - ((pos - c) mod S) >= 0`` (a floor mod) or
 the linear ``c <= pos`` for decode, at a per-row ``pos``.  GQA: query
@@ -70,8 +77,11 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "LAUNCHES"]
 
 BKV = 32
+BQ = 64        # the forward kernel's q block (its Q and P scale tiles)
+BT = 32        # the backward kernels' q and kv tiles
 NEG_INF = -1e30
-POLICY_CODES = {"bf16": 0, "refine_a": 1, "bf16x3": 2, "refine_ab": 3, "f32": 4}
+POLICY_CODES = {"bf16": 0, "refine_a": 1, "bf16x3": 2, "refine_ab": 3, "f32": 4,
+                "bf16x6": 5, "fp8": 6, "int8": 7, "fp8x3": 8, "int8x3": 9}
 FUSED_POLICIES = tuple(POLICY_CODES)
 
 # Launch counts of the kernels, keyed by kernel.
@@ -81,13 +91,19 @@ LAUNCHES = {"flash_attention": 0, "flash_decode": 0,
 
 # ------------------------------------------------------------ plain twins
 
-def _policy_dot(spec: str, x: torch.Tensor, y: torch.Tensor,
-                policy: str) -> torch.Tensor:
+def _policy_dot(spec: str, x: torch.Tensor, y: torch.Tensor, policy: str,
+                x_tile=None, y_tile=None) -> torch.Tensor:
     """einsum under the ladder: the policy's bf16 terms upcast and
-    multiplied in f32, summed smallest first; f32 is one exact pass."""
+    multiplied in f32, summed smallest first; f32 is one exact pass.  The
+    quantized rungs scale each operand per tile (``prec.tile_terms``;
+    None: the whole tensor)."""
     if policy == "f32":
         return torch.einsum(spec, x.float(), y.float())
-    x_terms, y_terms = prec.operand_terms(x, y, policy)
+    if policy in ("fp8", "int8", "fp8x3", "int8x3"):
+        x_terms = prec.tile_terms(x, policy, x_tile or (0,) * x.dim())
+        y_terms = prec.tile_terms(y, policy, y_tile or (0,) * y.dim())
+    else:
+        x_terms, y_terms = prec.operand_terms(x, y, policy)
     out = None
     for tx, ty in prec.policy_terms(policy):
         part = torch.einsum(spec, x_terms[tx].float(), y_terms[ty].float())
@@ -100,16 +116,24 @@ def _pad_kv(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) if pad else x
 
 
-def _online_softmax(q, k, v, keep_fn, softcap, precision):
+# Scale tiles of the quantized rungs (``prec.tile_terms``), per operand layout.
+_KV_TILE = (1, 0, 1, 0)                     # (B, 32, Kv, hd): one K or V tile
+_FWD_TILES = ((1, BQ, 1, 1, 0), (1, 1, 1, BQ, 0))    # q; p (B, Kv, G, Sq, 32)
+_DECODE_TILES = ((1, 0, 1, 0, 0), (1, 1, 0, 0, 0))   # the G heads of a kv head
+
+
+def _online_softmax(q, k, v, keep_fn, softcap, precision, tiles=_FWD_TILES):
     """The kernels' KV walk: q (B,Sq,Kv,G,hd), k/v (B,Skv,Kv,hd) padded to
-    BKV rows; keep_fn(cols) -> bool mask broadcastable to (B,Kv,G,Sq,BKV).
-    Returns (out (B,Sq,Kv,G,hd) f32, lse (B,Kv*G,Sq) f32)."""
+    BKV rows; keep_fn(cols) -> bool mask broadcastable to (B,Kv,G,Sq,BKV);
+    ``tiles``: the scale tiles of q and p.  Returns (out (B,Sq,Kv,G,hd)
+    f32, lse (B,Kv*G,Sq) f32)."""
+    q_tile, p_tile = tiles
     b, sq, kvh, g, hd = q.shape
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32, device=q.device)
     for k0 in range(0, k.shape[1], BKV):
-        s = _policy_dot("bqkgd,bskd->bkgqs", q, k[:, k0:k0 + BKV], precision)
+        s = _policy_dot("bqkgd,bskd->bkgqs", q, k[:, k0:k0 + BKV], precision, q_tile, _KV_TILE)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
         cols = k0 + torch.arange(BKV, device=q.device)
@@ -118,7 +142,8 @@ def _online_softmax(q, k, v, keep_fn, softcap, precision):
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = _policy_dot("bkgqs,bskd->bkgqd", p, v[:, k0:k0 + BKV], precision)
+        pv = _policy_dot("bkgqs,bskd->bkgqd", p, v[:, k0:k0 + BKV], precision, p_tile,
+                         _KV_TILE)
         acc = acc * alpha[..., None] + pv
         m = m_new
     l = torch.clamp(l, min=1e-30)
@@ -193,14 +218,15 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, *, causal: bool = True,
     do = do.float()
     kp, vp = _pad_kv(k), _pad_kv(v)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    q_tile, ds_tile = (1, BT, 1, 1, 0), (1, 1, 1, BT, 0)
     for k0 in range(0, kp.shape[1], BKV):
         kt, vt = kp[:, k0:k0 + BKV], vp[:, k0:k0 + BKV]
         cols = k0 + torch.arange(BKV, device=q.device)
         keep = _keep(rows[:, None], cols[None, :], sq, skv, causal, window)
-        s = _policy_dot("bqkgd,bskd->bkgqs", q, kt, precision)
-        dp = _policy_dot("bqkgd,bskd->bkgqs", do, vt, precision)
+        s = _policy_dot("bqkgd,bskd->bkgqs", q, kt, precision, q_tile, _KV_TILE)
+        dp = _policy_dot("bqkgd,bskd->bkgqs", do, vt, precision, q_tile, _KV_TILE)
         _, ds = _probs(s, lse4[..., None], dp, di4[..., None], keep, softcap)
-        dq = dq + _policy_dot("bkgqs,bskd->bqkgd", ds, kt, precision)
+        dq = dq + _policy_dot("bkgqs,bskd->bqkgd", ds, kt, precision, ds_tile, _KV_TILE)
     return dq
 
 
@@ -222,17 +248,18 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, *, causal: bool = True,
     cols = torch.arange(skv, device=q.device)
     dk = torch.zeros((b, skv, kvh, hd), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
+    kv_tile, p_tile = (1, BT, 1, 0), (1, 1, 0, BT)
     for gi in range(g):
         for q0 in range(0, qp.shape[1], BKV):
             qt, dot = qp[:, q0:q0 + BKV, :, gi], dop[:, q0:q0 + BKV, :, gi]
             rows = q0 + torch.arange(BKV, device=q.device)
             keep = _keep(rows[:, None], cols[None, :], sq, skv, causal, window)
-            s = _policy_dot("bqkd,bskd->bkqs", qt, k, precision)
-            dp = _policy_dot("bqkd,bskd->bkqs", dot, v, precision)
+            s = _policy_dot("bqkd,bskd->bkqs", qt, k, precision, _KV_TILE, kv_tile)
+            dp = _policy_dot("bqkd,bskd->bkqs", dot, v, precision, _KV_TILE, kv_tile)
             p, ds = _probs(s, lsep[:, :, gi, q0:q0 + BKV, None], dp,
                            dip[:, :, gi, q0:q0 + BKV, None], keep, softcap)
-            dv = dv + _policy_dot("bkqs,bqkd->bskd", p, dot, precision)
-            dk = dk + _policy_dot("bkqs,bqkd->bskd", ds, qt, precision)
+            dv = dv + _policy_dot("bkqs,bqkd->bskd", p, dot, precision, p_tile, _KV_TILE)
+            dk = dk + _policy_dot("bkqs,bqkd->bskd", ds, qt, precision, p_tile, _KV_TILE)
     return dk, dv
 
 
@@ -264,7 +291,7 @@ def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
         return keep[:, None, None, None, :]                      # (B,1,1,1,BKV)
 
     return _online_softmax(q, _pad_kv(k_cache), _pad_kv(v_cache), keep_fn,
-                           softcap, precision)[0]
+                           softcap, precision, _DECODE_TILES)[0]
 
 
 # ---------------------------------------------------------------- kernels

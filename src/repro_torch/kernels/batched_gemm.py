@@ -14,7 +14,11 @@ Replaces two TPU kernels of ``repro/kernels/batched_gemm.py``:
       WMMA only on the diagonal blocks; at n = 8 two matrices share one
       16 x 16 fragment block-diagonally (exact: the off-diagonal blocks
       are zero).  It raises where the JAX wrapper raises (n must divide
-      the tile, pack must divide G) and takes n in {8, 16, 32, 64}.
+      the tile, pack must divide G) and takes n in {8, 16, 32, 64}
+      (``PACKED_N``, checked on the CPU too); ``ops.gemm_batched`` sends
+      the other divisors of the tile (1, 2, 4, 128) to the naive kernel,
+      whose one warp per matrix takes any n, rather than instantiate a
+      packed kernel for sizes below a fragment or of one matrix per CTA.
   ``_naive_kernel`` (``pallas_call`` at :120)
       ``batched_gemm_naive``: one warp per matrix, the paper's own Fig. 7
       mapping, its fragments read from global memory element by element
@@ -115,10 +119,11 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CUDA tensors launch the kernel or raise."""
     g, n = check_batched(a, b)
     pack = _pack(g, n)
+    if n not in PACKED_N:
+        raise ValueError(f"the packed kernel takes n in {PACKED_N}; got n={n} "
+                         f"(ops.gemm_batched sends it to batched_gemm_naive)")
     if on_cpu(a, b):
         return batched_gemm_plain(a, b)
-    if n not in PACKED_N:
-        raise ValueError(f"the packed kernel takes n in {PACKED_N}; got n={n}")
     a, a16 = _operand(a)
     b, b16 = _operand(b)
     c = torch.empty((g, n, n), dtype=torch.float32, device=a.device)

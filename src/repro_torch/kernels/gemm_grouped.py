@@ -1,5 +1,6 @@
 """Grouped (ragged) expert GEMMs of the MoE FFN on the Hopper tensor cores
-(``csrc/gemm_grouped.cu``), forward, dx and dW.
+(``csrc/gemm_grouped.cuh``, instantiated by ``gemm_grouped.cu``,
+``gemm_grouped_ext.cu`` and ``gemm_grouped_dw.cu``), forward, dx and dW.
 
 Replaces two TPU kernels of ``repro/kernels/gemm_grouped.py``:
 
@@ -10,8 +11,17 @@ Replaces two TPU kernels of ``repro/kernels/gemm_grouped.py``:
   ``_dw_kernel`` (``pallas_call`` at :246, via ``_dw_call``)
       ``grouped_gemm_dw``: dw[g] = x_g^T . dy_g over group g's run.
 
-Both run the bf16 ladder's fused rungs (bf16, refine_a, bf16x3,
-refine_ab) through ``gemm_common.cuh``'s tiled kernel.  The TPU
+Both run every rung of the ladder.  The bf16 forward and dx at CTA row
+tiles of 64 and 128 run the Hopper mainloop (``csrc/gemm_sm90.cuh``: TMA
+or a converting producer warpgroup feeding ``wgmma``; its grid walks the
+row tiles fastest, so the row tiles of one expert read each weight N-tile
+from HBM once and from L2 after); everything else runs
+``gemm_common.cuh``'s WMMA tiled kernel: refine_a / bf16x3 / refine_ab
+from staged bf16 hi/lo tiles; the fp8 / int8 rungs quantized on their way
+into those tiles under each staged tile's pow2 scales (the CTA's rows x BK
+of x, BK x 128 of w; dW's 64 x 32 of x^T and 32 x 128 of dy), then
+multiplied in bf16's one pass or bf16x3's three; bf16x6 from f32 tiles
+with its terms made per fragment; f32 on the CUDA cores.  The TPU
 scalar-prefetched a per-tile group id; here each block of the forward
 loads its own from ``tile_group_ids`` (computed on the device with
 ``searchsorted`` at the kernel's CTA row tile, no host sync): a dead tile
@@ -31,14 +41,16 @@ weight matrices: at Mixtral's 8 x 4096 x 14336 in f32, 1.88 GB, 0.56 ms at
 prefill; a decode call is the same weight stream.  dW writes the same
 1.88 GB.  The design reads the f32 expert stack in place and rounds (or
 splits) it on the way into shared memory, as ``gemm_tiled`` does: no bf16
-copy of the stack is ever written.  WMMA bf16 16x16x16 fragments;
-``wgmma``/TMA, skipping tiles that hold only padding and keeping bf16
-expert weights come later.
+copy of the stack is ever written.  So the forward cannot pass the f32
+weight stream's bound; bf16 expert weights and skipping tiles that hold
+only padding come later.
 
 Layout contract: the alignment ``bm`` must be a multiple of 16 (a WMMA
-fragment's rows); the forward's CTA row tile is 64 where 64 divides
-``bm``, else 16.  Each output row is its own dot product, so the row tile
-does not change results.
+fragment's rows); the forward's CTA row tile is 128 on the bf16 rung
+where 128 divides ``bm``, else 64 where 64 does, else 16.  Each output
+row is its own dot product, so the row tile does not change results
+(except the quantized rungs' scale tiles, which the plain twin takes at
+the same row tile).
 """
 
 from __future__ import annotations
@@ -48,16 +60,22 @@ import functools
 
 import torch
 
+from repro_torch.core import precision as prec
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemm_refined import POLICY_CODES as _REFINED_CODES
 from repro_torch.kernels.gemm_refined import gemm_refined_plain
-from repro_torch.kernels.gemm_tiled import gemm_tiled_plain, on_cpu
+from repro_torch.kernels.gemm_tiled import MAINLOOPS, gemm_tiled_plain, on_cpu
 
 __all__ = ["grouped_gemm", "grouped_gemm_dw", "grouped_gemm_plain", "grouped_gemm_dw_plain",
-           "grouped", "tile_group_ids", "cta_rows", "LAUNCHES", "POLICY_CODES", "ROW_TILE"]
+           "grouped", "tile_group_ids", "cta_rows", "LAUNCHES", "LAUNCHES_BY_LOOP", "POLICY_CODES",
+           "ROW_TILE"]
 
 LAUNCHES = {"grouped_gemm": 0, "grouped_gemm_dw": 0}
-POLICY_CODES = {"bf16": 0, **_REFINED_CODES}
+LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)   # the forward's (and dx's) mainloop
+POLICY_CODES = {"bf16": 0, **_REFINED_CODES, "f32": 4, "bf16x6": 5, "fp8": 6, "int8": 7,
+                "fp8x3": 8, "int8x3": 9}
+_QUANT = ("fp8", "int8", "fp8x3", "int8x3")
+_CTA_BK = {16: 64, 64: 32}   # the WMMA kernel's K step at each CTA row tile
 ROW_TILE = 16          # the smallest CTA row tile: the alignment must be a multiple
 
 
@@ -71,12 +89,16 @@ def tile_group_ids(group_offsets: torch.Tensor, n_rows: int, bm: int) -> torch.T
                               out_int32=True) - 1
 
 
-def cta_rows(bm: int) -> int:
-    """The forward kernel's CTA row tile for alignment ``bm``; raises on
-    an alignment it cannot serve."""
+def cta_rows(bm: int, policy: str = "bf16") -> int:
+    """The forward kernel's CTA row tile for alignment ``bm``: 128 on the
+    bf16 rung where 128 divides ``bm`` (the Hopper mainloop's two consumer
+    warpgroups), else 64 where 64 does, else 16; raises on an alignment it
+    cannot serve."""
     if bm <= 0 or bm % ROW_TILE:
         raise ValueError(f"grouped_gemm needs a group alignment that is a multiple of "
                          f"{ROW_TILE}; got bm={bm}")
+    if policy == "bf16" and bm % 128 == 0:
+        return 128
     return 64 if bm % 64 == 0 else ROW_TILE
 
 
@@ -85,24 +107,45 @@ def _check_policy(policy: str) -> None:
         raise ValueError(f"grouped_gemm fuses {sorted(POLICY_CODES)}; got {policy!r}")
 
 
-def _ladder_matmul(a: torch.Tensor, b: torch.Tensor, policy: str) -> torch.Tensor:
-    """a @ b on the rung: the dense GEMM kernels' plain versions."""
-    return gemm_tiled_plain(a, b) if policy == "bf16" else gemm_refined_plain(a, b, policy)
+def _ladder_matmul(a: torch.Tensor, b: torch.Tensor, policy: str,
+                   tiles=((0, 0), (0, 0))) -> torch.Tensor:
+    """a @ b on the rung: the dense GEMM kernels' plain versions for bf16
+    and the refined rungs, f32 matmul for f32, else the policy's terms
+    (the quantized rungs scaled per ``tiles`` of a and b) summed smallest
+    first."""
+    if policy == "bf16":
+        return gemm_tiled_plain(a, b)
+    if policy in _REFINED_CODES:
+        return gemm_refined_plain(a, b, policy)
+    if policy == "f32":
+        return torch.matmul(a.float(), b.float())
+    if policy in _QUANT:
+        at, bt = prec.tile_terms(a, policy, tiles[0]), prec.tile_terms(b, policy, tiles[1])
+    else:
+        at, bt = prec.operand_terms(a, b, policy)
+    out = None
+    for ta, tb in prec.policy_terms(policy):
+        part = torch.matmul(at[ta].float(), bt[tb].float())
+        out = part if out is None else out + part
+    return out
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
-                       policy: str = "bf16", trans_w: bool = False) -> torch.Tensor:
+                       bm: int, policy: str = "bf16", trans_w: bool = False) -> torch.Tensor:
     """The same function in plain PyTorch: a loop over groups of the
     ladder's product of each run against its expert; rows past
-    ``offsets[E]`` are zero."""
+    ``offsets[E]`` are zero.  ``bm`` (the alignment) sets the kernel's CTA
+    row tile, and so the quantized rungs' scale tiles."""
     _check_policy(policy)
+    cta = cta_rows(bm, policy)
+    tiles = ((cta, _CTA_BK.get(cta, 0)), (_CTA_BK.get(cta, 0), 128))
     off = group_offsets.tolist()
     out = torch.zeros((x.shape[0], w.shape[1] if trans_w else w.shape[2]),
                       dtype=torch.float32, device=x.device)
     for g in range(w.shape[0]):
         if off[g + 1] > off[g]:
             wg = w[g].t() if trans_w else w[g]
-            out[off[g]:off[g + 1]] = _ladder_matmul(x[off[g]:off[g + 1]], wg, policy)
+            out[off[g]:off[g + 1]] = _ladder_matmul(x[off[g]:off[g + 1]], wg, policy, tiles)
     return out
 
 
@@ -115,23 +158,38 @@ def grouped_gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torc
     dw = torch.zeros((e, x.shape[1], dy.shape[1]), dtype=torch.float32, device=x.device)
     for g in range(e):
         if off[g + 1] > off[g]:
-            dw[g] = _ladder_matmul(x[off[g]:off[g + 1]].t(), dy[off[g]:off[g + 1]], policy)
+            dw[g] = _ladder_matmul(x[off[g]:off[g + 1]].t(), dy[off[g]:off[g + 1]], policy,
+                                   ((64, 32), (32, 128)))
     return dw
 
 
+# The forward's rungs beyond bf16, its refinements and f32 are built from
+# their own source (gemm_grouped_ext.cu), so the three compile in parallel.
+_EXT_POLICIES = ("bf16x6", *_QUANT)
+
+
 @functools.cache
-def _launchers():
-    lib = _build.load("gemm_grouped")
+def _forward_launcher(ext: bool):
     c = ctypes
-    fwd, dw = lib.grouped_gemm_launch, lib.grouped_gemm_dw_launch
+    lib = _build.load("gemm_grouped_ext" if ext else "gemm_grouped")
+    fwd = lib.grouped_gemm_ext_launch if ext else lib.grouped_gemm_launch
     fwd.argtypes = [c.c_void_p, c.c_int, c.c_longlong, c.c_longlong,               # x
                     c.c_void_p, c.c_int, c.c_longlong, c.c_longlong, c.c_longlong,  # w
                     c.c_void_p, c.c_int, c.c_void_p,                                # gids, E, out
-                    c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_int]
+                    c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.POINTER(c.c_int),
+                    c.c_void_p, c.c_int]
+    fwd.restype = c.c_int
+    return fwd
+
+
+@functools.cache
+def _dw_launcher():
+    c = ctypes
+    dw = _build.load("gemm_grouped_dw").grouped_gemm_dw_launch
     dw.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p,
                    c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_int]
-    fwd.restype = dw.restype = c.c_int
-    return fwd, dw
+    dw.restype = c.c_int
+    return dw
 
 
 def _operand(x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +213,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, 
     the kernel or raise.
     """
     _check_policy(policy)
-    cta = cta_rows(bm)
+    cta = cta_rows(bm, policy)
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"grouped_gemm expects (N,K) x (E,K,F); got {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
@@ -164,7 +222,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, 
         raise ValueError(f"grouped_gemm shapes: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"trans_w={trans_w}, offsets {tuple(group_offsets.shape)}")
     if on_cpu(x, w, group_offsets):
-        return grouped_gemm_plain(x, w, group_offsets, policy=policy, trans_w=trans_w)
+        return grouped_gemm_plain(x, w, group_offsets, policy=policy, trans_w=trans_w, bm=bm)
     x, w = _operand(x), _operand(w)
     e, d, f = w.shape
     n_rows = x.shape[0]
@@ -174,14 +232,16 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, 
         gids = tile_group_ids(group_offsets, n_rows, cta)
         # B = w[g] (K x N): row-major (k-stride F) or, for dx, w[g]^T (k-stride 1)
         sbk, sbn = (1, f) if trans_w else (f, 1)
-        rc = _launchers()[0](
+        loop = ctypes.c_int(-1)
+        rc = _forward_launcher(policy in _EXT_POLICIES)(
             x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0), 1,
             w.data_ptr(), int(w.dtype == torch.bfloat16), d * f, sbk, sbn,
             gids.data_ptr(), e, out.data_ptr(), n_rows, n_out, x.shape[1], cta,
-            POLICY_CODES[policy], torch.cuda.current_stream(x.device).cuda_stream,
-            _device_index(x))
+            POLICY_CODES[policy], ctypes.byref(loop),
+            torch.cuda.current_stream(x.device).cuda_stream, _device_index(x))
         _build.check(rc, "grouped_gemm_launch")
         LAUNCHES["grouped_gemm"] += 1
+        LAUNCHES_BY_LOOP[MAINLOOPS[loop.value]] += 1
     return out
 
 
@@ -203,7 +263,7 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tens
     dw = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
     if dw.numel():
         offsets = group_offsets.to(torch.int32).contiguous()
-        rc = _launchers()[1](
+        rc = _dw_launcher()(
             x.data_ptr(), int(x.dtype == torch.bfloat16), dy.data_ptr(),
             int(dy.dtype == torch.bfloat16), offsets.data_ptr(), e, dw.data_ptr(), d, f,
             POLICY_CODES[policy], torch.cuda.current_stream(x.device).cuda_stream,

@@ -5,18 +5,28 @@ Replaces the TPU kernel ``repro/kernels/gemm_tiled.py:_gemm_kernel``
 rounded to bf16 and an f32 accumulator, the paper's "WMMA + shared
 memory" surface (its Fig. 6 CUTLASS column).
 
-What bounds it on the H100: bytes.  At the prefill MLP (700 x 1152 x
-6912) moving the f32 weights and the output takes 16 us against 11 us of
-bf16 tensor-core work; at decode (M = 4 rows against a 1152 x 262144
-table) the weight stream is all there is.  The design answers both: f32 or bf16 operands are read where they lie, through their
-strides, and rounded on the way into shared memory (the JAX wrapper's
-``astype(bfloat16)`` would write a 0.6 GB bf16 copy of the unembed table
-per call in eager PyTorch), ragged edges are masked in the kernel (no
-padded copy), the next K step is fetched into registers while the
-tensor cores work on the current one, and a 16-row tile serves M <= 16
-so that a decode tick streams each weight once with little wasted
-tensor-core work.  WMMA bf16 16x16x16 fragments; ``wgmma``/TMA come
-later.
+What bounds it on the H100.  Prefill and training shapes (M > 16) are
+bounded by operations once their operands are staged well: 4096^3 is 139
+us of bf16 tensor-core work against 20 us of bytes; the prefill MLP (700 x
+1152 x 6912 against f32 weights) moves 16 us of bytes against 11 us of
+work.  Decode (M <= 16 rows against a 1152 x 262144 table) is a weight
+stream, bounded by bytes alone.
+
+The design, by shape:
+  M > 16   the Hopper mainloop (``csrc/gemm_sm90.cuh``): a producer
+           warpgroup fills a 4-stage ring of 128-byte swizzled tiles (TMA
+           for bf16 operands that are contiguous along K or M/N and 16-byte
+           aligned; 16-byte loads rounded to bf16 on the way in for f32
+           operands and odd strides), one or two consumer warpgroups run
+           ``wgmma`` m64n128k16 on it, BM 64 up to 64 rows, else 128.
+  M <= 16  the WMMA skinny tile (``csrc/gemm_common.cuh``): 16-row blocks
+           stream each weight once with little wasted tensor-core work
+           (split-K comes later).
+Both read f32 or bf16 operands where they lie, through their strides (the
+JAX wrapper's ``astype(bfloat16)`` would write a 0.6 GB bf16 copy of the
+unembed table per call in eager PyTorch), and mask the ragged edges in
+the kernel (no padded copy).  ``LAUNCHES_BY_LOOP`` counts which mainloop
+each launch ran.
 """
 
 from __future__ import annotations
@@ -28,9 +38,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["gemm_tiled", "gemm_tiled_plain", "LAUNCHES"]
+__all__ = ["gemm_tiled", "gemm_tiled_plain", "LAUNCHES", "LAUNCHES_BY_LOOP", "MAINLOOPS"]
 
 LAUNCHES = 0
+MAINLOOPS = ("wmma", "sm90")      # the C launchers' mainloop ids
+LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)
 
 _c = ctypes
 GEMM_ARGTYPES = [
@@ -93,7 +105,7 @@ def launch_gemm(fn, a: torch.Tensor, b: torch.Tensor, *extra) -> torch.Tensor:
 @functools.cache
 def _launcher():
     fn = _build.load("gemm_tiled").gemm_tiled_launch
-    fn.argtypes = [*GEMM_ARGTYPES, _c.c_void_p, _c.c_int]
+    fn.argtypes = [*GEMM_ARGTYPES, _c.POINTER(_c.c_int), _c.c_void_p, _c.c_int]
     fn.restype = _c.c_int
     return fn
 
@@ -109,6 +121,9 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_operands(a, b)
     if on_cpu(a, b):
         return gemm_tiled_plain(a, b)
-    out = launch_gemm(_launcher(), a, b)
+    loop = _c.c_int(-1)
+    out = launch_gemm(_launcher(), a, b, _c.byref(loop))
     LAUNCHES += 1
+    if loop.value >= 0:
+        LAUNCHES_BY_LOOP[MAINLOOPS[loop.value]] += 1
     return out

@@ -160,9 +160,6 @@ class ServeEngine:
             raise ValueError(f"unknown kv_layout {kv_layout!r}; one of ('dense', 'paged')")
         if kv_quant is not None and kv_layout != "paged":
             raise ValueError("kv_quant requires kv_layout='paged'")
-        if kv_layout == "paged" and cfg.family != "dense":
-            raise ValueError(f"kv_layout='paged' serves the dense family only; "
-                             f"{cfg.name} is {cfg.family!r}")
         self.kv_layout = kv_layout
         self.kv_page_size = kv_page_size
         self.kv_quant = kv_quant
@@ -365,12 +362,12 @@ class ServeEngine:
         if alloc_map is not None:
             self._splice_paged(cache1, slot, alloc_map)
             self._slot_pages[slot] = alloc_map
-        else:
-            # every leaf of the slot's state, KV rows or recurrent state alike
-            for full, one in zip(self.cache, cache1):
-                if full is not None:
-                    for dst, src in zip(full, one):
-                        dst[slot] = src[0].to(dst.dtype)
+        # every dense leaf of the slot's state: KV rows (dense layout) and
+        # recurrent state (both layouts)
+        for full, one in zip(self.cache, cache1):
+            if full is not None and not isinstance(full, paged_kv.PagedKVCache):
+                for dst, src in zip(full, one):
+                    dst[slot] = src[0].to(dst.dtype)
         self.slot_req[slot] = req
         self.last_tok[slot] = req.out_tokens[-1]
         self.pos[slot] = len(toks)

@@ -53,6 +53,44 @@ WKV_TOL = 1e-4
 BWD_ATOL = 1e-2
 
 
+# The fp8 / int8 rungs, kernel against plain version: both quantize the
+# same tiles with the same pow2 scales, so the quantized terms of the
+# inputs are bit-equal; they differ only where an f32 sum in another order
+# moves a derived value (a probability, ds) across a quantization step.  A
+# GEMM has no derived operand: it keeps the sum-order tolerance.  In
+# attention one flipped probability moves an output by the step times |v|
+# over the row's sum of probabilities: for the x3 rungs the lo term makes
+# up all but its own step; for one pass the whole step (2^-6 for int8, up
+# to 2^-4 of p for e4m3; rare, since p moves by an ulp).  Bounds set from
+# the H100's readings (PERF.md, PR 16), largest over the cases: out
+# (forward, decode, paged, the backward's forward) fp8 1.8e-7, int8
+# 1.4e-3, fp8x3 2.3e-5, int8x3 3.3e-5; dq/dk/dv fp8 1.2e-7, int8 4.9e-4,
+# fp8x3 2.4e-4, int8x3 5.8e-5.  Each case also holds the plain version at
+# a wrong rung (bf16 in place of one pass, one pass in place of x3) above
+# its bound, so a kernel that computed that rung would fail: the smallest
+# such readings were 2.7e-3 (out, int8 and int8x3) and 1.6e-3 (dk, int8
+# and int8x3).
+QUANT_RUNGS = ("fp8", "int8", "fp8x3", "int8x3")
+WRONG_RUNG = {"fp8": "bf16", "int8": "bf16", "fp8x3": "fp8", "int8x3": "int8"}
+QUANT_ATTN_TOL = {"fp8": 1e-3, "int8": 2e-3, "fp8x3": 2e-4, "int8x3": 2e-4}
+QUANT_BWD_TOL = {"fp8": 1e-3, "int8": 1e-3, "fp8x3": 1e-3, "int8x3": 5e-4}
+
+
+def _hold(record_property, name, got, ref, tol, wrong=None):
+    """max |got - ref| <= tol, the reading recorded (``--junitxml``);
+    ``wrong``: the plain version at a wrong rung, which must land above
+    tol."""
+    assert got.shape == ref.shape and torch.isfinite(got).all(), name
+    err = (got.float() - ref.float()).abs().max().item()
+    record_property(f"{name}_err", err)
+    if wrong is not None:
+        control = (got.float() - wrong.float()).abs().max().item()
+        record_property(f"{name}_control", control)
+    assert err <= tol, (name, err, tol)
+    if wrong is not None:
+        assert control > tol, (f"{name}: the wrong-rung control is within the bound", control, tol)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -62,8 +100,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _u(rng, shape, dev, dtype=torch.float32):
-    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev, dtype)
+def _u(rng, shape, dev, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((scale * rng.uniform(-1, 1, shape)).astype(np.float32)).to(dev, dtype)
 
 
 @pytest.mark.parametrize("m,n,k", [(48, 40, 132), (4, 1000, 1152), (200, 300, 70),
@@ -83,6 +121,68 @@ def test_gemm_tiled_matches_plain(dev, m, n, k, layout, dtype):
     ref = gt.gemm_tiled_plain(a, b)
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert (out - ref).abs().max().item() <= GEMM_ATOL
+
+
+def _sm90_operands(rng, m, n, k, layout, a_dtype, b_dtype, dev):
+    """A and B for the mainloop's cases; B scaled by k^-1/2 as the model's
+    weights are, so |C| stays O(1) at K = 6912 (the tensor cores' f32
+    accumulation and the plain version's then differ by ~1e-5)."""
+    sb = k ** -0.5
+    if layout == "tn":            # M-contiguous A (train dW's x^T)
+        a = _u(rng, (k, m), dev, a_dtype).t()
+    elif layout == "misaligned":  # a view 2 bytes off 16-byte alignment: path (b)
+        a = _u(rng, (m, k + 1), dev, a_dtype)[:, 1:]
+    elif layout.startswith("batched"):
+        a = _u(rng, (3, m, k), dev, a_dtype)
+    else:
+        a = _u(rng, (m, k), dev, a_dtype)
+    if layout == "nt":            # K-major B (the unembed, train dX's w^T)
+        b = _u(rng, (n, k), dev, b_dtype, sb).t()
+    elif layout == "batched":
+        b = _u(rng, (3, k, n), dev, b_dtype, sb)
+    elif layout == "batched_b0":  # one B for every batch (batch stride 0)
+        b = _u(rng, (k, n), dev, b_dtype, sb).expand(3, k, n)
+    else:
+        b = _u(rng, (k, n), dev, b_dtype, sb)
+    return a, b
+
+
+# The Hopper mainloop, smallest first: one 64 x 128 x 64 tile, then the
+# ragged tails (K = 70 > BK, K < BK, M = 17, N = 40), then the prefill MLP
+# and a deep K.  A hang here is an mbarrier phase fault.
+SM90_SHAPES = [(64, 128, 64), (17, 40, 70), (200, 300, 70), (130, 72, 40), (700, 1152, 6912),
+               (256, 256, 4096)]
+
+
+@pytest.mark.parametrize("m,n,k", SM90_SHAPES)
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "batched", "batched_b0", "misaligned"])
+@pytest.mark.parametrize("a_dtype,b_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+def test_gemm_tiled_sm90_matches_plain(dev, m, n, k, layout, a_dtype, b_dtype):
+    """Every layout gemm_tiled takes, f32 or bf16 on each side, through the
+    wgmma mainloop (M > 16): TMA where an operand is bf16 and aligned, the
+    converting producer otherwise."""
+    rng = np.random.default_rng(m + 3 * n + k)
+    a, b = _sm90_operands(rng, m, n, k, layout, a_dtype, b_dtype, dev)
+    before = dict(gt.LAUNCHES_BY_LOOP)
+    out = gt.gemm_tiled(a, b)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 1}
+    ref = gt.gemm_tiled_plain(a, b)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= GEMM_ATOL
+
+
+def test_gemm_tiled_decode_keeps_the_wmma_tile(dev):
+    rng = np.random.default_rng(4)
+    a, b = _u(rng, (16, 300), dev), _u(rng, (300, 200), dev)
+    before = dict(gt.LAUNCHES_BY_LOOP)
+    out = gt.gemm_tiled(a, b)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES_BY_LOOP == {**before, "wmma": before["wmma"] + 1}
+    assert (out - gt.gemm_tiled_plain(a, b)).abs().max().item() <= GEMM_ATOL
 
 
 @pytest.mark.parametrize("policy", ["refine_a", "bf16x3", "refine_ab"])
@@ -108,7 +208,7 @@ def test_gemm_refined_matches_plain(dev, policy, m, n, k, layout):
 @pytest.mark.parametrize("mask", ["causal", "window", "full", "softcap"])
 @pytest.mark.parametrize("hd", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_matches_plain(dev, policy, mask, hd, dtype):
+def test_flash_attention_matches_plain(dev, record_property, policy, mask, hd, dtype):
     rng = np.random.default_rng(hd)
     b, sq, kv, g = 2, 150, 2, 2
     q = (_u(rng, (b, sq, kv, g, hd), dev) * hd ** -0.5).to(dtype)
@@ -119,13 +219,16 @@ def test_flash_attention_matches_plain(dev, policy, mask, hd, dtype):
     torch.cuda.synchronize()
     ref, _ = af.flash_attention_plain(q, k, v, **kw)
     assert out.shape == q.shape
-    assert (out - ref).abs().max().item() <= ATTN_ATOL
+    quant = policy in QUANT_RUNGS
+    _hold(record_property, "out", out, ref, QUANT_ATTN_TOL[policy] if quant else ATTN_ATOL,
+          af.flash_attention_plain(q, k, v, **{**kw, "precision": WRONG_RUNG[policy]})[0]
+          if quant else None)
 
 
 @pytest.mark.parametrize("policy", af.FUSED_POLICIES)
 @pytest.mark.parametrize("ring", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_matches_plain(dev, policy, ring, dtype):
+def test_flash_decode_matches_plain(dev, record_property, policy, ring, dtype):
     rng = np.random.default_rng(3)
     b, s, kv, g, hd = 4, 80, 1, 4, 256
     q = (_u(rng, (b, 1, kv, g, hd), dev) * hd ** -0.5).to(dtype)
@@ -137,14 +240,17 @@ def test_flash_decode_matches_plain(dev, policy, ring, dtype):
     out = af.flash_decode(q, k, v, pos, **kw)
     torch.cuda.synchronize()
     ref = af.flash_decode_plain(q, k, v, pos, **kw)
-    assert (out - ref).abs().max().item() <= ATTN_ATOL
+    quant = policy in QUANT_RUNGS
+    _hold(record_property, "out", out, ref, QUANT_ATTN_TOL[policy] if quant else ATTN_ATOL,
+          af.flash_decode_plain(q, k, v, pos, **{**kw, "precision": WRONG_RUNG[policy]})
+          if quant else None)
 
 
 @pytest.mark.parametrize("policy", af.FUSED_POLICIES)
 @pytest.mark.parametrize("mask", ["causal", "window", "full", "softcap"])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("hd", [64, 256])
-def test_flash_attention_bwd_matches_plain(dev, policy, mask, g, hd):
+def test_flash_attention_bwd_matches_plain(dev, record_property, policy, mask, g, hd):
     """The dq and dk/dv kernels against their plain version, on the
     forward kernel's own out and lse (which are held against the plain
     forward's first), at ragged lengths and bf16 inputs."""
@@ -161,16 +267,19 @@ def test_flash_attention_bwd_matches_plain(dev, policy, mask, g, hd):
     # 2^-8: one probability (<= 1) rounding to the neighbouring bf16 value
     # in one version moves an output (|v| <= 1) by up to that much; with G
     # = 4 heads of 150 rows such a flip happens (2.09e-3 measured on the
-    # H100 at hd 256).
-    assert (out - out_p).abs().max().item() <= 2 ** -8
+    # H100 at hd 256).  lse sums unquantized probabilities at every rung.
+    quant = policy in QUANT_RUNGS
+    wrong = dict(kw, precision=WRONG_RUNG[policy]) if quant else None
+    _hold(record_property, "out", out, out_p, QUANT_ATTN_TOL[policy] if quant else 2 ** -8,
+          af.flash_attention_plain(q, k, v, **wrong)[0] if quant else None)
     assert lse.shape == (b, kv * g, sq)
-    assert (lse - lse_p).abs().max().item() <= ATTN_ATOL
+    _hold(record_property, "lse", lse, lse_p, ATTN_ATOL)
     grads = af.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     refs = af.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
-    for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
-        assert x.shape == ref.shape and torch.isfinite(x).all(), name
-        assert (x - ref).abs().max().item() <= BWD_ATOL, name
+    wrongs = af.flash_attention_bwd_plain(q, k, v, out, lse, do, **wrong) if quant else (None,) * 3
+    for name, x, ref, w in zip(("dq", "dk", "dv"), grads, refs, wrongs):
+        _hold(record_property, name, x, ref, QUANT_BWD_TOL[policy] if quant else BWD_ATOL, w)
 
 
 def test_flash_attention_autograd_runs_the_backward_kernels(dev):
@@ -249,7 +358,7 @@ def _paged_pool(rng, dev, b, s_cache, kv, hd, ps, quant, dtype):
 @pytest.mark.parametrize("ring", [True, False])
 @pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("ps", [8, 5])
-def test_flash_paged_decode_matches_plain(dev, policy, ring, pool, ps):
+def test_flash_paged_decode_matches_plain(dev, record_property, policy, ring, pool, ps):
     rng = np.random.default_rng(ps)
     b, s, kv, g, hd = 4, 80, 1, 4, 256
     dtype = torch.float32 if pool == "f32" else torch.bfloat16
@@ -263,8 +372,11 @@ def test_flash_paged_decode_matches_plain(dev, policy, ring, pool, ps):
     torch.cuda.synchronize()
     assert ap.LAUNCHES == before + 1
     ref = ap.flash_paged_decode_plain(q, cache, pos, **kw)
-    assert out.shape == q.shape and torch.isfinite(out).all()
-    assert (out - ref).abs().max().item() <= ATTN_ATOL
+    assert out.shape == q.shape
+    quant = policy in QUANT_RUNGS
+    _hold(record_property, "out", out, ref, QUANT_ATTN_TOL[policy] if quant else ATTN_ATOL,
+          ap.flash_paged_decode_plain(q, cache, pos, **{**kw, "precision": WRONG_RUNG[policy]})
+          if quant else None)
 
 
 def test_paged_decode_of_a_bf16_pool_is_the_dense_decode(dev):
@@ -337,9 +449,11 @@ def _grouped_layout(rng, sizes, bm, d, dev, dtype, noise=False):
                                       ([100, 130, 1], 128)])
 @pytest.mark.parametrize("trans_w", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_grouped_gemm_matches_plain(dev, policy, sizes, bm, trans_w, dtype):
+def test_grouped_gemm_matches_plain(dev, record_property, policy, sizes, bm, trans_w, dtype):
     """Forward and dx (w^T through swapped strides), an empty group, ragged
-    D and F, both CTA row tiles; dead tiles (past offsets[E]) store 0."""
+    D and F, both CTA row tiles; dead tiles (past offsets[E]) store 0.  The
+    quantized rungs' terms are bit-equal in both (the inputs' own tiles),
+    so every rung keeps the sum-order tolerance."""
     rng = np.random.default_rng(len(sizes) + bm)
     d, f = 132, 200
     x, off = _grouped_layout(rng, sizes, bm, f if trans_w else d, dev, dtype)
@@ -348,7 +462,32 @@ def test_grouped_gemm_matches_plain(dev, policy, sizes, bm, trans_w, dtype):
     out = gg.grouped_gemm(x, w, off, bm=bm, policy=policy, trans_w=trans_w)
     torch.cuda.synchronize()
     assert gg.LAUNCHES["grouped_gemm"] == before + 1
-    ref = gg.grouped_gemm_plain(x, w, off, policy=policy, trans_w=trans_w)
+    ref = gg.grouped_gemm_plain(x, w, off, policy=policy, trans_w=trans_w, bm=bm)
+    _hold(record_property, "out", out, ref, GEMM_ATOL,
+          gg.grouped_gemm_plain(x, w, off, policy=WRONG_RUNG[policy], trans_w=trans_w, bm=bm)
+          if policy in QUANT_RUNGS else None)
+    assert not out[int(off[-1]):].any()
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("trans_w", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,f", [(128, 256), (132, 200)])
+def test_grouped_gemm_sm90_rows(dev, bm, trans_w, dtype, d, f):
+    """The bf16 forward and dx on the wgmma mainloop at CTA row tiles 64 and
+    128: a zero-row expert, ragged runs whose padding holds noise, dead
+    tiles past offsets[E] (zeros); aligned widths take TMA for bf16 x and w,
+    the others the converting producer."""
+    rng = np.random.default_rng(bm + d)
+    x, off = _grouped_layout(rng, [bm + 3, 0, 2 * bm, 1], bm, f if trans_w else d, dev, dtype,
+                             noise=True)
+    w = _u(rng, (4, d, f), dev, dtype)
+    before = dict(gg.LAUNCHES_BY_LOOP)
+    out = gg.grouped_gemm(x, w, off, bm=bm, trans_w=trans_w)
+    torch.cuda.synchronize()
+    assert gg.cta_rows(bm) == bm
+    assert gg.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 1}
+    ref = gg.grouped_gemm_plain(x, w, off, bm=bm, trans_w=trans_w)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= GEMM_ATOL
     assert not out[int(off[-1]):].any()
@@ -362,13 +501,13 @@ def test_grouped_gemm_dead_tiles_skip_their_rows(dev):
     out = gg.grouped_gemm(x, w, off, bm=16)
     torch.cuda.synchronize()
     assert not out[int(off[-1]):].any()
-    ref = gg.grouped_gemm_plain(x, w, off)
+    ref = gg.grouped_gemm_plain(x, w, off, bm=16)
     assert (out - ref).abs().max().item() <= GEMM_ATOL
 
 
 @pytest.mark.parametrize("policy", list(gg.POLICY_CODES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_grouped_gemm_dw_matches_plain(dev, policy, dtype):
+def test_grouped_gemm_dw_matches_plain(dev, record_property, policy, dtype):
     """dw[g] over each group's run; an empty run's block is exactly 0."""
     rng = np.random.default_rng(5)
     sizes, bm = [37, 0, 64, 5], 16
@@ -379,9 +518,12 @@ def test_grouped_gemm_dw_matches_plain(dev, policy, dtype):
     torch.cuda.synchronize()
     assert gg.LAUNCHES["grouped_gemm_dw"] == before + 1
     ref = gg.grouped_gemm_dw_plain(x, dy, off, policy=policy)
-    assert dw.shape == ref.shape == (4, 130, 72) and torch.isfinite(dw).all()
-    # |terms| <= 1, runs of up to 64 rows: f32 sums in another order
-    assert (dw - ref).abs().max().item() <= GEMM_ATOL
+    assert dw.shape == ref.shape == (4, 130, 72)
+    # |terms| <= 1, runs of up to 64 rows: f32 sums in another order (the
+    # quantized rungs' terms bit-equal, as in the forward)
+    _hold(record_property, "dw", dw, ref, GEMM_ATOL,
+          gg.grouped_gemm_dw_plain(x, dy, off, policy=WRONG_RUNG[policy])
+          if policy in QUANT_RUNGS else None)
     assert not dw[1].any()
 
 
@@ -400,7 +542,8 @@ def test_grouped_autograd_runs_the_kernels(dev):
     assert gg.LAUNCHES["grouped_gemm"] == before["grouped_gemm"] + 2
     assert gg.LAUNCHES["grouped_gemm_dw"] == before["grouped_gemm_dw"] + 1
     g = 2 * out.detach()
-    assert (dx - gg.grouped_gemm_plain(g, w.detach(), off, trans_w=True)).abs().max() <= 1e-2
+    dx_ref = gg.grouped_gemm_plain(g, w.detach(), off, bm=16, trans_w=True)
+    assert (dx - dx_ref).abs().max() <= 1e-2
     assert (dw - gg.grouped_gemm_dw_plain(x.detach(), g, off)).abs().max() <= 1e-2
     assert not dw[2].any()
 
@@ -480,6 +623,21 @@ def test_gemm_batched_dispatch_on_the_card(dev):
     assert bg.LAUNCHES == {k: v + 1 for k, v in before.items()}
     with pytest.raises(ValueError, match="takes n in"):
         bg.batched_gemm(torch.zeros(32, 4, 4, device=dev), torch.zeros(32, 4, 4, device=dev))
+
+
+@pytest.mark.parametrize("n", [1, 4, 128])
+def test_gemm_batched_cuda_runs_a_kernel_for_every_divisor(dev, n):
+    """n that divides the packing tile but has no packed kernel runs the
+    naive kernel through ``gemm_batched(backend="cuda")``."""
+    rng = np.random.default_rng(n)
+    g = 3 if n == 128 else 40
+    a, b = _u(rng, (g, n, n), dev), _u(rng, (g, n, n), dev, torch.bfloat16)
+    before = dict(bg.LAUNCHES)
+    out = kops.gemm_batched(a, b, backend="cuda")
+    torch.cuda.synchronize()
+    assert bg.LAUNCHES == {**before, "batched_gemm_naive": before["batched_gemm_naive"] + 1}
+    assert out.shape == (g, n, n)
+    assert (out - kref.batched_gemm_ref(a, b)).abs().max().item() <= BATCHED_ATOL
 
 
 def _wkv_inputs(rng, b, s, h, kd, dev, decay_scale=0.7):

@@ -105,7 +105,19 @@ def test_unfused_rungs_decompose_at_the_router(policy, monkeypatch):
     assert np.abs(out - _oracle("mk,kn->mn", a, b)).max() <= LADDER_BOUNDS[policy]
 
 
-def test_routes_validate_against_capabilities():
+def test_routes_validate_against_capabilities(monkeypatch):
+    """Route build checks each impl's declared rungs: an impl that declares
+    fewer (here cuda_fused cut to the bf16 ladder; the registered one
+    declares every rung) refuses the others or falls back to the
+    reference with a warning."""
+    import dataclasses
+    from repro_torch.core.ops import registry
+    impl = registry.get_impl("attention", "cuda_fused")
+    narrow = ("bf16", "refine_a", "bf16x3", "refine_ab", "f32")
+    monkeypatch.setitem(registry._IMPLS["attention"], "cuda_fused", dataclasses.replace(
+        impl, capabilities=registry.Capabilities(policies=frozenset(narrow),
+                                                 fused_policies=frozenset(narrow),
+                                                 features=impl.capabilities.features)))
     pol = tops.ExecutionPolicy(default="bf16", logits="refine_ab",
                                backends={"gemm": "cuda", "attention": "cuda_fused"},
                                require={"attention": ("decode",)})

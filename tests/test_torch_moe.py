@@ -44,7 +44,17 @@ from repro_torch.runtime import serve_step
 # repro's twin of each port impl: torch = xla, cuda_grouped = pallas_grouped
 IMPLS = {"torch": "xla", "cuda_grouped": "pallas_grouped"}
 PROFILES = {"uniform": [6, 6, 6, 5], "skewed": [17, 3, 2, 1], "empty": [12, 0, 11, 0]}
-RUNGS = ["bf16", "refine_a", "bf16x3", "refine_ab", "f32"]
+RUNGS = ["bf16", "refine_a", "bf16x3", "refine_ab", "f32", "bf16x6"]
+# The fp8 / int8 rungs scale per tile: the port per kernel tile (16 rows x
+# 64 of x at bm 16, 64 x 128 of w; dW 64 x 32 of x^T and 32 x 128 of dy),
+# repro per BlockSpec block; each is held to the rung's ladder bound of the
+# f64 oracle, and to REPRO_TOL of the other.  The tiles differ along K, so
+# int8 (whose step follows the scale) reads up to 0.018 (forward) from
+# repro, int8x3 3.1e-4, e4m3 (scale-free within its range) 4.8e-7; the
+# port computing bf16 in place of a one-pass rung, or one pass in place of
+# x3, reads 0.014 to 0.27, int8x3 under a scale twice too large 2.3e-3.
+LOWP_RUNGS = ["fp8", "int8", "fp8x3", "int8x3"]
+REPRO_TOL = {"fp8": 1e-3, "int8": 4e-2, "fp8x3": 1e-3, "int8x3": 1e-3}
 BM = 16
 # The two packages multiply the same bf16 terms (or f32 values) exactly
 # and sum them in f32 in another order: over K = 130 with |terms| <= 1
@@ -209,15 +219,62 @@ def test_padding_rows_do_not_leak():
 
 
 def test_cuda_grouped_refuses_unfused_rungs_at_route_build():
-    for rung in ("bf16x6", "fp8x3", "int8"):
-        with pytest.raises(ValueError, match="cuda_grouped"):
-            ops.ExecutionPolicy(default="bf16", moe=rung, backends={"grouped": "cuda_grouped"})
+    """cuda_grouped declares every rung repro's pallas_grouped declares and
+    fuses each in its kernels (f32 included: no ``torch`` fallback), so a
+    route refuses none; an alignment the kernel cannot serve still
+    raises."""
+    from repro_torch.core.ops import registry
+    caps = registry.get_impl("grouped", "cuda_grouped").capabilities
+    assert caps.policies == caps.fused_policies == registry.ALL_POLICIES
+    for rung in ("bf16x6", "fp8x3", "int8", "f32"):
+        pol = ops.ExecutionPolicy(default="bf16", moe=rung, backends={"grouped": "cuda_grouped"})
+        assert pol.for_("moe").impl("grouped") == "cuda_grouped"
     with pytest.raises(ValueError, match="multiple of 16"):
         gg.grouped_gemm(torch.zeros(8, 4), torch.zeros(1, 4, 4),
                         torch.tensor([0, 8], dtype=torch.int32), bm=8)
 
 
-@pytest.mark.parametrize("policy", ["bf16", "refine_ab"])
+@pytest.mark.parametrize("policy", LOWP_RUNGS)
+def test_grouped_quantized_rungs_match_repro(policy, monkeypatch):
+    """Forward, dx and dW of ``cuda_grouped`` at the fp8 / int8 rungs (the
+    kernels' plain twins) against ``pallas_grouped`` and the f64 oracle;
+    the f32 ``torch`` reference never runs."""
+    monkeypatch.setattr(ops.grouped, "_torch_grouped_matmul",
+                        lambda *a, **k: pytest.fail("torch reference"))
+    x, w, off, valid = _layout(PROFILES["skewed"], d=72, f=40)
+    gy = _x((x.shape[0], 40), seed=4) * valid[:, None]
+    bound = LADDER_BOUNDS[policy]
+    oracle = _oracle(x, w, off)
+    jout = np.asarray(jops.grouped_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(off),
+                                          policy=_jroute(policy, "pallas_grouped")))
+
+    def jloss(x, w):
+        out = jops.grouped_matmul(x, w, jnp.asarray(off),
+                                  policy=_jroute(policy, "pallas_grouped"))
+        return (out * jnp.asarray(gy)).sum()
+
+    jdx, jdw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _t(x).requires_grad_(True), _t(w).requires_grad_(True)
+    out = ops.grouped_matmul(tx, tw, _t(off), bm=BM,
+                             policy=ops.Route(policy, {"grouped": "cuda_grouped"}))
+    tdx, tdw = torch.autograd.grad((out * _t(gy)).sum(), (tx, tw))
+    odx = np.zeros_like(x, dtype=np.float64)
+    odw = np.zeros(w.shape)
+    for g in range(w.shape[0]):
+        sl = slice(int(off[g]), int(off[g + 1]))
+        odx[sl] = gy[sl].astype(np.float64) @ w[g].T.astype(np.float64)
+        odw[g] = x[sl].T.astype(np.float64) @ gy[sl].astype(np.float64)
+    for name, t, j, o in (("out", out.detach().numpy(), jout, oracle),
+                          ("dx", tdx.numpy(), np.asarray(jdx), odx),
+                          ("dw", tdw.numpy(), np.asarray(jdw), odw)):
+        assert t.shape == j.shape and np.isfinite(t).all(), name
+        for got in (t, j):
+            assert np.abs(got - o).max() <= bound, (name, policy)
+        assert np.abs(t - j).max() <= REPRO_TOL[policy], (name, policy)
+    assert not out.detach().numpy()[~valid].any()
+
+
+@pytest.mark.parametrize("policy", ["bf16", "refine_ab", "f32", "bf16x6"])
 def test_grouped_grads_match_repro(policy):
     """dx and dW through the port's autograd (the dx and dW kernels' plain
     twins) against ``jax.grad`` on ``pallas_grouped``; the dW block of a
@@ -448,8 +505,35 @@ def test_train_step0_matches_repro(jparams, policy):
             assert rel <= BF16_GRAD_REL, (path, rel)
 
 
-def test_paged_serving_refuses_moe():
-    """Paged KV serves the dense family only; an MoE engine says so."""
-    with pytest.raises(ValueError, match="dense family only"):
-        ServeEngine(get_smoke("mixtral-8x7b"), batch_size=1, max_ctx=16, device="cpu",
-                    kv_layout="paged")
+def test_paged_serving_refuses_moe(jparams):
+    """Paged KV serves the MoE family too: Mixtral's attention sublayers
+    (ring layers, window 16 < 24) read 4-row pages, its MoE sublayers hold
+    nothing.  An f32 staggered paged engine on cuda_grouped emits repro's
+    paged engine's tokens and the port's dense engine's, and frees every
+    page."""
+    jcfg, tcfg = _cfgs("mixtral-8x7b", "float32")
+    jpol = JExecutionPolicy(default="f32", backends=J_ROUTES["grouped"], interpret=True)
+    tpol = execution_policy_for(tcfg, default="f32", backends=ROUTES["grouped"],
+                                require={"attention": ("decode", "paged_decode")})
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(2, tcfg.vocab_size, 4 + 7 * (i % 2)).astype(np.int32)
+               for i in range(3)]
+    budgets = [9, 4, 6]
+    jeng = JServeEngine(jcfg, batch_size=2, max_ctx=24, policy=jpol, kv_layout="paged",
+                        kv_page_size=4)
+    jeng.load(jax.tree.map(jnp.asarray, jparams["mixtral-8x7b"]))
+    jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=n)
+             for i, (p, n) in enumerate(zip(prompts, budgets))]
+    jeng.run(jreqs)
+    tparams = from_jax_numpy(jparams["mixtral-8x7b"], tcfg, "cpu")
+    outs = {}
+    for layout in ("paged", "dense"):
+        teng = ServeEngine(tcfg, batch_size=2, max_ctx=24, policy=tpol, device="cpu",
+                           kv_layout=layout, kv_page_size=4)
+        teng.load(tparams)
+        treqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                 for i, (p, n) in enumerate(zip(prompts, budgets))]
+        teng.run(treqs)
+        assert all(r.done for r in treqs) and teng.pages_outstanding() == 0
+        outs[layout] = [r.out_tokens for r in treqs]
+    assert outs["paged"] == outs["dense"] == [r.out_tokens for r in jreqs]

@@ -148,6 +148,26 @@ def test_gemm_batched_backends_match_repros():
         np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
 
 
+@pytest.mark.parametrize("n,g", [(1, 5), (2, 70), (4, 33), (128, 3)])
+def test_gemm_batched_cuda_takes_every_divisor_of_the_tile(monkeypatch, n, g):
+    """n in {1, 2, 4, 128} divides the packing tile, so repro's ``pallas``
+    packs it; the port has no packed kernel for it and runs the naive one
+    (any n), never ``torch``.  The packed entry refuses those n on the CPU
+    as on the card."""
+    import repro_torch.kernels.ops as kops_mod
+    a, b = _rand((g, n, n), g + n), _rand((g, n, n), 3 * n)
+    want = np.asarray(j_kops.gemm_batched(jnp.asarray(a), jnp.asarray(b), backend="pallas",
+                                          interpret=True))
+    monkeypatch.setattr(kops_mod, "batched_gemm", lambda *x, **k: pytest.fail("packed"))
+    monkeypatch.setattr(kops_mod, "batched_gemm_ref", lambda *x, **k: pytest.fail("torch"))
+    got = kops.gemm_batched(torch.from_numpy(a), torch.from_numpy(b), backend="cuda")
+    assert tuple(got.shape) == (g, n, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+    pack = 128 // n
+    with pytest.raises(ValueError, match="takes n in"):
+        batched_gemm(torch.zeros(pack, n, n), torch.zeros(pack, n, n))
+
+
 def test_block_diagonal_no_crosstalk():
     """Matrix i's result does not see matrix j's data: zeroing one input
     zeroes exactly one output."""

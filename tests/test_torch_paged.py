@@ -41,6 +41,9 @@ from repro_torch.models.attention import reference_decode, reference_paged_decod
 from repro_torch.runtime import serve_step
 
 MAX_CTX = 32
+# paged decode's quantized rungs against repro's paged kernel (see
+# test_flash_paged_decode_every_rung_matches_repro_kernel)
+PAGED_REPRO_TOL = {"fp8": 0.02, "int8": 4e-3, "fp8x3": 1e-3, "int8x3": 1e-4}
 KERNELS = {"gemm": "cuda", "attention": "cuda_fused"}
 # Decodes of the same pools at f32: the two packages sum in other orders.
 F32_ATOL = 1e-5
@@ -159,6 +162,32 @@ def test_flash_paged_decode_plain_matches_repro_kernel(ring, precision, ps, atol
                                precision=precision, interpret=True)
     assert out.shape == q.shape
     assert np.abs(out.numpy() - np.asarray(ref)).max() <= atol
+
+
+@pytest.mark.parametrize("precision", ["bf16x6", "fp8", "int8", "fp8x3", "int8x3"])
+def test_flash_paged_decode_every_rung_matches_repro_kernel(precision):
+    """The rungs ``cuda_fused`` now fuses, on 32-row pages (one KV tile a
+    page on both sides): bf16x6 multiplies the same terms as repro (the f32
+    bound); the fp8 / int8 rungs scale per tile (the G heads' q rows, each
+    32-row K and V tile, each G x 32 probability tile; repro per head) and
+    are held to the rung's ladder bound of the f32 decode, and to
+    PAGED_REPRO_TOL of repro: set between the readings here (fp8 0.0134,
+    int8 1.35e-3, fp8x3 3.3e-4, int8x3 2.9e-5) and those of the port
+    computing bf16 in place of a one-pass rung, or one pass in place of
+    x3, or int8x3 under a scale twice too large (0.030, 8.6e-3, 0.029 and
+    2.0e-3, 3.0e-4)."""
+    q, pos, tpool, jpool, dk, dv = _pools(None, ps=32, s_cache=64)
+    out = flash_paged_decode_plain(torch.from_numpy(q), tpool, torch.from_numpy(pos),
+                                   window=64, precision=precision).numpy()
+    ref = np.asarray(j_flash_paged_decode(jnp.asarray(q), jpool, jnp.asarray(pos), window=64,
+                                          precision=precision, interpret=True))
+    f32 = reference_decode(torch.from_numpy(q), torch.from_numpy(dk), torch.from_numpy(dv),
+                           torch.from_numpy(pos), window=64, softcap=None, policy="f32").numpy()
+    bound = F32_ATOL if precision == "bf16x6" else ops.get_family("attention").error_bound(
+        precision)
+    assert out.shape == q.shape and np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= PAGED_REPRO_TOL.get(precision, bound)
+    assert np.abs(out - f32).max() <= max(bound, F32_ATOL)
 
 
 @pytest.mark.parametrize("window", [8, None])

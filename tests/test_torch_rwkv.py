@@ -217,5 +217,34 @@ def test_zamba2_and_paged_rwkv_are_still_refused():
             api.init_cache(cfg, 1, 16, device="cpu")
     with pytest.raises(KeyError):
         get_config("zamba2-7b")
-    with pytest.raises(ValueError, match="dense family only"):
-        ServeEngine(get_smoke(ARCH), batch_size=2, max_ctx=32, device="cpu", kv_layout="paged")
+    with pytest.raises(ValueError, match="the port runs"):
+        ServeEngine(zamba, batch_size=1, max_ctx=16, device="cpu", kv_layout="paged").load({})
+
+
+def test_paged_rwkv_serves_as_the_dense_engine(jparams):
+    """rwkv6 has no growable attention layer: its paged engine has no page
+    classes and no allocator work, keeps the recurrent state dense, and
+    emits token for token what repro's paged engine and the port's dense
+    engine emit (f32, staggered, a recycled slot)."""
+    jcfg, tcfg = _cfgs("float32")
+    jeng = JServeEngine(jcfg, batch_size=2, max_ctx=S_CTX * 2, policy=JPolicy.uniform("f32"),
+                        kv_layout="paged")
+    jeng.load(jparams)
+    jreqs = _requests(JRequest, jcfg.vocab_size)
+    jeng.run(jreqs)
+    params = _port_params(jparams, tcfg)
+    outs = {}
+    for layout in ("paged", "dense"):
+        teng = ServeEngine(tcfg, batch_size=2, max_ctx=S_CTX * 2, device="cpu",
+                           kv_layout=layout,
+                           policy=execution_policy_for(tcfg, default="f32",
+                                                       backends=ROUTES["kernels"]))
+        teng.load(params)
+        treqs = _requests(Request, tcfg.vocab_size)
+        teng.run(treqs)
+        assert all(r.done for r in treqs) and teng.pages_outstanding() == 0
+        if layout == "paged":
+            assert teng._allocators == {} and teng._tables == {}
+            assert all(isinstance(c, RWKVState) for c in teng.cache)
+        outs[layout] = [r.out_tokens for r in treqs]
+    assert outs["paged"] == outs["dense"] == [r.out_tokens for r in jreqs]

@@ -32,6 +32,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.configs.base import execution_policy_for
 from repro_torch.convert import from_jax_numpy
 from repro_torch.core.ops import registry
+from repro_torch.core.ops.registry import LADDER_BOUNDS
 from repro_torch.core.ops.gemm import routed_einsum
 from repro_torch.core.ops.route import Route
 from repro_torch.core.tree import leaves, leaves_with_paths
@@ -52,6 +53,9 @@ F32_ATOL, F32_RTOL = 1e-4, 1e-3
 # another order, so a probability or ds can round to the neighbouring
 # bf16 value in one of them (|grads| <= ~3 here).
 FLASH_BF16_ATOL = 2e-2
+# the flash gradients at the quantized rungs against repro's (see
+# test_flash_attention_grads_match_repro)
+QUANT_GRAD_TOL = {"fp8": 1e-3, "fp8x3": 1e-3, "int8x3": 2e-3}
 # Routed-GEMM grads: the same bf16 terms multiplied exactly, f32 sums in
 # another order over K <= 48 (|grads| <= ~20).
 GEMM_ATOL = 1e-4
@@ -120,7 +124,24 @@ FLASH_CASES = {
 }
 
 
-@pytest.mark.parametrize("policy", ["f32", "bf16"])
+def _oracle_flash_grads(q, k, v, do, *, causal, window, softcap):
+    """dq, dk, dv of f64 softmax attention with the same masks."""
+    tq, tk, tv = (torch.from_numpy(x).double().requires_grad_(True) for x in (q, k, v))
+    s = torch.einsum("bqkgd,bskd->bkgqs", tq, tk)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(q.shape[1])[:, None]
+    cols = torch.arange(k.shape[1])[None, :]
+    keep = cols <= rows if causal else torch.ones_like(cols > rows)
+    if causal and window is not None:
+        keep = keep & (cols > rows - window)
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, tv)
+    return [g.numpy() for g in torch.autograd.grad(out, (tq, tk, tv),
+                                                  torch.from_numpy(do).double())]
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16", "bf16x6", "fp8", "int8", "fp8x3", "int8x3"])
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_attention_grads_match_repro(case, policy):
     """dq, dk, dv of the port's ``flash_attention`` (the plain backward
@@ -138,16 +159,29 @@ def test_flash_attention_grads_match_repro(case, policy):
                        * jnp.asarray(do))
 
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1, 2))).lower(*args).compile(
-        compiler_options=EXACT_BF16)(*args)
+    if policy == "int8":
+        # repro's int8 backward does not run on XLA:CPU here (its DotThunk
+        # has no bf16 x bf16 = f32); the f64 gradients stand in for it
+        jgrads = _oracle_flash_grads(q, k, v, do, **FLASH_CASES[case])
+    else:
+        jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1, 2))).lower(*args).compile(
+            compiler_options=EXACT_BF16)(*args)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     out = taf.flash_attention(tq, tk, tv, **kw)
     tgrads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
     for name, jg, tg in zip(("dq", "dk", "dv"), jgrads, tgrads):
         assert tg.shape == jg.shape and tg.dtype == torch.float32
-        if policy == "f32":
+        if policy in ("f32", "bf16x6"):      # the same f32 values or bf16 terms
             np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=F32_ATOL,
                                        rtol=F32_RTOL, err_msg=name)
+        elif policy == "int8":      # against the f64 gradients: the rung's error
+            assert np.abs(tg.numpy() - np.asarray(jg)).max() <= LADDER_BOUNDS[policy], name
+        elif policy in QUANT_GRAD_TOL:
+            # scales per tile (the port's 32-row backward tiles, repro's
+            # BlockSpec blocks): the readings here reach 7.6e-6 (fp8), 6.1e-5
+            # (fp8x3) and 1.4e-3 (int8x3); bf16 in place of a one-pass rung,
+            # or one pass in place of x3, reads 2.4e-3 to 0.1
+            assert np.abs(tg.numpy() - np.asarray(jg)).max() <= QUANT_GRAD_TOL[policy], name
         else:
             assert np.abs(tg.numpy() - np.asarray(jg)).max() <= FLASH_BF16_ATOL, name
 
