@@ -105,11 +105,13 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    on each prompt's first-layer r/k/v/logw/u (the ``wkv6`` path) and held
    against the model's chunked form at f32; its check row takes the
    665-token prompt's.  Then a profiled prefill and decode tick.
-13. kernels — a ``mainloops`` line (which GEMM mainloop each
-   ``gemm_tiled`` and ``grouped_gemm`` check ran: every M > 16 shape and
-   every 64/128-row bf16 grouped shape must run the wgmma one, ``sm90``;
-   each check asserts it), then one line listing each kernel's launches
-   (per path), error and times.
+13. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+   ``grouped_gemm``, ``grouped_gemm_dw`` and ``flash_attention`` check
+   ran: every M > 16 shape, every 64/128-row bf16 grouped shape, the bf16
+   dW and every bf16 flash forward must run the wgmma one, ``sm90``; each
+   check asserts it), then one line listing each kernel's launches (per
+   path, and per mainloop for those four; every path's bf16 forward and
+   dW launches must all have run ``sm90``), error and times.
 
 The ``check`` phase also holds the flash kernels at Mixtral's head shape
 (hd 128, 32 heads on 8 kv heads) and the grouped GEMMs at its widths: the
@@ -296,19 +298,33 @@ BATCHED_KERNELS = ("batched_gemm", "batched_gemm_naive")
 SERVE_RWKV_KERNELS = ("gemm_tiled", "gemm_refined")
 
 
+# The kernels with two mainloops: their wrappers' per-mainloop counts
+# (LAUNCHES_BY_LOOP dicts), filled in main() once the port is imported.
+LOOP_COUNTS: dict[str, dict] = {}
+# kernels whose bf16 launches on a path must all run the wgmma mainloop
+SM90_ON_EVERY_PATH = ("flash_attention", "grouped_gemm_dw")
+
+
 def zero_launches(mods) -> None:
     """mods: the kernel modules by kernel name (a dict of counts for the
-    module that holds several kernels)."""
+    module that holds several kernels); the per-mainloop counts too."""
     for name, mod in mods.items():
         if isinstance(mod.LAUNCHES, dict):
             mod.LAUNCHES[name] = 0
         else:
             mod.LAUNCHES = 0
+    for counts in LOOP_COUNTS.values():
+        for loop in counts:
+            counts[loop] = 0
 
 
 def read_launches(mods) -> dict:
-    return {name: (mod.LAUNCHES[name] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES)
-            for name, mod in mods.items()}
+    """Launches by kernel, then by kernel and mainloop ("name.loop")."""
+    out = {name: (mod.LAUNCHES[name] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES)
+           for name, mod in mods.items()}
+    out.update({f"{name}.{loop}": n for name, counts in LOOP_COUNTS.items()
+                for loop, n in counts.items()})
+    return out
 
 
 def fail(msg: str) -> None:
@@ -372,6 +388,9 @@ def main() -> None:
     mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
             "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES},
             "gemm_naive": gn, **{k: bg for k in bg.LAUNCHES}, "wkv6": wk}
+    LOOP_COUNTS.update({"gemm_tiled": gt.LAUNCHES_BY_LOOP, "grouped_gemm": gg.LAUNCHES_BY_LOOP,
+                        "flash_attention": af.LAUNCHES_BY_LOOP,
+                        "grouped_gemm_dw": gg.LAUNCHES_BY_LOOP_DW})
 
     # ------------------------------------------------------------ 1 device
     dev = resolve_device("cuda")
@@ -467,16 +486,14 @@ def main() -> None:
         the plain version at a wrong rung (one pass for an x3 rung), which
         must land outside it as well.  A kernel may
         return a tuple of tensors; the error is the largest over them.
-        ``extra``: more fields for the row.  ``sm90``: whether the GEMM's
-        first call must run the wgmma mainloop (True) or the WMMA one
-        (False); the row records which ran."""
-        loops0 = {**{f"gemm_tiled.{k}": v for k, v in gt.LAUNCHES_BY_LOOP.items()},
-                  **{f"grouped_gemm.{k}": v for k, v in gg.LAUNCHES_BY_LOOP.items()}}
+        ``extra``: more fields for the row.  ``sm90``: whether the
+        kernel's first call must run the wgmma mainloop (True) or the WMMA
+        one (False); the row records which ran."""
+        loops0 = read_launches({})
         out = kernel()
-        loops1 = {**{f"gemm_tiled.{k}": v for k, v in gt.LAUNCHES_BY_LOOP.items()},
-                  **{f"grouped_gemm.{k}": v for k, v in gg.LAUNCHES_BY_LOOP.items()}}
+        loops1 = read_launches({})
         ran = sorted({k.split(".")[1] for k in loops1 if loops1[k] > loops0[k]})
-        if name in ("gemm_tiled", "grouped_gemm"):
+        if name in LOOP_COUNTS:
             loop_rows.append({"kernel": name, "what": what, "mainloop": ran})
             if sm90 is not None and ran != (["sm90"] if sm90 else ["wmma"]):
                 fail(f"{name} {what}: ran the {ran} mainloop, expected "
@@ -587,7 +604,8 @@ def main() -> None:
               (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
               control=None if window is None else (
                   lambda w=window: af.flash_attention_plain(q, k, v, causal=True,
-                                                            window=w - 1)[0]))
+                                                            window=w - 1)[0]),
+              sm90=True)
     # one carried rung through the forward: bf16x6 (the 3-way split, six
     # passes from f32 tiles) against its plain version, its distance to the
     # torch route's bf16x6 recorded and held to the rung's ladder bound (the
@@ -600,7 +618,7 @@ def main() -> None:
           lambda: af.flash_attention_plain(q, k, v, causal=True, window=cfg.window,
                                            precision="bf16x6")[0],
           sdpa, ATTN_BOUND, num_passes("bf16x6") * 4 * pairs * hd * heads,
-          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
+          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, sm90=False,
           extra={"torch_route_err": max_err(
               (af.flash_attention(q, k, v, causal=True, window=cfg.window, precision="bf16x6"),),
               (torch_x6,))})
@@ -792,18 +810,30 @@ def main() -> None:
             kx6 = dict(kw, precision="bf16x6")
             out6, lse6 = af.flash_attention_fwd(q, k, v, **kx6)
             di6 = af.bwd_delta(out6, do)
-            for name, kern, plain, b_err, fl, by in (
+            # yardstick: SDPA's backward in f32 (the function bf16x6 stands
+            # for), its math backend, whose matmuls keep TF32 off
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (qh, kl, vl))
+            with sdpa_kernel(SDPBackend.MATH):
+                sd32 = torch.nn.functional.scaled_dot_product_attention(
+                    q32, k32.expand(bt, heads, st, hd), v32.expand(bt, heads, st, hd),
+                    attn_mask=keep, scale=1.0)
+            do32 = do_h.float()
+            for name, kern, plain, b_err, fl, by, wrt in (
                     ("flash_attention_bwd_dq", af.flash_attention_bwd_dq,
                      af.flash_attention_bwd_dq_plain, ATTN_BWD_DQ_BOUND, 6 * pairs * hd,
-                     in_bytes + q.numel() * 4),
+                     in_bytes + q.numel() * 4, (q32,)),
                     ("flash_attention_bwd_dkv", af.flash_attention_bwd_dkv,
                      af.flash_attention_bwd_dkv_plain, ATTN_BWD_DKV_BOUND, 8 * pairs * hd,
-                     in_bytes + 2 * k.numel() * 4)):
+                     in_bytes + 2 * k.numel() * 4, (k32, v32))):
                 check(name, tag + " bf16x6",
                       lambda f=kern: f(q, k, v, do, lse6, di6, **kx6),
-                      lambda f=plain: f(q, k, v, do, lse6, di6, **kx6), None, b_err,
-                      num_passes("bf16x6") * fl, by)
-            del out6, lse6, di6
+                      lambda f=plain: f(q, k, v, do, lse6, di6, **kx6),
+                      lambda wrt=wrt: torch.autograd.grad(sd32, wrt, do32, retain_graph=True),
+                      b_err, num_passes("bf16x6") * fl, by,
+                      library_call="SDPA backward through autograd on f32 copies, math "
+                                   "backend (TF32 off)")
+            del out6, lse6, di6, sd32, q32, k32, v32, do32
         del sd_out, qh, kl, vl
     del q, k, v, do, out, lse, di
 
@@ -867,7 +897,8 @@ def main() -> None:
               qh, kr, vr, attn_mask=keep, scale=1.0),
           ATTN_BOUND, 4 * int(keep.sum()) * m_hd * m_heads,
           (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
-          library_call="scaled_dot_product_attention, kv heads repeated (not timed)")
+          library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+          sm90=True)
     del q, k, v, qh, kr, vr
     qd = randn((4, 1, m_kvh, m_grp, m_hd), m_hd ** -0.5, torch.bfloat16)
     s_cache = 1024
@@ -1085,12 +1116,22 @@ def main() -> None:
           lib, GEMM_BOUND, 2 * 2048 * d_m * ff_m,
           2048 * (d_m * 2 + ff_m * 4) + n_exp * d_m * ff_m * 4,
           control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved),
-          library_call=lib_name)
+          library_call=lib_name, sm90=True)
     if not all(dw_zero_exact):
         fail("grouped_gemm_dw: the zero-width group's block is not exactly 0")
     # one quantized rung through dW: int8x3, its scales per 64 x 32 tile of
-    # x^T and 32 x 128 tile of dy, held to GEMM_BOUND (bit-equal terms),
-    # the one-pass int8 its wrong-rung control
+    # x^T and 32 x 128 tile of dy (the quantize pass, whose scales are held
+    # bit for bit to its plain twin and whose bf16 terms the WMMA kernel
+    # stages), held to GEMM_BOUND (bit-equal terms), the one-pass int8
+    # its wrong-rung control; whether it beats its plain version (ROADMAP
+    # C4) is recorded, not gated (a time, not a correctness check)
+    scales = gg.grouped_dw_scales(x, dy, off, policy="int8x3")
+    scale_pass = {"scale_pass_bit_equal": bool(torch.equal(
+        scales, gg.grouped_dw_scales_plain(x, dy, off, policy="int8x3"))),
+        "scale_pass_ms": timed(lambda: gg.grouped_dw_scales(x, dy, off, policy="int8x3"))}
+    del scales
+    if not scale_pass["scale_pass_bit_equal"]:
+        fail("grouped_dw_scales int8x3: the quantize pass's scales differ from its plain twin")
     check("grouped_gemm_dw", f"train dW int8x3 T*k=2048 {d_m}x{ff_m} E={n_exp} bm={bm}",
           lambda: gg.grouped_gemm_dw(x, dy, off, policy="int8x3"),
           lambda: gg.grouped_gemm_dw_plain(x, dy, off, policy="int8x3"),
@@ -1098,7 +1139,10 @@ def main() -> None:
           2048 * (d_m * 2 + ff_m * 4) + n_exp * d_m * ff_m * 4,
           control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved, policy="int8x3"),
           rung_control=lambda: gg.grouped_gemm_dw_plain(x, dy, off, policy="int8"),
-          library_call=lib_name)
+          library_call=lib_name, sm90=False, extra=scale_pass)
+    emit(phase="c4", kernel="grouped_gemm_dw", what="train dW int8x3",
+         faster_than_plain=checks["grouped_gemm_dw"][-1]["ms"]
+         < checks["grouped_gemm_dw"][-1]["plain_ms"])
     del x, dy, lib
     torch.cuda.empty_cache()
 
@@ -2009,6 +2053,12 @@ def main() -> None:
                "serve_moe": launches_ms, "serve_moe_paged": launches_pm,
                "train_moe": launches_mt, "serve_naive": launches_n,
                "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv}
+    # every bf16 flash forward and dW launch of every path ran the wgmma kernel
+    for path, ls in by_path.items():
+        for name in SM90_ON_EVERY_PATH:
+            if ls[name] and ls[f"{name}.sm90"] != ls[name]:
+                fail(f"{path}: {name} ran {ls[f'{name}.sm90']} of its {ls[name]} launches on "
+                     f"the wgmma kernel")
     for name, (src, replaces) in KERNELS.items():
         # the row's headline check: gemma3's windowed (local-layer) case for
         # the flash forward, the model's inputs for wkv6, the path's first
@@ -2035,6 +2085,10 @@ def main() -> None:
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
                      "replaces": replaces, "launches": path_launches,
                      "launches_by_path": {p: ls[name] for p, ls in by_path.items()},
+                     **({"launches_by_loop": {
+                         p: {loop: ls[f"{name}.{loop}"] for loop in LOOP_COUNTS[name]}
+                         for p, ls in by_path.items() if ls[name]}}
+                        if name in LOOP_COUNTS else {}),
                      "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -344,10 +344,13 @@ int run_attn(const AttnArgs& a, dim3 grid, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The forward's bf16 rung runs flash_sm90.cuh's kernel; decode's runs here.
 template <int BQ, bool DECODE, bool PAGED = false>
 int dispatch_attn(const AttnArgs& a, int policy, dim3 grid, cudaStream_t stream) {
   switch (policy) {
-    case P_BF16: return run_attn<P_BF16, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_BF16:
+      if constexpr (DECODE) return run_attn<P_BF16, BQ, DECODE, PAGED>(a, grid, stream);
+      return (int)cudaErrorInvalidValue;
     case P_REFINE_A: return run_attn<P_REFINE_A, BQ, DECODE, PAGED>(a, grid, stream);
     case P_BF16X3: return run_attn<P_BF16X3, BQ, DECODE, PAGED>(a, grid, stream);
     case P_REFINE_AB: return run_attn<P_REFINE_AB, BQ, DECODE, PAGED>(a, grid, stream);

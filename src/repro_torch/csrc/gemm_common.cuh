@@ -34,6 +34,10 @@
 //   G_K     blockIdx.z is the group; groups holds the (num_groups + 1)
 //           offsets, and the block contracts rows [groups[z],
 //           groups[z + 1]) of A's K and B's K (an empty run stores 0).
+//           The quantized rungs read the bf16 planes that the dW quantize
+//           pass wrote (gemm_grouped_dw.cu: hi, and lo for x3, each tile
+//           under its own pow2 scales) and stage them as they are, instead
+//           of quantizing every staged tile under block-reduced scales.
 #pragma once
 
 #include <type_traits>
@@ -49,12 +53,24 @@ struct GemmArgs {
   long long sab, sam, sak;  // A strides in elements: batch, m, k
   long long sbb, sbk, sbn;  // B strides in elements: batch, k, n
   int a_bf16, b_bf16;
-  int a_vec, b_vec;         // 4-wide loads along the contiguous dim are safe
+  int a_vec, b_vec;         // 4-wide loads along the contiguous dim are safe (make_args:
+                            // A's only where K is contiguous; dW sets x^T's along M)
   int m, n, k;
   const int* groups;        // group modes only (see above)
   int num_groups;
   int q_int8;               // the P_FP8 / P_FP8X3 instantiations run int8 / int8x3
+  const void* a_lo;         // G_K quantized rungs: A and B are the quantize pass's bf16 hi
+  const void* b_lo;         // planes, these its lo planes (x3)
 };
+
+// The dW quantize pass's tiles: K runs of DW_SCALE_K rows (the WMMA
+// kernel's BK), x^T's columns in 64s and dy's in 128s (its BM and BN).
+// Group g's K tile t has slot groups[g] / DW_SCALE_K + g + t: the slots of
+// one group never reach the next group's (a run of n rows spans at most
+// n / DW_SCALE_K + 1 tiles past its first slot), so the scale buffer holds
+// rows / DW_SCALE_K + num_groups + 1 slots of (x^T tiles, then dy tiles)
+// (hi, lo) scale pairs.
+constexpr int DW_SCALE_K = 32, DW_SCALE_D = 64, DW_SCALE_F = 128;
 
 // The quantized rungs' planes run bf16x3's passes (x3: lo.hi + hi.lo,
 // then hi.hi) or bf16's one; every other rung runs its own.
@@ -206,7 +222,8 @@ __device__ __forceinline__ void fetch_ab(float (&ra)[T::A_PER_T], float (&rb)[T:
   if (a_kcontig)
     fetch_tile<T::BM, T::BK, T::NT>(ra, a_base, g.a_bf16, g.sam, g.sak, m0, k0, g.m, g.k, g.a_vec);
   else
-    fetch_tile<T::BK, T::BM, T::NT>(ra, a_base, g.a_bf16, g.sak, g.sam, k0, m0, g.k, g.m, false);
+    fetch_tile<T::BK, T::BM, T::NT>(ra, a_base, g.a_bf16, g.sak, g.sam, k0, m0, g.k, g.m,
+                                     g.a_vec);
   if constexpr (B_KMAJOR)
     fetch_tile<T::BN, T::BK, T::NT>(rb, b_base, g.b_bf16, g.sbn, g.sbk, n0, k0, g.n, g.k, g.b_vec);
   else
@@ -225,7 +242,7 @@ __device__ __forceinline__ void stage_ab(const float (&ra)[T::A_PER_T],
                                                          g.a_vec);
     else
       stage_quant<T::BK, T::BM, T::NT, T::A_PER_T, POL>(ra, fp8, red, a_hi, a_lo, 1, T::LDA,
-                                                         false);
+                                                         g.a_vec);
     stage_quant<B_KMAJOR ? T::BN : T::BK, B_KMAJOR ? T::BK : T::BN, T::NT, T::B_PER_T, POL>(
         rb, fp8, red, b_hi, b_lo, T::LDB, 1, g.b_vec);
     return;
@@ -235,7 +252,7 @@ __device__ __forceinline__ void stage_ab(const float (&ra)[T::A_PER_T],
     float* bf = reinterpret_cast<float*>(b_hi);
     auto put_a = [&](int i, float x) { af[i] = x; };
     if (a_kcontig) stage_each<T::BM, T::BK, T::NT>(ra, T::LDA, 1, g.a_vec, put_a);
-    else stage_each<T::BK, T::BM, T::NT>(ra, 1, T::LDA, false, put_a);
+    else stage_each<T::BK, T::BM, T::NT>(ra, 1, T::LDA, g.a_vec, put_a);
     stage_each<B_KMAJOR ? T::BN : T::BK, B_KMAJOR ? T::BK : T::BN, T::NT>(
         rb, T::LDB, 1, g.b_vec, [&](int i, float x) { bf[i] = x; });
     return;
@@ -245,9 +262,33 @@ __device__ __forceinline__ void stage_ab(const float (&ra)[T::A_PER_T],
                                                                   g.a_vec);
   else
     stage_tile<T::BK, T::BM, T::NT, T::A_PER_T, Splits<POL>::a_lo>(ra, a_hi, a_lo, 1, T::LDA,
-                                                                  false);
+                                                                  g.a_vec);
   stage_tile<B_KMAJOR ? T::BN : T::BK, B_KMAJOR ? T::BK : T::BN, T::NT, T::B_PER_T,
              Splits<POL>::b_lo>(rb, b_hi, b_lo, T::LDB, 1, g.b_vec);
+}
+
+// The dW quantize pass's planes, fetched as bf16 values (hi in ra / rb,
+// lo in ra_lo / rb_lo for x3), into the shared planes as they are.
+template <class T, bool B_KMAJOR, bool X3>
+__device__ __forceinline__ void stage_planes(const float (&ra)[T::A_PER_T],
+                                             const float (&rb)[T::B_PER_T],
+                                             const float (&ra_lo)[T::A_PER_T],
+                                             const float (&rb_lo)[T::B_PER_T], bf16* a_hi,
+                                             bf16* a_lo, bf16* b_hi, bf16* b_lo,
+                                             const GemmArgs& g, bool a_kcontig) {
+  constexpr int BO = B_KMAJOR ? T::BN : T::BK, BI = B_KMAJOR ? T::BK : T::BN;
+  if (a_kcontig) {
+    stage_tile<T::BM, T::BK, T::NT, T::A_PER_T, false>(ra, a_hi, nullptr, T::LDA, 1, g.a_vec);
+    if constexpr (X3)
+      stage_tile<T::BM, T::BK, T::NT, T::A_PER_T, false>(ra_lo, a_lo, nullptr, T::LDA, 1, g.a_vec);
+  } else {
+    stage_tile<T::BK, T::BM, T::NT, T::A_PER_T, false>(ra, a_hi, nullptr, 1, T::LDA, g.a_vec);
+    if constexpr (X3)
+      stage_tile<T::BK, T::BM, T::NT, T::A_PER_T, false>(ra_lo, a_lo, nullptr, 1, T::LDA, g.a_vec);
+  }
+  stage_tile<BO, BI, T::NT, T::B_PER_T, false>(rb, b_hi, nullptr, T::LDB, 1, g.b_vec);
+  if constexpr (X3)
+    stage_tile<BO, BI, T::NT, T::B_PER_T, false>(rb_lo, b_lo, nullptr, T::LDB, 1, g.b_vec);
 }
 
 template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL, int MODE = G_NONE>
@@ -283,7 +324,8 @@ gemm_kernel(GemmArgs g) {
       return;
     }
     b_off = gid * g.sbb;
-  } else if constexpr (MODE == G_K) {
+  }
+  if constexpr (MODE == G_K) {
     const int k0 = g.groups[blockIdx.z];
     g.k = g.groups[blockIdx.z + 1] - k0;
     a_off = k0 * g.sak;
@@ -311,12 +353,28 @@ gemm_kernel(GemmArgs g) {
       if constexpr (SPLIT) wmma::fill_fragment(small[i][j], 0.f);
     }
 
+  // G_K's quantized rungs on the quantize pass's planes: A and B are the
+  // hi planes, a_lo / b_lo the lo planes (x3)
+  constexpr bool PLANES = MODE == G_K && Carried<POL>::quant;
+  constexpr bool X3 = Carried<POL>::x3;
+  float ra_lo[PLANES ? T::A_PER_T : 1], rb_lo[PLANES ? T::B_PER_T : 1];
+  const char* a_lo_base = PLANES ? static_cast<const char*>(g.a_lo) + a_off * 2 : nullptr;
+  const char* b_lo_base = PLANES ? static_cast<const char*>(g.b_lo) + b_off * 2 : nullptr;
+  auto fetch = [&](int k0) {
+    fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, k0, a_kcontig);
+    if constexpr (PLANES && X3)
+      fetch_ab<T, B_KMAJOR>(ra_lo, rb_lo, g, a_lo_base, b_lo_base, m0, n0, k0, a_kcontig);
+  };
+
   const int nk = (g.k + BK - 1) / BK;
-  fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, 0, a_kcontig);
+  fetch(0);
   for (int t = 0; t < nk; ++t) {
-    stage_ab<T, B_KMAJOR, POL>(ra, rb, a_hi, a_lo, b_hi, b_lo, g, a_kcontig, red);
+    if constexpr (PLANES)
+      stage_planes<T, B_KMAJOR, X3>(ra, rb, ra_lo, rb_lo, a_hi, a_lo, b_hi, b_lo, g, a_kcontig);
+    else
+      stage_ab<T, B_KMAJOR, POL>(ra, rb, a_hi, a_lo, b_hi, b_lo, g, a_kcontig, red);
     __syncthreads();
-    if (t + 1 < nk) fetch_ab<T, B_KMAJOR>(ra, rb, g, a_base, b_base, m0, n0, (t + 1) * BK, a_kcontig);
+    if (t + 1 < nk) fetch((t + 1) * BK);
     if constexpr (POL == P_F32) {
       const int c = wn * WN + lane % WN;
 #pragma unroll 4
@@ -452,6 +510,7 @@ inline GemmArgs make_args(const void* a, int a_bf16, long long sab, long long sa
   g.m = m; g.n = n; g.k = k;
   g.groups = nullptr; g.num_groups = 0;
   g.q_int8 = 0;
+  g.a_lo = g.b_lo = nullptr;
   g.a_vec = vec4_ok(a, a_bf16, sak, sam, sab, k);
   g.b_vec = sbk < sbn ? vec4_ok(b, b_bf16, sbk, sbn, sbb, k) : vec4_ok(b, b_bf16, sbn, sbk, sbb, n);
   return g;

@@ -10,8 +10,11 @@
 //                    gemm_grouped.py:184).
 //   dW               dw[g] = x_g^T.dy_g over group g's run of rows, G_K:
 //                    one block per (group, BM x BN tile of dw) walks its
-//                    own run as K.  Replaces kernels/gemm_grouped.py:
-//                    _dw_kernel (pallas_call at gemm_grouped.py:246).
+//                    own run as K (bf16: gemm_sm90.cuh's group-K mode; the
+//                    quantized rungs on a quantize pass's planes,
+//                    gemm_grouped_dw.cu).
+//                    Replaces kernels/gemm_grouped.py:_dw_kernel
+//                    (pallas_call at gemm_grouped.py:246).
 //
 // Three sources instantiate them, so that they compile in parallel:
 // gemm_grouped.cu (the forward at bf16, its refinements and f32),
@@ -51,9 +54,19 @@ int grouped_rows(const GemmArgs& g, int cta_bm, cudaStream_t s, int* loop) {
 }
 
 // dw: A is x^T (M-contiguous, D x rows), B is dy (rows x F, row-major).
+// bf16 runs the Hopper mainloop's group-K mode (128 x 128 tiles); every
+// other rung runs the WMMA kernel's 64 x 128 tile, 32 deep (the quantize
+// pass's tiles).
 template <int POL>
-int grouped_k(const GemmArgs& g, int num_groups, cudaStream_t s) {
-  return run_gemm<64, 128, 32, 32, 32, false, POL, G_K>(g, num_groups, s);
+int grouped_k(const GemmArgs& g, int num_groups, cudaStream_t s, int* loop) {
+  if constexpr (POL == P_BF16) {
+    *loop = LOOP_SM90;
+    return sm90::run_grouped_k<128>(g, s);
+  } else {
+    *loop = LOOP_WMMA;
+    return run_gemm<DW_SCALE_D, DW_SCALE_F, DW_SCALE_K, 32, 32, false, POL, G_K>(g, num_groups,
+                                                                                  s);
+  }
 }
 
 // The forward's arguments: x (rows x K), w[g] as B through its strides.

@@ -42,6 +42,26 @@
 // grid's x walks row tiles fastest, so the row tiles that share an expert's
 // weight N-tile run together and that tile comes from HBM once and from L2
 // after; y walks N tiles, z the batch.
+//
+// Group-K mode (the grouped dW at bf16: dw[g] = x_g^T.dy_g), its own
+// persistent kernel (gemm_sm90_group_k_kernel): one CTA per SM walks the
+// 128 x 128 tiles of dw over every group, D tiles fastest, so one tile's
+// epilogue overlaps the producer's loads of the next (a run is short: 256
+// rows on average at Mixtral's train shape, four K stages).  A tile's K
+// walk starts at offsets[g] and ends at offsets[g + 1]; A = x^T MN-major
+// (M-contiguous), B = dy MN-major (row-major, N-contiguous), each by TMA
+// where it is bf16 and aligned (the wrapper hands bf16), else converted.
+// A run's end is not the tensor's edge, so TMA's out-of-bounds fill does
+// not zero the next group's rows: the last K stage of a run that 64 does
+// not divide has its TMA loads land on a barrier of the producer's own,
+// which then zeros the rows at or past offsets[g + 1] in shared memory
+// before it hands the stage to the consumers (the converting producer
+// writes those zeros itself, reading the run as an operand of K extent =
+// its length).  An empty run loads nothing and stores zeros.  No sum
+// crosses tiles and no atomics are used, so the result is the same on
+// every run.  (A converting producer for both operands read 48 KB a stage
+// through registers and took 2.2-2.6 ms at Mixtral's train shape; TMA
+// takes 1.25.)
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -61,7 +81,7 @@ struct Cfg {
   static constexpr int NT = 128 * (CONSUMERS + 1);
   static constexpr int A_TILE = BM * ROW;
   static constexpr int STAGE = A_TILE + B_TILE;
-  static constexpr size_t smem = 1024 + STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+  static constexpr size_t smem = 1024 + STAGES * STAGE + (2 * STAGES + 1) * sizeof(uint64_t);
 };
 
 // An operand as the producer reads it: index (mn, k) at p + mn*s_mn + k*s_k
@@ -290,6 +310,167 @@ __device__ __forceinline__ void tma_tile(unsigned char* tile, const CUtensorMap*
   }
 }
 
+// Zero K rows [keep, 64) of an R x 64 MN-major tile (R / 64 blocks of 64 K
+// rows of 128 bytes; a whole row, so the swizzle does not matter).
+template <int R>
+__device__ __forceinline__ void zero_k_rows(unsigned char* tile, int keep, int t) {
+  const int n = (64 - keep) * 8;  // 16-byte chunks per block
+  for (int i = t; i < n * (R / 64); i += 128) {
+    const int h = i / n, c = i % n;
+    *reinterpret_cast<uint4*>(tile + h * BLOCK + (keep + c / 8) * ROW + (c % 8) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The producer's K walk of one tile: nk stages of A (BM x 64) and B (64 x
+// 128) into the ring, TMA or converted (all 128 threads; thread 0 alone
+// when both operands take TMA and there is no `tail`).  (stage, phase)
+// carry over from tile to tile in the persistent mode.  Group-K mode
+// (`tail` set, both operands MN-major): the walk is the group's run, TMA
+// boxes start at row k_begin + k0, and a stage that runs past the run's
+// end (the last of a run that 64 does not divide) has its TMA loads land
+// on `tail`; every producer thread waits for them, zeros the rows at or
+// past the end, and then the stage is handed over, so no row of the next
+// group is multiplied (the converting path writes those zeros itself).
+template <int BM, bool A_K, bool B_K>
+__device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                        int& stage, int& phase, const Operand& oa,
+                                        const Operand& ob, const char* a_base,
+                                        const char* b_base, const CUtensorMap* map_a,
+                                        const CUtensorMap* map_b, int m0, int n0, int za, int zb,
+                                        int nk, int t, uint64_t* tail = nullptr,
+                                        int* tail_phase = nullptr, int k_begin = 0) {
+  using C = Cfg<BM>;
+  const bool convert = !(oa.tma && ob.tma);
+  const uint32_t tx = (oa.tma ? C::A_TILE : 0) + (ob.tma ? B_TILE : 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    unsigned char* sa = smem + stage * C::STAGE;
+    unsigned char* sb = sa + C::A_TILE;
+    const int k0 = kt * BK;
+    if constexpr (!A_K && !B_K) {
+      if (tail != nullptr && tx && k0 + BK > oa.k) {  // a ragged last stage of a group's run
+        if (t == 0) {
+          mbar_arrive_tx(tail, tx);
+          if (oa.tma) tma_tile<BM, false>(sa, map_a, tail, m0, k_begin + k0, za);
+          if (ob.tma) tma_tile<BN, false>(sb, map_b, tail, n0, k_begin + k0, zb);
+        }
+        if (!oa.tma) convert_tile<BM, false>(sa, oa, a_base, m0, k0, t);
+        if (!ob.tma) convert_tile<BN, false>(sb, ob, b_base, n0, k0, t);
+        mbar_wait(tail, *tail_phase);
+        *tail_phase ^= 1;
+        if (oa.tma) zero_k_rows<BM>(sa, oa.k - k0, t);
+        if (ob.tma) zero_k_rows<BN>(sb, oa.k - k0, t);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync 1, 128;" ::: "memory");
+        if (t == 0) mbar_arrive(&full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+        continue;
+      }
+    }
+    if (convert) {
+      if (!oa.tma) convert_tile<BM, A_K>(sa, oa, a_base, m0, k0, t);
+      if (!ob.tma) convert_tile<BN, B_K>(sb, ob, b_base, n0, k0, t);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+    }
+    if (t == 0) {
+      if (tx) {
+        mbar_arrive_tx(&full[stage], tx);
+        if (oa.tma) tma_tile<BM, A_K>(sa, map_a, &full[stage], m0, k_begin + k0, za);
+        if (ob.tma) tma_tile<BN, B_K>(sb, map_b, &full[stage], n0, k_begin + k0, zb);
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// A consumer's K walk of one tile (rows [64 cw, 64 cw + 64) of it): four
+// wgmma m64n128k16 a stage, one group kept in flight (wait_group 1), each
+// stage released once the next one's group is issued and the last one at
+// the end, so the ring runs on into the next tile.
+template <int BM, bool A_K, bool B_K>
+__device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                        int& stage, int& phase, float (&acc)[64], int nk,
+                                        int cw, int t) {
+  using C = Cfg<BM>;
+  int prev = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* sa = smem + stage * C::STAGE + cw * 64 * ROW;
+    const unsigned char* sb = smem + stage * C::STAGE + C::A_TILE;
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = A_K ? make_desc(sa + kk * 32, 16, 1024)
+                              : make_desc(sa + kk * 16 * ROW, BLOCK, 1024);
+      const uint64_t db = B_K ? make_desc(sb + kk * 32, 16, 1024)
+                              : make_desc(sb + kk * 16 * ROW, BLOCK, 1024);
+      wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db, kt > 0 || kk > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(acc);
+    if (kt > 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+  if (nk > 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
+}
+
+// Epilogue: accumulator i of thread t is row 16*warp + t/4 (+8 for i & 2),
+// column 8*(i/4) + 2*(t%4) (+1 for i & 1) of the consumer's rows; stored
+// straight from registers, masked for ragged M and N (two-float stores
+// where N is even); zeros where the walk was empty (nk == 0).
+__device__ __forceinline__ void store_tile(const float (&acc)[64], float* cb, int m, int n,
+                                           int r_first, int n0, int nk, int t) {
+  const int lane = t % 32;
+  const int r0 = r_first + (t / 32) * 16 + lane / 4;
+  const bool pairs = (n % 2) == 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= m) continue;
+      float* dst = cb + static_cast<long long>(r) * n + col;
+      const float v0 = nk ? acc[4 * j + 2 * h] : 0.f, v1 = nk ? acc[4 * j + 2 * h + 1] : 0.f;
+      if (pairs && col + 1 < n) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        if (col < n) dst[0] = v0;
+        if (col + 1 < n) dst[1] = v1;
+      }
+    }
+  }
+}
+
+template <int BM>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * Cfg<BM>::CONSUMERS);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
 template <int BM, bool A_K, bool B_K, int MODE>
 __global__ void __launch_bounds__(Cfg<BM>::NT, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -315,102 +496,65 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   const char* a_base = g.a.p + za * g.a.s_batch * (g.a.bf16 ? 2 : 4);
   const char* b_base = g.b.p + zb * g.b.s_batch * (g.b.bf16 ? 2 : 4);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * C::CONSUMERS);  // lane 0 of every consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<BM>(full, empty);
 
   const int nk = (g.k + BK - 1) / BK;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  int stage = 0, phase = 0;
   if (wg == 0) {
-    // Producer.
-    const bool convert = !(g.a.tma && g.b.tma);
-    if (!convert && t != 0) return;
-    int stage = 0, phase = 0;
-    for (int kt = 0; kt < nk; ++kt) {
-      mbar_wait(&empty[stage], phase ^ 1);
-      unsigned char* sa = smem + stage * C::STAGE;
-      unsigned char* sb = sa + C::A_TILE;
-      const int k0 = kt * BK;
-      if (convert) {
-        if (!g.a.tma) convert_tile<BM, A_K>(sa, g.a, a_base, m0, k0, t);
-        if (!g.b.tma) convert_tile<BN, B_K>(sb, g.b, b_base, n0, k0, t);
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        asm volatile("bar.sync 1, 128;" ::: "memory");
-      }
-      if (t == 0) {
-        const uint32_t tx = (g.a.tma ? C::A_TILE : 0) + (g.b.tma ? B_TILE : 0);
-        if (tx) {
-          mbar_arrive_tx(&full[stage], tx);
-          if (g.a.tma) tma_tile<BM, A_K>(sa, &map_a, &full[stage], m0, k0, za);
-          if (g.b.tma) tma_tile<BN, B_K>(sb, &map_b, &full[stage], n0, k0, zb);
-        } else {
-          mbar_arrive(&full[stage]);
-        }
-      }
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
+    if (!(g.a.tma && g.b.tma) || t == 0)
+      produce<BM, A_K, B_K>(smem, full, empty, stage, phase, g.a, g.b, a_base, b_base, &map_a,
+                            &map_b, m0, n0, za, zb, nk, t);
   } else {
-    // Consumers: rows [64 * cw, 64 * cw + 64) of the tile.
-    const int cw = wg - 1;
     float acc[64];  // written first by a wgmma with scale_d 0
-    int stage = 0, phase = 0, prev = 0;
-    for (int kt = 0; kt < nk; ++kt) {
-      mbar_wait(&full[stage], phase);
-      const unsigned char* sa = smem + stage * C::STAGE + cw * 64 * ROW;
-      const unsigned char* sb = smem + stage * C::STAGE + C::A_TILE;
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t da = A_K ? make_desc(sa + kk * 32, 16, 1024)
-                                : make_desc(sa + kk * 16 * ROW, BLOCK, 1024);
-        const uint64_t db = B_K ? make_desc(sb + kk * 32, 16, 1024)
-                                : make_desc(sb + kk * 16 * ROW, BLOCK, 1024);
-        wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db, kt > 0 || kk > 0);
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      fence_acc(acc);
-      if (kt > 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
-      prev = stage;
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(acc);
+    consume<BM, A_K, B_K>(smem, full, empty, stage, phase, acc, nk, wg - 1, t);
+    store_tile(acc, g.c + static_cast<long long>(bz) * g.m * g.n, g.m, g.n,
+               m0 + (wg - 1) * 64, n0, nk, t);
+  }
+}
 
-    // Epilogue: accumulator i of thread t is row 16*warp + t/4 (+8 for
-    // i & 2), column 8*(i/4) + 2*(t%4) (+1 for i & 1) of the consumer's rows.
-    const int lane = t % 32;
-    const int r0 = m0 + cw * 64 + (t / 32) * 16 + lane / 4;
-    float* cb = g.c + static_cast<long long>(bz) * g.m * g.n;
-    const bool pairs = (g.n % 2) == 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + 8 * j + 2 * (lane % 4);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + 8 * h;
-        if (r >= g.m) continue;
-        float* dst = cb + static_cast<long long>(r) * g.n + col;
-        const float v0 = nk ? acc[4 * j + 2 * h] : 0.f, v1 = nk ? acc[4 * j + 2 * h + 1] : 0.f;
-        if (pairs && col + 1 < g.n) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          if (col < g.n) dst[0] = v0;
-          if (col + 1 < g.n) dst[1] = v1;
-        }
-      }
+// The grouped dW (group-K mode), persistent: each CTA walks the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... of (D / BM) x (F / BN) x E, D
+// tiles fastest (the CTAs that share a dy tile run together), so one
+// tile's epilogue overlaps the producer's loads of the next.  A tile's K
+// walk is its group's run: A = x^T and B = dy from row offsets[g] on, each
+// an operand of K extent = the run's length (`produce` zeros the rows at
+// or past offsets[g + 1] of a ragged last stage, by TMA or converted).
+template <int BM>
+__global__ void __launch_bounds__(Cfg<BM>::NT, 1)
+gemm_sm90_group_k_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b, const Args g) {
+  using C = Cfg<BM>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* tail = empty + STAGES;
+  if (threadIdx.x == 0) mbar_init(tail, 1);
+  init_ring<BM>(full, empty);
+  int tail_phase = 0;
+
+  const int tiles_m = (g.m + BM - 1) / BM, tiles_n = (g.n + BN - 1) / BN;
+  const int n_tiles = tiles_m * tiles_n * g.num_groups;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  int stage = 0, phase = 0;
+  float acc[64];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (tile % tiles_m) * BM, n0 = (tile / tiles_m % tiles_n) * BN;
+    const int grp = tile / (tiles_m * tiles_n);
+    const int k_begin = g.groups[grp];
+    Operand oa = g.a, ob = g.b;
+    oa.k = ob.k = g.groups[grp + 1] - k_begin;
+    const int nk = (oa.k + BK - 1) / BK;
+    if (wg == 0) {
+      const char* a_run = oa.p + static_cast<long long>(k_begin) * oa.s_k * (oa.bf16 ? 2 : 4);
+      const char* b_run = ob.p + static_cast<long long>(k_begin) * ob.s_k * (ob.bf16 ? 2 : 4);
+      produce<BM, false, false>(smem, full, empty, stage, phase, oa, ob, a_run, b_run, &map_a,
+                                &map_b, m0, n0, 0, 0, nk, t, tail, &tail_phase, k_begin);
+    } else {
+      consume<BM, false, false>(smem, full, empty, stage, phase, acc, nk, wg - 1, t);
+      store_tile(acc, g.c + static_cast<long long>(grp) * g.m * g.n, g.m, g.n,
+                 m0 + (wg - 1) * 64, n0, nk, t);
     }
   }
 }
@@ -504,6 +648,39 @@ int launch_layout(const Args& s, const CUtensorMap& ma, const CUtensorMap& mb, b
     return b_k ? launch<BM, false, true, MODE>(s, ma, mb, batch, stream)
                : launch<BM, false, false, MODE>(s, ma, mb, batch, stream);
   }
+}
+
+// dw[g] = x_g^T.dy_g for the g.num_groups runs of g.groups (the offsets);
+// g as gemm_grouped_dw.cu builds it: A = x^T (m-stride 1), B = dy (n-stride
+// 1).  One persistent CTA per SM (or per tile, when there are fewer).
+template <int BM>
+int run_grouped_k(const GemmArgs& g, cudaStream_t stream) {
+  Args s;
+  s.a = operand(g.a, g.a_bf16, g.sam, g.sak, 0, g.m, g.k, false);
+  s.b = operand(g.b, g.b_bf16, g.sbn, g.sbk, 0, g.n, g.k, false);
+  s.c = g.c;
+  s.m = g.m; s.n = g.n; s.k = g.k;
+  s.groups = g.groups;
+  s.num_groups = g.num_groups;
+  // bf16 operands by TMA over all g.k rows (x^T: M-contiguous boxes of 64 x
+  // 64; dy: N-contiguous), the converting producer otherwise
+  CUtensorMap ma{}, mb{};
+  if (g.a_bf16) s.a.tma = encode(&ma, g.a, g.m, g.k, 1, g.sak, 0, 64);
+  if (g.b_bf16) s.b.tma = encode(&mb, g.b, g.n, g.k, 1, g.sbk, 0, 64);
+  using C = Cfg<BM>;
+  auto kern = gemm_sm90_group_k_kernel<BM>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = static_cast<long long>((g.m + BM - 1) / BM) * ((g.n + BN - 1) / BN) *
+                          g.num_groups;
+  if (tiles == 0) return (int)cudaSuccess;
+  kern<<<static_cast<int>(tiles < sms ? tiles : sms), C::NT, C::smem, stream>>>(ma, mb, s);
+  return (int)cudaGetLastError();
 }
 
 // C = A.B (G_NONE: `batch` products, BM by M; G_ROWS: BM = the caller's

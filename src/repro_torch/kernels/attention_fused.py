@@ -30,11 +30,18 @@ What bounds them on the H100: their roofline bound is bytes for decode
 and, at gemma3-1b's training shapes, operations for the forward and
 backward (a few GFLOP against a few MB), but at head_dim 256 the design
 is bounded by shared memory: a 64 x 256 f32 tile is 64 KB, so the TPU's
-128 x 128 blocks do not fit.  The forward stages Q, K and V as bf16
-hi/lo pairs (or f32) with a 64-row q block and 32-row KV tiles, and
-keeps O in shared memory as an f32 accumulator reloaded into WMMA
-fragments (217 KB, one block per SM); a q block walks only the KV tiles
-its mask reaches (the TPU kernel's ``_block_live`` as loop bounds).
+128 x 128 blocks do not fit.  The forward at the bf16 rung runs a Hopper
+kernel (``csrc/flash_sm90.cuh``): a producer warpgroup stages Q once and
+64-row K/V tiles through a 2-stage ring (TMA for bf16 inputs, converting
+loads for f32), and one consumer warpgroup computes S = QK^T by
+``wgmma`` into registers, runs the online softmax there in the twin's
+32-column steps, and multiplies P (bf16, from registers) by V with O kept
+in registers for the whole walk.  The other rungs' forward stages Q, K
+and V as bf16 hi/lo pairs (or f32) with a 64-row q block and 32-row KV
+tiles, and keeps O in shared memory as an f32 accumulator reloaded into
+WMMA fragments (217 KB, one block per SM).  Both walk only the KV tiles a
+q block's mask reaches (the TPU kernel's ``_block_live`` as loop bounds);
+``LAUNCHES_BY_LOOP`` counts which of the two each forward launch ran.
 Decode reads the cache once per tick, so bytes bound it; the kernel
 reads it in place in its stored type and stops a linear walk at ``pos``.
 
@@ -67,14 +74,14 @@ import torch
 
 from repro_torch.core import precision as prec
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm_tiled import on_cpu
+from repro_torch.kernels.gemm_tiled import MAINLOOPS, on_cpu
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
            "bwd_delta", "flash_decode", "flash_decode_plain", "FUSED_POLICIES", "BKV",
-           "LAUNCHES"]
+           "LAUNCHES", "LAUNCHES_BY_LOOP"]
 
 BKV = 32
 BQ = 64        # the forward kernel's q block (its Q and P scale tiles)
@@ -84,9 +91,12 @@ POLICY_CODES = {"bf16": 0, "refine_a": 1, "bf16x3": 2, "refine_ab": 3, "f32": 4,
                 "bf16x6": 5, "fp8": 6, "int8": 7, "fp8x3": 8, "int8x3": 9}
 FUSED_POLICIES = tuple(POLICY_CODES)
 
-# Launch counts of the kernels, keyed by kernel.
+# Launch counts of the kernels, keyed by kernel, and of the forward's two
+# kernels (``wmma``: flash_common.cuh, every rung; ``sm90``: the bf16 rung
+# on wgmma).
 LAUNCHES = {"flash_attention": 0, "flash_decode": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)
 
 
 # ------------------------------------------------------------ plain twins
@@ -320,7 +330,8 @@ def _launchers():
     lib = _build.load("attention_fused")
     c = ctypes
     fwd, dec = lib.attention_fwd_launch, lib.attention_decode_launch
-    fwd.argtypes = [c.c_void_p] * 5 + [c.c_int] * 9 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
+    fwd.argtypes = [c.c_void_p] * 5 + [c.c_int] * 9 + [c.c_float, c.c_int, c.POINTER(c.c_int),
+                                                        c.c_void_p, c.c_int]
     dec.argtypes = [c.c_void_p] * 5 + [c.c_int] * 7 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
     fwd.restype = dec.restype = c.c_int
     return fwd, dec
@@ -344,8 +355,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         precision: str = "bf16"):
     """The forward kernel: q (B, Sq, Kv, G, hd) pre-scaled, k/v (B, Skv,
     Kv, hd).  Returns (out (B, Sq, Kv, G, hd) f32, lse (B, Kv*G, Sq) f32).
-    CPU tensors run the plain twin; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (the
+    Hopper one at the bf16 rung, the WMMA one at every other) or raise."""
     _check_policy(precision)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -355,13 +366,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     (q, k, v), in_bf16 = _inputs(q, k, v)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, kvh * g, sq), dtype=torch.float32, device=q.device)
+    loop = ctypes.c_int(-1)
     rc = _launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), in_bf16, b, sq, k.shape[1], kvh, g, hd, int(causal),
             _window_arg(causal, window), _softcap_arg(softcap),
-            POLICY_CODES[precision], torch.cuda.current_stream(q.device).cuda_stream,
-            _device_index(q))
+            POLICY_CODES[precision], ctypes.byref(loop),
+            torch.cuda.current_stream(q.device).cuda_stream, _device_index(q))
     _build.check(rc, "attention_fwd_launch")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES_BY_LOOP[MAINLOOPS[loop.value]] += 1
     return out, lse
 
 

@@ -21,7 +21,15 @@ from staged bf16 hi/lo tiles; the fp8 / int8 rungs quantized on their way
 into those tiles under each staged tile's pow2 scales (the CTA's rows x BK
 of x, BK x 128 of w; dW's 64 x 32 of x^T and 32 x 128 of dy), then
 multiplied in bf16's one pass or bf16x3's three; bf16x6 from f32 tiles
-with its terms made per fragment; f32 on the CUDA cores.  The TPU
+with its terms made per fragment; f32 on the CUDA cores.  The bf16 dW
+runs the Hopper mainloop's group-K mode (``gemm_sm90.cuh``: persistent
+CTAs over 128 x 128 tiles of dw, each walking its group's run as K, x and
+dy by TMA as bf16, the rows past a run's end zeroed in shared memory);
+its quantized rungs first run a quantize pass (``grouped_dw_scales``: one
+block per 64 x 32 tile of x^T and 32 x 128 tile of dy takes the tile's
+pow2 scales and writes its bf16 hi / lo terms), whose planes the WMMA
+kernel then stages as they are, so no tile is quantized more than once
+and no block reduces.  The TPU
 scalar-prefetched a per-tile group id; here each block of the forward
 loads its own from ``tile_group_ids`` (computed on the device with
 ``searchsorted`` at the kernel's CTA row tile, no host sync): a dead tile
@@ -57,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -67,11 +76,14 @@ from repro_torch.kernels.gemm_refined import gemm_refined_plain
 from repro_torch.kernels.gemm_tiled import MAINLOOPS, gemm_tiled_plain, on_cpu
 
 __all__ = ["grouped_gemm", "grouped_gemm_dw", "grouped_gemm_plain", "grouped_gemm_dw_plain",
-           "grouped", "tile_group_ids", "cta_rows", "LAUNCHES", "LAUNCHES_BY_LOOP", "POLICY_CODES",
-           "ROW_TILE"]
+           "grouped_dw_scales", "grouped_dw_scales_plain", "dw_scale_slots",
+           "grouped", "tile_group_ids", "cta_rows", "LAUNCHES", "LAUNCHES_BY_LOOP",
+           "LAUNCHES_BY_LOOP_DW", "POLICY_CODES", "ROW_TILE", "DW_SCALE_TILES"]
 
 LAUNCHES = {"grouped_gemm": 0, "grouped_gemm_dw": 0}
 LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)   # the forward's (and dx's) mainloop
+LAUNCHES_BY_LOOP_DW = dict.fromkeys(MAINLOOPS, 0)   # dW's mainloop
+SCALE_PASS_LAUNCHES = 0   # the quantized dW rungs' quantize pass (grouped_dw_scales)
 POLICY_CODES = {"bf16": 0, **_REFINED_CODES, "f32": 4, "bf16x6": 5, "fp8": 6, "int8": 7,
                 "fp8x3": 8, "int8x3": 9}
 _QUANT = ("fp8", "int8", "fp8x3", "int8x3")
@@ -149,6 +161,11 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Te
     return out
 
 
+# The dW's scale tiles of the quantized rungs: 64 x 32 of x^T and 32 x 128
+# of dy (the WMMA kernel's A and B tiles), starting at each run's first row.
+DW_SCALE_TILES = ((64, 32), (32, 128))
+
+
 def grouped_gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
                           policy: str = "bf16") -> torch.Tensor:
     """dw[g] = x_g^T . dy_g in plain PyTorch, zero for an empty run."""
@@ -159,8 +176,77 @@ def grouped_gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torc
     for g in range(e):
         if off[g + 1] > off[g]:
             dw[g] = _ladder_matmul(x[off[g]:off[g + 1]].t(), dy[off[g]:off[g + 1]], policy,
-                                   ((64, 32), (32, 128)))
+                                   DW_SCALE_TILES)
     return dw
+
+
+def dw_scale_slots(n_rows: int, offsets: list[int]) -> tuple[int, list[int]]:
+    """The quantize pass's scale buffer rows: (slot count, each group's first slot).
+    Group g's K tile t (rows ``offsets[g] + 32 t`` on, up to its run's end)
+    has slot ``offsets[g] // 32 + g + t``; a run of n rows has ceil(n / 32)
+    tiles, so no group's slots reach the next group's first, and
+    ``n_rows // 32 + E + 1`` slots hold every buffer of ``n_rows`` rows
+    (the kernel's count, known without reading the offsets)."""
+    k = DW_SCALE_TILES[0][1]
+    return _slot_count(n_rows, len(offsets)), [o // k + g for g, o in enumerate(offsets[:-1])]
+
+
+def _slot_count(n_rows: int, n_offsets: int) -> int:
+    return n_rows // DW_SCALE_TILES[0][1] + n_offsets
+
+
+def _scale_cols(d: int, f: int) -> tuple[int, int]:
+    """The quantize pass's column tiles of x (64 wide) and of dy (128 wide)."""
+    return -(-d // DW_SCALE_TILES[0][0]), -(-f // DW_SCALE_TILES[1][1])
+
+
+def _pair_scales(v: torch.Tensor, policy: str, dims: tuple[int, ...]) -> torch.Tensor:
+    """(hi, lo) pow2 scales over ``dims`` of v, as ``prec.tile_terms``
+    takes them: hi's over |v|, lo's over the residual v - q(v) (x3 rungs;
+    1 otherwise).  Returns v's shape without ``dims``, then 2."""
+    fmt = prec.quant_format(policy)
+    dtype, qmax = prec.QUANT_FORMATS[fmt]
+    ln2 = torch.tensor(math.log(2.0), dtype=torch.float32, device=v.device)
+
+    def scale(u):
+        amax = torch.clamp(u.abs().amax(dim=dims, keepdim=True), min=1e-30)
+        return torch.exp(torch.ceil(torch.log2(amax / qmax)) * ln2)
+
+    s_hi = scale(v)
+    s_lo = torch.ones_like(s_hi)
+    if policy.endswith("x3"):
+        y = v / s_hi
+        q = torch.clamp(torch.round(y), -qmax, qmax).to(dtype) if fmt == "int8" else y.to(dtype)
+        s_lo = scale(v - (q.float() * s_hi).to(torch.bfloat16).float())
+    return torch.stack([s_hi.squeeze(dims), s_lo.squeeze(dims)], dim=-1)
+
+
+def grouped_dw_scales_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
+                            policy: str) -> torch.Tensor:
+    """The quantize pass's scales in plain PyTorch: (slots, ceil(D / 64) + ceil(F / 128),
+    2) f32, the (hi, lo) scales of each K tile's x^T column tiles and then
+    its dy column tiles, at the slots of ``dw_scale_slots``; zeros at the
+    slots no tile owns.  A run that 32 does not divide ends in a short
+    tile whose missing rows count as zeros (``prec.tile_terms`` pads it so)."""
+    if policy not in _QUANT:
+        raise ValueError(f"the dW quantize pass serves {_QUANT}; got {policy!r}")
+    off = group_offsets.tolist()
+    n_slots, first = dw_scale_slots(x.shape[0], off)
+    nd, nf = _scale_cols(x.shape[1], dy.shape[1])
+    out = torch.zeros((n_slots, nd + nf, 2), dtype=torch.float32, device=x.device)
+    k = DW_SCALE_TILES[0][1]
+    for g in range(len(off) - 1):
+        n = off[g + 1] - off[g]
+        if n == 0:
+            continue
+        kt = -(-n // k)
+        for mat, c0, ct in ((x, 0, nd), (dy, nd, nf)):
+            cw = DW_SCALE_TILES[0][0] if c0 == 0 else DW_SCALE_TILES[1][1]
+            run = mat[off[g]:off[g + 1]].float()
+            run = torch.nn.functional.pad(run, (0, ct * cw - run.shape[1], 0, kt * k - n))
+            out[first[g]:first[g] + kt, c0:c0 + ct] = _pair_scales(
+                run.reshape(kt, k, ct, cw), policy, (1, 3))
+    return out
 
 
 # The forward's rungs beyond bf16, its refinements and f32 are built from
@@ -183,13 +269,20 @@ def _forward_launcher(ext: bool):
 
 
 @functools.cache
-def _dw_launcher():
+def _dw_launchers():
+    """(dW, quantize pass) C launchers, typed once."""
     c = ctypes
-    dw = _build.load("gemm_grouped_dw").grouped_gemm_dw_launch
-    dw.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p,
-                   c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_int]
-    dw.restype = c.c_int
-    return dw
+    lib = _build.load("gemm_grouped_dw")
+    dw, sc = lib.grouped_gemm_dw_launch, lib.grouped_dw_scales_launch
+    dw.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_int,            # x, dy (hi planes)
+                   c.c_void_p, c.c_void_p,                              # lo planes
+                   c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_int,   # offsets, E, dw, rows, d
+                   c.c_int, c.c_int, c.POINTER(c.c_int), c.c_void_p, c.c_int]
+    sc.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_void_p, c.c_int, c.c_int,
+                   c.c_int, c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+                   c.c_void_p, c.c_void_p, c.c_int]
+    dw.restype = sc.restype = c.c_int
+    return dw, sc
 
 
 def _operand(x: torch.Tensor) -> torch.Tensor:
@@ -245,31 +338,92 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, 
     return out
 
 
+def _dw_shapes(x: torch.Tensor, dy: torch.Tensor) -> None:
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"grouped_gemm_dw expects (N,D), (N,F); got {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}")
+
+
+def _quantize_on_card(x, dy, offsets, policy, planes: bool):
+    """The quantize pass's launch on prepared operands (``_operand``) and
+    int32 offsets: the scale buffer, and with ``planes`` the bf16 planes
+    (x hi, x lo, dy hi, dy lo; the lo planes None for one pass)."""
+    global SCALE_PASS_LAUNCHES
+    d, f = x.shape[1], dy.shape[1]
+    n_slots = _slot_count(x.shape[0], offsets.shape[0])
+    scales = torch.zeros((n_slots, sum(_scale_cols(d, f)), 2), dtype=torch.float32,
+                         device=x.device)
+    x3 = policy.endswith("x3")
+
+    def plane(m, needed):
+        if not (planes and needed):
+            return None
+        return torch.empty(m.shape, dtype=torch.bfloat16, device=x.device)
+
+    out = [plane(x, True), plane(x, x3), plane(dy, True), plane(dy, x3)]
+    rc = _dw_launchers()[1](
+        x.data_ptr(), int(x.dtype == torch.bfloat16), dy.data_ptr(),
+        int(dy.dtype == torch.bfloat16), offsets.data_ptr(), offsets.shape[0] - 1, d, f,
+        n_slots, POLICY_CODES[policy], scales.data_ptr(),
+        *(p.data_ptr() if p is not None else None for p in out),
+        torch.cuda.current_stream(x.device).cuda_stream, _device_index(x))
+    _build.check(rc, "grouped_dw_scales_launch")
+    SCALE_PASS_LAUNCHES += 1
+    return scales, out
+
+
+def grouped_dw_scales(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
+                      policy: str) -> torch.Tensor:
+    """The quantized dW rungs' quantize pass, its scales: the (hi, lo) pow2
+    scales of every 64 x 32 tile of x^T and 32 x 128 tile of dy, laid out
+    as ``grouped_dw_scales_plain`` returns them (the dW also takes the
+    pass's bf16 terms, which these scales make).  CPU tensors run the plain
+    twin; CUDA tensors launch the kernel or raise."""
+    _dw_shapes(x, dy)
+    if policy not in _QUANT:
+        raise ValueError(f"the dW quantize pass serves {_QUANT}; got {policy!r}")
+    if on_cpu(x, dy, group_offsets):
+        return grouped_dw_scales_plain(x, dy, group_offsets, policy=policy)
+    return _quantize_on_card(_operand(x), _operand(dy),
+                             group_offsets.to(torch.int32).contiguous(), policy, False)[0]
+
+
 def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
                     policy: str = "bf16") -> torch.Tensor:
     """dw[g] = x_g^T @ dy_g over group g's rows [offsets[g], offsets[g+1]);
     f32 (E, D, F), zero for an empty run.  x: (N, D), dy: (N, F).  CPU
     tensors run ``grouped_gemm_dw_plain``; CUDA tensors launch the
-    kernel or raise."""
+    kernel (bf16: the Hopper mainloop; the quantized rungs: the WMMA
+    kernel after the quantize pass) or raise."""
     _check_policy(policy)
-    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
-        raise ValueError(f"grouped_gemm_dw expects (N,D), (N,F); got {tuple(x.shape)}, "
-                         f"{tuple(dy.shape)}")
+    _dw_shapes(x, dy)
     if on_cpu(x, dy, group_offsets):
         return grouped_gemm_dw_plain(x, dy, group_offsets, policy=policy)
     x, dy = _operand(x), _operand(dy)
+    if policy == "bf16":
+        # the wgmma mainloop takes bf16 operands by TMA: round them here, as
+        # its converting producer would (the same round-to-nearest-even)
+        x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
     e = group_offsets.shape[0] - 1
     d, f = x.shape[1], dy.shape[1]
     dw = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
     if dw.numel():
         offsets = group_offsets.to(torch.int32).contiguous()
-        rc = _dw_launcher()(
+        lo = (None, None)
+        if policy in _QUANT:   # the kernel reads the quantize pass's bf16 planes
+            _, (x, x_lo, dy, dy_lo) = _quantize_on_card(x, dy, offsets, policy, True)
+            lo = (x_lo, dy_lo)
+        loop = ctypes.c_int(-1)
+        rc = _dw_launchers()[0](
             x.data_ptr(), int(x.dtype == torch.bfloat16), dy.data_ptr(),
-            int(dy.dtype == torch.bfloat16), offsets.data_ptr(), e, dw.data_ptr(), d, f,
-            POLICY_CODES[policy], torch.cuda.current_stream(x.device).cuda_stream,
+            int(dy.dtype == torch.bfloat16),
+            *(p.data_ptr() if p is not None else None for p in lo),
+            offsets.data_ptr(), e, dw.data_ptr(), x.shape[0], d, f, POLICY_CODES[policy],
+            ctypes.byref(loop), torch.cuda.current_stream(x.device).cuda_stream,
             _device_index(x))
         _build.check(rc, "grouped_gemm_dw_launch")
         LAUNCHES["grouped_gemm_dw"] += 1
+        LAUNCHES_BY_LOOP_DW[MAINLOOPS[loop.value]] += 1
     return dw
 
 

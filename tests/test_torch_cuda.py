@@ -10,6 +10,9 @@ machine does not need).  Shapes are small and ragged so the masked tile
 edges, strided (NT, batched) operands and every precision rung are hit.
 """
 
+import contextlib
+import faulthandler
+
 import numpy as np
 import pytest
 import torch
@@ -676,3 +679,155 @@ def test_wkv6_strong_decay_and_its_limits(dev):
         wk.wkv6(*xs, chunk=96)
     with pytest.raises(ValueError, match="shared memory"):
         wk.wkv6(*_wkv_inputs(rng, 1, 256, 1, 64, dev), chunk=256)
+
+
+# ---- the Hopper redesigns of the grouped dW (gemm_sm90.cuh's group-K mode)
+# and the bf16 flash forward (flash_sm90.cuh), smallest shapes first.  An
+# mbarrier phase fault hangs the card rather than failing, so each call
+# runs under a watchdog that ends the process with a traceback.
+
+@contextlib.contextmanager
+def _within(seconds, library):
+    """Build (or load) ``library`` first, then allow the block ``seconds``."""
+    from repro_torch.kernels import _build
+    _build.load(library)
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _runs(sizes, bm):
+    """Offsets of runs of ``sizes`` rows, each rounded up to ``bm`` (1:
+    ragged, a run ending anywhere); a size of 0 is a zero-width group."""
+    aligned = [-(-n // bm) * bm for n in sizes]
+    return np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)
+
+
+SM90_DW_CASES = [   # (sizes, bm, d, f): one 128 x 128 tile and one run first
+    ([128], 1, 128, 128),
+    ([37, 0, 64, 5], 16, 130, 72),
+    ([37, 0, 65, 5], 1, 130, 72),
+    ([300, 1, 0, 129], 1, 256, 200),
+    ([513, 0, 64], 16, 264, 392),
+]
+
+
+@pytest.mark.parametrize("sizes,bm,d,f", SM90_DW_CASES)
+@pytest.mark.parametrize("x_dtype,dy_dtype", [(torch.bfloat16, torch.float32),
+                                              (torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16)])
+def test_grouped_gemm_dw_sm90_matches_plain(dev, record_property, sizes, bm, d, f, x_dtype,
+                                            dy_dtype):
+    """The bf16 dW on the wgmma mainloop's group-K mode: runs aligned to 16
+    and ragged (TMA loads past a run's end zeroed), zero-width groups
+    exactly 0, ragged D and F (the converting producer), padding rows past
+    offsets[E] holding noise that no run reads."""
+    rng = np.random.default_rng(len(sizes) + d)
+    off = _runs(sizes, bm)
+    n = int(off[-1]) + 9
+    x = _u(rng, (n, d), dev, x_dtype)
+    dy = _u(rng, (n, f), dev, dy_dtype, n ** -0.5)
+    toff = torch.from_numpy(off).to(dev)
+    before = dict(gg.LAUNCHES_BY_LOOP_DW)
+    with _within(120, "gemm_grouped_dw"):
+        dw = gg.grouped_gemm_dw(x, dy, toff)
+        torch.cuda.synchronize()
+    assert gg.LAUNCHES_BY_LOOP_DW == {**before, "sm90": before["sm90"] + 1}
+    ref = gg.grouped_gemm_dw_plain(x, dy, toff)
+    _hold(record_property, "dw", dw, ref, GEMM_ATOL)
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert not dw[g].any(), g
+
+
+@pytest.mark.parametrize("policy", QUANT_RUNGS)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_grouped_dw_scale_pass_matches_plain(dev, policy, x_dtype):
+    """The quantized dW rungs' quantize pass gives its plain twin's scales bit
+    for bit (zeros at the slots no tile owns), for runs that 32 does not
+    divide; the dW kernel reading them matches its plain version."""
+    rng = np.random.default_rng(7)
+    sizes = [37, 0, 64, 5, 31]
+    off = torch.from_numpy(_runs(sizes, 1)).to(dev)
+    n = int(off[-1]) + 5
+    x = _u(rng, (n, 130), dev, x_dtype)
+    dy = _u(rng, (n, 200), dev, scale=1e-2)
+    with _within(120, "gemm_grouped_dw"):
+        got = gg.grouped_dw_scales(x, dy, off, policy=policy)
+        torch.cuda.synchronize()
+    assert torch.equal(got, gg.grouped_dw_scales_plain(x, dy, off, policy=policy))
+    before = gg.SCALE_PASS_LAUNCHES
+    dw = gg.grouped_gemm_dw(x, dy, off, policy=policy)
+    torch.cuda.synchronize()
+    assert gg.SCALE_PASS_LAUNCHES == before + 1
+    assert (dw - gg.grouped_gemm_dw_plain(x, dy, off, policy=policy)).abs().max() <= GEMM_ATOL
+
+
+def _sm90_flash(rng, dev, b, sq, skv, kv, g, hd, dtype):
+    q = (_u(rng, (b, sq, kv, g, hd), dev) * hd ** -0.5).to(dtype)
+    k, v = _u(rng, (b, skv, kv, hd), dev, dtype), _u(rng, (b, skv, kv, hd), dev, dtype)
+    return q, k, v
+
+
+def _hold_sm90_flash(record_property, q, k, v, tol, **kw):
+    before = dict(af.LAUNCHES_BY_LOOP)
+    with _within(120, "attention_fused"):
+        out, lse = af.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+    assert af.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 1}
+    out_p, lse_p = af.flash_attention_plain(q, k, v, **kw)
+    _hold(record_property, "out", out, out_p, tol)
+    _hold(record_property, "lse", lse, lse_p, ATTN_ATOL)
+
+
+def test_flash_attention_sm90_one_tile(dev, record_property):
+    """One 64-row q block of one head against one 64-row KV stage."""
+    q, k, v = _sm90_flash(np.random.default_rng(1), dev, 1, 64, 64, 1, 1, 64, torch.bfloat16)
+    _hold_sm90_flash(record_property, q, k, v, ATTN_ATOL, causal=False)
+
+
+# out within ATTN_ATOL at G = 1, 2^-8 at G = 4 (the bound the backward test
+# holds the forward to there: a probability rounding to the neighbouring
+# bf16 value moves an output by up to that much); lse within ATTN_ATOL.
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("mask", ["causal", "window", "full", "softcap"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_sm90_matches_plain(dev, record_property, hd, mask, g, dtype):
+    """The bf16 forward on wgmma at Sq = Skv = 150 (64 divides neither),
+    every mask, GQA, f32 inputs (converting producer) and bf16 (TMA)."""
+    rng = np.random.default_rng(hd + g)
+    q, k, v = _sm90_flash(rng, dev, 2, 150, 150, 2, g, hd, dtype)
+    _hold_sm90_flash(record_property, q, k, v, ATTN_ATOL if g == 1 else 2 ** -8,
+                     causal=mask != "full", window=40 if mask == "window" else None,
+                     softcap=5.0 if mask == "softcap" else None)
+
+
+@pytest.mark.parametrize("hd", [16, 80, 208])
+@pytest.mark.parametrize("sq,skv,causal", [(70, 70, True), (33, 200, False), (129, 1, False)])
+def test_flash_attention_sm90_odd_head_dims(dev, record_property, hd, sq, skv, causal):
+    """Head dims that 64 does not divide (the last column block partly
+    zeros), Skv apart from Sq, one key."""
+    q, k, v = _sm90_flash(np.random.default_rng(hd + sq), dev, 1, sq, skv, 2, 2, hd,
+                          torch.bfloat16)
+    _hold_sm90_flash(record_property, q, k, v, ATTN_ATOL, causal=causal, window=None)
+
+
+def test_flash_attention_other_rungs_keep_the_wmma_kernel(dev):
+    """Only the bf16 forward runs the wgmma kernel; the other rungs, and
+    the quantized dW rungs, count their launches as the WMMA kernel's."""
+    q, k, v = _sm90_flash(np.random.default_rng(3), dev, 1, 100, 100, 1, 2, 64, torch.bfloat16)
+    before = dict(af.LAUNCHES_BY_LOOP)
+    for policy in ("refine_ab", "bf16x6", "fp8x3"):
+        af.flash_attention_fwd(q, k, v, precision=policy)
+    torch.cuda.synchronize()
+    assert af.LAUNCHES_BY_LOOP == {**before, "wmma": before["wmma"] + 3}
+    x, dy = _u(np.random.default_rng(4), (64, 72), dev), _u(np.random.default_rng(5), (64, 40), dev)
+    off = torch.tensor([0, 30, 64], dtype=torch.int32, device=dev)
+    before = dict(gg.LAUNCHES_BY_LOOP_DW)
+    gg.grouped_gemm_dw(x, dy, off, policy="int8x3")
+    gg.grouped_gemm_dw(x, dy, off, policy="refine_ab")
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES_BY_LOOP_DW == {**before, "wmma": before["wmma"] + 2}
