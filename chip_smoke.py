@@ -106,12 +106,16 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    against the model's chunked form at f32; its check row takes the
    665-token prompt's.  Then a profiled prefill and decode tick.
 13. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
-   ``grouped_gemm``, ``grouped_gemm_dw`` and ``flash_attention`` check
-   ran: every M > 16 shape, every 64/128-row bf16 grouped shape, the bf16
-   dW and every bf16 flash forward must run the wgmma one, ``sm90``; each
-   check asserts it), then one line listing each kernel's launches (per
-   path, and per mainloop for those four; every path's bf16 forward and
-   dW launches must all have run ``sm90``), error and times.
+   ``grouped_gemm``, ``grouped_gemm_dw``, ``flash_attention``,
+   ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` check ran:
+   every M > 16 shape, every 64/128-row bf16 grouped shape, the bf16 dW
+   and every bf16 flash forward and backward must run the wgmma one,
+   ``sm90``; each check asserts it), then one line listing each kernel's
+   launches (per path, and per mainloop for those six; every path's bf16
+   forward, backward and dW launches must all have run ``sm90``), error
+   and times.  The flash backward's causal rows time SDPA's backward with
+   the boolean mask and with ``is_causal=True``, and name the backend SDPA
+   picked for each.
 
 The ``check`` phase also holds the flash kernels at Mixtral's head shape
 (hd 128, 32 heads on 8 kv heads) and the grouped GEMMs at its widths: the
@@ -302,7 +306,8 @@ SERVE_RWKV_KERNELS = ("gemm_tiled", "gemm_refined")
 # (LAUNCHES_BY_LOOP dicts), filled in main() once the port is imported.
 LOOP_COUNTS: dict[str, dict] = {}
 # kernels whose bf16 launches on a path must all run the wgmma mainloop
-SM90_ON_EVERY_PATH = ("flash_attention", "grouped_gemm_dw")
+SM90_ON_EVERY_PATH = ("flash_attention", "grouped_gemm_dw", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")
 
 
 def zero_launches(mods) -> None:
@@ -390,7 +395,9 @@ def main() -> None:
             "gemm_naive": gn, **{k: bg for k in bg.LAUNCHES}, "wkv6": wk}
     LOOP_COUNTS.update({"gemm_tiled": gt.LAUNCHES_BY_LOOP, "grouped_gemm": gg.LAUNCHES_BY_LOOP,
                         "flash_attention": af.LAUNCHES_BY_LOOP,
-                        "grouped_gemm_dw": gg.LAUNCHES_BY_LOOP_DW})
+                        "grouped_gemm_dw": gg.LAUNCHES_BY_LOOP_DW,
+                        "flash_attention_bwd_dq": af.LAUNCHES_BY_LOOP_DQ,
+                        "flash_attention_bwd_dkv": af.LAUNCHES_BY_LOOP_DKV})
 
     # ------------------------------------------------------------ 1 device
     dev = resolve_device("cuda")
@@ -440,6 +447,17 @@ def main() -> None:
     def in_turns(plain, kernel) -> tuple[float, float]:
         p1, k1, k2, p2 = timed(plain), timed(kernel), timed(kernel), timed(plain)
         return (k1 + k2) / 2, (p1 + p2) / 2
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa_backend(q, k, v, **kw) -> str:
+        """The backend SDPA's own dispatch picks for these inputs."""
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+
+    def sdpa_math(q, k, v, **kw):
+        """SDPA on its math backend (its matmuls keep TF32 off)."""
+        with sdpa_kernel(SDPBackend.MATH):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
 
     # A window's host clock against the CUDA kernels' own time
     # (torch.profiler, summed by name; one stream, so they do not overlap).
@@ -612,19 +630,24 @@ def main() -> None:
     # route on f32 copies of the bf16 inputs: on bf16 inputs it returns bf16)
     torch_x6 = ops.attention_forward(q.float(), k.float(), v.float(), causal=True,
                                      window=cfg.window, policy=ops.Route("bf16x6"))
+    # yardstick: SDPA's forward in f32 (the function bf16x6 stands for) on
+    # f32 copies, its math backend
+    qh32, kh32, vh32 = qh.float(), kh.float(), vh.float()
     check("flash_attention", f"prefill S={s} H={heads} Kv={kvh} hd={hd} window {cfg.window} "
           f"bf16x6", lambda: af.flash_attention(q, k, v, causal=True, window=cfg.window,
                                                 precision="bf16x6"),
           lambda: af.flash_attention_plain(q, k, v, causal=True, window=cfg.window,
                                            precision="bf16x6")[0],
-          sdpa, ATTN_BOUND, num_passes("bf16x6") * 4 * pairs * hd * heads,
+          lambda: sdpa_math(qh32, kh32, vh32, attn_mask=keep, scale=1.0),
+          ATTN_BOUND, num_passes("bf16x6") * 4 * pairs * hd * heads,
           (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, sm90=False,
+          library_call="scaled_dot_product_attention on f32 copies, math backend (TF32 off)",
           extra={"torch_route_err": max_err(
               (af.flash_attention(q, k, v, causal=True, window=cfg.window, precision="bf16x6"),),
               (torch_x6,))})
     if not checks["flash_attention"][-1]["torch_route_err"] <= LADDER_BOUNDS["bf16x6"]:
         fail("flash_attention bf16x6: farther from the torch route than the rung's bound")
-    del torch_x6
+    del torch_x6, qh32, kh32, vh32
 
     # flash decode: 4 rows, a 512-slot ring (local layers) and a 1024-row
     # linear cache (global layers), positions below and above the window
@@ -763,7 +786,9 @@ def main() -> None:
 
     # flash backward at the train shapes: B=2, S=1024, 4 heads on 1 kv
     # head, hd 256, bf16 inputs, on the forward kernel's own out and lse.
-    # Yardstick: SDPA's backward with the same mask through autograd.
+    # Yardstick: SDPA's backward with the same mask through autograd; for
+    # the causal rows also with is_causal=True (a boolean mask keeps SDPA
+    # off its flash backend).  Each row names the backends that ran.
     bt, st = 2, 1024
     q = randn((bt, st, kvh, grp, hd), hd ** -0.5, torch.bfloat16)
     k, v = randn((bt, st, kvh, hd), dtype=torch.bfloat16), randn((bt, st, kvh, hd), dtype=torch.bfloat16)
@@ -780,10 +805,19 @@ def main() -> None:
         qh = q.reshape(bt, st, heads, hd).transpose(1, 2).detach().requires_grad_(True)
         kl = k.transpose(1, 2).detach().requires_grad_(True)
         vl = v.transpose(1, 2).detach().requires_grad_(True)
+        kle, vle = kl.expand(bt, heads, st, hd), vl.expand(bt, heads, st, hd)
         sd_out = torch.nn.functional.scaled_dot_product_attention(
-            qh, kl.expand(bt, heads, st, hd), vl.expand(bt, heads, st, hd),
-            attn_mask=keep, scale=1.0)
+            qh, kle, vle, attn_mask=keep, scale=1.0)
         do_h = do.reshape(bt, st, heads, hd).transpose(1, 2).to(torch.bfloat16)
+        lib = {"library_backend": sdpa_backend(qh, kle, vle, attn_mask=keep, scale=1.0)}
+        if window is None:
+            sd_causal = torch.nn.functional.scaled_dot_product_attention(
+                qh, kle, vle, is_causal=True, scale=1.0)
+            lib.update(library_is_causal_backend=sdpa_backend(qh, kle, vle, is_causal=True,
+                                                              scale=1.0),
+                       library_is_causal_ms=timed(lambda: torch.autograd.grad(
+                           sd_causal, (qh, kl, vl), do_h, retain_graph=True)))
+            del sd_causal
         in_bytes = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 + 2 * lse.numel() * 4
         tag = f"train S={st} B={bt} H={heads} Kv={kvh} hd={hd} " + (
             "causal" if window is None else f"window {window}")
@@ -796,7 +830,7 @@ def main() -> None:
                   sd_out, (qh,), do_h, retain_graph=True),
               ATTN_BWD_DQ_BOUND, 6 * pairs * hd, in_bytes + q.numel() * 4,
               control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dq_plain(
-                  q, k, v, do, lse, di, **short))
+                  q, k, v, do, lse, di, **short), extra=lib, sm90=True)
         check("flash_attention_bwd_dkv", tag,
               lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
               lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dkv_plain(
@@ -805,19 +839,16 @@ def main() -> None:
                   sd_out, (kl, vl), do_h, retain_graph=True),
               ATTN_BWD_DKV_BOUND, 8 * pairs * hd, in_bytes + 2 * k.numel() * 4,
               control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dkv_plain(
-                  q, k, v, do, lse, di, **short))
+                  q, k, v, do, lse, di, **short), extra=lib, sm90=True)
         if window is not None:   # one carried rung through the backward: bf16x6
             kx6 = dict(kw, precision="bf16x6")
             out6, lse6 = af.flash_attention_fwd(q, k, v, **kx6)
             di6 = af.bwd_delta(out6, do)
             # yardstick: SDPA's backward in f32 (the function bf16x6 stands
             # for), its math backend, whose matmuls keep TF32 off
-            from torch.nn.attention import SDPBackend, sdpa_kernel
             q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (qh, kl, vl))
-            with sdpa_kernel(SDPBackend.MATH):
-                sd32 = torch.nn.functional.scaled_dot_product_attention(
-                    q32, k32.expand(bt, heads, st, hd), v32.expand(bt, heads, st, hd),
-                    attn_mask=keep, scale=1.0)
+            sd32 = sdpa_math(q32, k32.expand(bt, heads, st, hd), v32.expand(bt, heads, st, hd),
+                             attn_mask=keep, scale=1.0)
             do32 = do_h.float()
             for name, kern, plain, b_err, fl, by, wrt in (
                     ("flash_attention_bwd_dq", af.flash_attention_bwd_dq,
@@ -832,9 +863,9 @@ def main() -> None:
                       lambda wrt=wrt: torch.autograd.grad(sd32, wrt, do32, retain_graph=True),
                       b_err, num_passes("bf16x6") * fl, by,
                       library_call="SDPA backward through autograd on f32 copies, math "
-                                   "backend (TF32 off)")
+                                   "backend (TF32 off)", sm90=False)
             del out6, lse6, di6, sd32, q32, k32, v32, do32
-        del sd_out, qh, kl, vl
+        del sd_out, qh, kl, vl, kle, vle
     del q, k, v, do, out, lse, di
 
     # the GEMM layouts of the training backward (2048 = 2 x 1024 tokens),
@@ -938,6 +969,13 @@ def main() -> None:
     sd_out = torch.nn.functional.scaled_dot_product_attention(qh, kl, vl, attn_mask=keep,
                                                               scale=1.0)
     do_h = do.reshape(bt_m, st_m, m_heads, m_hd).transpose(1, 2).to(torch.bfloat16)
+    sd_causal = torch.nn.functional.scaled_dot_product_attention(qh, kl, vl, is_causal=True,
+                                                                 scale=1.0)
+    lib = {"library_backend": sdpa_backend(qh, kl, vl, attn_mask=keep, scale=1.0),
+           "library_is_causal_backend": sdpa_backend(qh, kl, vl, is_causal=True, scale=1.0),
+           "library_is_causal_ms": timed(lambda: torch.autograd.grad(
+               sd_causal, (qh, kl, vl), do_h, retain_graph=True))}
+    del sd_causal
     in_bytes = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 + 2 * lse.numel() * 4
     tag = f"train S={st_m} B={bt_m} H={m_heads} Kv={m_kvh} hd={m_hd} causal"
     lib_bwd = "SDPA backward through autograd, kv heads repeated"
@@ -948,14 +986,14 @@ def main() -> None:
           lambda: torch.autograd.grad(sd_out, (qh,), do_h, retain_graph=True),
           ATTN_BWD_DQ_BOUND, 6 * pairs * m_hd, in_bytes + q.numel() * 4,
           control=lambda: af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **half),
-          library_call=lib_bwd)
+          library_call=lib_bwd, extra=lib, sm90=True)
     check("flash_attention_bwd_dkv", tag,
           lambda: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
           lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw),
           lambda: torch.autograd.grad(sd_out, (kl, vl), do_h, retain_graph=True),
           MIXTRAL_ATTN_BWD_DKV_BOUND, 8 * pairs * m_hd, in_bytes + 2 * k.numel() * 4,
           control=lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **half),
-          library_call=lib_bwd)
+          library_call=lib_bwd, extra=lib, sm90=True)
     del q, k, v, do, out, lse, di, sd_out, qh, kl, vl
     torch.cuda.empty_cache()
 

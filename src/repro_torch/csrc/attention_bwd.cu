@@ -9,6 +9,12 @@
 // and v are all f32 or all bf16; dout, lse and di are f32; the gradients
 // are written in f32.
 //
+// At the bf16 rung both launchers run the Hopper kernels of
+// flash_bwd_sm90.cuh instead (wgmma, 64-row tiles, every score tile and
+// accumulator in registers; q, k, v and dout bf16, which the wrapper
+// hands); every other rung runs the WMMA kernels below.  Each launcher
+// reports the kernel that ran through `loop` (rt::Mainloop).
+//
 // Both kernels rebuild the probability tile from the saved log-sum-exp
 // instead of storing it in the forward:
 //   S  = Q.K^T                     (policy passes)
@@ -37,29 +43,13 @@
 // of Q, dO, K and V, and each 32 x 32 P and dS tile.
 #include <type_traits>
 
-#include "common.cuh"
+#include "flash_bwd_sm90.cuh"  // BwdArgs, and the bf16 rung's Hopper kernels
 
 namespace rt {
 
 constexpr int BT = 32;  // rows of every q and kv tile; a warp's lane is one column
 constexpr int BW_WARPS = 8;
 constexpr int BW_NT = BW_WARPS * 32;
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* dout;
-  const float* lse;
-  const float* di;
-  float* dq;
-  float* dk;
-  float* dv;
-  int in_bf16;
-  int B, Sq, Skv, Kv, G, hd;
-  int causal, window;  // window <= 0: none
-  float softcap;       // <= 0: none
-};
 
 // Shared-memory sections: four staged hd-wide operand tiles (bf16 hi+lo or
 // f32, same bytes), `acc` f32 accumulators of BT x hd, the S and dP score
@@ -415,7 +405,6 @@ int run_bwd(const BwdArgs& a, dim3 grid, cudaStream_t stream) {
 template <bool DKV>
 int dispatch_bwd(const BwdArgs& a, int policy, dim3 grid, cudaStream_t stream) {
   switch (policy) {
-    case P_BF16: return run_bwd<P_BF16, DKV>(a, grid, stream);
     case P_REFINE_A: return run_bwd<P_REFINE_A, DKV>(a, grid, stream);
     case P_BF16X3: return run_bwd<P_BF16X3, DKV>(a, grid, stream);
     case P_REFINE_AB: return run_bwd<P_REFINE_AB, DKV>(a, grid, stream);
@@ -431,28 +420,46 @@ int dispatch_bwd(const BwdArgs& a, int policy, dim3 grid, cudaStream_t stream) {
 
 }  // namespace rt
 
+// `loop` reports the kernel that ran (rt::Mainloop).
 extern "C" int attention_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                       const float* dout, const float* lse, const float* di,
+                                       const void* dout, const float* lse, const float* di,
                                        float* dq, int in_bf16, int B, int Sq, int Skv, int Kv,
                                        int G, int hd, int causal, int window, float softcap,
-                                       int policy, void* stream, int device) {
+                                       int policy, int* loop, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   rt::BwdArgs a{q, k, v, dout, lse, di, dq, nullptr, nullptr, in_bf16, B, Sq, Skv, Kv, G, hd,
-                causal, window, softcap};
+                causal, window, softcap, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (policy == rt::P_BF16) {
+    *loop = rt::LOOP_SM90;
+    return rt::bsm90::run<false>(a, s);
+  }
+  *loop = rt::LOOP_WMMA;
   dim3 grid((Sq + rt::BT - 1) / rt::BT, Kv * G, B);
-  return rt::dispatch_bwd<false>(a, policy, grid, static_cast<cudaStream_t>(stream));
+  return rt::dispatch_bwd<false>(a, policy, grid, s);
 }
 
+// `part`: on the wgmma kernel, the elements between the per-query-head
+// slots of dk and dv (each then (G, B, Skv, Kv, hd)), or 0 to walk the group
+// inside each CTA; the WMMA kernels always walk it inside.
 extern "C" int attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                        const float* dout, const float* lse, const float* di,
+                                        const void* dout, const float* lse, const float* di,
                                         float* dk, float* dv, int in_bf16, int B, int Sq, int Skv,
                                         int Kv, int G, int hd, int causal, int window,
-                                        float softcap, int policy, void* stream, int device) {
+                                        float softcap, int policy, long long part, int* loop,
+                                        void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   rt::BwdArgs a{q, k, v, dout, lse, di, nullptr, dk, dv, in_bf16, B, Sq, Skv, Kv, G, hd,
-                causal, window, softcap};
+                causal, window, softcap, part};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (policy == rt::P_BF16) {
+    *loop = rt::LOOP_SM90;
+    return rt::bsm90::run<true>(a, s);
+  }
+  if (part != 0) return (int)cudaErrorInvalidValue;
+  *loop = rt::LOOP_WMMA;
   dim3 grid((Skv + rt::BT - 1) / rt::BT, Kv, B);
-  return rt::dispatch_bwd<true>(a, policy, grid, static_cast<cudaStream_t>(stream));
+  return rt::dispatch_bwd<true>(a, policy, grid, s);
 }

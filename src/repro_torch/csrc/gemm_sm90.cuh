@@ -313,9 +313,9 @@ __device__ __forceinline__ void tma_tile(unsigned char* tile, const CUtensorMap*
 // Zero K rows [keep, 64) of an R x 64 MN-major tile (R / 64 blocks of 64 K
 // rows of 128 bytes; a whole row, so the swizzle does not matter).
 template <int R>
-__device__ __forceinline__ void zero_k_rows(unsigned char* tile, int keep, int t) {
+__device__ __forceinline__ void zero_k_rows(unsigned char* tile, int keep, int t, int nt) {
   const int n = (64 - keep) * 8;  // 16-byte chunks per block
-  for (int i = t; i < n * (R / 64); i += 128) {
+  for (int i = t; i < n * (R / 64); i += nt) {
     const int h = i / n, c = i % n;
     *reinterpret_cast<uint4*>(tile + h * BLOCK + (keep + c / 8) * ROW + (c % 8) * 16) =
         make_uint4(0u, 0u, 0u, 0u);
@@ -324,7 +324,8 @@ __device__ __forceinline__ void zero_k_rows(unsigned char* tile, int keep, int t
 
 // The producer's K walk of one tile: nk stages of A (BM x 64) and B (64 x
 // 128) into the ring, TMA or converted (all 128 threads; thread 0 alone
-// when both operands take TMA and there is no `tail`).  (stage, phase)
+// when both operands take TMA and there is no `tail`, warp 0 when there
+// is).  (stage, phase)
 // carry over from tile to tile in the persistent mode.  Group-K mode
 // (`tail` set, both operands MN-major): the walk is the group's run, TMA
 // boxes start at row k_begin + k0, and a stage that runs past the run's
@@ -332,6 +333,11 @@ __device__ __forceinline__ void zero_k_rows(unsigned char* tile, int keep, int t
 // on `tail`; every producer thread waits for them, zeros the rows at or
 // past the end, and then the stage is handed over, so no row of the next
 // group is multiplied (the converting path writes those zeros itself).
+// Only threads that are needed wait on `empty`: a warp that waits on a
+// barrier whose phases it does not gate can fall two phases behind, read
+// the parity it waits for as not yet reached, and never leave (the
+// group-K kernel hung so, now and then, when all four producer warps
+// walked a TMA-only ring; warp 0 alone stays in step with thread 0).
 template <int BM, bool A_K, bool B_K>
 __device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uint64_t* empty,
                                         int& stage, int& phase, const Operand& oa,
@@ -359,10 +365,11 @@ __device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uin
         if (!ob.tma) convert_tile<BN, false>(sb, ob, b_base, n0, k0, t);
         mbar_wait(tail, *tail_phase);
         *tail_phase ^= 1;
-        if (oa.tma) zero_k_rows<BM>(sa, oa.k - k0, t);
-        if (ob.tma) zero_k_rows<BN>(sb, oa.k - k0, t);
+        if (oa.tma) zero_k_rows<BM>(sa, oa.k - k0, t, convert ? 128 : 32);
+        if (ob.tma) zero_k_rows<BN>(sb, oa.k - k0, t, convert ? 128 : 32);
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        asm volatile("bar.sync 1, 128;" ::: "memory");
+        if (convert) asm volatile("bar.sync 1, 128;" ::: "memory");
+        else __syncwarp();
         if (t == 0) mbar_arrive(&full[stage]);
         if (++stage == STAGES) {
           stage = 0;
@@ -549,8 +556,9 @@ gemm_sm90_group_k_kernel(const __grid_constant__ CUtensorMap map_a,
     if (wg == 0) {
       const char* a_run = oa.p + static_cast<long long>(k_begin) * oa.s_k * (oa.bf16 ? 2 : 4);
       const char* b_run = ob.p + static_cast<long long>(k_begin) * ob.s_k * (ob.bf16 ? 2 : 4);
-      produce<BM, false, false>(smem, full, empty, stage, phase, oa, ob, a_run, b_run, &map_a,
-                                &map_b, m0, n0, 0, 0, nk, t, tail, &tail_phase, k_begin);
+      if (!(oa.tma && ob.tma) || t < 32)
+        produce<BM, false, false>(smem, full, empty, stage, phase, oa, ob, a_run, b_run, &map_a,
+                                  &map_b, m0, n0, 0, 0, nk, t, tail, &tail_phase, k_begin);
     } else {
       consume<BM, false, false>(smem, full, empty, stage, phase, acc, nk, wg - 1, t);
       store_tile(acc, g.c + static_cast<long long>(grp) * g.m * g.n, g.m, g.n,

@@ -28,6 +28,9 @@ SOURCES = ("gemm_tiled", "gemm_refined", "attention_fused", "attention_bwd", "at
            "batched_gemm", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per source: attention_bwd's 26 kernels (the WMMA rungs and the wgmma bf16
+# ones) compile on all cores, so it no longer outlasts the other sources
+EXTRA_FLAGS = {"attention_bwd": ("--split-compile=0",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -44,8 +47,12 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         if src.suffix == ".cuh" or src.stem == name:
             h.update(src.name.encode())
@@ -69,7 +76,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)

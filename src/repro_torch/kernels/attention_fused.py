@@ -47,20 +47,30 @@ reads it in place in its stored type and stops a linear walk at ``pos``.
 
 The backward rebuilds ``p = exp(s' - lse)`` (``s'`` the softcapped score)
 instead of storing it, with ``di = rowsum(dO * O)`` computed outside the
-kernels as one tensor op, as the TPU code does.  Its two kernels take
-32-row q and KV tiles, so that at head_dim 256 four staged operand tiles
-and two f32 accumulators fit in 221 KB: ``dq`` owns 32 query rows and
-walks the live KV tiles accumulating ``dS.K``; ``dk/dv`` owns 32 KV rows
-and walks, for each of the group's G query heads in turn, the live q
-tiles accumulating ``P^T.dO`` and ``dS^T.Q``, reading the transposed
-tiles in place as col-major fragments.  Folding the group inside the
-block writes ``(B, Skv, Kv, hd)`` directly (the TPU code writes per-query
--head gradients and sums them); every output tile has one owner, so
-there are no atomics and the result is deterministic.
+kernels as one tensor op, as the TPU code does.  At the bf16 rung its two
+kernels run on Hopper's ``wgmma`` (``csrc/flash_bwd_sm90.cuh``): the
+wrapper rounds q, k, v and dO to bf16 once, and a CTA of two consumer
+warpgroups owns 64 rows (dq: query rows of one head; dk/dv: KV rows of
+one kv head), loads them once by TMA and walks 64-row tiles of the other
+side through a 2-stage ring, with S, dP, P, dS and the accumulators in
+registers.  The dk/dv kernel walks the group's query heads inside the
+CTA, unless that grid would leave SMs empty: then each query head has its
+own CTA and writes its partial dk/dv, which the wrapper sums over the
+group (the TPU code's own per-query-head gradients).
+``LAUNCHES_BY_LOOP_DQ`` / ``_DKV`` count which kernel ran.  The other
+rungs take 32-row q and KV tiles, so that at head_dim 256 four staged
+operand tiles and two f32 accumulators fit in 221 KB: ``dq`` owns 32
+query rows and walks the live KV tiles accumulating ``dS.K``; ``dk/dv``
+owns 32 KV rows and walks, for each of the group's G query heads in
+turn, the live q tiles accumulating ``P^T.dO`` and ``dS^T.Q``, reading
+the transposed tiles in place as col-major fragments.  Every output tile
+has one owner, so there are no atomics and the result is deterministic.
 
-Each wrapper has a plain PyTorch twin (``*_plain``) that walks the same
-32-row tiles in the same order, so kernel and plain version round to
-bf16 at the same points.  ``flash_attention`` is differentiable: its
+Each wrapper has a plain PyTorch twin (``*_plain``) that walks the WMMA
+kernels' 32-row tiles in the same order, so kernel and plain version
+round to bf16 at the same points; the wgmma kernels' 64-row tiles change
+only the order of the f32 sums (the forward keeps the twin's 32-column
+softmax steps).  ``flash_attention`` is differentiable: its
 ``autograd.Function`` saves (q, k, v, out, lse) and runs the backward
 kernels (twin of ``_flash`` / ``_flash_fwd`` / ``_flash_bwd``).
 """
@@ -81,7 +91,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
            "bwd_delta", "flash_decode", "flash_decode_plain", "FUSED_POLICIES", "BKV",
-           "LAUNCHES", "LAUNCHES_BY_LOOP"]
+           "LAUNCHES", "LAUNCHES_BY_LOOP", "LAUNCHES_BY_LOOP_DQ", "LAUNCHES_BY_LOOP_DKV"]
 
 BKV = 32
 BQ = 64        # the forward kernel's q block (its Q and P scale tiles)
@@ -93,10 +103,14 @@ FUSED_POLICIES = tuple(POLICY_CODES)
 
 # Launch counts of the kernels, keyed by kernel, and of the forward's two
 # kernels (``wmma``: flash_common.cuh, every rung; ``sm90``: the bf16 rung
-# on wgmma).
+# on wgmma); the same for the backward's dq and dk/dv (``wmma``:
+# attention_bwd.cu, every rung but bf16; ``sm90``: flash_bwd_sm90.cuh).
 LAUNCHES = {"flash_attention": 0, "flash_decode": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)
+LAUNCHES_BY_LOOP_DQ = dict.fromkeys(MAINLOOPS, 0)
+LAUNCHES_BY_LOOP_DKV = dict.fromkeys(MAINLOOPS, 0)
+SM90_ROWS = 64   # rows of the wgmma backward's tiles (its dk/dv grid rule)
 
 
 # ------------------------------------------------------------ plain twins
@@ -384,26 +398,50 @@ def _bwd_launchers():
     lib = _build.load("attention_bwd")
     c = ctypes
     dq, dkv = lib.attention_bwd_dq_launch, lib.attention_bwd_dkv_launch
-    tail = [c.c_int] * 9 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
-    dq.argtypes = [c.c_void_p] * 7 + tail
-    dkv.argtypes = [c.c_void_p] * 8 + tail
+    ints = [c.c_int] * 9 + [c.c_float, c.c_int]
+    tail = [c.POINTER(c.c_int), c.c_void_p, c.c_int]
+    dq.argtypes = [c.c_void_p] * 7 + ints + tail
+    dkv.argtypes = [c.c_void_p] * 8 + ints + [c.c_longlong] + tail
     dq.restype = dkv.restype = c.c_int
     return dq, dkv
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """x as contiguous bf16 on a 16-byte aligned base, as the wgmma
+    backward's tensor maps take it (``.to`` rounds to nearest even, as the
+    WMMA kernels' staging and the twin's ``_policy_dot`` round)."""
+    x = x.to(torch.bfloat16).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _bwd_args(q, k, v, do, lse, di, causal, window, softcap, precision):
     """The launchers' shared arguments: (input pointers, keep-alive
-    tensors, trailing scalars)."""
+    tensors, scalars before the loop pointer).  At the bf16 rung (the
+    wgmma kernels) q, k, v and do go as bf16, rounded once here; the other
+    rungs take q, k, v as they are and do as f32.  ``di`` is used as
+    given."""
     b, sq, kvh, g, hd = q.shape
     _check_head_dim(hd)
-    (q, k, v), in_bf16 = _inputs(q, k, v)
-    do, lse, di = (x.float().contiguous() for x in (do, lse, di))
+    if precision == "bf16":
+        q, k, v, do = (_tma_operand(x) for x in (q, k, v, do))
+        in_bf16 = 1
+    else:
+        (q, k, v), in_bf16 = _inputs(q, k, v)
+        do = do.float().contiguous()
+    lse, di = (x.float().contiguous() for x in (lse, di))
     tensors = (q, k, v, do, lse, di)
-    tail = (in_bf16, b, sq, k.shape[1], kvh, g, hd, int(causal),
-            _window_arg(causal, window), _softcap_arg(softcap),
-            POLICY_CODES[precision], torch.cuda.current_stream(q.device).cuda_stream,
-            _device_index(q))
-    return [x.data_ptr() for x in tensors], tensors, tail
+    scalars = (in_bf16, b, sq, k.shape[1], kvh, g, hd, int(causal),
+               _window_arg(causal, window), _softcap_arg(softcap), POLICY_CODES[precision])
+    return [x.data_ptr() for x in tensors], tensors, scalars
+
+
+def _stream_tail(x: torch.Tensor, loop: ctypes.c_int):
+    return ctypes.byref(loop), torch.cuda.current_stream(x.device).cuda_stream, _device_index(x)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
@@ -413,17 +451,29 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
     """The dq kernel: dq (B, Sq, Kv, G, hd) f32 from q, k, v, the output
     gradient ``do``, the forward's ``lse`` and ``di = rowsum(dO * O)``
     (both (B, Kv*G, Sq)).  CPU tensors run the plain twin; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel (the Hopper one at the bf16 rung, the WMMA one at
+    every other) or raise."""
     _check_policy(precision)
     kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
     if on_cpu(q, k, v, do, lse, di):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw)
-    ptrs, _keep_alive, tail = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
-                                        precision)
+    ptrs, _keep_alive, scalars = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
+                                           precision)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _build.check(_bwd_launchers()[0](*ptrs, dq.data_ptr(), *tail), "attention_bwd_dq_launch")
+    loop = ctypes.c_int(-1)
+    _build.check(_bwd_launchers()[0](*ptrs, dq.data_ptr(), *scalars, *_stream_tail(q, loop)),
+                 "attention_bwd_dq_launch")
     LAUNCHES["flash_attention_bwd_dq"] += 1
+    LAUNCHES_BY_LOOP_DQ[MAINLOOPS[loop.value]] += 1
     return dq
+
+
+def _dkv_per_head(b: int, skv: int, kvh: int, g: int, device_index: int) -> bool:
+    """The wgmma dk/dv kernel's grid rule: one CTA per query head, writing
+    per-head partials that the wrapper sums over the group, when the
+    group-in-CTA grid (64 KV rows of one kv head a CTA) would leave SMs
+    empty."""
+    return g > 1 and b * kvh * -(-skv // SM90_ROWS) < _sm_count(device_index)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
@@ -431,18 +481,26 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
                             softcap: float | None = None,
                             precision: str = "bf16"):
     """The dk/dv kernel: (dk, dv) (B, Skv, Kv, hd) f32, arguments as
-    ``flash_attention_bwd_dq``."""
+    ``flash_attention_bwd_dq``.  At the bf16 rung, when the grid of one
+    CTA per kv head would not fill the card, the kernel writes each query
+    head's dk and dv to a (G, B, Skv, Kv, hd) scratch and they are summed
+    over the group here (one launch either way)."""
     _check_policy(precision)
     kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
     if on_cpu(q, k, v, do, lse, di):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
-    ptrs, _keep_alive, tail = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
-                                        precision)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    _build.check(_bwd_launchers()[1](*ptrs, dk.data_ptr(), dv.data_ptr(), *tail),
+    ptrs, _keep_alive, scalars = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
+                                           precision)
+    b, sq, kvh, g, hd = q.shape
+    per_head = precision == "bf16" and _dkv_per_head(b, k.shape[1], kvh, g, _device_index(q))
+    out = torch.empty((2, g if per_head else 1, *k.shape), dtype=torch.float32, device=q.device)
+    loop = ctypes.c_int(-1)
+    _build.check(_bwd_launchers()[1](*ptrs, out[0].data_ptr(), out[1].data_ptr(), *scalars,
+                                     k.numel() if per_head else 0, *_stream_tail(q, loop)),
                  "attention_bwd_dkv_launch")
     LAUNCHES["flash_attention_bwd_dkv"] += 1
+    LAUNCHES_BY_LOOP_DKV[MAINLOOPS[loop.value]] += 1
+    dk, dv = (out.sum(dim=1) if per_head else out[:, 0]).unbind(0)
     return dk, dv
 
 

@@ -831,3 +831,113 @@ def test_flash_attention_other_rungs_keep_the_wmma_kernel(dev):
     gg.grouped_gemm_dw(x, dy, off, policy="refine_ab")
     torch.cuda.synchronize()
     assert gg.LAUNCHES_BY_LOOP_DW == {**before, "wmma": before["wmma"] + 2}
+
+
+# The bf16 flash backward on wgmma (flash_bwd_sm90.cuh): dq and dk/dv held
+# to their plain twins at BWD_ATOL on the plain forward's out and lse,
+# smallest shape first, each launch under the watchdog.
+
+def _sm90_bwd_inputs(rng, dev, b, sq, skv, kv, g, hd, dtype):
+    q, k, v = _sm90_flash(rng, dev, b, sq, skv, kv, g, hd, dtype)
+    return q, k, v, _u(rng, (b, sq, kv, g, hd), dev)
+
+
+def _hold_sm90_bwd(record_property, q, k, v, do, **kw):
+    out, lse = af.flash_attention_plain(q, k, v, **kw)
+    di = af.bwd_delta(out, do)
+    before_dq, before_dkv = dict(af.LAUNCHES_BY_LOOP_DQ), dict(af.LAUNCHES_BY_LOOP_DKV)
+    before_fwd = dict(af.LAUNCHES_BY_LOOP)
+    with _within(120, "attention_bwd"):
+        dq = af.flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+        torch.cuda.synchronize()
+        dk, dv = af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+        torch.cuda.synchronize()
+    assert af.LAUNCHES_BY_LOOP_DQ == {**before_dq, "sm90": before_dq["sm90"] + 1}
+    assert af.LAUNCHES_BY_LOOP_DKV == {**before_dkv, "sm90": before_dkv["sm90"] + 1}
+    assert af.LAUNCHES_BY_LOOP == before_fwd
+    _hold(record_property, "dq", dq, af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw),
+          BWD_ATOL)
+    dk_p, dv_p = af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
+    _hold(record_property, "dk", dk, dk_p, BWD_ATOL)
+    _hold(record_property, "dv", dv, dv_p, BWD_ATOL)
+
+
+def test_flash_attention_bwd_sm90_one_tile(dev, record_property):
+    """One 64-row KV block, one q tile, hd 64, one head."""
+    q, k, v, do = _sm90_bwd_inputs(np.random.default_rng(1), dev, 1, 64, 64, 1, 1, 64,
+                                   torch.bfloat16)
+    _hold_sm90_bwd(record_property, q, k, v, do, causal=False)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("mask", ["causal", "window", "full", "softcap"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bwd_sm90_matches_plain(dev, record_property, hd, mask, g, dtype):
+    """The bf16 dq and dk/dv on wgmma at Sq = Skv = 150 (64 divides
+    neither), every mask, GQA (G > 1 here takes the per-head partials),
+    f32 inputs (rounded once by the wrapper) and bf16."""
+    q, k, v, do = _sm90_bwd_inputs(np.random.default_rng(hd + g), dev, 2, 150, 150, 2, g, hd,
+                                   dtype)
+    _hold_sm90_bwd(record_property, q, k, v, do, causal=mask != "full",
+                   window=40 if mask == "window" else None,
+                   softcap=5.0 if mask == "softcap" else None)
+
+
+@pytest.mark.parametrize("b,s,kv,g,per_head", [(1, 256, 1, 4, True), (2, 1024, 8, 2, False)])
+def test_flash_attention_bwd_sm90_grid_rules(dev, record_property, b, s, kv, g, per_head):
+    """dk/dv with the group split over per-head CTAs (their partials summed
+    by the wrapper) and with the group walked inside each CTA."""
+    assert af._dkv_per_head(b, s, kv, g, torch.cuda.current_device()) is per_head
+    q, k, v, do = _sm90_bwd_inputs(np.random.default_rng(s + g), dev, b, s, s, kv, g, 64,
+                                   torch.bfloat16)
+    _hold_sm90_bwd(record_property, q, k, v, do, causal=True, window=100)
+
+
+@pytest.mark.parametrize("hd", [16, 208])
+@pytest.mark.parametrize("sq,skv,causal", [(70, 70, True), (33, 200, False), (129, 1, False),
+                                           (200, 70, True)])
+def test_flash_attention_bwd_sm90_odd_shapes(dev, record_property, hd, sq, skv, causal):
+    """Head dims that 64 does not divide, Skv apart from Sq (KV blocks that
+    no causal row reaches write zeros), one key."""
+    q, k, v, do = _sm90_bwd_inputs(np.random.default_rng(hd + sq), dev, 1, sq, skv, 2, 2, hd,
+                                   torch.bfloat16)
+    _hold_sm90_bwd(record_property, q, k, v, do, causal=causal)
+
+
+def test_flash_attention_bwd_other_rungs_keep_the_wmma_kernels(dev):
+    """Only the bf16 backward runs the wgmma kernels."""
+    q, k, v, do = _sm90_bwd_inputs(np.random.default_rng(3), dev, 1, 100, 100, 1, 2, 64,
+                                   torch.bfloat16)
+    out, lse = af.flash_attention_plain(q, k, v)
+    di = af.bwd_delta(out, do)
+    before_dq, before_dkv = dict(af.LAUNCHES_BY_LOOP_DQ), dict(af.LAUNCHES_BY_LOOP_DKV)
+    for policy in ("refine_a", "bf16x6", "fp8x3"):
+        af.flash_attention_bwd_dq(q, k, v, do, lse, di, precision=policy)
+        af.flash_attention_bwd_dkv(q, k, v, do, lse, di, precision=policy)
+    torch.cuda.synchronize()
+    assert af.LAUNCHES_BY_LOOP_DQ == {**before_dq, "wmma": before_dq["wmma"] + 3}
+    assert af.LAUNCHES_BY_LOOP_DKV == {**before_dkv, "wmma": before_dkv["wmma"] + 3}
+
+
+def test_grouped_gemm_dw_sm90_many_calls_finish(dev):
+    """The bf16 dW at Mixtral's train widths (8 x 4096 x 14336 over 2048
+    aligned rows), 2000 calls in a row, under the watchdog: its producer
+    once let idle warps wait on ring barriers they did not gate, and one
+    call in a few thousand never finished."""
+    rng = np.random.default_rng(3)
+    counts = rng.multinomial(2048, rng.dirichlet(np.full(8, 0.6)))
+    aligned = -(-counts // 128) * 128
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)).to(dev)
+    n = int(aligned.sum()) + 8 * 128
+    x = torch.randn((n, 4096), device=dev).to(torch.bfloat16)
+    dy = torch.randn((n, 14336), device=dev) * 2048 ** -0.5
+    before = dict(gg.LAUNCHES_BY_LOOP_DW)
+    with _within(240, "gemm_grouped_dw"):
+        for i in range(2000):
+            dw = gg.grouped_gemm_dw(x, dy, off)
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    assert gg.LAUNCHES_BY_LOOP_DW == {**before, "sm90": before["sm90"] + 2000}
+    assert (dw - gg.grouped_gemm_dw_plain(x, dy, off)).abs().max().item() <= GEMM_ATOL
