@@ -12,7 +12,12 @@ Phases, each printing one JSON line:
 3. check   — each kernel against its plain PyTorch version on seeded
    inputs at the serve and train paths' shapes, with its stated bound,
    its time, the plain version's time and a yardstick PyTorch call's
-   time (CUDA events, in turns plain, kernel, kernel, plain), and the
+   time (CUDA events around back-to-back calls queued behind a spin on
+   the device, so that a wrapper's host cost does not hide its kernel; in
+   turns plain, kernel, kernel, plain), the kernels' own device time per
+   call as the profiler sees it (``device_ms``, over up to 20 calls; null
+   where it caught no kernel) and
+   the host's time to enqueue one call (``host_ms``), and the
    least time the card could take (the larger of FLOPs / 989 TFLOP/s, or
    / 1979 TFLOP/s for the fp8/int8 GEMM, and bytes / 3.35 TB/s).  The
    windowed flash checks, forward and backward, and the paged decode
@@ -110,12 +115,16 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` check ran:
    every M > 16 shape, every 64/128-row bf16 grouped shape, the bf16 dW
    and every bf16 flash forward and backward must run the wgmma one,
-   ``sm90``; each check asserts it), then one line listing each kernel's
-   launches (per path, and per mainloop for those six; every path's bf16
-   forward, backward and dW launches must all have run ``sm90``), error
-   and times.  The flash backward's causal rows time SDPA's backward with
-   the boolean mask and with ``is_causal=True``, and name the backend SDPA
-   picked for each.
+   ``sm90``, and every M <= 16 ``gemm_tiled`` shape the split-K weight
+   stream, ``splitk``; each check asserts it), then one line listing each
+   kernel's launches (per path, and per mainloop for those six; every
+   path's bf16 forward, backward and dW launches must all have run
+   ``sm90``, no path's ``gemm_tiled`` launch may have run ``wmma``, and
+   every path's dense and paged decode launches must have split their KV
+   walk, ``split_launches_by_path``), error and times.  The decode rows
+   record the KV splits the host picked (``splits``).  The flash
+   backward's causal rows time SDPA's backward with the boolean mask and
+   with ``is_causal=True``, and name the backend SDPA picked for each.
 
 The ``check`` phase also holds the flash kernels at Mixtral's head shape
 (hd 128, 32 heads on 8 kv heads) and the grouped GEMMs at its widths: the
@@ -308,6 +317,10 @@ LOOP_COUNTS: dict[str, dict] = {}
 # kernels whose bf16 launches on a path must all run the wgmma mainloop
 SM90_ON_EVERY_PATH = ("flash_attention", "grouped_gemm_dw", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv")
+# The decode kernels' modules, whose SPLIT_LAUNCHES count the launches
+# that ran their KV walk split over CTAs (every bf16 launch at B = 4);
+# filled in main().
+SPLIT_COUNTS: dict[str, object] = {}
 
 
 def zero_launches(mods) -> None:
@@ -321,14 +334,22 @@ def zero_launches(mods) -> None:
     for counts in LOOP_COUNTS.values():
         for loop in counts:
             counts[loop] = 0
+    for name, mod in SPLIT_COUNTS.items():
+        if isinstance(mod.SPLIT_LAUNCHES, dict):
+            mod.SPLIT_LAUNCHES[name] = 0
+        else:
+            mod.SPLIT_LAUNCHES = 0
 
 
 def read_launches(mods) -> dict:
-    """Launches by kernel, then by kernel and mainloop ("name.loop")."""
+    """Launches by kernel, then by kernel and mainloop ("name.loop"), then
+    the decode kernels' split launches ("name.split")."""
     out = {name: (mod.LAUNCHES[name] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES)
            for name, mod in mods.items()}
     out.update({f"{name}.{loop}": n for name, counts in LOOP_COUNTS.items()
                 for loop, n in counts.items()})
+    out.update({f"{name}.split": (mod.SPLIT_LAUNCHES[name] if isinstance(mod.SPLIT_LAUNCHES, dict)
+                                  else mod.SPLIT_LAUNCHES) for name, mod in SPLIT_COUNTS.items()})
     return out
 
 
@@ -398,6 +419,7 @@ def main() -> None:
                         "grouped_gemm_dw": gg.LAUNCHES_BY_LOOP_DW,
                         "flash_attention_bwd_dq": af.LAUNCHES_BY_LOOP_DQ,
                         "flash_attention_bwd_dkv": af.LAUNCHES_BY_LOOP_DKV})
+    SPLIT_COUNTS.update({"flash_decode": af, "flash_paged_decode": ap})
 
     # ------------------------------------------------------------ 1 device
     dev = resolve_device("cuda")
@@ -429,14 +451,21 @@ def main() -> None:
         return (scale * torch.randn(shape, generator=generator or gen, device=dev)).to(dtype)
 
     def timed(fn) -> float:
-        """ms per call: warm up, then CUDA events around enough calls."""
+        """ms per call: warm up, then CUDA events around enough calls,
+        queued behind a spin on the device (``torch.cuda._sleep``: 1 ms
+        more than 1.5x the host's time to enqueue them, at most 50 ms) so
+        that the host has enqueued them before the first starts: the events
+        time the calls' kernels back to back, not the host's launches."""
         fn()
         torch.cuda.synchronize(dev)
         t = time.monotonic()
         fn()
+        host_s = time.monotonic() - t
         torch.cuda.synchronize(dev)
         iters = int(min(50, max(3, 0.1 / max(time.monotonic() - t, 1e-6))))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spin_s = min(0.05, 1.5 * iters * host_s + 1e-3)
+        torch.cuda._sleep(int(spin_s * 2e9))   # cycles, at a clock of at most 2 GHz
         start.record()
         for _ in range(iters):
             fn()
@@ -497,25 +526,25 @@ def main() -> None:
     loop_rows: list[dict] = []
 
     def check(name, what, kernel, plain, library, err_bound, flops, nbytes, control=None,
-              peak=PEAK_BF16_FLOPS, library_call=None, extra=None, sm90=None,
+              peak=PEAK_BF16_FLOPS, library_call=None, extra=None, loop=None,
               rung_control=None):
         """``control``: a plain version with a deliberate fault, which
         must land outside ``err_bound`` of the kernel; ``rung_control``:
         the plain version at a wrong rung (one pass for an x3 rung), which
         must land outside it as well.  A kernel may
         return a tuple of tensors; the error is the largest over them.
-        ``extra``: more fields for the row.  ``sm90``: whether the
-        kernel's first call must run the wgmma mainloop (True) or the WMMA
-        one (False); the row records which ran."""
+        ``extra``: more fields for the row.  ``loop``: the mainloop the
+        kernel's first call must run (``sm90``: wgmma; ``wmma``; ``splitk``:
+        gemm_tiled's weight stream at M <= 16); the row records which ran."""
         loops0 = read_launches({})
         out = kernel()
         loops1 = read_launches({})
-        ran = sorted({k.split(".")[1] for k in loops1 if loops1[k] > loops0[k]})
+        ran = sorted({k.split(".")[1] for k in loops1
+                      if k.split(".")[1] in gt.MAINLOOPS and loops1[k] > loops0[k]})
         if name in LOOP_COUNTS:
             loop_rows.append({"kernel": name, "what": what, "mainloop": ran})
-            if sm90 is not None and ran != (["sm90"] if sm90 else ["wmma"]):
-                fail(f"{name} {what}: ran the {ran} mainloop, expected "
-                     f"{'sm90' if sm90 else 'wmma'}")
+            if loop is not None and ran != [loop]:
+                fail(f"{name} {what}: ran the {ran} mainloop, expected {loop}")
             extra = {**(extra or {}), "mainloop": ran}
         ref = plain()
         torch.cuda.synchronize(dev)
@@ -537,8 +566,21 @@ def main() -> None:
         ms, plain_ms = in_turns(plain, kernel)
         lib_ms = timed(library) if library is not None else None
         b_ms, b_by = bound(flops, nbytes, peak)
+        # device_ms: the kernels' own time per call as the profiler sees it
+        # (over n calls; null where it caught no kernel), beside ms; host_ms:
+        # the host's time to enqueue one call, which bounds a serve tick
+        # where it exceeds the kernel's
+        n = max(1, min(20, int(2.0 / max(ms, 1e-3))))
+        device_ms = profile_window(lambda: [kernel() for _ in range(n)])["device_ms"] / n or None
+        torch.cuda.synchronize(dev)
+        t = time.monotonic()
+        for _ in range(n):
+            kernel()
+        host_ms = (time.monotonic() - t) * 1e3 / n
+        torch.cuda.synchronize(dev)
         row = dict(what=what, max_abs_err=err, err_bound=err_bound, ref_rms=ref_rms, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   device_ms=device_ms, host_ms=host_ms)
         if library_call:
             row["library_call"] = library_call
         if extra:
@@ -567,7 +609,7 @@ def main() -> None:
     w16 = w.to(torch.bfloat16)
     check("gemm_tiled", f"prefill mlp {m}x{d}x{ff}", lambda: gt.gemm_tiled(x, w),
           lambda: gt.gemm_tiled_plain(x, w), lambda: torch.matmul(x, w16), GEMM_BOUND,
-          2 * m * d * ff, x.numel() * 2 + w.numel() * 4 + m * ff * 4, sm90=True)
+          2 * m * d * ff, x.numel() * 2 + w.numel() * 4 + m * ff * 4, loop="sm90")
     del w, w16
 
     # gemm_tiled at the decode linears (M = 4 slots): the MLP's up and down
@@ -581,7 +623,7 @@ def main() -> None:
               lambda a4=a4, w=w: gt.gemm_tiled(a4, w),
               lambda a4=a4, w=w: gt.gemm_tiled_plain(a4, w),
               lambda a4=a4, w16=w16: torch.matmul(a4, w16), GEMM_BOUND,
-              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4, sm90=False)
+              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4, loop="splitk")
     del w, w16
 
     # the decode unembed: (4 x 1152) bf16 against the (262144 x 1152) f32 table, NT
@@ -591,7 +633,7 @@ def main() -> None:
     unembed_bytes = xb.numel() * 2 + table.numel() * 4 + 4 * vocab * 4
     check("gemm_tiled", f"decode unembed 4x{d}x{vocab} NT", lambda: gt.gemm_tiled(xb, table.t()),
           lambda: gt.gemm_tiled_plain(xb, table.t()), lambda: torch.matmul(xb, table16.t()),
-          GEMM_BOUND, 2 * 4 * d * vocab, unembed_bytes, sm90=False)
+          GEMM_BOUND, 2 * 4 * d * vocab, unembed_bytes, loop="splitk")
     # library: one f32 SGEMM (TF32 is off), the function refine_ab approximates
     check("gemm_refined", f"decode unembed refine_ab 4x{d}x{vocab} NT",
           lambda: gr.gemm_refined(xb, table.t(), policy="refine_ab"),
@@ -623,7 +665,7 @@ def main() -> None:
               control=None if window is None else (
                   lambda w=window: af.flash_attention_plain(q, k, v, causal=True,
                                                             window=w - 1)[0]),
-              sm90=True)
+              loop="sm90")
     # one carried rung through the forward: bf16x6 (the 3-way split, six
     # passes from f32 tiles) against its plain version, its distance to the
     # torch route's bf16x6 recorded and held to the rung's ladder bound (the
@@ -640,7 +682,7 @@ def main() -> None:
                                            precision="bf16x6")[0],
           lambda: sdpa_math(qh32, kh32, vh32, attn_mask=keep, scale=1.0),
           ATTN_BOUND, num_passes("bf16x6") * 4 * pairs * hd * heads,
-          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, sm90=False,
+          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, loop="wmma",
           library_call="scaled_dot_product_attention on f32 copies, math backend (TF32 off)",
           extra={"torch_route_err": max_err(
               (af.flash_attention(q, k, v, causal=True, window=cfg.window, precision="bf16x6"),),
@@ -650,8 +692,13 @@ def main() -> None:
     del torch_x6, qh32, kh32, vh32
 
     # flash decode: 4 rows, a 512-slot ring (local layers) and a 1024-row
-    # linear cache (global layers), positions below and above the window
+    # linear cache (global layers), positions below and above the window;
+    # each bf16 row records the KV splits the host picked for it, and the
+    # linear cache is read once more at the first positions [0, 5, 31, 32]
+    # (one or two live tiles: most splits walk none)
+    sms = gt.sm_count(dev.index)
     pos = torch.tensor([40, 300, 611, 1000], dtype=torch.int32, device=dev)
+    pos_early = torch.tensor([0, 5, 31, 32], dtype=torch.int32, device=dev)
     qd = randn((4, 1, kvh, grp, hd), hd ** -0.5, torch.bfloat16)
     for s_cache, window in ((cfg.window, cfg.window), (1024, None)):
         kc = randn((4, s_cache, kvh, hd), dtype=torch.bfloat16)
@@ -667,11 +714,29 @@ def main() -> None:
                 kc.transpose(1, 2).expand(4, heads, s_cache, hd),
                 vc.transpose(1, 2).expand(4, heads, s_cache, hd),
                 attn_mask=dmask, scale=1.0))
+        splits = {"splits": af.decode_splits(4, kvh, s_cache, sms)}
         check("flash_decode", f"decode B=4 {'ring' if window else 'linear'} {s_cache}",
               lambda kc=kc, vc=vc, w=window: af.flash_decode(qd, kc, vc, pos, window=w),
               lambda kc=kc, vc=vc, w=window: af.flash_decode_plain(qd, kc, vc, pos, window=w),
               sdpa_d, ATTN_BOUND, 4 * n_live * grp * hd * kvh,
-              qd.numel() * 2 + 2 * n_live * kvh * hd * 2 + qd.numel() * 4)
+              qd.numel() * 2 + 2 * n_live * kvh * hd * 2 + qd.numel() * 4, extra=splits)
+        if window is None:   # the first positions
+            live_e = col <= pos_early.long()[:, None]
+            n_early = int(live_e.sum())
+            dmask_e = live_e[:, None, None, :].expand(4, heads, 1, s_cache)
+            check("flash_decode", f"decode B=4 linear {s_cache} pos [0, 5, 31, 32]",
+                  lambda kc=kc, vc=vc: af.flash_decode(qd, kc, vc, pos_early),
+                  lambda kc=kc, vc=vc: af.flash_decode_plain(qd, kc, vc, pos_early),
+                  lambda kc=kc, vc=vc: torch.nn.functional.scaled_dot_product_attention(
+                      qd.reshape(4, 1, heads, hd).transpose(1, 2),
+                      kc.transpose(1, 2).expand(4, heads, s_cache, hd),
+                      vc.transpose(1, 2).expand(4, heads, s_cache, hd),
+                      attn_mask=dmask_e, scale=1.0),
+                  ATTN_BOUND, 4 * n_early * grp * hd * kvh,
+                  qd.numel() * 2 + 2 * n_early * kvh * hd * 2 + qd.numel() * 4,
+                  control=lambda kc=kc, vc=vc: af.flash_decode_plain(
+                      qd, kc, vc, torch.clamp(pos_early - 1, min=0)),
+                  extra=splits)
         if window is None:   # one quantized rung: int8x3, scales per tile
             check("flash_decode", f"decode B=4 linear {s_cache} int8x3",
                   lambda kc=kc, vc=vc: af.flash_decode(qd, kc, vc, pos, precision="int8x3"),
@@ -682,7 +747,8 @@ def main() -> None:
                   control=lambda kc=kc, vc=vc: af.flash_decode_plain(qd, kc, vc, pos - 1,
                                                                      precision="int8x3"),
                   rung_control=lambda kc=kc, vc=vc: af.flash_decode_plain(qd, kc, vc, pos,
-                                                                          precision="int8"))
+                                                                          precision="int8"),
+                  extra={"splits": af.decode_splits(4, kvh, s_cache, sms, "int8x3")})
     del q, k, v, qh, kh, vh, kc, vc
 
     # paged decode at the same rows and positions: 8-row pages behind a
@@ -734,7 +800,8 @@ def main() -> None:
                   control=lambda c=cache, w=window: ap.flash_paged_decode_plain(
                       qd, c, pos - 1, window=w),
                   library_call="scaled_dot_product_attention on the cache gathered dense "
-                               "(bf16), gather not timed")
+                               "(bf16), gather not timed",
+                  extra={"splits": af.decode_splits(4, kvh, s_cache, sms)})
             if quant is None and window:   # one quantized rung: fp8x3, scales per tile
                 check("flash_paged_decode", f"paged decode B=4 ring {s_cache} page {ps} "
                       f"bf16 pages fp8x3",
@@ -748,7 +815,8 @@ def main() -> None:
                       control=lambda c=cache: ap.flash_paged_decode_plain(
                           qd, c, pos // 2, window=window, precision="fp8x3"),
                       rung_control=lambda c=cache: ap.flash_paged_decode_plain(
-                          qd, c, pos, window=window, precision="fp8"))
+                          qd, c, pos, window=window, precision="fp8"),
+                      extra={"splits": af.decode_splits(4, kvh, s_cache, sms, "fp8x3")})
             del cache, kd, vd
     del qd
 
@@ -830,7 +898,7 @@ def main() -> None:
                   sd_out, (qh,), do_h, retain_graph=True),
               ATTN_BWD_DQ_BOUND, 6 * pairs * hd, in_bytes + q.numel() * 4,
               control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dq_plain(
-                  q, k, v, do, lse, di, **short), extra=lib, sm90=True)
+                  q, k, v, do, lse, di, **short), extra=lib, loop="sm90")
         check("flash_attention_bwd_dkv", tag,
               lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
               lambda kw=kw, lse=lse, di=di: af.flash_attention_bwd_dkv_plain(
@@ -839,7 +907,7 @@ def main() -> None:
                   sd_out, (kl, vl), do_h, retain_graph=True),
               ATTN_BWD_DKV_BOUND, 8 * pairs * hd, in_bytes + 2 * k.numel() * 4,
               control=lambda lse=lse, di=di, short=short: af.flash_attention_bwd_dkv_plain(
-                  q, k, v, do, lse, di, **short), extra=lib, sm90=True)
+                  q, k, v, do, lse, di, **short), extra=lib, loop="sm90")
         if window is not None:   # one carried rung through the backward: bf16x6
             kx6 = dict(kw, precision="bf16x6")
             out6, lse6 = af.flash_attention_fwd(q, k, v, **kx6)
@@ -863,7 +931,7 @@ def main() -> None:
                       lambda wrt=wrt: torch.autograd.grad(sd32, wrt, do32, retain_graph=True),
                       b_err, num_passes("bf16x6") * fl, by,
                       library_call="SDPA backward through autograd on f32 copies, math "
-                                   "backend (TF32 off)", sm90=False)
+                                   "backend (TF32 off)", loop="wmma")
             del out6, lse6, di6, sd32, q32, k32, v32, do32
         del sd_out, qh, kl, vl, kle, vle
     del q, k, v, do, out, lse, di
@@ -879,14 +947,14 @@ def main() -> None:
           lambda: gt.gemm_tiled_plain(g_down, w_down.t()),
           lambda g16=g_down.to(torch.bfloat16), w16=w_down.to(torch.bfloat16): torch.matmul(
               g16, w16.t()),
-          GEMM_BOUND, 2 * m * d * ff, (g_down.numel() + w_down.numel() + m * ff) * 4, sm90=True)
+          GEMM_BOUND, 2 * m * d * ff, (g_down.numel() + w_down.numel() + m * ff) * 4, loop="sm90")
     x_up = randn((m, d), dtype=torch.bfloat16)
     g_up = randn((m, ff), m ** -0.5)
     check("gemm_tiled", f"train dW mlp up {d}x{m}x{ff} M-contiguous A",
           lambda: gt.gemm_tiled(x_up.t(), g_up),
           lambda: gt.gemm_tiled_plain(x_up.t(), g_up),
           lambda g16=g_up.to(torch.bfloat16): torch.matmul(x_up.t(), g16),
-          GEMM_BOUND, 2 * d * m * ff, x_up.numel() * 2 + (g_up.numel() + d * ff) * 4, sm90=True)
+          GEMM_BOUND, 2 * d * m * ff, x_up.numel() * 2 + (g_up.numel() + d * ff) * 4, loop="sm90")
     del g_down, w_down, x_up, g_up
     torch.cuda.empty_cache()
     g_log = randn((m, vocab), vocab ** -0.5)            # grad of the logits
@@ -929,7 +997,7 @@ def main() -> None:
           ATTN_BOUND, 4 * int(keep.sum()) * m_hd * m_heads,
           (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
           library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
-          sm90=True)
+          loop="sm90")
     del q, k, v, qh, kr, vr
     qd = randn((4, 1, m_kvh, m_grp, m_hd), m_hd ** -0.5, torch.bfloat16)
     s_cache = 1024
@@ -950,7 +1018,8 @@ def main() -> None:
               scale=1.0),
           ATTN_BOUND, 4 * int(live.sum()) * m_grp * m_hd * m_kvh,
           qd.numel() * 2 + 2 * int(live.sum()) * m_kvh * m_hd * 2 + qd.numel() * 4,
-          library_call="scaled_dot_product_attention, kv heads repeated (not timed)")
+          library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+          extra={"splits": af.decode_splits(4, m_kvh, s_cache, sms)})
     del qd, kc, vc, kr, vr
     bt_m, st_m = 1, 1024
     q = randn((bt_m, st_m, m_kvh, m_grp, m_hd), m_hd ** -0.5, torch.bfloat16)
@@ -986,14 +1055,14 @@ def main() -> None:
           lambda: torch.autograd.grad(sd_out, (qh,), do_h, retain_graph=True),
           ATTN_BWD_DQ_BOUND, 6 * pairs * m_hd, in_bytes + q.numel() * 4,
           control=lambda: af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **half),
-          library_call=lib_bwd, extra=lib, sm90=True)
+          library_call=lib_bwd, extra=lib, loop="sm90")
     check("flash_attention_bwd_dkv", tag,
           lambda: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw),
           lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw),
           lambda: torch.autograd.grad(sd_out, (kl, vl), do_h, retain_graph=True),
           MIXTRAL_ATTN_BWD_DKV_BOUND, 8 * pairs * m_hd, in_bytes + 2 * k.numel() * 4,
           control=lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **half),
-          library_call=lib_bwd, extra=lib, sm90=True)
+          library_call=lib_bwd, extra=lib, loop="sm90")
     del q, k, v, do, out, lse, di, sd_out, qh, kl, vl
     torch.cuda.empty_cache()
 
@@ -1082,7 +1151,8 @@ def main() -> None:
                   control=lambda x=x, off=off, r=rung, bm=bm: gg.grouped_gemm_plain(
                       x, w_in_rolled, off, policy=r, bm=bm),
                   library_call=lib_name,
-                  sm90=rung == "bf16" and gg.cta_rows(bm, rung) in (64, 128))
+                  loop="sm90" if rung == "bf16" and gg.cta_rows(bm, rung) in (64, 128)
+                  else "wmma")
         if bm_at is None and phase == "prefill":
             route_fp8 = ops.grouped_matmul(x, w_in, off, bm=bm, policy=ops.Route("fp8x3"))
             check("grouped_gemm", f"{phase} wi fp8x3 T*k={tk} {d_m}->{ff_m} E={n_exp} bm={bm}",
@@ -1096,7 +1166,7 @@ def main() -> None:
                       x, w_in_rolled, off, policy="fp8x3", bm=bm),
                   rung_control=lambda x=x, off=off, bm=bm: gg.grouped_gemm_plain(
                       x, w_in, off, policy="fp8", bm=bm),
-                  library_call=lib_name, sm90=False,
+                  library_call=lib_name, loop="wmma",
                   extra={"torch_route_err": max_err(
                       (gg.grouped_gemm(x, w_in, off, bm=bm, policy="fp8x3"),), (route_fp8,))})
             if not checks["grouped_gemm"][-1]["torch_route_err"] <= LADDER_BOUNDS["fp8x3"]:
@@ -1116,7 +1186,7 @@ def main() -> None:
           lib, GEMM_BOUND, 2 * 1400 * ff_m * d_m,
           1400 * ff_m * 2 + int((counts > 0).sum()) * ff_m * d_m * 4 + h.shape[0] * d_m * 4,
           control=lambda: gg.grouped_gemm_plain(h, w_out_rolled, off, bm=bm),
-          library_call=lib_name, sm90=True)
+          library_call=lib_name, loop="sm90")
     del w_out, w_out_rolled, h, lib
     torch.cuda.empty_cache()
     # the train backward at 1 x 1024 tokens (T*k = 2048): dx of the up
@@ -1135,7 +1205,7 @@ def main() -> None:
           lib, GEMM_BOUND, 2 * 2048 * ff_m * d_m,
           2048 * ff_m * 4 + live_w + x.shape[0] * d_m * 4,
           control=lambda: gg.grouped_gemm_plain(dy, w_in_rolled, off, trans_w=True, bm=bm),
-          library_call=lib_name, sm90=True)
+          library_call=lib_name, loop="sm90")
     del w_in, w_in16, w_in_rolled, lib
     torch.cuda.empty_cache()
     off_moved = off.clone()
@@ -1154,7 +1224,7 @@ def main() -> None:
           lib, GEMM_BOUND, 2 * 2048 * d_m * ff_m,
           2048 * (d_m * 2 + ff_m * 4) + n_exp * d_m * ff_m * 4,
           control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved),
-          library_call=lib_name, sm90=True)
+          library_call=lib_name, loop="sm90")
     if not all(dw_zero_exact):
         fail("grouped_gemm_dw: the zero-width group's block is not exactly 0")
     # one quantized rung through dW: int8x3, its scales per 64 x 32 tile of
@@ -1177,7 +1247,7 @@ def main() -> None:
           2048 * (d_m * 2 + ff_m * 4) + n_exp * d_m * ff_m * 4,
           control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved, policy="int8x3"),
           rung_control=lambda: gg.grouped_gemm_dw_plain(x, dy, off, policy="int8"),
-          library_call=lib_name, sm90=False, extra=scale_pass)
+          library_call=lib_name, loop="wmma", extra=scale_pass)
     emit(phase="c4", kernel="grouped_gemm_dw", what="train dW int8x3",
          faster_than_plain=checks["grouped_gemm_dw"][-1]["ms"]
          < checks["grouped_gemm_dw"][-1]["plain_ms"])
@@ -1214,7 +1284,7 @@ def main() -> None:
           lambda: gt.gemm_tiled(a_sq, b_sq), lambda: gt.gemm_tiled_plain(a_sq, b_sq),
           lambda: torch.matmul(a_sq, b_sq), GEMM_BOUND, 2 * sq ** 3, 2 * sq * sq * 2 + sq * sq * 4,
           library_call="torch.matmul bf16 (cuBLAS); sgemm_f32_ms: torch.matmul f32, TF32 off",
-          extra=fig6, sm90=True)
+          extra=fig6, loop="sm90")
     fig6["tiled_ms"] = checks["gemm_tiled"][-1]["ms"]
     check("gemm_naive", f"square {sq}x{sq}x{sq} bf16 operands (Fig. 6)",
           lambda: gn.gemm_naive(a_sq, b_sq), lambda: gn.gemm_naive_plain(a_sq, b_sq),
@@ -1238,10 +1308,7 @@ def main() -> None:
                   lambda a=a_b, b=b_b, f=plain: f(a, b), lambda a=a_b, b=b_b: torch.bmm(a, b),
                   BATCHED_BOUND, 2 * g_b * n_b ** 3, g_b * n_b * n_b * (2 + 2 + 4),
                   control=lambda a=a_b, b=b_roll, f=plain: f(a, b),
-                  library_call="torch.bmm bf16 (bf16 out); device_ms: the kernel's own "
-                               "time in one profiled call (null: the profiler caught no kernel)",
-                  extra={"device_ms": profile_window(lambda a=a_b, b=b_b, f=kern: f(a, b))[
-                      "device_ms"] or None})
+                  library_call="torch.bmm bf16 (bf16 out)")
     del a_b, b_b, b_roll
 
     # ---- wkv6 at a full grid: B = 4, S = 1024, H = 64 (256 blocks), K = 64,
@@ -1523,8 +1590,8 @@ def main() -> None:
             "tflops": {be: flops_b / (t * 1e-3) / 1e12 for be, t in ms.items()},
             "max_abs_err_vs_torch": {be: (outs[be] - outs["torch"]).abs().max().item()
                                      for be in ("cuda", "cuda_naive")}})
-    # ms: CUDA events around back-to-back calls, host-bound where a call's
-    # launch outlasts its kernel (the check rows' device_ms has the kernels')
+    # ms: CUDA events around back-to-back calls queued behind a spin on the
+    # device (``timed``), so the kernels' time and not the host's launches
     emit(phase="batched", n=16, rows=batched_rows, launches=launches_bt, bound=BATCHED_BOUND)
     if not all(launches_bt[k] > 0 for k in BATCHED_KERNELS):
         fail(f"batched: a kernel of the path never launched: {launches_bt}")
@@ -2091,12 +2158,20 @@ def main() -> None:
                "serve_moe": launches_ms, "serve_moe_paged": launches_pm,
                "train_moe": launches_mt, "serve_naive": launches_n,
                "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv}
-    # every bf16 flash forward and dW launch of every path ran the wgmma kernel
+    # every bf16 flash forward and dW launch of every path ran the wgmma
+    # kernel; no gemm_tiled launch (the bf16 rung) ran the WMMA tile, so each
+    # one at M <= 16 ran the split-K loop; every decode launch (all bf16 at
+    # B = 4 slots) ran its KV walk split
     for path, ls in by_path.items():
         for name in SM90_ON_EVERY_PATH:
             if ls[name] and ls[f"{name}.sm90"] != ls[name]:
                 fail(f"{path}: {name} ran {ls[f'{name}.sm90']} of its {ls[name]} launches on "
                      f"the wgmma kernel")
+        if ls["gemm_tiled.wmma"]:
+            fail(f"{path}: gemm_tiled ran the WMMA tile {ls['gemm_tiled.wmma']} times")
+        for name in SPLIT_COUNTS:
+            if ls[f"{name}.split"] != ls[name]:
+                fail(f"{path}: {name} split {ls[f'{name}.split']} of its {ls[name]} launches")
     for name, (src, replaces) in KERNELS.items():
         # the row's headline check: gemma3's windowed (local-layer) case for
         # the flash forward, the model's inputs for wkv6, the path's first
@@ -2127,8 +2202,12 @@ def main() -> None:
                          p: {loop: ls[f"{name}.{loop}"] for loop in LOOP_COUNTS[name]}
                          for p, ls in by_path.items() if ls[name]}}
                         if name in LOOP_COUNTS else {}),
+                     **({"split_launches_by_path": {p: ls[f"{name}.split"]
+                                                    for p, ls in by_path.items() if ls[name]}}
+                        if name in SPLIT_COUNTS else {}),
                      "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
-                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "ms": first["ms"], "device_ms": first["device_ms"],
+                     "host_ms": first["host_ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "shape": first["what"],
                      **({"library_call": first["library_call"]} if "library_call" in first else {}),
@@ -2136,8 +2215,9 @@ def main() -> None:
     # which mainloop each GEMM check ran (every M > 16 gemm_tiled shape and
     # every 64/128-row bf16 grouped shape must run sm90, each check says so)
     emit(phase="mainloops", rows=loop_rows,
-         sm90_rows=sum(r["mainloop"] == ["sm90"] for r in loop_rows),
-         wmma_rows=sum(r["mainloop"] == ["wmma"] for r in loop_rows))
+         **{f"{loop}_rows": sum(r["mainloop"] == [loop] for r in loop_rows)
+            for loop in gt.MAINLOOPS},
+         gemm_tiled_wmma_launches={p: ls["gemm_tiled.wmma"] for p, ls in by_path.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,8 +8,9 @@
 // one page per grid step.  Here a block loads its own table entries and
 // gathers the pages into the same 32-row KV tiles the dense decode walks
 // (flash_common.cuh, PAGED), so a bf16 pool sums in the dense kernel's
-// order.  Grid (Kv, B): one block per (row, kv head), covering the
-// group's query heads.
+// order.  Grid (splits, Kv, B): one block per (KV split, row, kv head),
+// covering the group's query heads; the host picks the split by the dense
+// decode's rule, so a bf16 pool stays bit-equal to the dense kernel.
 #include "flash_common.cuh"
 
 extern "C" int attention_paged_decode_launch(const void* q, const void* k_pages,
@@ -18,11 +19,16 @@ extern "C" int attention_paged_decode_launch(const void* q, const void* k_pages,
                                              const int* pos, int q_bf16, int kv_type, int B,
                                              int s_cache, int n_log, int ps, int Kv, int G,
                                              int hd, int ring, float softcap, int policy,
-                                             void* stream, int device) {
+                                             int splits, float* ws, long long ws_floats,
+                                             int* tickets, int n_tickets, void* stream,
+                                             int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   rt::AttnArgs a{q, k_pages, v_pages, o, nullptr, pos, q_bf16, B, 1, s_cache, Kv, G, hd, 0, 0,
                  ring, softcap, kv_type, table, k_scale, v_scale, n_log, ps};
-  dim3 grid(Kv, B);
-  return rt::dispatch_attn<16, true, true>(a, policy, grid, static_cast<cudaStream_t>(stream));
+  const rt::SplitWs sw{splits, ws, ws_floats, tickets, n_tickets};
+  if (!rt::decode_split_ok(a, sw, policy)) return (int)cudaErrorInvalidValue;
+  dim3 grid(splits, Kv, B);
+  return rt::dispatch_attn<16, true, true>(a, policy, grid, static_cast<cudaStream_t>(stream),
+                                           sw);
 }

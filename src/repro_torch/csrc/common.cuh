@@ -34,6 +34,8 @@
 // kernels' scale domains are their tiles; each plain twin takes the same.
 #pragma once
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -248,6 +250,34 @@ __device__ __forceinline__ void fly_mma(FragC& small, FragC& main, FlyOp a, FlyO
     wmma::mma_sync(small, fa[0], fb[1], small);
   }
   wmma::mma_sync(main, fa[0], fb[0], main);
+}
+
+// A launch split over CTAs along its long axis (gemm_splitk.cuh's K, the
+// bf16 decode's KV walk, flash_common.cuh): the host's split count, the f32
+// workspace for the splits' partials and one ticket per output tile, all
+// zero between launches (kernels/gemm_tiled.py:split_workspace allocates
+// them once per device and stream).  splits == 1 uses neither.
+struct SplitWs {
+  int splits;
+  float* ws;
+  long long ws_floats;
+  int* tickets;
+  int n_tickets;
+};
+
+// Raise `kern`'s dynamic shared-memory limit to `bytes` once per device
+// (`ready`: one bit per device, the kernel's own), so that a launch does
+// not pay for a cudaFuncSetAttribute call.
+template <class K>
+inline cudaError_t smem_once(std::atomic<unsigned long long>& ready, K kern, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 // Round a shared-memory section size up so every section starts 128-byte aligned

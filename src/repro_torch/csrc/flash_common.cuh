@@ -30,10 +30,24 @@
 // _block_live skip, as loop bounds).  At hd 256 the block holds Q, K and V
 // as bf16 hi+lo (or f32) plus O in f32: 217 KB of shared memory, one block
 // per SM.
-// Decode: grid (Kv, B), one block per (row, kv head) whose 16 query rows
-// are the G heads of that group, so K and V are read once per group.
-// Ring layers keep slot c when pos - ((pos - c) mod S) >= 0 (a floor mod);
-// linear layers keep c <= pos and stop walking after pos.  A paged decode
+// Decode: grid (splits, Kv, B), one block per (KV split, row, kv head)
+// whose 16 query rows are the G heads of that group, so K and V are read
+// once per group.  Ring layers keep slot c when pos - ((pos - c) mod S) >= 0
+// (a floor mod), linear layers c <= pos; both walk only the tiles up to
+// pos, since until a ring wraps (pos < S) its slots past pos are masked
+// too.  At one split (every rung but bf16) a block walks all of them.  At
+// the bf16 rung the host splits the walk (kernels/attention_fused.py:
+// decode_splits, from B, Kv, the cache's rows and the SM count: a grid of
+// (B, Kv) blocks is 4 CTAs for gemma3 at B = 4) so that the card fills:
+// split s takes live tiles [s * per, (s + 1) * per), per = ceil(live /
+// splits), runs the same online softmax over them and writes its group's
+// unnormalised O (G x hd), m and l to a workspace slot (a split with no
+// live tile writes O = 0, l = 0, m = NEG_INF); the block that draws the
+// group's last ticket (atomicAdd after a fence, as gemm_splitk.cuh's
+// reduction) combines the splits in index order, O = sum_s O_s e^{m_s - M}
+// and l = sum_s l_s e^{m_s - M} with M = max_s m_s, writes out = O / l and
+// resets the ticket.  The order is fixed, so the result is deterministic;
+// NEG_INF is finite, so an empty split weighs e^{NEG_INF - M} = 0.  A paged decode
 // (PAGED) reads logical row c of slot b from physical row
 // table[b, c / ps] * ps + c % ps of the pool, each row of the 32-row tile
 // through its own table entry, so the tiles, masks and sums are those of
@@ -69,6 +83,23 @@ struct AttnArgs {
   int n_log, ps;       // paged decode: logical pages per slot, rows per page
 };
 
+// Decode splits per (row, kv head) at most (the combine's weights fit in
+// the K tile's shared memory at any head dim).
+constexpr int DECODE_MAX_SPLITS = 64;
+
+// Whether a decode launch's split is one the kernel takes: 1 at any rung;
+// more only at bf16, with a workspace slot per (row, kv head, split) and a
+// ticket per (row, kv head).  The split travels beside AttnArgs, not in
+// it: the bf16 forward of flash_sm90.cuh takes AttnArgs by value too, and
+// ran markedly slower on the H100 while the split lived in the struct.
+inline bool decode_split_ok(const AttnArgs& a, const SplitWs& w, int policy) {
+  if (w.splits == 1) return true;
+  const long long groups = (long long)a.B * a.Kv;
+  return policy == P_BF16 && w.splits > 1 && w.splits <= DECODE_MAX_SPLITS &&
+         w.ws != nullptr && w.tickets != nullptr && groups <= w.n_tickets &&
+         groups * w.splits * 16 * (a.hd + 2) <= w.ws_floats;  // BQ = 16 rows
+}
+
 // Eight consecutive int8 values (8 bytes, 8-element aligned) as f32.
 __device__ __forceinline__ void load8_i8(const void* p, long long i, float (&x)[8]) {
   const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const signed char*>(p) + i);
@@ -97,7 +128,7 @@ struct AttnSmem {
 };
 
 template <int POL, int BQ, bool DECODE, bool PAGED>
-__global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
+__global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a, SplitWs sw) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool CARRIED = Carried<POL>::value;
   constexpr bool F32TILE = POL == P_F32 || CARRIED;  // operand tiles staged in f32
@@ -106,9 +137,9 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   const int H = a.Kv * a.G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  int b, kvh, h, q0, rows, pos = 0;
+  int b, kvh, h, q0, rows, pos = 0, split = 0;
   if (DECODE) {
-    kvh = blockIdx.x; b = blockIdx.y; h = kvh * a.G; q0 = 0; rows = a.G;
+    split = blockIdx.x; kvh = blockIdx.y; b = blockIdx.z; h = kvh * a.G; q0 = 0; rows = a.G;
     pos = a.pos[b];
   } else {
     q0 = blockIdx.x * BQ; h = blockIdx.y; b = blockIdx.z; kvh = h / a.G;
@@ -166,12 +197,18 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   // The KV tiles this block's mask can reach.
   int j_lo = 0, j_hi = a.Skv;
   if (DECODE) {
-    if (!a.ring) j_hi = min(a.Skv, pos + 1);
+    j_hi = min(a.Skv, pos + 1);  // ring or linear: the slots past pos are masked
   } else if (a.causal) {
     j_hi = min(a.Skv, q0 + rows);
     if (a.window > 0) j_lo = max(0, q0 - a.window + 1);
   }
-  const int t_lo = j_lo / BKV, t_hi = (j_hi + BKV - 1) / BKV;
+  int t_lo = j_lo / BKV, t_hi = (j_hi + BKV - 1) / BKV;
+  // this split's share of the live tiles (only the bf16 rung splits)
+  if (POL == P_BF16 && DECODE && sw.splits > 1) {
+    const int per = (t_hi + sw.splits - 1) / sw.splits;
+    t_lo = min(t_hi, split * per);
+    t_hi = min(t_hi, t_lo + per);
+  }
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BKV;
@@ -323,6 +360,55 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   }
   __syncthreads();
 
+  if constexpr (DECODE && POL == P_BF16) {
+    if (sw.splits > 1) {
+      // this split's O, m and l into its slot; the last of the group combines
+      __shared__ int is_last;
+      const int splits = sw.splits, part = BQ * (hd + 2);
+      const long long grp = (long long)b * a.Kv + kvh;
+      const float* slots = sw.ws + grp * splits * part;
+      float* mine = sw.ws + (grp * splits + split) * part;
+      for (int idx = tid; idx < rows * hd; idx += ATT_NT) mine[idx] = O[(idx / hd) * ldo + idx % hd];
+      for (int r = tid; r < rows; r += ATT_NT) {
+        mine[BQ * hd + r] = M[r];
+        mine[BQ * hd + BQ + r] = L[r];
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) is_last = atomicAdd(sw.tickets + grp, 1) == splits - 1;
+      __syncthreads();
+      if (!is_last) return;
+      __threadfence();
+      // weights e^{m_s - M} by (split, row), then each row's max(l, 1e-30)
+      // slot, in the K tile's shared memory (the walk is done with it)
+      // (the loops over splits are unrolled so that their L2 reads overlap)
+      float* wgt = reinterpret_cast<float*>(smem + sm.k);
+      for (int r = tid; r < rows; r += ATT_NT) {
+        float mx = NEG_INF;
+#pragma unroll 8
+        for (int s = 0; s < splits; ++s) mx = fmaxf(mx, __ldcg(slots + s * part + BQ * hd + r));
+        float l = 0.f;
+#pragma unroll 8
+        for (int s = 0; s < splits; ++s) {
+          const float w = expf(__ldcg(slots + s * part + BQ * hd + r) - mx);
+          wgt[s * BQ + r] = w;
+          l = l + __ldcg(slots + s * part + BQ * hd + BQ + r) * w;
+        }
+        wgt[splits * BQ + r] = fmaxf(l, 1e-30f);
+      }
+      __syncthreads();
+      for (int idx = tid; idx < rows * hd; idx += ATT_NT) {
+        const int r = idx / hd;
+        float acc = 0.f;
+#pragma unroll 8
+        for (int s = 0; s < splits; ++s) acc = acc + __ldcg(slots + s * part + idx) * wgt[s * BQ + r];
+        a.o[q_index(r, idx % hd)] = acc / wgt[splits * BQ + r];
+      }
+      if (tid == 0) sw.tickets[grp] = 0;
+      return;
+    }
+  }
+
   for (int idx = tid; idx < rows * hd; idx += ATT_NT) {
     int r = idx / hd, d = idx % hd;
     a.o[q_index(r, d)] = O[r * ldo + d] / fmaxf(L[r], 1e-30f);
@@ -333,33 +419,37 @@ __global__ void __launch_bounds__(ATT_NT) flash_kernel(AttnArgs a) {
   }
 }
 
+constexpr SplitWs NO_SPLIT{1, nullptr, 0, nullptr, 0};
+
 template <int POL, int BQ, bool DECODE, bool PAGED>
-int run_attn(const AttnArgs& a, dim3 grid, cudaStream_t stream) {
+int run_attn(const AttnArgs& a, dim3 grid, cudaStream_t stream, const SplitWs& sw) {
   AttnSmem sm(BQ, a.hd, Carried<POL>::value);
   auto kern = flash_kernel<POL, BQ, DECODE, PAGED>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)sm.total);
+  // the limit once, at the largest head dim the wrappers take (256)
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = smem_once(ready, kern, AttnSmem(BQ, 256, Carried<POL>::value).total);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, ATT_NT, sm.total, stream>>>(a);
+  kern<<<grid, ATT_NT, sm.total, stream>>>(a, sw);
   return (int)cudaGetLastError();
 }
 
 // The forward's bf16 rung runs flash_sm90.cuh's kernel; decode's runs here.
 template <int BQ, bool DECODE, bool PAGED = false>
-int dispatch_attn(const AttnArgs& a, int policy, dim3 grid, cudaStream_t stream) {
+int dispatch_attn(const AttnArgs& a, int policy, dim3 grid, cudaStream_t stream,
+                  const SplitWs& sw = NO_SPLIT) {
   switch (policy) {
     case P_BF16:
-      if constexpr (DECODE) return run_attn<P_BF16, BQ, DECODE, PAGED>(a, grid, stream);
+      if constexpr (DECODE) return run_attn<P_BF16, BQ, DECODE, PAGED>(a, grid, stream, sw);
       return (int)cudaErrorInvalidValue;
-    case P_REFINE_A: return run_attn<P_REFINE_A, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_BF16X3: return run_attn<P_BF16X3, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_REFINE_AB: return run_attn<P_REFINE_AB, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_F32: return run_attn<P_F32, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_BF16X6: return run_attn<P_BF16X6, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_FP8: return run_attn<P_FP8, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_INT8: return run_attn<P_INT8, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_FP8X3: return run_attn<P_FP8X3, BQ, DECODE, PAGED>(a, grid, stream);
-    case P_INT8X3: return run_attn<P_INT8X3, BQ, DECODE, PAGED>(a, grid, stream);
+    case P_REFINE_A: return run_attn<P_REFINE_A, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_BF16X3: return run_attn<P_BF16X3, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_REFINE_AB: return run_attn<P_REFINE_AB, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_F32: return run_attn<P_F32, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_BF16X6: return run_attn<P_BF16X6, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_FP8: return run_attn<P_FP8, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_INT8: return run_attn<P_INT8, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_FP8X3: return run_attn<P_FP8X3, BQ, DECODE, PAGED>(a, grid, stream, sw);
+    case P_INT8X3: return run_attn<P_INT8X3, BQ, DECODE, PAGED>(a, grid, stream, sw);
     default: return (int)cudaErrorInvalidValue;
   }
 }

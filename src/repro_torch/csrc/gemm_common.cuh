@@ -1,8 +1,8 @@
-// Tiled tensor-core GEMM shared by gemm_tiled.cu (the bf16 rung at M <= 16),
-// gemm_refined.cu (refine_a / bf16x3 / refine_ab) and the grouped GEMMs
-// (gemm_grouped.cuh: every rung but the bf16 forward at 64/128-row tiles):
-// C = A.B, f32 out.  The
-// bf16 rung at M > 16 runs the Hopper mainloop of gemm_sm90.cuh instead
+// Tiled tensor-core GEMM shared by gemm_refined.cu (refine_a / bf16x3 /
+// refine_ab) and the grouped GEMMs (gemm_grouped.cuh: every rung but the
+// bf16 forward at 64/128-row tiles): C = A.B, f32 out.  gemm_tiled.cu's
+// bf16 rung runs none of it: M > 16 takes the Hopper mainloop of
+// gemm_sm90.cuh and M <= 16 the split-K weight stream of gemm_splitk.cuh
 // (dispatch_gemm below).  bf16x6 (a carried rung, common.cuh) stages f32
 // tiles and makes its terms per fragment; the fp8 / int8 rungs quantize
 // each K step's A and B tiles on their way into shared memory, under the
@@ -447,8 +447,8 @@ template <int BM, int BN, int BK, int WM, int WN, bool B_KMAJOR, int POL, int MO
 int run_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
   using T = GemmTile<BM, BN, BK, WM, WN, B_KMAJOR>;
   auto kern = gemm_kernel<BM, BN, BK, WM, WN, B_KMAJOR, POL, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)T::smem);
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = smem_once(ready, kern, T::smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM, batch);
   kern<<<grid, T::NT, T::smem, stream>>>(g);
@@ -458,35 +458,43 @@ int run_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
 }  // namespace rt
 
 #include "gemm_sm90.cuh"
+#include "gemm_splitk.cuh"
 
 namespace rt {
 
 // Mainloop ids reported to the wrappers (LAUNCHES_BY_LOOP).
-enum Mainloop { LOOP_WMMA = 0, LOOP_SM90 = 1 };
+enum Mainloop { LOOP_WMMA = 0, LOOP_SM90 = 1, LOOP_SPLITK = 2 };
 
-// The bf16 rung at M > 16 runs the Hopper mainloop (gemm_sm90.cuh: BM 64
-// up to 64 rows, else 128).  Everything else runs the WMMA kernel above,
-// its tile by M: a skinny tile for decode (M <= 16 rows: the GEMM is a
-// weight stream, bounded by bytes) and a 64 x 128 one otherwise (small
-// enough in registers for two blocks per SM).  B's shared-memory layout
-// follows its contiguous dimension so that global reads stay coalesced for
-// both the NN weights and the NT unembed table.
+// The bf16 rung (gemm_tiled.cu) runs the Hopper mainloop at M > 16
+// (gemm_sm90.cuh: BM 64 up to 64 rows, else 128) and the split-K weight
+// stream at M <= 16 (gemm_splitk.cuh, split `split->splits` ways).  Every
+// other rung runs the WMMA kernel above, its tile by M: a skinny tile for
+// decode (M <= 16 rows: the GEMM is a weight stream, bounded by bytes) and
+// a 64 x 128 one otherwise (small enough in registers for two blocks per
+// SM).  B's shared-memory layout follows its contiguous dimension so that
+// global reads stay coalesced for both the NN weights and the NT unembed
+// table.
 template <int POL>
-int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream, int* loop = nullptr) {
-  if (loop != nullptr) *loop = LOOP_WMMA;
+int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream, int* loop = nullptr,
+                  const SplitWs* split = nullptr) {
   if constexpr (POL == P_BF16) {
     if (g.m > 16) {
       if (loop != nullptr) *loop = LOOP_SM90;
       return sm90::run<G_NONE>(g, batch, g.m <= 64 ? 64 : 128, stream);
     }
+    if (split == nullptr) return (int)cudaErrorInvalidValue;
+    if (loop != nullptr) *loop = LOOP_SPLITK;
+    return splitk::run<POL>(g, batch, *split, stream);
+  } else {
+    if (loop != nullptr) *loop = LOOP_WMMA;
+    const bool kmajor = g.sbk < g.sbn;
+    if (g.m <= 16) {
+      return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL>(g, batch, stream)
+                    : run_gemm<16, 128, 64, 16, 16, false, POL>(g, batch, stream);
+    }
+    return kmajor ? run_gemm<64, 128, 32, 32, 32, true, POL>(g, batch, stream)
+                  : run_gemm<64, 128, 32, 32, 32, false, POL>(g, batch, stream);
   }
-  const bool kmajor = g.sbk < g.sbn;
-  if (g.m <= 16) {
-    return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL>(g, batch, stream)
-                  : run_gemm<16, 128, 64, 16, 16, false, POL>(g, batch, stream);
-  }
-  return kmajor ? run_gemm<64, 128, 32, 32, 32, true, POL>(g, batch, stream)
-                : run_gemm<64, 128, 32, 32, 32, false, POL>(g, batch, stream);
 }
 
 // Whether an operand can be read four elements at a time along the

@@ -43,7 +43,14 @@ WMMA fragments (217 KB, one block per SM).  Both walk only the KV tiles a
 q block's mask reaches (the TPU kernel's ``_block_live`` as loop bounds);
 ``LAUNCHES_BY_LOOP`` counts which of the two each forward launch ran.
 Decode reads the cache once per tick, so bytes bound it; the kernel
-reads it in place in its stored type and stops a linear walk at ``pos``.
+reads it in place in its stored type and stops its walk at ``pos`` (a
+ring's slots past ``pos`` are masked until it wraps).  Its grid of one
+block per (row, kv head) is 4 CTAs for gemma3 at B = 4, so at the bf16
+rung the walk is split over CTAs (``decode_splits``: twice the SM count
+where the cache allows); each split writes its unnormalised O, m and l to
+a workspace and the last block of a (row, kv head), by an atomic ticket,
+combines them in split order in the same launch
+(``flash_decode_split_plain`` is that arithmetic in plain PyTorch).
 
 The backward rebuilds ``p = exp(s' - lse)`` (``s'`` the softcapped score)
 instead of storing it, with ``di = rowsum(dO * O)`` computed outside the
@@ -84,14 +91,18 @@ import torch
 
 from repro_torch.core import precision as prec
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm_tiled import MAINLOOPS, on_cpu
+from repro_torch.kernels.gemm_tiled import (MAINLOOPS, SPLIT_ARGTYPES, TICKETS_PER_SM,
+                                            WS_SLOTS_PER_SM, on_cpu, split_ranges,
+                                            split_workspace, whole_splits)
+from repro_torch.kernels.gemm_tiled import sm_count as _sm_count
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
-           "bwd_delta", "flash_decode", "flash_decode_plain", "FUSED_POLICIES", "BKV",
-           "LAUNCHES", "LAUNCHES_BY_LOOP", "LAUNCHES_BY_LOOP_DQ", "LAUNCHES_BY_LOOP_DKV"]
+           "bwd_delta", "flash_decode", "flash_decode_plain", "flash_decode_split_plain",
+           "decode_splits", "FUSED_POLICIES", "BKV", "LAUNCHES", "LAUNCHES_BY_LOOP",
+           "LAUNCHES_BY_LOOP_DQ", "LAUNCHES_BY_LOOP_DKV", "SPLIT_LAUNCHES"]
 
 BKV = 32
 BQ = 64        # the forward kernel's q block (its Q and P scale tiles)
@@ -111,6 +122,9 @@ LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)
 LAUNCHES_BY_LOOP_DQ = dict.fromkeys(MAINLOOPS, 0)
 LAUNCHES_BY_LOOP_DKV = dict.fromkeys(MAINLOOPS, 0)
 SM90_ROWS = 64   # rows of the wgmma backward's tiles (its dk/dv grid rule)
+# decode launches whose KV walk ran split over CTAs (``decode_splits`` > 1)
+SPLIT_LAUNCHES = {"flash_decode": 0}
+DECODE_MAX_SPLITS = 64   # csrc/flash_common.cuh's bound
 
 
 # ------------------------------------------------------------ plain twins
@@ -146,17 +160,19 @@ _FWD_TILES = ((1, BQ, 1, 1, 0), (1, 1, 1, BQ, 0))    # q; p (B, Kv, G, Sq, 32)
 _DECODE_TILES = ((1, 0, 1, 0, 0), (1, 1, 0, 0, 0))   # the G heads of a kv head
 
 
-def _online_softmax(q, k, v, keep_fn, softcap, precision, tiles=_FWD_TILES):
-    """The kernels' KV walk: q (B,Sq,Kv,G,hd), k/v (B,Skv,Kv,hd) padded to
-    BKV rows; keep_fn(cols) -> bool mask broadcastable to (B,Kv,G,Sq,BKV);
-    ``tiles``: the scale tiles of q and p.  Returns (out (B,Sq,Kv,G,hd)
-    f32, lse (B,Kv*G,Sq) f32)."""
+def _walk(q, k, v, keep_fn, softcap, precision, tiles, t_lo=0, t_hi=None):
+    """The kernels' online softmax over KV tiles [t_lo, t_hi) (default all)
+    from a fresh state: q (B,Sq,Kv,G,hd), k/v (B,Skv,Kv,hd) padded to BKV
+    rows; keep_fn(cols) -> bool mask broadcastable to (B,Kv,G,Sq,BKV);
+    ``tiles``: the scale tiles of q and p.  Returns the unnormalised
+    (acc (B,Kv,G,Sq,hd), m (B,Kv,G,Sq), l (B,Kv,G,Sq)), f32."""
     q_tile, p_tile = tiles
     b, sq, kvh, g, hd = q.shape
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32, device=q.device)
-    for k0 in range(0, k.shape[1], BKV):
+    t_hi = k.shape[1] // BKV if t_hi is None else t_hi
+    for k0 in range(t_lo * BKV, t_hi * BKV, BKV):
         s = _policy_dot("bqkgd,bskd->bkgqs", q, k[:, k0:k0 + BKV], precision, q_tile, _KV_TILE)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
@@ -170,6 +186,14 @@ def _online_softmax(q, k, v, keep_fn, softcap, precision, tiles=_FWD_TILES):
                          _KV_TILE)
         acc = acc * alpha[..., None] + pv
         m = m_new
+    return acc, m, l
+
+
+def _online_softmax(q, k, v, keep_fn, softcap, precision, tiles=_FWD_TILES):
+    """The kernels' KV walk (``_walk``), normalised.  Returns (out
+    (B,Sq,Kv,G,hd) f32, lse (B,Kv*G,Sq) f32)."""
+    b, sq, kvh, g, _ = q.shape
+    acc, m, l = _walk(q, k, v, keep_fn, softcap, precision, tiles)
     l = torch.clamp(l, min=1e-30)
     out = acc / l[..., None]
     lse = (m + torch.log(l)).reshape(b, kvh * g, sq)
@@ -299,12 +323,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = True,
     return (dq, *flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw))
 
 
-def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
-                       softcap: float | None = None,
-                       precision: str = "bf16") -> torch.Tensor:
-    """Plain PyTorch twin of the decode kernel."""
-    s_cache = k_cache.shape[1]
-    pos = pos.to(device=q.device, dtype=torch.int64)[:, None]     # (B, 1)
+def _decode_keep(pos, s_cache, window):
+    """Decode's keep-mask: keep_fn(cols) for positions ``pos`` (B,)."""
+    pos = pos.to(dtype=torch.int64)[:, None]     # (B, 1)
 
     def keep_fn(cols):
         c = cols[None, :]
@@ -313,9 +334,62 @@ def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
         else:
             keep = (c <= pos) & (c < s_cache)
         return keep[:, None, None, None, :]                      # (B,1,1,1,BKV)
+    return keep_fn
 
+
+def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
+                       softcap: float | None = None,
+                       precision: str = "bf16") -> torch.Tensor:
+    """Plain PyTorch twin of the decode kernel."""
+    keep_fn = _decode_keep(pos.to(q.device), k_cache.shape[1], window)
     return _online_softmax(q, _pad_kv(k_cache), _pad_kv(v_cache), keep_fn,
                            softcap, precision, _DECODE_TILES)[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(b: int, kvh: int, s_cache: int, sms: int, precision: str = "bf16") -> int:
+    """KV splits of a decode launch, dense or paged alike: 1 at every rung
+    but bf16 (the carried rungs take P's scales per tile from the running
+    max) and when the (row, kv head) blocks alone give twice ``sms`` CTAs;
+    else the fewest splits of whole BKV-row tiles of the ``s_cache``-row
+    cache that reach twice ``sms`` CTAs (one tile each where the cache is
+    too short), none empty, at most DECODE_MAX_SPLITS and within the split
+    workspace."""
+    tiles = -(-s_cache // BKV)
+    groups = b * kvh
+    want = -(-2 * sms // max(groups, 1))
+    if precision != "bf16" or want <= 1 or groups > TICKETS_PER_SM * sms:
+        return 1
+    most = min(tiles, DECODE_MAX_SPLITS, WS_SLOTS_PER_SM * sms // groups)
+    return whole_splits(tiles, want, most)
+
+
+def flash_decode_split_plain(q, k_cache, v_cache, pos, splits: int, *,
+                             window: int | None = None, softcap: float | None = None,
+                             precision: str = "bf16") -> torch.Tensor:
+    """The split decode kernel's arithmetic in plain PyTorch: each row's
+    live KV tiles (up to ``pos``) cut into ``splits`` ranges
+    (``split_ranges``; a range may be empty), the online softmax run over
+    each from a fresh state, and the unnormalised partials combined in
+    split order with weights exp(m_s - max m)."""
+    s_cache = k_cache.shape[1]
+    kp, vp = _pad_kv(k_cache), _pad_kv(v_cache)
+    pos = pos.to(q.device)
+    keep_fn = _decode_keep(pos, s_cache, window)
+    outs = []
+    for i in range(q.shape[0]):
+        live = -(-min(s_cache, int(pos[i]) + 1) // BKV)
+        row_keep = lambda cols, i=i: keep_fn(cols)[i:i + 1]  # noqa: E731
+        parts = [_walk(q[i:i + 1], kp[i:i + 1], vp[i:i + 1], row_keep, softcap, precision,
+                       _DECODE_TILES, lo, hi) for lo, hi in split_ranges(live, splits)]
+        top = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+        acc, l = 0.0, 0.0
+        for acc_s, m_s, l_s in parts:
+            w = torch.exp(m_s - top)
+            l = l + l_s * w
+            acc = acc + acc_s * w[..., None]
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs).permute(0, 3, 1, 2, 4)
 
 
 # ---------------------------------------------------------------- kernels
@@ -346,7 +420,8 @@ def _launchers():
     fwd, dec = lib.attention_fwd_launch, lib.attention_decode_launch
     fwd.argtypes = [c.c_void_p] * 5 + [c.c_int] * 9 + [c.c_float, c.c_int, c.POINTER(c.c_int),
                                                         c.c_void_p, c.c_int]
-    dec.argtypes = [c.c_void_p] * 5 + [c.c_int] * 7 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
+    dec.argtypes = [c.c_void_p] * 5 + [c.c_int] * 7 + [c.c_float, c.c_int, *SPLIT_ARGTYPES,
+                                                        c.c_void_p, c.c_int]
     fwd.restype = dec.restype = c.c_int
     return fwd, dec
 
@@ -404,11 +479,6 @@ def _bwd_launchers():
     dkv.argtypes = [c.c_void_p] * 8 + ints + [c.c_longlong] + tail
     dq.restype = dkv.restype = c.c_int
     return dq, dkv
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tma_operand(x: torch.Tensor) -> torch.Tensor:
@@ -575,11 +645,13 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: int | None = None,
     (q, k_cache, v_cache), in_bf16 = _inputs(q, k_cache, v_cache)
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    index, stream = _device_index(q), torch.cuda.current_stream(q.device).cuda_stream
+    splits = decode_splits(b, kvh, k_cache.shape[1], _sm_count(index), precision)
     rc = _launchers()[1](q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
             pos.data_ptr(), in_bf16, b, k_cache.shape[1], kvh, g, hd,
             int(window is not None), float(softcap) if softcap is not None else 0.0,
-            POLICY_CODES[precision], torch.cuda.current_stream(q.device).cuda_stream,
-            _device_index(q))
+            POLICY_CODES[precision], splits, *split_workspace(index, stream), stream, index)
     _build.check(rc, "attention_decode_launch")
     LAUNCHES["flash_decode"] += 1
+    SPLIT_LAUNCHES["flash_decode"] += splits > 1
     return out

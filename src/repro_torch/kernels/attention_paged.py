@@ -18,10 +18,12 @@ per row and head.  The design: the TPU kernel scalar-prefetches the table
 and walks one page per grid step; here a block loads its own table
 entries and gathers each row of the dense decode's 32-row KV tile
 (``BKV``) through them, reusing the dense kernel's online softmax and
-ladder code (``csrc/flash_common.cuh``).  With page sizes that divide 32
-an unquantized pool then sums in the dense kernel's order, which is what
-makes the paged engine token-exact against the dense engine on the card.
-A linear walk stops at ``pos``, so unallocated pages are never read.
+ladder code (``csrc/flash_common.cuh``), its split of the KV walk over
+CTAs at the bf16 rung included (``decode_splits``, the dense rule, so
+both split alike).  With page sizes that divide 32 an unquantized pool
+then sums in the dense kernel's order, which is what makes the paged
+engine token-exact against the dense engine on the card.  The walk stops
+at ``pos``, so unallocated pages are never read.
 
 The plain twin is ``gather_dense`` followed by ``flash_decode_plain``.
 """
@@ -36,13 +38,14 @@ import torch
 from repro_torch.core.ops.paged import PagedKVCache, gather_dense
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention_fused import (POLICY_CODES, _check_head_dim,
-                                                 _check_policy, _device_index,
-                                                 flash_decode_plain)
-from repro_torch.kernels.gemm_tiled import on_cpu
+                                                 _check_policy, _device_index, _sm_count,
+                                                 decode_splits, flash_decode_plain)
+from repro_torch.kernels.gemm_tiled import SPLIT_ARGTYPES, on_cpu, split_workspace
 
-__all__ = ["flash_paged_decode", "flash_paged_decode_plain", "LAUNCHES"]
+__all__ = ["flash_paged_decode", "flash_paged_decode_plain", "LAUNCHES", "SPLIT_LAUNCHES"]
 
 LAUNCHES = 0
+SPLIT_LAUNCHES = 0   # launches whose KV walk ran split over CTAs
 
 # payload codes of the kernel: f32, bf16, int8 with per-row scales
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -63,7 +66,8 @@ def flash_paged_decode_plain(q, cache: PagedKVCache, pos, *,
 def _launcher():
     fn = _build.load("attention_paged").attention_paged_decode_launch
     c = ctypes
-    fn.argtypes = [c.c_void_p] * 8 + [c.c_int] * 10 + [c.c_float, c.c_int, c.c_void_p, c.c_int]
+    fn.argtypes = [c.c_void_p] * 8 + [c.c_int] * 10 + [c.c_float, c.c_int, *SPLIT_ARGTYPES,
+                                                        c.c_void_p, c.c_int]
     fn.restype = c.c_int
     return fn
 
@@ -89,7 +93,7 @@ def flash_paged_decode(q, cache: PagedKVCache, pos, *,
     if on_cpu(q, pos, *pools):
         return flash_paged_decode_plain(q, cache, pos, window=window,
                                         softcap=softcap, precision=precision)
-    global LAUNCHES
+    global LAUNCHES, SPLIT_LAUNCHES
     b, _, kvh, g, hd = q.shape
     _check_head_dim(hd)
     if g > 16:
@@ -113,6 +117,8 @@ def flash_paged_decode(q, cache: PagedKVCache, pos, *,
     vs = cache.v_scale.contiguous() if cache.quantized else None
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    index, stream = _device_index(q), torch.cuda.current_stream(q.device).cuda_stream
+    splits = decode_splits(b, kvh, cache.s_cache, _sm_count(index), precision)
     rc = _launcher()(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         ks.data_ptr() if ks is not None else None,
@@ -121,7 +127,8 @@ def flash_paged_decode(q, cache: PagedKVCache, pos, *,
         int(q.dtype == torch.bfloat16), kv_type, b, cache.s_cache, table.shape[1],
         cache.page_size, kvh, g, hd, int(window is not None),
         float(softcap) if softcap is not None else 0.0, POLICY_CODES[precision],
-        torch.cuda.current_stream(q.device).cuda_stream, _device_index(q))
+        splits, *split_workspace(index, stream), stream, index)
     _build.check(rc, "attention_paged_decode_launch")
     LAUNCHES += 1
+    SPLIT_LAUNCHES += splits > 1
     return out

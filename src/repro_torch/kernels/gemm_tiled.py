@@ -9,8 +9,9 @@ What bounds it on the H100.  Prefill and training shapes (M > 16) are
 bounded by operations once their operands are staged well: 4096^3 is 139
 us of bf16 tensor-core work against 20 us of bytes; the prefill MLP (700 x
 1152 x 6912 against f32 weights) moves 16 us of bytes against 11 us of
-work.  Decode (M <= 16 rows against a 1152 x 262144 table) is a weight
-stream, bounded by bytes alone.
+work.  Decode (M <= 16 rows against a 6912 x 1152 weight or the 1152 x
+262144 table) is a weight stream, bounded by bytes alone, and only as
+fast as the bytes the grid keeps in flight.
 
 The design, by shape:
   M > 16   the Hopper mainloop (``csrc/gemm_sm90.cuh``): a producer
@@ -19,14 +20,23 @@ The design, by shape:
            aligned; 16-byte loads rounded to bf16 on the way in for f32
            operands and odd strides), one or two consumer warpgroups run
            ``wgmma`` m64n128k16 on it, BM 64 up to 64 rows, else 128.
-  M <= 16  the WMMA skinny tile (``csrc/gemm_common.cuh``): 16-row blocks
-           stream each weight once with little wasted tensor-core work
-           (split-K comes later).
+  M <= 16  the split-K weight stream (``csrc/gemm_splitk.cuh``): a grid of
+           64-column N tiles by K splits (``splitk_splits``: enough splits
+           of >= 4 64-row K tiles for twice the SM count, one when the N
+           tiles fill the card), each CTA streaming its weight slice
+           through a 3-stage ring of 16-byte ``cp.async`` copies (three
+           CTAs an SM) into ``mma.sync`` m16n8k16 with the operands
+           swapped (16 weight columns as the MMA's rows, the <= 16
+           activation rows as its n); the CTA that draws a tile's last
+           ticket sums the splits' f32 partials in split order in the same
+           launch (deterministic, no atomics on C).
 Both read f32 or bf16 operands where they lie, through their strides (the
 JAX wrapper's ``astype(bfloat16)`` would write a 0.6 GB bf16 copy of the
 unembed table per call in eager PyTorch), and mask the ragged edges in
 the kernel (no padded copy).  ``LAUNCHES_BY_LOOP`` counts which mainloop
-each launch ran.
+each launch ran (``wmma``: the WMMA tile of ``csrc/gemm_common.cuh``, which
+``gemm_tiled`` no longer runs; the refined, quantized and grouped rungs
+do).
 """
 
 from __future__ import annotations
@@ -38,11 +48,26 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["gemm_tiled", "gemm_tiled_plain", "LAUNCHES", "LAUNCHES_BY_LOOP", "MAINLOOPS"]
+__all__ = ["gemm_tiled", "gemm_tiled_plain", "gemm_tiled_splitk_plain", "splitk_splits",
+           "split_ranges", "whole_splits", "split_workspace", "sm_count", "LAUNCHES",
+           "LAUNCHES_BY_LOOP", "MAINLOOPS"]
 
 LAUNCHES = 0
-MAINLOOPS = ("wmma", "sm90")      # the C launchers' mainloop ids
+MAINLOOPS = ("wmma", "sm90", "splitk")      # the C launchers' mainloop ids
 LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)
+
+# The split-K loop's tiles (``csrc/gemm_splitk.cuh``): 64 weight columns by
+# 64 K rows, at least SPLITK_MIN_TILES K tiles a split; a CTA's f32 partial
+# is SPLITK_PART floats.
+SPLITK_BN = SPLITK_BK = 64
+SPLITK_MIN_TILES = 4
+SPLITK_PART = 1024
+# The split workspace (shared by the split-K GEMM and the split decode,
+# which run one at a time on a stream): slots of the decode's largest
+# partial (16 rows x (256 + 2) floats) and tickets, per SM.
+WS_SLOTS_PER_SM = 4
+WS_SLOT_FLOATS = 16 * (256 + 2)
+TICKETS_PER_SM = 4
 
 _c = ctypes
 GEMM_ARGTYPES = [
@@ -50,12 +75,91 @@ GEMM_ARGTYPES = [
     _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_longlong, _c.c_longlong,   # b
     _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,                  # c, batch, m, n, k
 ]
+# splits, then ws, ws_floats, tickets, n_tickets (``split_workspace``)
+SPLIT_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_int]
 
 
 def gemm_tiled_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: bf16-rounded operands, upcast,
     multiplied and summed in f32 (products of bf16 values are exact)."""
     return torch.matmul(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
+
+
+def split_ranges(total: int, splits: int) -> list[tuple[int, int]]:
+    """The tile ranges [lo, hi) of ``splits`` splits over ``total`` tiles,
+    as the split kernels take them: per = ceil(total / splits), split s
+    from s * per (clipped to ``total``; a range may be empty)."""
+    per = -(-total // splits)
+    return [(min(total, s * per), min(total, (s + 1) * per)) for s in range(splits)]
+
+
+def whole_splits(total: int, want: int, most: int, min_per: int = 1) -> int:
+    """A split count for ``total`` tiles whose ``split_ranges`` are all
+    non-empty and, but for the last, at least ``min_per`` tiles: the
+    smallest such count from ``want`` up to ``most``, else the largest
+    below ``want`` (1 at worst)."""
+    def whole(s):
+        per = -(-total // s)
+        return per >= min_per and (s - 1) * per < total
+    up = [s for s in range(max(want, 2), most + 1) if whole(s)]
+    if up:
+        return up[0]
+    return next((s for s in range(min(want, most + 1) - 1, 1, -1) if whole(s)), 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def splitk_splits(batch: int, m: int, n: int, k: int, sms: int) -> int:
+    """K splits of a ``gemm_tiled`` launch: 1 above M = 16 (the wgmma
+    mainloop) and when the batch's N tiles alone give twice ``sms`` CTAs;
+    else the fewest splits of whole K tiles, at least SPLITK_MIN_TILES
+    each, that reach twice ``sms`` CTAs (fewer where K is too short), none
+    empty, within the workspace's slots."""
+    tiles = batch * -(-n // SPLITK_BN)
+    k_tiles = -(-k // SPLITK_BK)
+    want = -(-2 * sms // max(tiles, 1))
+    if m > 16 or want <= 1 or tiles > TICKETS_PER_SM * sms:
+        return 1
+    most = min(k_tiles // SPLITK_MIN_TILES,
+               WS_SLOTS_PER_SM * sms * WS_SLOT_FLOATS // (tiles * SPLITK_PART))
+    return whole_splits(k_tiles, want, most, SPLITK_MIN_TILES)
+
+
+def gemm_tiled_splitk_plain(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
+    """The split-K loop's sum in plain PyTorch: each split's product of
+    bf16-rounded operands over its K tiles (``split_ranges``) in f32, the
+    partials added in split order (the last CTA's reduction)."""
+    a, b = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    out = None
+    for lo, hi in split_ranges(-(-a.shape[-1] // SPLITK_BK), splits):
+        part = torch.matmul(a[..., lo * SPLITK_BK:hi * SPLITK_BK],
+                            b[..., lo * SPLITK_BK:hi * SPLITK_BK, :])
+        out = part if out is None else out + part
+    return out
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACES: dict[tuple[int, int], tuple] = {}
+
+
+def split_workspace(index: int, stream: int) -> tuple[int, int, int, int]:
+    """The split kernels' f32 partials and int32 tickets (zero between
+    launches: the last CTA of a tile resets its ticket) on device ``index``
+    for the stream ``stream``, allocated once per device and stream: the
+    launchers' (ws, ws_floats, tickets, n_tickets)."""
+    ws = _WORKSPACES.get((index, stream))
+    if ws is None:
+        sms, dev = sm_count(index), torch.device("cuda", index)
+        parts = torch.empty(WS_SLOTS_PER_SM * sms * WS_SLOT_FLOATS, dtype=torch.float32,
+                            device=dev)
+        tickets = torch.zeros(TICKETS_PER_SM * sms, dtype=torch.int32, device=dev)
+        ws = (parts.data_ptr(), parts.numel(), tickets.data_ptr(), tickets.numel(),
+              parts, tickets)
+        _WORKSPACES[(index, stream)] = ws
+    return ws[:4]
 
 
 def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -77,9 +181,11 @@ def on_cpu(*xs: torch.Tensor) -> bool:
     return False
 
 
-def launch_gemm(fn, a: torch.Tensor, b: torch.Tensor, *extra) -> torch.Tensor:
+def launch_gemm(fn, a: torch.Tensor, b: torch.Tensor, *extra,
+                stream: int | None = None) -> torch.Tensor:
     """Launch a strided (batched) GEMM launcher of the gemm_common.cuh
-    family; ``extra`` C ints go between ``k`` and the stream."""
+    family; ``extra`` C ints go between ``k`` and the stream (``stream``:
+    the current one unless given)."""
     squeeze = a.dim() == 2
     a3 = a.unsqueeze(0) if squeeze else a
     b3 = b.unsqueeze(0) if squeeze else b
@@ -97,7 +203,8 @@ def launch_gemm(fn, a: torch.Tensor, b: torch.Tensor, *extra) -> torch.Tensor:
         rc = fn(a3.data_ptr(), int(a3.dtype == torch.bfloat16), sab, sam, sak,
                 b3.data_ptr(), int(b3.dtype == torch.bfloat16), sbb, sbk, sbn,
                 c.data_ptr(), batch, m, n, k, *extra,
-                torch.cuda.current_stream(a.device).cuda_stream, dev)
+                torch.cuda.current_stream(a.device).cuda_stream if stream is None else stream,
+                dev)
         _build.check(rc, fn.__name__)
     return c[0] if squeeze else c
 
@@ -105,7 +212,7 @@ def launch_gemm(fn, a: torch.Tensor, b: torch.Tensor, *extra) -> torch.Tensor:
 @functools.cache
 def _launcher():
     fn = _build.load("gemm_tiled").gemm_tiled_launch
-    fn.argtypes = [*GEMM_ARGTYPES, _c.POINTER(_c.c_int), _c.c_void_p, _c.c_int]
+    fn.argtypes = [*GEMM_ARGTYPES, *SPLIT_ARGTYPES, _c.POINTER(_c.c_int), _c.c_void_p, _c.c_int]
     fn.restype = _c.c_int
     return fn
 
@@ -121,8 +228,13 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_operands(a, b)
     if on_cpu(a, b):
         return gemm_tiled_plain(a, b)
+    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    splits = splitk_splits(a.shape[0] if a.dim() == 3 else 1, a.shape[-2], b.shape[-1],
+                           a.shape[-1], sm_count(index))
     loop = _c.c_int(-1)
-    out = launch_gemm(_launcher(), a, b, _c.byref(loop))
+    out = launch_gemm(_launcher(), a, b, splits, *split_workspace(index, stream),
+                      _c.byref(loop), stream=stream)
     LAUNCHES += 1
     if loop.value >= 0:
         LAUNCHES_BY_LOOP[MAINLOOPS[loop.value]] += 1

@@ -178,13 +178,13 @@ def test_gemm_tiled_sm90_matches_plain(dev, m, n, k, layout, a_dtype, b_dtype):
     assert (out - ref).abs().max().item() <= GEMM_ATOL
 
 
-def test_gemm_tiled_decode_keeps_the_wmma_tile(dev):
+def test_gemm_tiled_decode_runs_the_splitk_loop(dev):
     rng = np.random.default_rng(4)
     a, b = _u(rng, (16, 300), dev), _u(rng, (300, 200), dev)
     before = dict(gt.LAUNCHES_BY_LOOP)
     out = gt.gemm_tiled(a, b)
     torch.cuda.synchronize()
-    assert gt.LAUNCHES_BY_LOOP == {**before, "wmma": before["wmma"] + 1}
+    assert gt.LAUNCHES_BY_LOOP == {**before, "splitk": before["splitk"] + 1}
     assert (out - gt.gemm_tiled_plain(a, b)).abs().max().item() <= GEMM_ATOL
 
 
@@ -687,10 +687,12 @@ def test_wkv6_strong_decay_and_its_limits(dev):
 # runs under a watchdog that ends the process with a traceback.
 
 @contextlib.contextmanager
-def _within(seconds, library):
-    """Build (or load) ``library`` first, then allow the block ``seconds``."""
+def _within(seconds, *libraries):
+    """Build (or load) the ``libraries`` first, then allow the block
+    ``seconds``."""
     from repro_torch.kernels import _build
-    _build.load(library)
+    for library in libraries:
+        _build.load(library)
     faulthandler.dump_traceback_later(seconds, exit=True)
     try:
         yield
@@ -941,3 +943,111 @@ def test_grouped_gemm_dw_sm90_many_calls_finish(dev):
         torch.cuda.synchronize()
     assert gg.LAUNCHES_BY_LOOP_DW == {**before, "sm90": before["sm90"] + 2000}
     assert (dw - gg.grouped_gemm_dw_plain(x, dy, off)).abs().max().item() <= GEMM_ATOL
+
+
+# ---- decode at M <= 16 and split-KV decode (gemm_splitk.cuh, the split
+# walk of flash_common.cuh): each split's partial goes to a workspace and
+# the last CTA of a tile, by an atomic ticket, sums them in split order.
+# A ticket left set would leave later results wrong, so the repeated calls
+# are held to the first one bit for bit.
+
+def _splitk_operands(rng, m, n, k, layout, dtype, dev):
+    """A and B for the split-K loop; B scaled by k^-1/2 as the model's
+    weights are.  ``misaligned``: A off 16-byte alignment and B with an
+    odd row stride, so both take the plain-load staging."""
+    sb = k ** -0.5
+    if layout == "nt":
+        return _u(rng, (m, k), dev, dtype), _u(rng, (n, k), dev, dtype, sb).t()
+    if layout == "batched":
+        return _u(rng, (3, m, k), dev, dtype), _u(rng, (3, k, n), dev, dtype, sb)
+    if layout == "misaligned":
+        return (_u(rng, (m, k + 1), dev, dtype)[:, 1:],
+                _u(rng, (k, n + 1), dev, dtype, sb)[:, 1:])
+    return _u(rng, (m, k), dev, dtype), _u(rng, (k, n), dev, dtype, sb)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("n", [200, 256, 1152, 6912])
+@pytest.mark.parametrize("k", [300, 1152, 6912])
+@pytest.mark.parametrize("layout", ["nn", "nt", "batched", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_tiled_splitk_matches_plain(dev, record_property, m, n, k, layout, dtype):
+    """Every M <= 16 launch runs the split-K loop (its split count from
+    ``splitk_splits``), within GEMM_ATOL of the plain version and of the
+    split sum's own plain model."""
+    rng = np.random.default_rng(m + 7 * n + k)
+    a, b = _splitk_operands(rng, m, n, k, layout, dtype, dev)
+    before = dict(gt.LAUNCHES_BY_LOOP)
+    with _within(120, "gemm_tiled"):
+        out = gt.gemm_tiled(a, b)
+        torch.cuda.synchronize()
+    assert gt.LAUNCHES_BY_LOOP == {**before, "splitk": before["splitk"] + 1}
+    batch = a.shape[0] if a.dim() == 3 else 1
+    splits = gt.splitk_splits(batch, m, n, k, gt.sm_count(dev.index or 0))
+    record_property("splits", splits)
+    _hold(record_property, "out", out, gt.gemm_tiled_plain(a, b), GEMM_ATOL)
+    _hold(record_property, "model", out, gt.gemm_tiled_splitk_plain(a, b, splits), GEMM_ATOL)
+
+
+def _decode_inputs(rng, b, s, kv, hd, dev):
+    q = (_u(rng, (b, 1, kv, 4, hd), dev) * hd ** -0.5).to(torch.bfloat16)
+    return q, _u(rng, (b, s, kv, hd), dev, torch.bfloat16), _u(rng, (b, s, kv, hd), dev,
+                                                               torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [100, 1024])
+@pytest.mark.parametrize("kv,hd", [(1, 256), (8, 128)])
+@pytest.mark.parametrize("ring", [True, False])
+def test_flash_decode_split_matches_plain(dev, record_property, s, kv, hd, ring):
+    """The bf16 decode split over CTAs at positions 0, 5, 31, 32, S - 1 and
+    past S (splits with no live tile among them), against the plain twin
+    and the split walk's own plain model; the launch counts as split."""
+    rng = np.random.default_rng(s + kv)
+    q, k, v = _decode_inputs(rng, 6, s, kv, hd, dev)
+    pos = torch.tensor([0, 5, 31, 32, s - 1, s + 7], dtype=torch.int32, device=dev)
+    window = s if ring else None
+    splits = af.decode_splits(6, kv, s, gt.sm_count(dev.index or 0))
+    assert splits > 1
+    before = af.SPLIT_LAUNCHES["flash_decode"]
+    with _within(120, "attention_fused"):
+        out = af.flash_decode(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+    assert af.SPLIT_LAUNCHES["flash_decode"] == before + 1
+    record_property("splits", splits)
+    _hold(record_property, "out", out, af.flash_decode_plain(q, k, v, pos, window=window),
+          ATTN_ATOL)
+    _hold(record_property, "model", out,
+          af.flash_decode_split_plain(q, k, v, pos, splits, window=window), ATTN_ATOL)
+
+
+def test_splitk_and_split_decode_are_deterministic(dev):
+    """Two calls give the same bits: the last CTA sums in split order."""
+    rng = np.random.default_rng(11)
+    a, b = _u(rng, (4, 6912), dev, torch.bfloat16), _u(rng, (6912, 1152), dev, scale=6912 ** -0.5)
+    q, k, v = _decode_inputs(rng, 4, 1024, 1, 256, dev)
+    pos = torch.tensor([40, 300, 611, 1000], dtype=torch.int32, device=dev)
+    with _within(120, "gemm_tiled", "attention_fused"):
+        g1, g2 = gt.gemm_tiled(a, b), gt.gemm_tiled(a, b)
+        d1, d2 = af.flash_decode(q, k, v, pos), af.flash_decode(q, k, v, pos)
+        torch.cuda.synchronize()
+    assert torch.equal(g1, g2) and torch.equal(d1, d2)
+
+
+def test_splitk_and_split_decode_many_calls_finish(dev):
+    """2000 calls of each at gemma3's decode shapes (MLP down 4 x 6912 x
+    1152 in 16 splits; a 1024-row linear cache in 32), under the watchdog,
+    each call's result equal to the first's bit for bit."""
+    rng = np.random.default_rng(12)
+    a, b = _u(rng, (4, 6912), dev, torch.bfloat16), _u(rng, (6912, 1152), dev, scale=6912 ** -0.5)
+    q, k, v = _decode_inputs(rng, 4, 1024, 1, 256, dev)
+    pos = torch.tensor([40, 300, 611, 1000], dtype=torch.int32, device=dev)
+    with _within(240, "gemm_tiled", "attention_fused"):
+        g0, d0 = gt.gemm_tiled(a, b), af.flash_decode(q, k, v, pos)
+        differ = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(2000):
+            differ += (gt.gemm_tiled(a, b) != g0).sum()
+            differ += (af.flash_decode(q, k, v, pos) != d0).sum()
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    assert differ.item() == 0
