@@ -25,9 +25,10 @@ Phases, each printing one JSON line:
    short; the quantized GEMM, that it sees a quantization grid of
    bk = 128 in place of 256.  The GEMMs
    are checked too at the two operand layouts the training backward
-   hands them (an M-contiguous A for dW, a K-major B for dX) and at the
-   refine_ab unembed's backward (K = 262144 for dX, N = 262144 for the
-   table's gradient).
+   hands them (an M-contiguous A for dW, a K-major B for dX), at the
+   refine_ab unembed's forward and backward (K = 262144 for dX, N = 262144
+   for the table's gradient and the forward) and at rwkv6-7b's refine_ab
+   decode unembed (4 x 4096 against its 65536 x 4096 f32 table).
 4. serve   — gemma3-1b at full width and depth (random weights from a
    seeded generator) behind the continuous-batching engine on the
    kernel routes: 8 requests of 16-700 prompt tokens, 32 new tokens
@@ -111,15 +112,16 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    against the model's chunked form at f32; its check row takes the
    665-token prompt's.  Then a profiled prefill and decode tick.
 13. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
-   ``grouped_gemm``, ``grouped_gemm_dw``, ``flash_attention``,
-   ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` check ran:
-   every M > 16 shape, every 64/128-row bf16 grouped shape, the bf16 dW
-   and every bf16 flash forward and backward must run the wgmma one,
-   ``sm90``, and every M <= 16 ``gemm_tiled`` shape the split-K weight
-   stream, ``splitk``; each check asserts it), then one line listing each
-   kernel's launches (per path, and per mainloop for those six; every
-   path's bf16 forward, backward and dW launches must all have run
-   ``sm90``, no path's ``gemm_tiled`` launch may have run ``wmma``, and
+   ``gemm_refined``, ``grouped_gemm``, ``grouped_gemm_dw``,
+   ``flash_attention``, ``flash_attention_bwd_dq`` and
+   ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
+   64/128-row bf16 grouped shape, the bf16 dW and every bf16 flash forward
+   and backward must run the wgmma one, ``sm90``, and every M <= 16
+   ``gemm_tiled`` and ``gemm_refined`` shape the split-K weight stream,
+   ``splitk``; each check asserts it), then one line listing each kernel's
+   launches (per path, and per mainloop for those seven; every path's bf16
+   forward, backward and dW launches must all have run ``sm90``, no path's
+   ``gemm_tiled`` or ``gemm_refined`` launch may have run ``wmma``, and
    every path's dense and paged decode launches must have split their KV
    walk, ``split_launches_by_path``), error and times.  The decode rows
    record the KV splits the host picked (``splits``).  The flash
@@ -414,7 +416,8 @@ def main() -> None:
     mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
             "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES},
             "gemm_naive": gn, **{k: bg for k in bg.LAUNCHES}, "wkv6": wk}
-    LOOP_COUNTS.update({"gemm_tiled": gt.LAUNCHES_BY_LOOP, "grouped_gemm": gg.LAUNCHES_BY_LOOP,
+    LOOP_COUNTS.update({"gemm_tiled": gt.LAUNCHES_BY_LOOP, "gemm_refined": gr.LAUNCHES_BY_LOOP,
+                        "grouped_gemm": gg.LAUNCHES_BY_LOOP,
                         "flash_attention": af.LAUNCHES_BY_LOOP,
                         "grouped_gemm_dw": gg.LAUNCHES_BY_LOOP_DW,
                         "flash_attention_bwd_dq": af.LAUNCHES_BY_LOOP_DQ,
@@ -519,6 +522,19 @@ def main() -> None:
                 "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
 
     checks: dict[str, list[dict]] = {name: [] for name in KERNELS}
+
+    def refined_flops(a, b, m, n, k, policy="refine_ab") -> float:
+        """A refined GEMM's tensor-core work: 2mnk for each term the kernel
+        multiplies (``gemm_refined.kept_terms``).  A bf16 operand's lo term
+        is identically zero and not multiplied, so refine_ab on a bf16 A
+        (the decode unembeds, dTable, the forward) counts 2 passes, not 4:
+        the bound is the work the kernel must do, and no row reads above it."""
+        kept = gr.kept_terms(policy, a.dtype == torch.bfloat16, b.dtype == torch.bfloat16)
+        return len(kept) * 2 * m * n * k
+
+    def refined_extra(m, n, k) -> dict:
+        """The split count the host picks for a refined row."""
+        return {"splits": gr.refined_splits(1, m, n, k, gt.sm_count(dev.index))}
 
     def max_err(outs, refs) -> float:
         return max((o - r).abs().max().item() for o, r in zip(outs, refs))
@@ -639,8 +655,22 @@ def main() -> None:
           lambda: gr.gemm_refined(xb, table.t(), policy="refine_ab"),
           lambda: gr.gemm_refined_plain(xb, table.t(), "refine_ab"),
           lambda: torch.matmul(xb.float(), table.t()), GEMM_BOUND,
-          num_passes("refine_ab") * 2 * 4 * d * vocab, unembed_bytes)
+          refined_flops(xb, table, 4, vocab, d), unembed_bytes, loop="splitk",
+          extra=refined_extra(4, vocab, d))
     del table, table16
+    # rwkv6-7b's decode unembed: (4 x 4096) bf16 against its (65536 x 4096) f32 table, NT
+    rcfg0 = get_config("rwkv6-7b")
+    r_d, r_vocab = rcfg0.d_model, rcfg0.vocab_size
+    xr = randn((4, r_d), dtype=torch.bfloat16)
+    table = randn((r_vocab, r_d), r_d ** -0.5)
+    check("gemm_refined", f"rwkv6 decode unembed refine_ab 4x{r_d}x{r_vocab} NT",
+          lambda: gr.gemm_refined(xr, table.t(), policy="refine_ab"),
+          lambda: gr.gemm_refined_plain(xr, table.t(), "refine_ab"),
+          lambda: torch.matmul(xr.float(), table.t()), GEMM_BOUND,
+          refined_flops(xr, table, 4, r_vocab, r_d),
+          xr.numel() * 2 + table.numel() * 4 + 4 * r_vocab * 4, loop="splitk",
+          extra=refined_extra(4, r_vocab, r_d))
+    del table, xr
 
     # flash forward: prefill of 700 tokens, 4 heads on 1 kv head, hd 256, bf16
     s = 700
@@ -964,15 +994,28 @@ def main() -> None:
           lambda: gr.gemm_refined(g_log, table, policy="refine_ab"),
           lambda: gr.gemm_refined_plain(g_log, table, "refine_ab"),
           lambda: torch.matmul(g_log, table),
-          GEMM_BOUND, num_passes("refine_ab") * 2 * m * vocab * d,
-          (g_log.numel() + table.numel() + m * d) * 4)
+          GEMM_BOUND, refined_flops(g_log, table, m, d, vocab),
+          (g_log.numel() + table.numel() + m * d) * 4, loop="sm90",
+          extra=refined_extra(m, d, vocab))
     check("gemm_refined", f"train unembed dTable refine_ab {d}x{m}x{vocab} M-contiguous A",
           lambda: gr.gemm_refined(x_fin.t(), g_log, policy="refine_ab"),
           lambda: gr.gemm_refined_plain(x_fin.t(), g_log, "refine_ab"),
           lambda: torch.matmul(x_fin.t().float(), g_log),
-          GEMM_BOUND, num_passes("refine_ab") * 2 * d * m * vocab,
-          x_fin.numel() * 2 + (g_log.numel() + d * vocab) * 4)
-    del g_log, table, x_fin
+          GEMM_BOUND, refined_flops(x_fin, g_log, d, vocab, m),
+          x_fin.numel() * 2 + (g_log.numel() + d * vocab) * 4, loop="sm90",
+          extra=refined_extra(d, vocab, m))
+    del g_log
+    torch.cuda.empty_cache()
+    # the forward's unembed: (2048 x 1152) bf16 against the f32 table, NT;
+    # library: one f32 SGEMM on an f32 copy of x
+    check("gemm_refined", f"train unembed forward refine_ab {m}x{d}x{vocab} NT",
+          lambda: gr.gemm_refined(x_fin, table.t(), policy="refine_ab"),
+          lambda: gr.gemm_refined_plain(x_fin, table.t(), "refine_ab"),
+          lambda xf=x_fin.float(): torch.matmul(xf, table.t()),
+          GEMM_BOUND, refined_flops(x_fin, table, m, vocab, d),
+          x_fin.numel() * 2 + table.numel() * 4 + m * vocab * 4, loop="sm90",
+          extra=refined_extra(m, vocab, d))
+    del table, x_fin
     torch.cuda.empty_cache()
 
     # ---- Mixtral's head shape: hd 128, 32 heads on 8 kv heads (G = 4).
@@ -2159,16 +2202,18 @@ def main() -> None:
                "train_moe": launches_mt, "serve_naive": launches_n,
                "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv}
     # every bf16 flash forward and dW launch of every path ran the wgmma
-    # kernel; no gemm_tiled launch (the bf16 rung) ran the WMMA tile, so each
-    # one at M <= 16 ran the split-K loop; every decode launch (all bf16 at
-    # B = 4 slots) ran its KV walk split
+    # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
+    # WMMA tile, so each one at M <= 16 ran the split-K loop and each above
+    # the wgmma mainloop; every decode launch (all bf16 at B = 4 slots) ran
+    # its KV walk split
     for path, ls in by_path.items():
         for name in SM90_ON_EVERY_PATH:
             if ls[name] and ls[f"{name}.sm90"] != ls[name]:
                 fail(f"{path}: {name} ran {ls[f'{name}.sm90']} of its {ls[name]} launches on "
                      f"the wgmma kernel")
-        if ls["gemm_tiled.wmma"]:
-            fail(f"{path}: gemm_tiled ran the WMMA tile {ls['gemm_tiled.wmma']} times")
+        for name in ("gemm_tiled", "gemm_refined"):
+            if ls[f"{name}.wmma"]:
+                fail(f"{path}: {name} ran the WMMA tile {ls[f'{name}.wmma']} times")
         for name in SPLIT_COUNTS:
             if ls[f"{name}.split"] != ls[name]:
                 fail(f"{path}: {name} split {ls[f'{name}.split']} of its {ls[name]} launches")
@@ -2217,7 +2262,8 @@ def main() -> None:
     emit(phase="mainloops", rows=loop_rows,
          **{f"{loop}_rows": sum(r["mainloop"] == [loop] for r in loop_rows)
             for loop in gt.MAINLOOPS},
-         gemm_tiled_wmma_launches={p: ls["gemm_tiled.wmma"] for p, ls in by_path.items()})
+         gemm_tiled_wmma_launches={p: ls["gemm_tiled.wmma"] for p, ls in by_path.items()},
+         gemm_refined_wmma_launches={p: ls["gemm_refined.wmma"] for p, ls in by_path.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

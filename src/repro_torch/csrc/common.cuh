@@ -64,6 +64,19 @@ template <int POL> struct Splits {
   static constexpr bool b_lo = POL == P_BF16X3 || POL == P_REFINE_AB;
 };
 
+// The small terms a refined launch multiplies (its term set, a template
+// argument of the refined mainloops): a bf16 operand's lo term is
+// identically zero, so every term that reads it adds exact zeros and is
+// skipped.  T_LH = a_lo.b_hi, T_HL = a_hi.b_lo, T_LL = a_lo.b_lo; the
+// leading a_hi.b_hi always runs.  0 for the bf16 rung.
+enum Terms { T_LH = 1, T_HL = 2, T_LL = 4 };
+
+template <int POL>
+constexpr int term_set(bool a_bf16, bool b_bf16) {
+  const bool a_lo = Splits<POL>::a_lo && !a_bf16, b_lo = Splits<POL>::b_lo && !b_bf16;
+  return (a_lo ? T_LH : 0) | (b_lo ? T_HL : 0) | (POL == P_REFINE_AB && a_lo && b_lo ? T_LL : 0);
+}
+
 template <typename Layout = wmma::row_major>
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, Layout>;
 template <typename Layout>

@@ -1,22 +1,22 @@
-// Tiled tensor-core GEMM shared by gemm_refined.cu (refine_a / bf16x3 /
-// refine_ab) and the grouped GEMMs (gemm_grouped.cuh: every rung but the
-// bf16 forward at 64/128-row tiles): C = A.B, f32 out.  gemm_tiled.cu's
-// bf16 rung runs none of it: M > 16 takes the Hopper mainloop of
-// gemm_sm90.cuh and M <= 16 the split-K weight stream of gemm_splitk.cuh
-// (dispatch_gemm below).  bf16x6 (a carried rung, common.cuh) stages f32
-// tiles and makes its terms per fragment; the fp8 / int8 rungs quantize
-// each K step's A and B tiles on their way into shared memory, under the
-// tile's pow2 scales (block reductions over the fetched registers), into
-// bf16 hi (and lo) planes that bf16's one pass or bf16x3's three multiply;
-// f32 multiplies the f32 tiles on the CUDA cores.
+// Tiled tensor-core GEMM (WMMA) of the grouped GEMMs (gemm_grouped.cuh:
+// every rung but the bf16 forward at 64/128-row tiles and the bf16 dW):
+// C = A.B, f32 out.  gemm_tiled.cu's bf16 rung and gemm_refined.cu's
+// refine_a / bf16x3 / refine_ab run none of it: M > 16 takes a Hopper
+// mainloop (gemm_sm90.cuh; the refined rungs' gemm_refined_sm90.cuh) and
+// M <= 16 the split-K weight stream of gemm_splitk.cuh.  bf16x6 (a carried
+// rung, common.cuh) stages f32 tiles and makes its terms per fragment; the
+// fp8 / int8 rungs quantize each K step's A and B tiles on their way into
+// shared memory, under the tile's pow2 scales (block reductions over the
+// fetched registers), into bf16 hi (and lo) planes that bf16's one pass or
+// bf16x3's three multiply; f32 multiplies the f32 tiles on the CUDA cores.
 //
 // A is (batch, M, K) and B is (batch, K, N), each f32 or bf16 with
 // arbitrary element strides, so the router hands views (the unembed's
 // transposed 262144x1152 table, a batched attention plan) without a
 // copy.  Operands are rounded to bf16 (and split into hi/lo for the
-// refined rungs) on their way into shared memory, so f32 weights are
-// never rewritten as bf16 in device memory.  Ragged edges are masked in
-// the kernel: no operand is padded.
+// refined rungs of the grouped forward) on their way into shared memory,
+// so f32 weights are never rewritten as bf16 in device memory.  Ragged
+// edges are masked in the kernel: no operand is padded.
 //
 // One block computes a BM x BN tile of C, walking K in BK steps: the next
 // K step's operands are fetched into registers while the tensor cores work
@@ -467,34 +467,19 @@ enum Mainloop { LOOP_WMMA = 0, LOOP_SM90 = 1, LOOP_SPLITK = 2 };
 
 // The bf16 rung (gemm_tiled.cu) runs the Hopper mainloop at M > 16
 // (gemm_sm90.cuh: BM 64 up to 64 rows, else 128) and the split-K weight
-// stream at M <= 16 (gemm_splitk.cuh, split `split->splits` ways).  Every
-// other rung runs the WMMA kernel above, its tile by M: a skinny tile for
-// decode (M <= 16 rows: the GEMM is a weight stream, bounded by bytes) and
-// a 64 x 128 one otherwise (small enough in registers for two blocks per
-// SM).  B's shared-memory layout follows its contiguous dimension so that
-// global reads stay coalesced for both the NN weights and the NT unembed
-// table.
+// stream at M <= 16 (gemm_splitk.cuh, split `split->splits` ways).  A
+// template, so that only gemm_tiled.cu compiles their kernels.
 template <int POL>
-int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream, int* loop = nullptr,
-                  const SplitWs* split = nullptr) {
-  if constexpr (POL == P_BF16) {
-    if (g.m > 16) {
-      if (loop != nullptr) *loop = LOOP_SM90;
-      return sm90::run<G_NONE>(g, batch, g.m <= 64 ? 64 : 128, stream);
-    }
-    if (split == nullptr) return (int)cudaErrorInvalidValue;
-    if (loop != nullptr) *loop = LOOP_SPLITK;
-    return splitk::run<POL>(g, batch, *split, stream);
-  } else {
-    if (loop != nullptr) *loop = LOOP_WMMA;
-    const bool kmajor = g.sbk < g.sbn;
-    if (g.m <= 16) {
-      return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL>(g, batch, stream)
-                    : run_gemm<16, 128, 64, 16, 16, false, POL>(g, batch, stream);
-    }
-    return kmajor ? run_gemm<64, 128, 32, 32, 32, true, POL>(g, batch, stream)
-                  : run_gemm<64, 128, 32, 32, 32, false, POL>(g, batch, stream);
+int dispatch_gemm(const GemmArgs& g, int batch, cudaStream_t stream, int* loop,
+                  const SplitWs* split) {
+  static_assert(POL == P_BF16, "the bf16 rung; the refined rungs: gemm_refined_sm90.cuh");
+  if (g.m > 16) {
+    if (loop != nullptr) *loop = LOOP_SM90;
+    return sm90::run<G_NONE>(g, batch, g.m <= 64 ? 64 : 128, stream);
   }
+  if (split == nullptr) return (int)cudaErrorInvalidValue;
+  if (loop != nullptr) *loop = LOOP_SPLITK;
+  return splitk::run<POL>(g, batch, *split, stream);
 }
 
 // Whether an operand can be read four elements at a time along the

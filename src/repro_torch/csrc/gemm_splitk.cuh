@@ -1,7 +1,8 @@
-// The bf16 rung's weight-stream loop for M <= 16 rows (decode): K split
-// over CTAs until the card is full, the partials summed inside the same
-// launch.  Included by gemm_common.cuh, whose dispatch_gemm<P_BF16> sends
-// every gemm_tiled launch with m <= 16 here.
+// The weight-stream loop for M <= 16 rows (decode): K split over CTAs
+// until the card is full, the partials summed inside the same launch.
+// Included by gemm_common.cuh; gemm_tiled's bf16 rung (dispatch_gemm) and
+// gemm_refined's refine_a / bf16x3 / refine_ab (gemm_refined_sm90.cuh's
+// dispatch) send every launch with m <= 16 here.
 //
 // C = A.B with A (batch, m, k), m <= 16 (the activations), and B (batch, k,
 // n) (the weights: N-contiguous NN, or the K-contiguous NT unembed table),
@@ -34,6 +35,15 @@
 // from shared memory into fragments; the accumulators are f32.  The
 // shared-memory rows are padded so that each fragment load is free of bank
 // conflicts in both B layouts.
+//
+// The refined rungs (template argument TS, common.cuh's term set) split an
+// f32 operand's fragments into hi and lo in the same place, keep a second
+// accumulator for the small terms and issue the policy's mma.sync in
+// core/precision.py:policy_terms order (a_lo.b_lo, a_lo.b_hi, a_hi.b_lo),
+// then a_hi.b_hi into the first; a term that reads a bf16 operand's lo
+// (identically zero) is not issued.  A CTA's partial is small + main.  The
+// staging, the grid and the split count are the bf16 rung's (the second
+// accumulator costs registers, not shared memory: three CTAs an SM still).
 //
 // Reduction.  With one split a CTA stores its tile of C.  Otherwise each
 // CTA writes its f32 partial (its fragment registers, 4 KB) to slot
@@ -117,6 +127,38 @@ __device__ __forceinline__ unsigned pair_apart(const unsigned char* t, int i, in
   }
 }
 
+// hi = bf16(x, y) and lo = bf16 of the residuals, each as a bf16x2 register
+// (core/precision.py:split2; x - hi is exact in f32).
+__device__ __forceinline__ void split_pair(float x, float y, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// pair_adj / pair_apart with the lo residuals too when LO (an f32 tile).
+template <bool BF16, bool LO>
+__device__ __forceinline__ void pair_adj2(const unsigned char* t, int i, unsigned& hi,
+                                          unsigned& lo) {
+  if constexpr (LO && !BF16) {
+    const float2 f = *reinterpret_cast<const float2*>(t + 4 * i);
+    split_pair(f.x, f.y, hi, lo);
+  } else {
+    hi = pair_adj<BF16>(t, i);
+  }
+}
+
+template <bool BF16, bool LO>
+__device__ __forceinline__ void pair_apart2(const unsigned char* t, int i, int j, unsigned& hi,
+                                            unsigned& lo) {
+  if constexpr (LO && !BF16) {
+    const float* f = reinterpret_cast<const float*>(t);
+    split_pair(f[i], f[j], hi, lo);
+  } else {
+    hi = pair_apart<BF16>(t, i, j);
+  }
+}
+
 __device__ __forceinline__ void mma16816(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
                                          unsigned a3, unsigned b0, unsigned b1) {
   asm volatile(
@@ -172,10 +214,11 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const GemmArgs& g,
   }
 }
 
-template <bool B_KMAJOR, bool B_BF16, bool A_BF16>
+template <bool B_KMAJOR, bool B_BF16, bool A_BF16, int TS>
 __global__ void __launch_bounds__(NT, 3)
 splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
   using T = Tile<B_KMAJOR, B_BF16, A_BF16>;
+  constexpr bool A_LO = (TS & T_LH) != 0, B_LO = (TS & T_HL) != 0;  // split the fragments
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int is_last;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -200,6 +243,7 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
   const bool two = g.m > 8;            // rows 8..15 of A: a second n8 block
   const int nw = warp * 16 + gid;      // this lane's first weight column in the tile
   float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float ds[TS ? 2 : 1][4] = {};        // the small terms (refined rungs)
   for (int t = 0; t < nt; ++t) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage t landed for every thread; stage t - 1 is free
@@ -213,23 +257,32 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       const int ka = kk + tig * 2;
-      unsigned a0, a1, a2, a3;
+      unsigned a0, a1, a2, a3, l0 = 0, l1 = 0, l2 = 0, l3 = 0;  // weights: hi, lo
       if constexpr (B_KMAJOR) {
-        a0 = pair_adj<B_BF16>(sb, nw * T::LDB + ka);
-        a1 = pair_adj<B_BF16>(sb, (nw + 8) * T::LDB + ka);
-        a2 = pair_adj<B_BF16>(sb, nw * T::LDB + ka + 8);
-        a3 = pair_adj<B_BF16>(sb, (nw + 8) * T::LDB + ka + 8);
+        pair_adj2<B_BF16, B_LO>(sb, nw * T::LDB + ka, a0, l0);
+        pair_adj2<B_BF16, B_LO>(sb, (nw + 8) * T::LDB + ka, a1, l1);
+        pair_adj2<B_BF16, B_LO>(sb, nw * T::LDB + ka + 8, a2, l2);
+        pair_adj2<B_BF16, B_LO>(sb, (nw + 8) * T::LDB + ka + 8, a3, l3);
       } else {
-        a0 = pair_apart<B_BF16>(sb, ka * T::LDB + nw, (ka + 1) * T::LDB + nw);
-        a1 = pair_apart<B_BF16>(sb, ka * T::LDB + nw + 8, (ka + 1) * T::LDB + nw + 8);
-        a2 = pair_apart<B_BF16>(sb, (ka + 8) * T::LDB + nw, (ka + 9) * T::LDB + nw);
-        a3 = pair_apart<B_BF16>(sb, (ka + 8) * T::LDB + nw + 8, (ka + 9) * T::LDB + nw + 8);
+        pair_apart2<B_BF16, B_LO>(sb, ka * T::LDB + nw, (ka + 1) * T::LDB + nw, a0, l0);
+        pair_apart2<B_BF16, B_LO>(sb, ka * T::LDB + nw + 8, (ka + 1) * T::LDB + nw + 8, a1, l1);
+        pair_apart2<B_BF16, B_LO>(sb, (ka + 8) * T::LDB + nw, (ka + 9) * T::LDB + nw, a2, l2);
+        pair_apart2<B_BF16, B_LO>(sb, (ka + 8) * T::LDB + nw + 8, (ka + 9) * T::LDB + nw + 8,
+                                  a3, l3);
       }
-      mma16816(d[0], a0, a1, a2, a3, pair_adj<A_BF16>(sa, gid * T::LDA + ka),
-               pair_adj<A_BF16>(sa, gid * T::LDA + ka + 8));
-      if (two)
-        mma16816(d[1], a0, a1, a2, a3, pair_adj<A_BF16>(sa, (gid + 8) * T::LDA + ka),
-                 pair_adj<A_BF16>(sa, (gid + 8) * T::LDA + ka + 8));
+      // n8 block j: rows 8j.. of A (the activations: hi, lo), the policy's
+      // small terms in policy_terms order, then the leading one
+      auto block = [&](int j) {
+        unsigned x0, x1, y0 = 0, y1 = 0;
+        pair_adj2<A_BF16, A_LO>(sa, (gid + 8 * j) * T::LDA + ka, x0, y0);
+        pair_adj2<A_BF16, A_LO>(sa, (gid + 8 * j) * T::LDA + ka + 8, x1, y1);
+        if constexpr ((TS & T_LL) != 0) mma16816(ds[j], l0, l1, l2, l3, y0, y1);
+        if constexpr (A_LO) mma16816(ds[j], a0, a1, a2, a3, y0, y1);
+        if constexpr (B_LO) mma16816(ds[j], l0, l1, l2, l3, x0, x1);
+        mma16816(d[j], a0, a1, a2, a3, x0, x1);
+      };
+      block(0);
+      if (two) block(1);
     }
   }
   cp_async_wait<0>();
@@ -244,16 +297,19 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
     }
   };
   float v[8];
-  if (w.splits == 1) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = d[e / 4][e % 4];
+  for (int e = 0; e < 8; ++e) {
+    if constexpr (TS != 0) v[e] = ds[e / 4][e % 4] + d[e / 4][e % 4];  // small + main
+    else v[e] = d[e / 4][e % 4];
+  }
+  if (w.splits == 1) {
     store(v);
     return;
   }
   const long long tile = bz * gridDim.x + blockIdx.x;
   float* part = w.ws + (tile * w.splits + split) * PART;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) part[e * NT + tid] = d[e / 4][e % 4];
+  for (int e = 0; e < 8; ++e) part[e * NT + tid] = v[e];
   __threadfence();
   __syncthreads();
   if (tid == 0) is_last = atomicAdd(w.tickets + tile, 1) == w.splits - 1;
@@ -282,12 +338,17 @@ inline bool vec16_ok(const void* p, int bf16, long long s_contig, long long s_ot
          reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-template <bool B_KMAJOR, bool B_BF16, bool A_BF16>
-int launch(const GemmArgs& g, int batch, const SplitWs& w, bool a16, bool b16,
-           cudaStream_t stream) {
+// `static`: gemm_tiled.cu and gemm_refined.cu both instantiate the TS = 0
+// kernels, and the host compiler makes the static `ready` of an external
+// template one object for the whole process (STB_GNU_UNIQUE, even across
+// libraries loaded with RTLD_LOCAL): the first library to set its kernel's
+// shared-memory limit would mark the other's as set, whose launch then fails.
+template <bool B_KMAJOR, bool B_BF16, bool A_BF16, int TS>
+static int launch(const GemmArgs& g, int batch, const SplitWs& w, bool a16, bool b16,
+                  cudaStream_t stream) {
   using T = Tile<B_KMAJOR, B_BF16, A_BF16>;
   static std::atomic<unsigned long long> ready{0};
-  auto kern = splitk_kernel<B_KMAJOR, B_BF16, A_BF16>;
+  auto kern = splitk_kernel<B_KMAJOR, B_BF16, A_BF16, TS>;
   const cudaError_t err = smem_once(ready, kern, T::smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g.n + BN - 1) / BN, w.splits, batch);
@@ -295,14 +356,42 @@ int launch(const GemmArgs& g, int batch, const SplitWs& w, bool a16, bool b16,
   return (int)cudaGetLastError();
 }
 
+// One operand-type combination for term set TS, instantiated only where it
+// can occur: a lo term only on an f32 operand, and every refined rung
+// splits an f32 A (so a refined launch without a_lo.b_hi has a bf16 A).
+template <int POL, int TS, bool B_KMAJOR, bool B_BF16, bool A_BF16>
+int launch_if(const GemmArgs& g, int batch, const SplitWs& w, bool a16, bool b16,
+              cudaStream_t stream) {
+  constexpr bool ok = !((TS & T_LH) && A_BF16) && !((TS & T_HL) && B_BF16) &&
+                      !(POL != P_BF16 && !(TS & T_LH) && !A_BF16);
+  if constexpr (ok) return launch<B_KMAJOR, B_BF16, A_BF16, TS>(g, batch, w, a16, b16, stream);
+  else return (int)cudaErrorInvalidValue;
+}
+
+template <int POL, int TS>
+int launch_terms(const GemmArgs& g, int batch, const SplitWs& w, bool kmajor, bool a16,
+                 bool b16, cudaStream_t stream) {
+  switch ((kmajor ? 4 : 0) | (g.b_bf16 ? 2 : 0) | (g.a_bf16 ? 1 : 0)) {
+    case 0: return launch_if<POL, TS, false, false, false>(g, batch, w, a16, b16, stream);
+    case 1: return launch_if<POL, TS, false, false, true>(g, batch, w, a16, b16, stream);
+    case 2: return launch_if<POL, TS, false, true, false>(g, batch, w, a16, b16, stream);
+    case 3: return launch_if<POL, TS, false, true, true>(g, batch, w, a16, b16, stream);
+    case 4: return launch_if<POL, TS, true, false, false>(g, batch, w, a16, b16, stream);
+    case 5: return launch_if<POL, TS, true, false, true>(g, batch, w, a16, b16, stream);
+    case 6: return launch_if<POL, TS, true, true, false>(g, batch, w, a16, b16, stream);
+    default: return launch_if<POL, TS, true, true, true>(g, batch, w, a16, b16, stream);
+  }
+}
+
 // The host's split count is checked, not chosen, here: every split must
 // hold at least one K tile, and the workspace and tickets must cover the
-// grid.  A template, so that only the source that calls it (gemm_tiled.cu,
-// through dispatch_gemm<P_BF16>) compiles the eight kernels: every other
-// source that includes gemm_common.cuh would otherwise build them too.
+// grid.  A template, so that only the sources that call it (gemm_tiled.cu
+// for the bf16 rung, gemm_refined.cu for the refined ones) compile its
+// kernels: every other source that includes gemm_common.cuh would
+// otherwise build them too.
 template <int POL>
 int run(const GemmArgs& g, int batch, const SplitWs& w, cudaStream_t stream) {
-  static_assert(POL == P_BF16, "the split-K loop is the bf16 rung's");
+  static_assert(POL == P_BF16 || Splits<POL>::a_lo, "bf16 and the refined rungs only");
   if (g.m > MAX_M || w.splits < 1 || w.splits > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (w.splits > 1) {
@@ -316,15 +405,18 @@ int run(const GemmArgs& g, int batch, const SplitWs& w, cudaStream_t stream) {
   const bool a16 = vec16_ok(g.a, g.a_bf16, g.sak, g.sam, g.sab, g.k);
   const bool b16 = kmajor ? vec16_ok(g.b, g.b_bf16, g.sbk, g.sbn, g.sbb, g.k)
                           : vec16_ok(g.b, g.b_bf16, g.sbn, g.sbk, g.sbb, g.n);
-  switch ((kmajor ? 4 : 0) | (g.b_bf16 ? 2 : 0) | (g.a_bf16 ? 1 : 0)) {
-    case 0: return launch<false, false, false>(g, batch, w, a16, b16, stream);
-    case 1: return launch<false, false, true>(g, batch, w, a16, b16, stream);
-    case 2: return launch<false, true, false>(g, batch, w, a16, b16, stream);
-    case 3: return launch<false, true, true>(g, batch, w, a16, b16, stream);
-    case 4: return launch<true, false, false>(g, batch, w, a16, b16, stream);
-    case 5: return launch<true, false, true>(g, batch, w, a16, b16, stream);
-    case 6: return launch<true, true, false>(g, batch, w, a16, b16, stream);
-    default: return launch<true, true, true>(g, batch, w, a16, b16, stream);
+  if constexpr (POL == P_BF16) {
+    return launch_terms<POL, 0>(g, batch, w, kmajor, a16, b16, stream);
+  } else {
+    switch (term_set<POL>(g.a_bf16, g.b_bf16)) {
+      case 0: return launch_terms<POL, 0>(g, batch, w, kmajor, a16, b16, stream);
+      case T_LH: return launch_terms<POL, T_LH>(g, batch, w, kmajor, a16, b16, stream);
+      case T_HL: return launch_terms<POL, T_HL>(g, batch, w, kmajor, a16, b16, stream);
+      case T_LH | T_HL:
+        return launch_terms<POL, T_LH | T_HL>(g, batch, w, kmajor, a16, b16, stream);
+      default:
+        return launch_terms<POL, T_LH | T_HL | T_LL>(g, batch, w, kmajor, a16, b16, stream);
+    }
   }
 }
 

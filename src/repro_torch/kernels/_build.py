@@ -29,8 +29,9 @@ SOURCES = ("gemm_tiled", "gemm_refined", "attention_fused", "attention_bwd", "at
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per source: attention_bwd's 26 kernels (the WMMA rungs and the wgmma bf16
-# ones) compile on all cores, so it no longer outlasts the other sources
-EXTRA_FLAGS = {"attention_bwd": ("--split-compile=0",)}
+# ones) and gemm_refined's 34 (20 wgmma, one per term set and layout, and
+# 14 split-K) compile on all cores, so they do not outlast the other sources
+EXTRA_FLAGS = {"attention_bwd": ("--split-compile=0",), "gemm_refined": ("--split-compile=0",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

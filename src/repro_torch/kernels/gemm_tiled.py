@@ -35,8 +35,8 @@ JAX wrapper's ``astype(bfloat16)`` would write a 0.6 GB bf16 copy of the
 unembed table per call in eager PyTorch), and mask the ragged edges in
 the kernel (no padded copy).  ``LAUNCHES_BY_LOOP`` counts which mainloop
 each launch ran (``wmma``: the WMMA tile of ``csrc/gemm_common.cuh``, which
-``gemm_tiled`` no longer runs; the refined, quantized and grouped rungs
-do).
+``gemm_tiled`` and ``gemm_refined`` no longer run; the quantized and
+grouped rungs do).
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["gemm_tiled", "gemm_tiled_plain", "gemm_tiled_splitk_plain", "splitk_splits",
-           "split_ranges", "whole_splits", "split_workspace", "sm_count", "LAUNCHES",
-           "LAUNCHES_BY_LOOP", "MAINLOOPS"]
+           "sm90_splits", "split_ranges", "whole_splits", "split_workspace", "sm90_workspace",
+           "sm_count", "LAUNCHES", "LAUNCHES_BY_LOOP", "MAINLOOPS"]
 
 LAUNCHES = 0
 MAINLOOPS = ("wmma", "sm90", "splitk")      # the C launchers' mainloop ids
@@ -68,6 +68,15 @@ SPLITK_PART = 1024
 WS_SLOTS_PER_SM = 4
 WS_SLOT_FLOATS = 16 * (256 + 2)
 TICKETS_PER_SM = 4
+# The refined wgmma mainloop's tiles (``csrc/gemm_refined_sm90.cuh``): 128
+# x 128 outputs a CTA, K in 64-deep stages, at least SM90_MIN_TILES of them a
+# split; its split workspace holds SM90_SLOTS_PER_SM partials of SM90_PART
+# floats an SM (104 MB at 132 SMs) and as many tickets.
+SM90_BM = SM90_BN = 128
+SM90_BK = 64
+SM90_MIN_TILES = 8
+SM90_PART = SM90_BM * SM90_BN
+SM90_SLOTS_PER_SM = 12
 
 _c = ctypes
 GEMM_ARGTYPES = [
@@ -124,6 +133,29 @@ def splitk_splits(batch: int, m: int, n: int, k: int, sms: int) -> int:
     return whole_splits(k_tiles, want, most, SPLITK_MIN_TILES)
 
 
+@functools.lru_cache(maxsize=4096)
+def sm90_splits(batch: int, m: int, n: int, k: int, sms: int) -> int:
+    """K splits of a refined launch above M = 16 (the wgmma mainloop; 1 at
+    M <= 16): of the counts whose splits are whole K tiles, at least
+    SM90_MIN_TILES each and none empty, within the workspace's slots, the
+    smallest that gives the busiest SM the least work, ceil(tiles * splits
+    / sms) waves of ceil(k_tiles / splits) stages.  1 where the output tiles
+    come within a wave of filling the card; whole waves where a last partial
+    wave would idle most SMs (train dX, 144 tiles on 132 SMs: 11)."""
+    tiles = batch * -(-m // SM90_BM) * -(-n // SM90_BN)
+    k_tiles = -(-k // SM90_BK)
+    if m <= 16 or tiles == 0:
+        return 1
+    most = min(k_tiles // SM90_MIN_TILES, SM90_SLOTS_PER_SM * sms // tiles)
+    best, cost = 1, -(-tiles // sms) * k_tiles
+    for s in range(2, most + 1):
+        per = -(-k_tiles // s)
+        c = -(-tiles * s // sms) * per
+        if (s - 1) * per < k_tiles and c < cost:
+            best, cost = s, c
+    return best
+
+
 def gemm_tiled_splitk_plain(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
     """The split-K loop's sum in plain PyTorch: each split's product of
     bf16-rounded operands over its K tiles (``split_ranges``) in f32, the
@@ -142,7 +174,19 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_WORKSPACES: dict[tuple[int, int], tuple] = {}
+_WORKSPACES: dict[tuple[str, int, int], tuple] = {}
+
+
+def _workspace(kind: str, index: int, stream: int, floats: int, n_tickets: int):
+    ws = _WORKSPACES.get((kind, index, stream))
+    if ws is None:
+        dev = torch.device("cuda", index)
+        parts = torch.empty(floats, dtype=torch.float32, device=dev)
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+        ws = (parts.data_ptr(), parts.numel(), tickets.data_ptr(), tickets.numel(),
+              parts, tickets)
+        _WORKSPACES[(kind, index, stream)] = ws
+    return ws[:4]
 
 
 def split_workspace(index: int, stream: int) -> tuple[int, int, int, int]:
@@ -150,16 +194,18 @@ def split_workspace(index: int, stream: int) -> tuple[int, int, int, int]:
     launches: the last CTA of a tile resets its ticket) on device ``index``
     for the stream ``stream``, allocated once per device and stream: the
     launchers' (ws, ws_floats, tickets, n_tickets)."""
-    ws = _WORKSPACES.get((index, stream))
-    if ws is None:
-        sms, dev = sm_count(index), torch.device("cuda", index)
-        parts = torch.empty(WS_SLOTS_PER_SM * sms * WS_SLOT_FLOATS, dtype=torch.float32,
-                            device=dev)
-        tickets = torch.zeros(TICKETS_PER_SM * sms, dtype=torch.int32, device=dev)
-        ws = (parts.data_ptr(), parts.numel(), tickets.data_ptr(), tickets.numel(),
-              parts, tickets)
-        _WORKSPACES[(index, stream)] = ws
-    return ws[:4]
+    sms = sm_count(index)
+    return _workspace("split", index, stream, WS_SLOTS_PER_SM * sms * WS_SLOT_FLOATS,
+                      TICKETS_PER_SM * sms)
+
+
+def sm90_workspace(index: int, stream: int) -> tuple[int, int, int, int]:
+    """The refined wgmma mainloop's split workspace (``sm90_splits`` > 1),
+    as ``split_workspace``: SM90_SLOTS_PER_SM partials of 128 x 128 floats
+    and as many tickets an SM."""
+    sms = sm_count(index)
+    return _workspace("sm90", index, stream, SM90_SLOTS_PER_SM * sms * SM90_PART,
+                      SM90_SLOTS_PER_SM * sms)
 
 
 def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:

@@ -1051,3 +1051,99 @@ def test_splitk_and_split_decode_many_calls_finish(dev):
                 torch.cuda.synchronize()
         torch.cuda.synchronize()
     assert differ.item() == 0
+
+
+# ---- the refined GEMM (refine_a / bf16x3 / refine_ab): M > 16 on the
+# refined wgmma mainloop (gemm_refined_sm90.cuh, K split into whole waves
+# by sm90_splits where the tiles are few), M <= 16 on the split-K weight
+# stream (gemm_splitk.cuh); both skip the terms that read a bf16 operand's
+# lo.  Smallest first, each call under the watchdog.
+
+REFINED_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                  (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("policy", ["refine_a", "bf16x3", "refine_ab"])
+@pytest.mark.parametrize("a_dtype,b_dtype", REFINED_DTYPES)
+def test_gemm_refined_sm90_one_tile(dev, policy, a_dtype, b_dtype):
+    rng = np.random.default_rng(3)
+    a, b = _u(rng, (128, 64), dev, a_dtype), _u(rng, (64, 128), dev, b_dtype, 0.125)
+    before = dict(gr.LAUNCHES_BY_LOOP)
+    with _within(120, "gemm_refined"):
+        out = gr.gemm_refined(a, b, policy=policy)
+        torch.cuda.synchronize()
+    assert gr.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 1}
+    assert (out - gr.gemm_refined_plain(a, b, policy)).abs().max().item() <= GEMM_ATOL
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 200])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "batched", "misaligned"])
+@pytest.mark.parametrize("a_dtype,b_dtype", REFINED_DTYPES)
+@pytest.mark.parametrize("policy", ["refine_a", "bf16x3", "refine_ab"])
+def test_gemm_refined_matches_plain_on_both_mainloops(dev, record_property, m, layout, a_dtype,
+                                                      b_dtype, policy):
+    """Every rung at NN, NT, M-contiguous A (``tn``), a batch of two and an
+    A off 16-byte alignment, f32 or bf16 on each side, ragged N = 300 and K
+    = 1000: the mainloop by M (``splitk`` up to 16 rows, ``sm90`` above),
+    the split count by its chooser (more than one at these shapes), within
+    GEMM_ATOL of the plain twin and of the split sum's plain model."""
+    rng = np.random.default_rng(m + len(layout) + len(policy))
+    n, k = 300, 1000
+    sb = k ** -0.5
+    if layout == "tn":
+        a = _u(rng, (k, m), dev, a_dtype).t()
+    elif layout == "misaligned":
+        a = _u(rng, (m, k + 1), dev, a_dtype)[:, 1:]
+    elif layout == "batched":
+        a = _u(rng, (2, m, k), dev, a_dtype)
+    else:
+        a = _u(rng, (m, k), dev, a_dtype)
+    if layout == "nt":
+        b = _u(rng, (n, k), dev, b_dtype, sb).t()
+    elif layout == "batched":
+        b = _u(rng, (2, k, n), dev, b_dtype, sb)
+    else:
+        b = _u(rng, (k, n), dev, b_dtype, sb)
+    loop = "splitk" if m <= 16 else "sm90"
+    before = dict(gr.LAUNCHES_BY_LOOP)
+    with _within(120, "gemm_refined"):
+        out = gr.gemm_refined(a, b, policy=policy)
+        torch.cuda.synchronize()
+    assert gr.LAUNCHES_BY_LOOP == {**before, loop: before[loop] + 1}
+    batch = a.shape[0] if a.dim() == 3 else 1
+    splits = gr.refined_splits(batch, m, n, k, gt.sm_count(dev.index or 0))
+    record_property("splits", splits)
+    assert splits > 1
+    _hold(record_property, "out", out, gr.gemm_refined_plain(a, b, policy), GEMM_ATOL)
+    _hold(record_property, "model", out, gr.gemm_refined_splitk_plain(a, b, policy, splits),
+          GEMM_ATOL)
+
+
+def test_gemm_refined_split_calls_are_deterministic(dev):
+    """2000 calls of each regime with K split, under the watchdog, each
+    result equal to the first call's bit for bit (a ticket left set would
+    show as a wrong result): refine_ab at 256 x 256 x 16384 (f32 x f32, 4
+    terms, sm90, 32 splits) and at the decode's 4 x 6912 x 1152 (bf16 A,
+    2 terms, splitk)."""
+    rng = np.random.default_rng(13)
+    a, b = _u(rng, (256, 16384), dev), _u(rng, (16384, 256), dev, scale=16384 ** -0.5)
+    x, w = _u(rng, (4, 6912), dev, torch.bfloat16), _u(rng, (6912, 1152), dev,
+                                                      scale=6912 ** -0.5)
+    sms = gt.sm_count(dev.index or 0)
+    assert gr.refined_splits(1, 256, 256, 16384, sms) > 1
+    assert gr.refined_splits(1, 4, 1152, 6912, sms) > 1
+    before = dict(gr.LAUNCHES_BY_LOOP)
+    with _within(240, "gemm_refined"):
+        c0, d0 = gr.gemm_refined(a, b), gr.gemm_refined(x, w)
+        differ = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(2000):
+            differ += (gr.gemm_refined(a, b) != c0).sum()
+            differ += (gr.gemm_refined(x, w) != d0).sum()
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    assert differ.item() == 0
+    assert gr.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 2001,
+                                   "splitk": before["splitk"] + 2001}
+    assert (c0 - gr.gemm_refined_plain(a, b)).abs().max().item() <= GEMM_ATOL
+    assert (d0 - gr.gemm_refined_plain(x, w)).abs().max().item() <= GEMM_ATOL
