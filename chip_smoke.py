@@ -112,16 +112,18 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    against the model's chunked form at f32; its check row takes the
    665-token prompt's.  Then a profiled prefill and decode tick.
 13. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
-   ``gemm_refined``, ``grouped_gemm``, ``grouped_gemm_dw``,
+   ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
    64/128-row bf16 grouped shape, the bf16 dW and every bf16 flash forward
    and backward must run the wgmma one, ``sm90``, and every M <= 16
-   ``gemm_tiled`` and ``gemm_refined`` shape the split-K weight stream,
+   ``gemm_tiled``, ``gemm_refined`` and ``gemm_lowp`` shape the split-K
+   weight stream or, for ``gemm_lowp``, its fused decode kernel, both
    ``splitk``; each check asserts it), then one line listing each kernel's
-   launches (per path, and per mainloop for those seven; every path's bf16
+   launches (per path, and per mainloop for those eight; every path's bf16
    forward, backward and dW launches must all have run ``sm90``, no path's
-   ``gemm_tiled`` or ``gemm_refined`` launch may have run ``wmma``, and
+   ``gemm_tiled``, ``gemm_refined`` or ``gemm_lowp`` launch may have run
+   ``wmma``, and
    every path's dense and paged decode launches must have split their KV
    walk, ``split_launches_by_path``), error and times.  The decode rows
    record the KV splits the host picked (``splits``).  The flash
@@ -417,6 +419,7 @@ def main() -> None:
             "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES},
             "gemm_naive": gn, **{k: bg for k in bg.LAUNCHES}, "wkv6": wk}
     LOOP_COUNTS.update({"gemm_tiled": gt.LAUNCHES_BY_LOOP, "gemm_refined": gr.LAUNCHES_BY_LOOP,
+                        "gemm_lowp": gl.LAUNCHES_BY_LOOP,
                         "grouped_gemm": gg.LAUNCHES_BY_LOOP,
                         "flash_attention": af.LAUNCHES_BY_LOOP,
                         "grouped_gemm_dw": gg.LAUNCHES_BY_LOOP_DW,
@@ -851,16 +854,20 @@ def main() -> None:
     del qd
 
     # the quantized GEMM at the MLP's up projection, decode (M = 4 slots)
-    # and prefill (700 tokens): bf16 activations x f32 weights, fp8x3 and
-    # int8x3, on repro's grid (TileConfig(256, 256, 256) clamped).  No
-    # PyTorch call computes per-tile scales: the yardstick is one
-    # torch._scaled_mm pass on e4m3 copies with tensor-wise scales (M
+    # and prefill (700 tokens), and its decode down projection: bf16
+    # activations x f32 weights, fp8x3 and int8x3, on repro's grid
+    # (TileConfig(256, 256, 256) clamped).  M <= 16 runs the fused decode
+    # kernel (splitk), above the quantize pass and the wgmma mainloop
+    # (sm90).  No PyTorch call computes per-tile scales: the yardstick is
+    # one torch._scaled_mm pass on e4m3 copies with tensor-wise scales (M
     # padded to 16 rows, which it requires; the casts are not timed).
-    # Control: the plain version on a grid of bk = 128.
-    for m in (4, 700):
-        x = randn((m, d), dtype=torch.bfloat16)
-        w = randn((d, ff), d ** -0.5)
-        t = ops.tile_for("cuda", m, ff, d).clamp(m, ff, d)
+    # Control: the plain version on a grid of bk = 128.  The prefill rows
+    # also record each of the call's kernels' own time (the quantize pass
+    # and the mainloop, profiler).
+    for m, kk, nn in ((4, d, ff), (700, d, ff), (4, ff, d)):
+        x = randn((m, kk), dtype=torch.bfloat16)
+        w = randn((kk, nn), kk ** -0.5)
+        t = ops.tile_for("cuda", m, nn, kk).clamp(m, nn, kk)
         m16 = -(-m // 16) * 16
         x8 = torch.nn.functional.pad(x.float(), (0, 0, 0, m16 - m)).to(torch.float8_e4m3fn)
         w8 = w.t().contiguous().to(torch.float8_e4m3fn).t()
@@ -868,18 +875,23 @@ def main() -> None:
         scaled_mm = lambda x8=x8, w8=w8, one=one: torch._scaled_mm(  # noqa: E731
             x8, w8, scale_a=one, scale_b=one, out_dtype=torch.bfloat16)
         for rung in ("fp8x3", "int8x3"):
-            check("gemm_lowp", f"{'decode' if m == 4 else 'prefill'} mlp {rung} {m}x{d}x{ff} "
-                  f"grid {t.bm}x{t.bn}x{t.bk}",
-                  lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp(x, w, policy=r, bm=t.bm, bn=t.bn,
-                                                             bk=t.bk),
+            call = (lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp(x, w, policy=r, bm=t.bm, bn=t.bn,
+                                                                bk=t.bk))
+            extra = None
+            if m > 16:
+                prof = profile_window(lambda call=call: [call() for _ in range(10)])
+                extra = {"kernels_ms": [[name, ms / 10] for name, ms in prof["top_kernels_ms"]]}
+            what = ("decode mlp" if kk == d else "decode mlp down") if m == 4 else "prefill mlp"
+            check("gemm_lowp", f"{what} {rung} {m}x{kk}x{nn} grid {t.bm}x{t.bn}x{t.bk}", call,
                   lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp_plain(x, w, r, t.bm, t.bn, t.bk),
-                  scaled_mm, LOWP_BOUND, num_passes(rung) * 2 * m * d * ff,
-                  x.numel() * 2 + w.numel() * 4 + m * ff * 4,
+                  scaled_mm, LOWP_BOUND, num_passes(rung) * 2 * m * kk * nn,
+                  x.numel() * 2 + w.numel() * 4 + m * nn * 4,
                   control=lambda x=x, w=w, t=t, r=rung: gl.gemm_lowp_plain(x, w, r, t.bm,
                                                                            t.bn, 128),
                   peak=PEAK_LOWP_OPS,
                   library_call="torch._scaled_mm, one e4m3 pass, tensor-wise scales, "
-                               "M padded to 16")
+                               "M padded to 16",
+                  loop="splitk" if m <= 16 else "sm90", extra=extra)
         del x, w, x8, w8
 
     # flash backward at the train shapes: B=2, S=1024, 4 heads on 1 kv
@@ -2211,7 +2223,7 @@ def main() -> None:
             if ls[name] and ls[f"{name}.sm90"] != ls[name]:
                 fail(f"{path}: {name} ran {ls[f'{name}.sm90']} of its {ls[name]} launches on "
                      f"the wgmma kernel")
-        for name in ("gemm_tiled", "gemm_refined"):
+        for name in ("gemm_tiled", "gemm_refined", "gemm_lowp"):
             if ls[f"{name}.wmma"]:
                 fail(f"{path}: {name} ran the WMMA tile {ls[f'{name}.wmma']} times")
         for name in SPLIT_COUNTS:
@@ -2263,7 +2275,8 @@ def main() -> None:
          **{f"{loop}_rows": sum(r["mainloop"] == [loop] for r in loop_rows)
             for loop in gt.MAINLOOPS},
          gemm_tiled_wmma_launches={p: ls["gemm_tiled.wmma"] for p, ls in by_path.items()},
-         gemm_refined_wmma_launches={p: ls["gemm_refined.wmma"] for p, ls in by_path.items()})
+         gemm_refined_wmma_launches={p: ls["gemm_refined.wmma"] for p, ls in by_path.items()},
+         gemm_lowp_wmma_launches={p: ls["gemm_lowp.wmma"] for p, ls in by_path.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1147,3 +1147,84 @@ def test_gemm_refined_split_calls_are_deterministic(dev):
                                    "splitk": before["splitk"] + 2001}
     assert (c0 - gr.gemm_refined_plain(a, b)).abs().max().item() <= GEMM_ATOL
     assert (d0 - gr.gemm_refined_plain(x, w)).abs().max().item() <= GEMM_ATOL
+
+
+# ---- the quantized GEMM (fp8 / int8, one pass and x3): M <= 16 on the
+# fused decode kernel (one launch, a thread-block cluster a B tile, counted
+# as splitk), M > 16 on the quantize pass and the wgmma mainloop (sm90).
+# Smallest first, each call under the watchdog.  The int8 rungs must equal
+# the plain version bit for bit; e4m3 within LOWP_REL.
+
+LOWP_LOOP_CASES = [   # (m, n, k, grid, A dtype, B layout)
+    (4, 64, 64, (4, 64, 64), torch.float32, "nn"),          # one decode CTA
+    (20, 128, 64, (64, 128, 64), torch.float32, "nn"),      # one mainloop tile
+    (4, 1000, 1152, (8, 256, 256), torch.bfloat16, "nn"),   # test_gemm_lowp_matches_plain's
+    (300, 270, 520, (256, 256, 256), torch.bfloat16, "nn"),
+    (48, 40, 132, (48, 128, 256), torch.float32, "nn"),
+    (700, 384, 300, (128, 128, 128), torch.bfloat16, "nn"),
+    (4, 1152, 6912, (4, 256, 256), torch.bfloat16, "nn"),   # the decode MLP's wo
+    (16, 777, 520, (8, 128, 256), torch.float32, "nn"),     # ragged N, two row tiles
+    (20, 10, 30, (8, 128, 128), torch.float32, "nn"),       # bm 8 above M = 16
+    (100, 200, 300, (16, 64, 64), torch.bfloat16, "nn"),    # a fold every stage, bm 16
+    (4, 300, 200, (4, 128, 64), torch.float32, "nt"),       # element-staged B
+    (96, 300, 200, (64, 128, 64), torch.float32, "nt"),
+    (20, 40, 300, (24, 128, 256), torch.float32, "batched"),
+    (4, 200, 100, (4, 128, 128), torch.bfloat16, "bf16"),   # a bf16 B
+]
+
+
+@pytest.mark.parametrize("m,n,k,grid,a_dtype,layout", LOWP_LOOP_CASES)
+@pytest.mark.parametrize("policy", gl.LOWP_POLICIES)
+def test_gemm_lowp_loops_match_plain(dev, record_property, policy, m, n, k, grid, a_dtype,
+                                     layout):
+    rng = np.random.default_rng(m + n + k)
+    if layout == "batched":
+        a, b = _u(rng, (3, m, k), dev, a_dtype), _u(rng, (3, k, n), dev)
+    elif layout == "nt":
+        a, b = _u(rng, (m, k), dev, a_dtype), _u(rng, (n, k), dev).t()
+    else:
+        a = _u(rng, (m, k), dev, a_dtype)
+        b = _u(rng, (k, n), dev, torch.bfloat16 if layout == "bf16" else torch.float32)
+    loop = "splitk" if m <= 16 else "sm90"
+    before, launches = dict(gl.LAUNCHES_BY_LOOP), gl.LAUNCHES
+    with _within(120, "gemm_lowp"):
+        out = gl.gemm_lowp(a, b, policy=policy, bm=grid[0], bn=grid[1], bk=grid[2])
+        torch.cuda.synchronize()
+    assert gl.LAUNCHES == launches + 1
+    assert gl.LAUNCHES_BY_LOOP == {**before, loop: before[loop] + 1}
+    ref = gl.gemm_lowp_plain(a, b, policy, *grid)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    err = (out - ref).abs().max().item()
+    record_property("err", err)
+    if policy.startswith("int8"):
+        assert torch.equal(out, ref), err
+    else:
+        assert err <= LOWP_REL * ref.abs().max().item()
+
+
+def test_gemm_lowp_decode_calls_are_deterministic(dev):
+    """2000 calls at each decode MLP shape (wi 4 x 1152 x 6912, wo 4 x 6912
+    x 1152; fp8x3 and int8x3 in turns), under the watchdog, each result
+    equal to the first call's bit for bit (a ticket left set would show as
+    a wrong result)."""
+    rng = np.random.default_rng(14)
+    x, h = _u(rng, (4, 1152), dev, torch.bfloat16), _u(rng, (4, 6912), dev, torch.bfloat16)
+    wi, wo = _u(rng, (1152, 6912), dev, scale=1152 ** -0.5), _u(rng, (6912, 1152), dev,
+                                                                  scale=6912 ** -0.5)
+    calls = [lambda: gl.gemm_lowp(x, wi, policy="fp8x3", bm=4),
+             lambda: gl.gemm_lowp(h, wo, policy="int8x3", bm=4)]
+    before = dict(gl.LAUNCHES_BY_LOOP)
+    with _within(240, "gemm_lowp"):
+        first = [c() for c in calls]
+        differ = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(2000):
+            for c, f in zip(calls, first):
+                differ += (c() != f).sum()
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    assert differ.item() == 0
+    assert gl.LAUNCHES_BY_LOOP == {**before, "splitk": before["splitk"] + 4002}
+    assert torch.equal(first[1], gl.gemm_lowp_plain(h, wo, "int8x3", 4, 256, 256))
+    ref = gl.gemm_lowp_plain(x, wi, "fp8x3", 4, 256, 256)
+    assert (first[0] - ref).abs().max().item() <= LOWP_REL * ref.abs().max().item()
