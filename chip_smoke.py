@@ -71,7 +71,10 @@ Phases, each printing one JSON line:
    the bound.  Then a profile of a 700-token prefill and a 4-slot decode
    tick (``profile_moe``), and ``serve_moe_paged``: the same requests from
    8-row bf16 pages, whose tokens must equal the dense run's and which
-   must hand every page back.
+   must hand every page back.  Neither path may run a grouped call on the
+   WMMA tile: their decode calls run the split-K weight stream (``splitk``;
+   the profiled decode ticks' grouped calls all of them), their 64/128-row
+   prefills the wgmma mainloop (``sm90``).
 9. train_moe — Mixtral at full width, depth 2, trains 3 AdamW steps
    (batch 1 x 1024, remat, warmup 1) on the kernel routes, the grouped
    forward, dx and dW kernels included; step 0's per-token loss, aux loss
@@ -118,8 +121,10 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    64/128-row bf16 grouped shape, the bf16 dW and every bf16 flash forward
    and backward must run the wgmma one, ``sm90``, and every M <= 16
    ``gemm_tiled``, ``gemm_refined`` and ``gemm_lowp`` shape the split-K
-   weight stream or, for ``gemm_lowp``, its fused decode kernel, both
-   ``splitk``; each check asserts it), then one line listing each kernel's
+   weight stream or, for ``gemm_lowp``, its fused decode kernel, and every
+   16-row bf16 or refined ``grouped_gemm`` shape the split-K stream's
+   group-rows mode, all ``splitk``; each check asserts it), then one line
+   listing each kernel's
    launches (per path, and per mainloop for those eight; every path's bf16
    forward, backward and dW launches must all have run ``sm90``, no path's
    ``gemm_tiled``, ``gemm_refined`` or ``gemm_lowp`` launch may have run
@@ -132,11 +137,14 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
 
 The ``check`` phase also holds the flash kernels at Mixtral's head shape
 (hd 128, 32 heads on 8 kv heads) and the grouped GEMMs at its widths: the
-forward at the prefill's wi and wo (T*k = 1400) at bf16 and refine_ab, a
-decode (T*k = 8), the backward's dx (``trans_w``, T*k = 2048) and dW,
-with group sizes from a seeded skewed draw and a faulty control (every
-group against its neighbouring expert; for dW, run boundaries moved by
-one tile) above the bound.
+forward at the prefill's wi and wo (T*k = 1400) at bf16 and refine_ab, the
+decode (T*k = 8, 16-row tiles on the split-K weight stream, given the real
+counts) at wi bf16 and refine_ab and wo bf16, and wi bf16 again with the 8
+rows on one expert and on all eight (``grouped_decode_live_experts``: the
+one-expert row streams an eighth of the weights), the backward's dx
+(``trans_w``, T*k = 2048) and dW, with group sizes from a seeded skewed
+draw and a faulty control (every group against its neighbouring expert;
+for dW, run boundaries moved by one tile) above the bound.
 
 The ``check`` phase also holds one rung that the flash and grouped kernels
 carry from f32 tiles per kernel (flash bf16x6 forward and backward, int8x3
@@ -355,6 +363,16 @@ def read_launches(mods) -> dict:
     out.update({f"{name}.split": (mod.SPLIT_LAUNCHES[name] if isinstance(mod.SPLIT_LAUNCHES, dict)
                                   else mod.SPLIT_LAUNCHES) for name, mod in SPLIT_COUNTS.items()})
     return out
+
+
+def grouped_loops_ok(ls: dict, path: str) -> None:
+    """A serve path's grouped calls: none on the WMMA tile, its decode calls
+    (16-row tiles) on the split-K weight stream, its 64/128-row prefills on
+    the wgmma mainloop."""
+    by_loop = {loop: ls[f"grouped_gemm.{loop}"] for loop in LOOP_COUNTS["grouped_gemm"]}
+    if by_loop["wmma"] or not by_loop["splitk"] or not by_loop["sm90"]:
+        fail(f"{path}: grouped launches by mainloop {by_loop}: expected no wmma, splitk "
+             f"(decode) and sm90 (prefill)")
 
 
 def fail(msg: str) -> None:
@@ -1182,23 +1200,27 @@ def main() -> None:
     w_in16 = w_in.to(torch.bfloat16)
     w_in_rolled = w_in.roll(-1, 0)
     # the prefill at the dispatcher's alignment and at 128 and 64 (the
-    # wgmma mainloop's two CTA row tiles), the decode at 16 (WMMA); one
-    # quantized rung (fp8x3, its scales per tile) against its plain version
-    # at GEMM_BOUND with the one-pass fp8 as its wrong-rung control, its
-    # error against the torch route's fp8x3 (per-tensor scales) recorded
-    # and held to the rung's ladder bound.
+    # wgmma mainloop's two CTA row tiles), the decode at 16 (the split-K
+    # weight stream, given the real counts as the MoE FFN gives them: only
+    # the experts with rows are read, and the bound counts only their
+    # weights); one quantized rung (fp8x3, its scales per tile) against its
+    # plain version at GEMM_BOUND with the one-pass fp8 as its wrong-rung
+    # control, its error against the torch route's fp8x3 (per-tensor
+    # scales) recorded and held to the rung's ladder bound.
     for tk, phase, bm_at in ((1400, "prefill", None), (1400, "prefill", 128),
                              (1400, "prefill", 64), (8, "decode", None)):
         counts, bm, off, x = (group_layout(tk, d_m, bm=bm_at, rng=align_rng, generator=align_gen)
                               if bm_at else group_layout(tk, d_m))
+        cnt = torch.from_numpy(counts).to(dev, torch.int32) if phase == "decode" else None
         live_w = int((counts > 0).sum()) * d_m * ff_m * 4
         lib, lib_name = grouped_mm_library(x, w_in16, off[1:], "forward")
-        rungs = ("bf16", "refine_ab") if bm_at is None and phase == "prefill" else ("bf16",)
+        rungs = ("bf16", "refine_ab") if bm_at is None else ("bf16",)
         for rung in rungs:
+            cta = gg.cta_rows(bm, rung)
             check("grouped_gemm", f"{phase} wi {rung} T*k={tk} {d_m}->{ff_m} E={n_exp} bm={bm} "
                   f"counts {counts.tolist()}",
-                  lambda x=x, off=off, bm=bm, r=rung: gg.grouped_gemm(x, w_in, off, bm=bm,
-                                                                      policy=r),
+                  lambda x=x, off=off, bm=bm, r=rung, c=cnt: gg.grouped_gemm(
+                      x, w_in, off, bm=bm, policy=r, group_counts=c),
                   lambda x=x, off=off, r=rung, bm=bm: gg.grouped_gemm_plain(x, w_in, off,
                                                                             policy=r, bm=bm),
                   lib, GEMM_BOUND, num_passes(rung) * 2 * tk * d_m * ff_m,
@@ -1206,8 +1228,11 @@ def main() -> None:
                   control=lambda x=x, off=off, r=rung, bm=bm: gg.grouped_gemm_plain(
                       x, w_in_rolled, off, policy=r, bm=bm),
                   library_call=lib_name,
-                  loop="sm90" if rung == "bf16" and gg.cta_rows(bm, rung) in (64, 128)
-                  else "wmma")
+                  loop="splitk" if cta == 16 else "sm90" if rung == "bf16" else "wmma",
+                  extra={"splits": gg.grouped_splits(x.shape[0], ff_m, d_m, gt.sm_count(
+                      dev.index))} if cta == 16 else None)
+        if phase == "decode":
+            decode = (counts, bm, off, x, cnt)
         if bm_at is None and phase == "prefill":
             route_fp8 = ops.grouped_matmul(x, w_in, off, bm=bm, policy=ops.Route("fp8x3"))
             check("grouped_gemm", f"{phase} wi fp8x3 T*k={tk} {d_m}->{ff_m} E={n_exp} bm={bm}",
@@ -1228,7 +1253,6 @@ def main() -> None:
                 fail("grouped_gemm fp8x3: farther from the torch route than the rung's bound")
             del route_fp8
         del x
-    del w_in_rolled
     # prefill wo: the activated hidden rows against the down projections
     w_out = randn((n_exp, ff_m, d_m), ff_m ** -0.5)
     counts, bm, off, h = group_layout(1400, ff_m)
@@ -1242,7 +1266,59 @@ def main() -> None:
           1400 * ff_m * 2 + int((counts > 0).sum()) * ff_m * d_m * 4 + h.shape[0] * d_m * 4,
           control=lambda: gg.grouped_gemm_plain(h, w_out_rolled, off, bm=bm),
           library_call=lib_name, loop="sm90")
-    del w_out, w_out_rolled, h, lib
+    del h, lib
+    # the decode's wo and its live-expert rows (their inputs from their own
+    # generator, so every other check keeps the inputs it had): wo on the
+    # activated hidden rows of the decode's counts against the down
+    # projections
+    counts, bm, off, x, cnt = decode
+    tk = int(counts.sum())
+    dec_gen = torch.Generator(device=dev).manual_seed(23)
+    h = randn((x.shape[0], ff_m), dtype=torch.bfloat16, generator=dec_gen) * (x[:, :1] != 0)
+    h_lib, h_lib_name = grouped_mm_library(h, w_out.to(torch.bfloat16), off[1:],
+                                           "forward")
+    check("grouped_gemm", f"decode wo bf16 T*k={tk} {ff_m}->{d_m} E={n_exp} bm={bm} "
+          f"counts {counts.tolist()}",
+          lambda: gg.grouped_gemm(h, w_out, off, bm=bm, group_counts=cnt),
+          lambda: gg.grouped_gemm_plain(h, w_out, off, bm=bm),
+          h_lib, GEMM_BOUND, 2 * tk * ff_m * d_m,
+          tk * ff_m * 2 + int((counts > 0).sum()) * ff_m * d_m * 4 + h.shape[0] * d_m * 4,
+          control=lambda: gg.grouped_gemm_plain(h, w_out_rolled, off, bm=bm),
+          library_call=h_lib_name, loop="splitk",
+          extra={"splits": gg.grouped_splits(h.shape[0], d_m, ff_m,
+                                             gt.sm_count(dev.index))})
+    del h, h_lib
+    # only the experts with rows are streamed: the same 8 rows on
+    # one expert, then one row on each of the 8
+    stream_rows = {}
+    for label, one in (("one expert", [tk] + [0] * (n_exp - 1)), ("eight experts",
+                                                                  [1] * n_exp)):
+        one = np.asarray(one)
+        aligned = ops.align_group_counts(one, bm)
+        o_off = torch.from_numpy(np.concatenate([[0], np.cumsum(aligned)]).astype(
+            np.int32)).to(dev)
+        valid = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+        for g in range(n_exp):
+            valid[int(o_off[g]):int(o_off[g]) + int(one[g])] = True
+        xo = randn((x.shape[0], d_m), dtype=torch.bfloat16, generator=dec_gen) * valid[:, None]
+        o_cnt = torch.from_numpy(one).to(dev, torch.int32)
+        o_lib, o_lib_name = grouped_mm_library(xo, w_in16, o_off[1:], "forward")
+        check("grouped_gemm", f"decode wi bf16 T*k={tk} {d_m}->{ff_m} E={n_exp} "
+              f"bm={bm} {label} counts {one.tolist()}",
+              lambda xo=xo, o=o_off, c=o_cnt: gg.grouped_gemm(xo, w_in, o, bm=bm,
+                                                              group_counts=c),
+              lambda xo=xo, o=o_off: gg.grouped_gemm_plain(xo, w_in, o, bm=bm),
+              o_lib, GEMM_BOUND, 2 * tk * d_m * ff_m,
+              tk * d_m * 2 + int((one > 0).sum()) * d_m * ff_m * 4
+              + xo.shape[0] * ff_m * 4,
+              control=lambda xo=xo, o=o_off: gg.grouped_gemm_plain(xo, w_in_rolled, o,
+                                                                   bm=bm),
+              library_call=o_lib_name, loop="splitk")
+        stream_rows[label] = checks["grouped_gemm"][-1]["ms"]
+        del xo, o_lib
+    emit(phase="grouped_decode_live_experts", ms=stream_rows,
+         one_over_eight=stream_rows["one expert"] / stream_rows["eight experts"])
+    del w_out, w_out_rolled, x, decode
     torch.cuda.empty_cache()
     # the train backward at 1 x 1024 tokens (T*k = 2048): dx of the up
     # projection (dy against w^T, read through swapped strides) and dW
@@ -1251,7 +1327,6 @@ def main() -> None:
     dy = randn((x.shape[0], ff_m), 2048 ** -0.5) * (x[:, :1] != 0)
     lib, lib_name = grouped_mm_library(dy.to(torch.bfloat16), w_in16.transpose(1, 2), off[1:],
                                        "dx (w transposed view)")
-    w_in_rolled = w_in.roll(-1, 0)
     live_w = int((counts > 0).sum()) * d_m * ff_m * 4
     check("grouped_gemm", f"train dx trans_w bf16 T*k=2048 {ff_m}->{d_m} E={n_exp} bm={bm} "
           f"counts {counts.tolist()}",
@@ -1792,6 +1867,7 @@ def main() -> None:
         fail("serve_moe: a token outside the vocabulary")
     if not all(launches_ms[n] > 0 for n in SERVE_MOE_KERNELS):
         fail(f"serve_moe: a kernel of the path never launched: {launches_ms}")
+    grouped_loops_ok(launches_ms, "serve_moe")
 
     # one prompt's prefill logits: kernel routes vs torch routes (dropless),
     # and the rolled-experts control; the experts each token of the first
@@ -1852,11 +1928,19 @@ def main() -> None:
     for i in range(4):
         meng.submit(Request(rid=100 + i, prompt=mreqs[i].prompt, max_new_tokens=16))
     meng.step()                                 # admit (prefill) all four
+    zero_launches(mods)
     m_tick_prof = profile_window(meng.tick)
+    tick_grouped = {loop: gg.LAUNCHES_BY_LOOP[loop] for loop in gt.MAINLOOPS}
     meng.run([])
     emit(phase="profile_moe", arch=mcfg.name, depth=MOE_SERVE_DEPTH,
          prefill_tokens=int(long_mprompt["tokens"].shape[1]), prefill=m_prefill_prof,
-         decode_tick=m_tick_prof)
+         decode_tick=m_tick_prof, decode_ticks_grouped_by_loop=tick_grouped)
+    # the two decode ticks' grouped calls (wi, wg, wo a layer) all ran the
+    # split-K weight stream
+    if tick_grouped["splitk"] != 2 * 3 * MOE_SERVE_DEPTH or sum(tick_grouped.values()) != \
+            tick_grouped["splitk"]:
+        fail(f"profile_moe: the decode ticks' grouped calls ran {tick_grouped}, expected "
+             f"{2 * 3 * MOE_SERVE_DEPTH} splitk")
     del meng
 
     # ---- serve_moe_paged: the same params, requests and slots from 8-row
@@ -1888,6 +1972,7 @@ def main() -> None:
         fail("serve_moe_paged: pages still held after every request finished")
     if not all(launches_pm[n] > 0 for n in SERVE_MOE_PAGED_KERNELS):
         fail(f"serve_moe_paged: a kernel of the path never launched: {launches_pm}")
+    grouped_loops_ok(launches_pm, "serve_moe_paged")
     del peng, mparams, mlk, mlr, mlc
     torch.cuda.empty_cache()
 
@@ -2276,7 +2361,8 @@ def main() -> None:
             for loop in gt.MAINLOOPS},
          gemm_tiled_wmma_launches={p: ls["gemm_tiled.wmma"] for p, ls in by_path.items()},
          gemm_refined_wmma_launches={p: ls["gemm_refined.wmma"] for p, ls in by_path.items()},
-         gemm_lowp_wmma_launches={p: ls["gemm_lowp.wmma"] for p, ls in by_path.items()})
+         gemm_lowp_wmma_launches={p: ls["gemm_lowp.wmma"] for p, ls in by_path.items()},
+         grouped_gemm_wmma_launches={p: ls["grouped_gemm.wmma"] for p, ls in by_path.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,11 @@ The alignment ``bm`` travels from the dispatcher to the impl as the
 tiles).  Expert-parallel ``Partitioning`` waits for the mesh slice.
 
 Impl contract: fn(x (N,D) sorted+aligned, w (E,D,F), group_offsets
-(E+1,) int32, *, route, bm) -> f32 (N,F).
+(E+1,) int32, *, route, bm, group_counts=None) -> f32 (N,F).
+``group_counts`` (E,), on the device, is each run's real row count (the
+rows before its zero padding): an impl may skip the padding with it
+(``cuda_grouped``'s 16-row tiles do) or ignore it (``torch``); the result
+is the same.
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ def _oracle(problem: dict) -> np.ndarray:
 register_family(OpSpec(
     family="grouped",
     contract="fn(x (N,D) sorted+aligned, w (E,D,F), group_offsets (E+1,) int32, *, "
-             "route, bm) -> f32 (N,F); bm is the group alignment",
+             "route, bm, group_counts=None) -> f32 (N,F); bm is the group alignment, "
+             "group_counts each run's real rows",
     reference="torch",
     label="grouped backend",
     layer_families=("moe",),
@@ -101,10 +106,11 @@ def grouped_tiles(policy: str | Route, m: int, n: int, k: int) -> TileConfig:
 
 
 @register_impl("grouped", "torch", fused_policies=registry.ALL_POLICIES, features=("vjp",))
-def _torch_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int):
+def _torch_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int, group_counts=None):
     """Reference: gather into the worst-case (E, C = N, D) dispatch
     tensor, one policy einsum, scatter back (C = N: every group could own
-    every row, so this is the memory-heavy oracle)."""
+    every row, so this is the memory-heavy oracle).  ``group_counts`` is
+    not read: the padding rows are zero and come back zero."""
     n = x.shape[0]
     off = group_offsets.long()
     idx = off[:-1, None] + torch.arange(n, device=x.device)[None]      # (E, C)
@@ -125,21 +131,25 @@ set_default_tiles("cuda_grouped", TileConfig(bm=128), row_quantum=gemm_grouped.R
 
 @register_impl("grouped", "cuda_grouped", policies=registry.ALL_POLICIES,
                fused_policies=tuple(gemm_grouped.POLICY_CODES), features=("vjp",))
-def _cuda_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int):
-    return gemm_grouped.grouped(x, w, group_offsets, bm=bm, policy=route.precision)
+def _cuda_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int, group_counts=None):
+    return gemm_grouped.grouped(x, w, group_offsets, bm=bm, policy=route.precision,
+                                group_counts=group_counts)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
-                   policy: str | Route = "bf16", bm: int) -> torch.Tensor:
+                   policy: str | Route = "bf16", bm: int,
+                   group_counts: torch.Tensor | None = None) -> torch.Tensor:
     """Ragged grouped-GEMM dispatch (the MoE expert contraction).
 
     x: (N, D) token rows sorted by group, runs aligned to ``bm``; w: (E,
     D, F); group_offsets: (E+1,) int32.  Returns f32 (N, F).  ``policy``
     is a precision string (the reference impl) or a route whose grouped
     entry names a registered impl; ``bm`` is the alignment the dispatcher
-    padded each run to (``grouped_tiles(policy, N, F, D).bm``).
-    Differentiable on every impl.
+    padded each run to (``grouped_tiles(policy, N, F, D).bm``);
+    ``group_counts`` (E,), on the device, each run's real rows before that
+    padding (optional: an impl may skip the padding with it; the result is
+    the same).  Differentiable on every impl.
     """
     route = as_route(policy)
     impl = registry.get_impl("grouped", route.impl("grouped"))
-    return impl.fn(x, w, group_offsets, route=route, bm=bm)
+    return impl.fn(x, w, group_offsets, route=route, bm=bm, group_counts=group_counts)

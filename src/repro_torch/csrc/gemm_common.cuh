@@ -1,5 +1,6 @@
 // Tiled tensor-core GEMM (WMMA) of the grouped GEMMs (gemm_grouped.cuh:
-// every rung but the bf16 forward at 64/128-row tiles and the bf16 dW):
+// every rung but the bf16 forward at 64/128-row tiles, bf16 and the
+// refined rungs at 16-row tiles (gemm_splitk.cuh) and the bf16 dW):
 // C = A.B, f32 out.  gemm_tiled.cu's bf16 rung and gemm_refined.cu's
 // refine_a / bf16x3 / refine_ab run none of it: M > 16 takes a Hopper
 // mainloop (gemm_sm90.cuh; the refined rungs' gemm_refined_sm90.cuh) and

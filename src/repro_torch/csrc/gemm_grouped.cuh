@@ -2,10 +2,13 @@
 // rung of the ladder (bf16, refine_a, bf16x3, refine_ab, bf16x6, the
 // fp8/int8 rungs with their quantization scales per staged tile, and f32
 // on the CUDA cores), f32 out.  All run gemm_common.cuh's tiled kernel in
-// a group mode (the bf16 forward at 64 or 128 rows: gemm_sm90.cuh):
+// a group mode (the bf16 forward at 64 or 128 rows: gemm_sm90.cuh; bf16
+// and the refined rungs at 16 rows: gemm_splitk.cuh):
 //
 //   forward / dx     out[r] = x[r].w[g(r)] (or .w[g]^T for dx), G_ROWS:
-//                    one group id per block of BM rows.  Replaces
+//                    one group id per block of BM rows (bf16 and the
+//                    refined rungs at 16 rows: gemm_splitk.cuh's
+//                    group-rows mode, the live rows' experts only).  Replaces
 //                    kernels/gemm_grouped.py:_gmm_kernel (pallas_call at
 //                    gemm_grouped.py:184).
 //   dW               dw[g] = x_g^T.dy_g over group g's run of rows, G_K:
@@ -30,23 +33,34 @@ namespace rt {
 
 // The CTA row tile of the forward is the caller's (it computed the
 // per-tile group ids at that granularity): 16 rows for decode-sized
-// buffers, 64 or 128 otherwise.  The bf16 rung at 64 or 128 rows runs the
-// Hopper mainloop (gemm_sm90.cuh); every other case the WMMA kernel.  B is
-// w[g] row-major (forward) or K-major (dx, w[g] read through swapped
-// strides).
+// buffers, 64 or 128 otherwise.  At 16 rows bf16 and the refined rungs run
+// the split-K weight stream's group-rows mode (gemm_splitk.cuh: only the
+// tiles with live rows, per `runs`, read their expert's weights; split
+// `w.splits` ways), the other rungs the WMMA kernel; the bf16 rung at 64
+// or 128 rows runs the Hopper mainloop (gemm_sm90.cuh), every other case
+// the WMMA kernel.  B is w[g] row-major (forward) or K-major (dx, w[g] read
+// through swapped strides).
 template <int POL>
-int grouped_rows(const GemmArgs& g, int cta_bm, cudaStream_t s, int* loop) {
+int grouped_rows(const GemmArgs& g, int cta_bm, const splitk::GroupRuns& runs,
+                 const SplitWs& w, cudaStream_t s, int* loop) {
+  const bool kmajor = g.sbk < g.sbn;
   *loop = LOOP_WMMA;
+  if constexpr (POL == P_BF16 || Splits<POL>::a_lo) {
+    if (cta_bm == 16) {
+      *loop = LOOP_SPLITK;
+      return splitk::run<POL, true>(g, (g.m + splitk::MAX_M - 1) / splitk::MAX_M, w, s, runs);
+    }
+  } else {
+    if (cta_bm == 16)
+      return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL, G_ROWS>(g, 1, s)
+                    : run_gemm<16, 128, 64, 16, 16, false, POL, G_ROWS>(g, 1, s);
+  }
   if constexpr (POL == P_BF16) {
     if (cta_bm == 64 || cta_bm == 128) {
       *loop = LOOP_SM90;
       return sm90::run<G_ROWS>(g, 1, cta_bm, s);
     }
   }
-  const bool kmajor = g.sbk < g.sbn;
-  if (cta_bm == 16)
-    return kmajor ? run_gemm<16, 128, 64, 16, 16, true, POL, G_ROWS>(g, 1, s)
-                  : run_gemm<16, 128, 64, 16, 16, false, POL, G_ROWS>(g, 1, s);
   if (cta_bm == 64)
     return kmajor ? run_gemm<64, 128, 32, 32, 32, true, POL, G_ROWS>(g, 1, s)
                   : run_gemm<64, 128, 32, 32, 32, false, POL, G_ROWS>(g, 1, s);

@@ -2,7 +2,9 @@
 // until the card is full, the partials summed inside the same launch.
 // Included by gemm_common.cuh; gemm_tiled's bf16 rung (dispatch_gemm) and
 // gemm_refined's refine_a / bf16x3 / refine_ab (gemm_refined_sm90.cuh's
-// dispatch) send every launch with m <= 16 here.
+// dispatch) send every launch with m <= 16 here, and the grouped forward
+// and dx at those rungs every launch at a 16-row CTA tile (gemm_grouped.cuh,
+// the group-rows mode below).
 //
 // C = A.B with A (batch, m, k), m <= 16 (the activations), and B (batch, k,
 // n) (the weights: N-contiguous NN, or the K-contiguous NT unembed table),
@@ -54,6 +56,21 @@
 // the next launch.  No atomics touch C, and no CTA waits for another.  The
 // wrapper allocates the workspace and the zeroed tickets once per device
 // and stream (kernels/gemm_tiled.py:split_workspace).
+//
+// Group-rows mode (GROUPS, gemm_grouped.cuh: the grouped forward and dx
+// at a 16-row CTA tile, every decode call of the MoE FFN).  A is the token
+// buffer sorted by group (N rows, any N), B the expert stack: grid z walks
+// A's 16-row tiles, and tile z reads A at row 16 z and B at w + gid[z] *
+// sbb (GemmArgs::groups, the per-tile group ids; num_groups marks a dead
+// tile) and stores its rows at 16 z.  The tile's live rows end at its
+// group's next offset or, where the caller passes the real row counts
+// (GroupRuns::counts), at offsets[gid] + counts[gid]: a tile with no live
+// row (dead, or only the alignment padding of its run) issues no load and
+// no MMA, and its split-0 CTA stores zeros; rows past the live ones in a
+// live tile store zeros too (they are zero rows of A: the same bits as
+// computing them).  So a decode call streams the weights of the experts
+// that have rows and no other.  Splits, workspace and tickets are the
+// batch mode's, with the tiles of A in place of the batch.
 #pragma once
 
 #include "common.cuh"
@@ -63,6 +80,13 @@ namespace splitk {
 
 constexpr int BN = 64, BK = 64, STAGES = 3, NT = 128, MAX_M = 16;
 constexpr int PART = 8 * NT;  // floats of one CTA's partial (8 accumulators a thread)
+
+// The group-rows mode's runs: (num_groups + 1) offsets, and each run's
+// real row count (nullptr: every row up to the next offset may be live).
+struct GroupRuns {
+  const int* offsets;
+  const int* counts;
+};
 
 template <bool B_KMAJOR, bool B_BF16, bool A_BF16>
 struct Tile {
@@ -174,7 +198,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4], unsigned a0, unsigned a1
 template <bool B_KMAJOR, bool B_BF16, bool A_BF16>
 __device__ __forceinline__ void load_stage(unsigned char* st, const GemmArgs& g,
                                            const char* a_base, const char* b_base, int n0,
-                                           int k0, bool a16, bool b16) {
+                                           int k0, int m, bool a16, bool b16) {
   using T = Tile<B_KMAJOR, B_BF16, A_BF16>;
   unsigned char* sb = st;
   unsigned char* sa = st + T::b_bytes;
@@ -200,23 +224,23 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const GemmArgs& g,
   }
   if (a16) {
     constexpr int E = 16 / T::EA, CPR = BK / E;
-    for (int c = tid; c < g.m * CPR; c += NT) {
+    for (int c = tid; c < m * CPR; c += NT) {
       const int r = c / CPR, i = (c % CPR) * E, gk = k0 + i;
       const bool ok = gk < g.k;
       const char* src = ok ? a_base + (r * g.sam + gk) * T::EA : a_base;
       cp_async16(sa + (r * T::LDA + i) * T::EA, src, ok);
     }
   } else {
-    for (int e = tid; e < g.m * BK; e += NT) {
+    for (int e = tid; e < m * BK; e += NT) {
       const int r = e / BK, i = e % BK, gk = k0 + i;
       copy_elem<A_BF16>(sa, r * T::LDA + i, a_base, r * g.sam + gk * g.sak, gk < g.k);
     }
   }
 }
 
-template <bool B_KMAJOR, bool B_BF16, bool A_BF16, int TS>
+template <bool B_KMAJOR, bool B_BF16, bool A_BF16, int TS, bool GROUPS>
 __global__ void __launch_bounds__(NT, 3)
-splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
+splitk_kernel(GemmArgs g, SplitWs w, GroupRuns runs, int a16, int b16) {
   using T = Tile<B_KMAJOR, B_BF16, A_BF16>;
   constexpr bool A_LO = (TS & T_LH) != 0, B_LO = (TS & T_HL) != 0;  // split the fragments
   extern __shared__ __align__(128) unsigned char smem[];
@@ -225,8 +249,35 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
   const int gid = lane / 4, tig = lane % 4;
   const int n0 = blockIdx.x * BN, split = blockIdx.y;
   const long long bz = blockIdx.z;
-  const char* a_base = static_cast<const char*>(g.a) + bz * g.sab * T::EA;
-  const char* b_base = static_cast<const char*>(g.b) + bz * g.sbb * T::EB;
+  // m: the rows of A this CTA multiplies; rows: the rows of C it stores
+  // (zeros past m)
+  int m = g.m, rows = g.m;
+  const char* a_base = static_cast<const char*>(g.a);
+  const char* b_base = static_cast<const char*>(g.b);
+  float* c_base = g.c;
+  if constexpr (GROUPS) {
+    const int r0 = blockIdx.z * MAX_M, grp = g.groups[blockIdx.z];
+    rows = min(MAX_M, g.m - r0);
+    m = 0;
+    if (grp < g.num_groups) {
+      int end = runs.offsets[grp + 1];
+      if (runs.counts != nullptr) end = min(end, runs.offsets[grp] + runs.counts[grp]);
+      m = max(0, min(rows, end - r0));
+    }
+    c_base += (long long)r0 * g.n;
+    if (m == 0) {  // dead or padding only: zeros, no loads, no MMA
+      if (split == 0)
+        for (int e = tid; e < rows * BN; e += NT)
+          if (n0 + e % BN < g.n) c_base[(long long)(e / BN) * g.n + n0 + e % BN] = 0.f;
+      return;
+    }
+    a_base += r0 * g.sam * T::EA;
+    b_base += grp * g.sbb * T::EB;
+  } else {
+    a_base += bz * g.sab * T::EA;
+    b_base += bz * g.sbb * T::EB;
+    c_base += bz * (long long)g.m * g.n;
+  }
 
   const int kt = (g.k + BK - 1) / BK;
   const int per = (kt + w.splits - 1) / w.splits;
@@ -236,11 +287,11 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nt)
       load_stage<B_KMAJOR, B_BF16, A_BF16>(smem + s * T::stage, g, a_base, b_base, n0,
-                                           (t0 + s) * BK, a16, b16);
+                                           (t0 + s) * BK, m, a16, b16);
     cp_async_commit();
   }
 
-  const bool two = g.m > 8;            // rows 8..15 of A: a second n8 block
+  const bool two = m > 8;              // rows 8..15 of A: a second n8 block
   const int nw = warp * 16 + gid;      // this lane's first weight column in the tile
   float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   float ds[TS ? 2 : 1][4] = {};        // the small terms (refined rungs)
@@ -249,8 +300,8 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
     __syncthreads();  // stage t landed for every thread; stage t - 1 is free
     if (t + STAGES - 1 < nt)
       load_stage<B_KMAJOR, B_BF16, A_BF16>(smem + ((t + STAGES - 1) % STAGES) * T::stage, g,
-                                           a_base, b_base, n0, (t0 + t + STAGES - 1) * BK, a16,
-                                           b16);
+                                           a_base, b_base, n0, (t0 + t + STAGES - 1) * BK, m,
+                                           a16, b16);
     cp_async_commit();
     const unsigned char* sb = smem + (t % STAGES) * T::stage;
     const unsigned char* sa = sb + T::b_bytes;
@@ -288,12 +339,11 @@ splitk_kernel(GemmArgs g, SplitWs w, int a16, int b16) {
   cp_async_wait<0>();
 
   // d[j][q] is C[j * 8 + tig * 2 + (q & 1)][n0 + nw + (q >> 1) * 8]
-  float* c_base = g.c + bz * (long long)g.m * g.n;
   auto store = [&](const float (&v)[8]) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int row = (e / 4) * 8 + tig * 2 + (e & 1), col = n0 + nw + ((e % 4) >> 1) * 8;
-      if (row < g.m && col < g.n) c_base[(long long)row * g.n + col] = v[e];
+      if (row < rows && col < g.n) c_base[(long long)row * g.n + col] = row < m ? v[e] : 0.f;
     }
   };
   float v[8];
@@ -343,56 +393,71 @@ inline bool vec16_ok(const void* p, int bf16, long long s_contig, long long s_ot
 // template one object for the whole process (STB_GNU_UNIQUE, even across
 // libraries loaded with RTLD_LOCAL): the first library to set its kernel's
 // shared-memory limit would mark the other's as set, whose launch then fails.
-template <bool B_KMAJOR, bool B_BF16, bool A_BF16, int TS>
-static int launch(const GemmArgs& g, int batch, const SplitWs& w, bool a16, bool b16,
-                  cudaStream_t stream) {
+template <bool B_KMAJOR, bool B_BF16, bool A_BF16, int TS, bool GROUPS>
+static int launch(const GemmArgs& g, int batch, const SplitWs& w, const GroupRuns& runs,
+                  bool a16, bool b16, cudaStream_t stream) {
   using T = Tile<B_KMAJOR, B_BF16, A_BF16>;
   static std::atomic<unsigned long long> ready{0};
-  auto kern = splitk_kernel<B_KMAJOR, B_BF16, A_BF16, TS>;
+  auto kern = splitk_kernel<B_KMAJOR, B_BF16, A_BF16, TS, GROUPS>;
   const cudaError_t err = smem_once(ready, kern, T::smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g.n + BN - 1) / BN, w.splits, batch);
-  kern<<<grid, NT, T::smem, stream>>>(g, w, a16, b16);
+  kern<<<grid, NT, T::smem, stream>>>(g, w, runs, a16, b16);
   return (int)cudaGetLastError();
 }
 
 // One operand-type combination for term set TS, instantiated only where it
 // can occur: a lo term only on an f32 operand, and every refined rung
 // splits an f32 A (so a refined launch without a_lo.b_hi has a bf16 A).
-template <int POL, int TS, bool B_KMAJOR, bool B_BF16, bool A_BF16>
-int launch_if(const GemmArgs& g, int batch, const SplitWs& w, bool a16, bool b16,
-              cudaStream_t stream) {
+template <int POL, int TS, bool GROUPS, bool B_KMAJOR, bool B_BF16, bool A_BF16>
+int launch_if(const GemmArgs& g, int batch, const SplitWs& w, const GroupRuns& runs, bool a16,
+              bool b16, cudaStream_t stream) {
   constexpr bool ok = !((TS & T_LH) && A_BF16) && !((TS & T_HL) && B_BF16) &&
                       !(POL != P_BF16 && !(TS & T_LH) && !A_BF16);
-  if constexpr (ok) return launch<B_KMAJOR, B_BF16, A_BF16, TS>(g, batch, w, a16, b16, stream);
+  if constexpr (ok)
+    return launch<B_KMAJOR, B_BF16, A_BF16, TS, GROUPS>(g, batch, w, runs, a16, b16, stream);
   else return (int)cudaErrorInvalidValue;
 }
 
-template <int POL, int TS>
-int launch_terms(const GemmArgs& g, int batch, const SplitWs& w, bool kmajor, bool a16,
-                 bool b16, cudaStream_t stream) {
+template <int POL, int TS, bool GROUPS>
+int launch_terms(const GemmArgs& g, int batch, const SplitWs& w, const GroupRuns& runs,
+                 bool kmajor, bool a16, bool b16, cudaStream_t stream) {
   switch ((kmajor ? 4 : 0) | (g.b_bf16 ? 2 : 0) | (g.a_bf16 ? 1 : 0)) {
-    case 0: return launch_if<POL, TS, false, false, false>(g, batch, w, a16, b16, stream);
-    case 1: return launch_if<POL, TS, false, false, true>(g, batch, w, a16, b16, stream);
-    case 2: return launch_if<POL, TS, false, true, false>(g, batch, w, a16, b16, stream);
-    case 3: return launch_if<POL, TS, false, true, true>(g, batch, w, a16, b16, stream);
-    case 4: return launch_if<POL, TS, true, false, false>(g, batch, w, a16, b16, stream);
-    case 5: return launch_if<POL, TS, true, false, true>(g, batch, w, a16, b16, stream);
-    case 6: return launch_if<POL, TS, true, true, false>(g, batch, w, a16, b16, stream);
-    default: return launch_if<POL, TS, true, true, true>(g, batch, w, a16, b16, stream);
+    case 0:
+      return launch_if<POL, TS, GROUPS, false, false, false>(g, batch, w, runs, a16, b16, stream);
+    case 1:
+      return launch_if<POL, TS, GROUPS, false, false, true>(g, batch, w, runs, a16, b16, stream);
+    case 2:
+      return launch_if<POL, TS, GROUPS, false, true, false>(g, batch, w, runs, a16, b16, stream);
+    case 3:
+      return launch_if<POL, TS, GROUPS, false, true, true>(g, batch, w, runs, a16, b16, stream);
+    case 4:
+      return launch_if<POL, TS, GROUPS, true, false, false>(g, batch, w, runs, a16, b16, stream);
+    case 5:
+      return launch_if<POL, TS, GROUPS, true, false, true>(g, batch, w, runs, a16, b16, stream);
+    case 6:
+      return launch_if<POL, TS, GROUPS, true, true, false>(g, batch, w, runs, a16, b16, stream);
+    default:
+      return launch_if<POL, TS, GROUPS, true, true, true>(g, batch, w, runs, a16, b16, stream);
   }
 }
 
 // The host's split count is checked, not chosen, here: every split must
 // hold at least one K tile, and the workspace and tickets must cover the
-// grid.  A template, so that only the sources that call it (gemm_tiled.cu
-// for the bf16 rung, gemm_refined.cu for the refined ones) compile its
-// kernels: every other source that includes gemm_common.cuh would
+// grid.  GROUPS: the group-rows mode, `batch` A's 16-row tiles (g.m rows,
+// any count; `runs` its offsets and counts).  A template, so that only the
+// sources that call it (gemm_tiled.cu for the bf16 rung, gemm_refined.cu
+// for the refined ones, gemm_grouped.cu for the group-rows mode) compile
+// its kernels: every other source that includes gemm_common.cuh would
 // otherwise build them too.
-template <int POL>
-int run(const GemmArgs& g, int batch, const SplitWs& w, cudaStream_t stream) {
+template <int POL, bool GROUPS = false>
+int run(const GemmArgs& g, int batch, const SplitWs& w, cudaStream_t stream,
+        const GroupRuns& runs = GroupRuns{nullptr, nullptr}) {
   static_assert(POL == P_BF16 || Splits<POL>::a_lo, "bf16 and the refined rungs only");
-  if (g.m > MAX_M || w.splits < 1 || w.splits > 65535 || batch > 65535)
+  if (w.splits < 1 || w.splits > 65535 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (GROUPS ? (batch != (g.m + MAX_M - 1) / MAX_M || g.groups == nullptr ||
+                runs.offsets == nullptr)
+             : g.m > MAX_M)
     return (int)cudaErrorInvalidValue;
   if (w.splits > 1) {
     const int kt = (g.k + BK - 1) / BK, per = (kt + w.splits - 1) / w.splits;
@@ -406,16 +471,20 @@ int run(const GemmArgs& g, int batch, const SplitWs& w, cudaStream_t stream) {
   const bool b16 = kmajor ? vec16_ok(g.b, g.b_bf16, g.sbk, g.sbn, g.sbb, g.k)
                           : vec16_ok(g.b, g.b_bf16, g.sbn, g.sbk, g.sbb, g.n);
   if constexpr (POL == P_BF16) {
-    return launch_terms<POL, 0>(g, batch, w, kmajor, a16, b16, stream);
+    return launch_terms<POL, 0, GROUPS>(g, batch, w, runs, kmajor, a16, b16, stream);
   } else {
     switch (term_set<POL>(g.a_bf16, g.b_bf16)) {
-      case 0: return launch_terms<POL, 0>(g, batch, w, kmajor, a16, b16, stream);
-      case T_LH: return launch_terms<POL, T_LH>(g, batch, w, kmajor, a16, b16, stream);
-      case T_HL: return launch_terms<POL, T_HL>(g, batch, w, kmajor, a16, b16, stream);
+      case 0: return launch_terms<POL, 0, GROUPS>(g, batch, w, runs, kmajor, a16, b16, stream);
+      case T_LH:
+        return launch_terms<POL, T_LH, GROUPS>(g, batch, w, runs, kmajor, a16, b16, stream);
+      case T_HL:
+        return launch_terms<POL, T_HL, GROUPS>(g, batch, w, runs, kmajor, a16, b16, stream);
       case T_LH | T_HL:
-        return launch_terms<POL, T_LH | T_HL>(g, batch, w, kmajor, a16, b16, stream);
+        return launch_terms<POL, T_LH | T_HL, GROUPS>(g, batch, w, runs, kmajor, a16, b16,
+                                                      stream);
       default:
-        return launch_terms<POL, T_LH | T_HL | T_LL>(g, batch, w, kmajor, a16, b16, stream);
+        return launch_terms<POL, T_LH | T_HL | T_LL, GROUPS>(g, batch, w, runs, kmajor, a16,
+                                                             b16, stream);
     }
   }
 }

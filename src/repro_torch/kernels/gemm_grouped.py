@@ -4,61 +4,81 @@
 
 Replaces two TPU kernels of ``repro/kernels/gemm_grouped.py``:
 
-  ``_gmm_kernel`` (``pallas_call`` at :184, via ``_gmm_call``)
+  ``_gmm_kernel`` (:131, ``pallas_call`` at :184, via ``_gmm_call``)
       ``grouped_gemm``: out[r] = x[r] . w[g(r)] over a token buffer
       sorted by group, each group's run padded to the alignment ``bm``;
       with ``trans_w`` the same walk against w[g]^T (the backward's dx).
   ``_dw_kernel`` (``pallas_call`` at :246, via ``_dw_call``)
       ``grouped_gemm_dw``: dw[g] = x_g^T . dy_g over group g's run.
 
-Both run every rung of the ladder.  The bf16 forward and dx at CTA row
-tiles of 64 and 128 run the Hopper mainloop (``csrc/gemm_sm90.cuh``: TMA
-or a converting producer warpgroup feeding ``wgmma``; its grid walks the
-row tiles fastest, so the row tiles of one expert read each weight N-tile
-from HBM once and from L2 after); everything else runs
-``gemm_common.cuh``'s WMMA tiled kernel: refine_a / bf16x3 / refine_ab
-from staged bf16 hi/lo tiles; the fp8 / int8 rungs quantized on their way
-into those tiles under each staged tile's pow2 scales (the CTA's rows x BK
-of x, BK x 128 of w; dW's 64 x 32 of x^T and 32 x 128 of dy), then
-multiplied in bf16's one pass or bf16x3's three; bf16x6 from f32 tiles
-with its terms made per fragment; f32 on the CUDA cores.  The bf16 dW
-runs the Hopper mainloop's group-K mode (``gemm_sm90.cuh``: persistent
-CTAs over 128 x 128 tiles of dw, each walking its group's run as K, x and
-dy by TMA as bf16, the rows past a run's end zeroed in shared memory);
-its quantized rungs first run a quantize pass (``grouped_dw_scales``: one
-block per 64 x 32 tile of x^T and 32 x 128 tile of dy takes the tile's
-pow2 scales and writes its bf16 hi / lo terms), whose planes the WMMA
-kernel then stages as they are, so no tile is quantized more than once
-and no block reduces.  The TPU
-scalar-prefetched a per-tile group id; here each block of the forward
-loads its own from ``tile_group_ids`` (computed on the device with
-``searchsorted`` at the kernel's CTA row tile, no host sync): a dead tile
-(id E, past ``offsets[E]``) stores zeros and issues no tensor-core work,
-a live one walks K against ``w + gid * stride_E``.  dx reads ``w[g]``
-through swapped strides (a K-major B); no transpose is written.  The dW
-grid is (E, D/64, F/128): each block walks its own group's run as K,
-reading x through the M-contiguous A layout, so no sum is carried
-between blocks and no atomics are used (the same result on every run);
-an empty run stores zeros, where the TPU left the block unwritten and
-masked it afterwards.
+Both run every rung of the ladder.  The forward and dx by CTA row tile
+(``cta_rows``):
 
-What bounds them on the H100: bytes.  Every expert owns at least one
-tile (``align_group_counts``), so each forward call streams all E expert
+  16 rows  (every decode call of the MoE FFN: at most 16 rows an expert)
+           bf16 and the refined rungs run the split-K weight stream of
+           ``gemm_tiled``'s decode (``csrc/gemm_splitk.cuh``) in its
+           group-rows mode: grid (64-column N tiles, K splits, 16-row
+           tiles of x), tile z against ``w + gid[z] * stride_E``.  A tile
+           with no live row -- dead (past ``offsets[E]``) or only the
+           alignment padding of its run, known from ``group_counts`` (each
+           run's real rows, on the device) -- loads nothing and stores
+           zeros, so only the experts that have rows are streamed.  The
+           split count comes from the shapes alone (``grouped_splits``),
+           the partials sum in split order on ``split_workspace``.
+           bf16x6, f32 and the fp8 / int8 rungs keep the WMMA tile.
+  64, 128  the bf16 rung runs the Hopper mainloop (``csrc/gemm_sm90.cuh``:
+           TMA or a converting producer warpgroup feeding ``wgmma``; its
+           grid walks the row tiles fastest, so the row tiles of one
+           expert read each weight N-tile from HBM once and from L2
+           after); every other rung ``gemm_common.cuh``'s WMMA tiled
+           kernel: refine_a / bf16x3 / refine_ab from staged bf16 hi/lo
+           tiles; the fp8 / int8 rungs quantized on their way into those
+           tiles under each staged tile's pow2 scales (the CTA's rows x BK
+           of x, BK x 128 of w), then multiplied in bf16's one pass or
+           bf16x3's three; bf16x6 from f32 tiles with its terms made per
+           fragment; f32 on the CUDA cores.
+
+The bf16 dW runs the Hopper mainloop's group-K mode (``gemm_sm90.cuh``:
+persistent CTAs over 128 x 128 tiles of dw, each walking its group's run as
+K, x and dy by TMA as bf16, the rows past a run's end zeroed in shared
+memory); its quantized rungs first run a quantize pass
+(``grouped_dw_scales``: one block per 64 x 32 tile of x^T and 32 x 128
+tile of dy takes the tile's pow2 scales and writes its bf16 hi / lo
+terms), whose planes the WMMA kernel then stages as they are, so no tile
+is quantized more than once and no block reduces.  The TPU scalar-prefetched
+a per-tile group id; here each block of the forward loads its own from
+``tile_group_ids`` (computed on the device with ``searchsorted`` at the
+kernel's CTA row tile, no host sync): a dead tile (id E, past
+``offsets[E]``) stores zeros and issues no tensor-core work, a live one
+walks K against ``w + gid * stride_E``.  dx reads ``w[g]`` through swapped
+strides (a K-major B); no transpose is written.  The dW grid is (E, D/64,
+F/128): each block walks its own group's run as K, reading x through the
+M-contiguous A layout, so no sum is carried between blocks and no atomics
+are used (the same result on every run); an empty run stores zeros, where
+the TPU left the block unwritten and masked it afterwards.
+
+What bounds them on the H100: bytes.  Every expert owns at least one tile
+(``align_group_counts``), so the 64/128-row forward streams all E expert
 weight matrices: at Mixtral's 8 x 4096 x 14336 in f32, 1.88 GB, 0.56 ms at
 3.35 TB/s, against 0.17 ms of bf16 tensor-core work at a 700-token
-prefill; a decode call is the same weight stream.  dW writes the same
-1.88 GB.  The design reads the f32 expert stack in place and rounds (or
-splits) it on the way into shared memory, as ``gemm_tiled`` does: no bf16
-copy of the stack is ever written.  So the forward cannot pass the f32
-weight stream's bound; bf16 expert weights and skipping tiles that hold
-only padding come later.
+prefill.  A decode call needs only the experts that have rows (4 of 8 at 4
+tokens x top-2: 0.94 GB, 0.28 ms); the 16-row WMMA tile streamed all 8 in
+one 16 x 128 CTA per tile over the whole K (0.92 ms), the split-K stream
+reads the live experts' weights only, 64 columns a CTA, three CTAs an SM.
+dW writes the same 1.88 GB.  The design reads the f32 expert stack in place
+and rounds (or splits) it on the way into shared memory or fragments, as
+``gemm_tiled`` does: no bf16 copy of the stack is ever written.  So no
+forward can pass the f32 weight stream's bound; bf16 expert weights come
+later.
 
 Layout contract: the alignment ``bm`` must be a multiple of 16 (a WMMA
 fragment's rows); the forward's CTA row tile is 128 on the bf16 rung
 where 128 divides ``bm``, else 64 where 64 does, else 16.  Each output
 row is its own dot product, so the row tile does not change results
 (except the quantized rungs' scale tiles, which the plain twin takes at
-the same row tile).
+the same row tile).  ``group_counts`` (optional, (E,) on the device) gives
+each run's real rows; the rows past them are the zero padding, and
+passing it changes no result (a padding row's product is zero).
 """
 
 from __future__ import annotations
@@ -72,13 +92,16 @@ import torch
 from repro_torch.core import precision as prec
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemm_refined import POLICY_CODES as _REFINED_CODES
-from repro_torch.kernels.gemm_refined import gemm_refined_plain
-from repro_torch.kernels.gemm_tiled import MAINLOOPS, gemm_tiled_plain, on_cpu
+from repro_torch.kernels.gemm_refined import gemm_refined_plain, gemm_refined_splitk_plain
+from repro_torch.kernels.gemm_tiled import (MAINLOOPS, SPLIT_ARGTYPES, gemm_tiled_plain,
+                                            gemm_tiled_splitk_plain, on_cpu, sm_count,
+                                            split_workspace, splitk_splits)
 
 __all__ = ["grouped_gemm", "grouped_gemm_dw", "grouped_gemm_plain", "grouped_gemm_dw_plain",
-           "grouped_dw_scales", "grouped_dw_scales_plain", "dw_scale_slots",
-           "grouped", "tile_group_ids", "cta_rows", "LAUNCHES", "LAUNCHES_BY_LOOP",
-           "LAUNCHES_BY_LOOP_DW", "POLICY_CODES", "ROW_TILE", "DW_SCALE_TILES"]
+           "grouped_gemm_splitk_plain", "grouped_dw_scales", "grouped_dw_scales_plain",
+           "dw_scale_slots", "grouped", "tile_group_ids", "tile_live_rows", "cta_rows",
+           "grouped_splits", "LAUNCHES", "LAUNCHES_BY_LOOP", "LAUNCHES_BY_LOOP_DW",
+           "POLICY_CODES", "ROW_TILE", "SPLITK_POLICIES", "DW_SCALE_TILES"]
 
 LAUNCHES = {"grouped_gemm": 0, "grouped_gemm_dw": 0}
 LAUNCHES_BY_LOOP = dict.fromkeys(MAINLOOPS, 0)   # the forward's (and dx's) mainloop
@@ -89,6 +112,8 @@ POLICY_CODES = {"bf16": 0, **_REFINED_CODES, "f32": 4, "bf16x6": 5, "fp8": 6, "i
 _QUANT = ("fp8", "int8", "fp8x3", "int8x3")
 _CTA_BK = {16: 64, 64: 32}   # the WMMA kernel's K step at each CTA row tile
 ROW_TILE = 16          # the smallest CTA row tile: the alignment must be a multiple
+# the rungs whose 16-row tiles run the split-K weight stream (the others WMMA)
+SPLITK_POLICIES = ("bf16", *_REFINED_CODES)
 
 
 def tile_group_ids(group_offsets: torch.Tensor, n_rows: int, bm: int) -> torch.Tensor:
@@ -112,6 +137,38 @@ def cta_rows(bm: int, policy: str = "bf16") -> int:
     if policy == "bf16" and bm % 128 == 0:
         return 128
     return 64 if bm % 64 == 0 else ROW_TILE
+
+
+def grouped_splits(n_rows: int, n: int, k: int, sms: int) -> int:
+    """K splits of a 16-row launch on the split-K stream: ``splitk_splits``
+    over every 16-row tile of the buffer.  Only the tiles with live rows
+    stream, but which those are lives on the device, and from the shapes
+    alone any tile may be live (a group may own several tiles, a
+    zero-width one none), so the workspace and tickets cover them all.  At
+    Mixtral's decode (144 rows: 9 tiles, E = 8) the N tiles alone give one
+    split."""
+    return splitk_splits(-(-n_rows // ROW_TILE), ROW_TILE, n, k, sms)
+
+
+def tile_live_rows(group_offsets: torch.Tensor, n_rows: int,
+                   group_counts: torch.Tensor | None = None) -> list[int]:
+    """The live rows of each 16-row tile, as the split-K stream takes them:
+    0 for a dead tile (past ``offsets[E]``), else the rows from the tile's
+    start to its group's end -- the next offset or, with ``group_counts``,
+    ``offsets[g] + counts[g]`` if that is sooner -- at most 16 and the
+    buffer's end.  Reads the offsets to the host (the plain models only)."""
+    e = group_offsets.shape[0] - 1
+    off = group_offsets.tolist()
+    cnt = group_counts.tolist() if group_counts is not None else None
+    live = []
+    for z, g in enumerate(tile_group_ids(group_offsets, n_rows, ROW_TILE).tolist()):
+        r0 = z * ROW_TILE
+        if g >= e:
+            live.append(0)
+            continue
+        end = off[g + 1] if cnt is None else min(off[g + 1], off[g] + cnt[g])
+        live.append(max(0, min(ROW_TILE, n_rows - r0, end - r0)))
+    return live
 
 
 def _check_policy(policy: str) -> None:
@@ -143,11 +200,14 @@ def _ladder_matmul(a: torch.Tensor, b: torch.Tensor, policy: str,
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
-                       bm: int, policy: str = "bf16", trans_w: bool = False) -> torch.Tensor:
+                       bm: int, policy: str = "bf16", trans_w: bool = False,
+                       group_counts: torch.Tensor | None = None) -> torch.Tensor:
     """The same function in plain PyTorch: a loop over groups of the
     ladder's product of each run against its expert; rows past
-    ``offsets[E]`` are zero.  ``bm`` (the alignment) sets the kernel's CTA
-    row tile, and so the quantized rungs' scale tiles."""
+    ``offsets[E]`` are zero, and so are a run's rows past ``group_counts``
+    where it is given (the zero padding, whose product is zero).  ``bm``
+    (the alignment) sets the kernel's CTA row tile, and so the quantized
+    rungs' scale tiles (taken over the whole run, padding included)."""
     _check_policy(policy)
     cta = cta_rows(bm, policy)
     tiles = ((cta, _CTA_BK.get(cta, 0)), (_CTA_BK.get(cta, 0), 128))
@@ -158,6 +218,33 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Te
         if off[g + 1] > off[g]:
             wg = w[g].t() if trans_w else w[g]
             out[off[g]:off[g + 1]] = _ladder_matmul(x[off[g]:off[g + 1]], wg, policy, tiles)
+    if group_counts is not None:
+        for g, c in enumerate(group_counts.tolist()):
+            out[min(off[g] + c, off[g + 1]):off[g + 1]] = 0
+    return out
+
+
+def grouped_gemm_splitk_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
+                              policy: str = "bf16", splits: int, trans_w: bool = False,
+                              group_counts: torch.Tensor | None = None) -> torch.Tensor:
+    """The split-K stream's group-rows sum in plain PyTorch (the card's
+    arithmetic at a 16-row CTA tile, for tests): each tile's live rows
+    (``tile_live_rows``) run ``gemm_tiled_splitk_plain`` (bf16) or
+    ``gemm_refined_splitk_plain`` against their expert over ``splits`` K
+    splits; every other row is zero."""
+    if policy not in SPLITK_POLICIES:
+        raise ValueError(f"the split-K stream runs {SPLITK_POLICIES}; got {policy!r}")
+    n_rows = x.shape[0]
+    gids = tile_group_ids(group_offsets, n_rows, ROW_TILE).tolist()
+    out = torch.zeros((n_rows, w.shape[1] if trans_w else w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for z, m in enumerate(tile_live_rows(group_offsets, n_rows, group_counts)):
+        if m:
+            r0 = z * ROW_TILE
+            wg = w[gids[z]].t() if trans_w else w[gids[z]]
+            out[r0:r0 + m] = (gemm_tiled_splitk_plain(x[r0:r0 + m], wg, splits)
+                              if policy == "bf16" else
+                              gemm_refined_splitk_plain(x[r0:r0 + m], wg, policy, splits))
     return out
 
 
@@ -261,9 +348,9 @@ def _forward_launcher(ext: bool):
     fwd = lib.grouped_gemm_ext_launch if ext else lib.grouped_gemm_launch
     fwd.argtypes = [c.c_void_p, c.c_int, c.c_longlong, c.c_longlong,               # x
                     c.c_void_p, c.c_int, c.c_longlong, c.c_longlong, c.c_longlong,  # w
-                    c.c_void_p, c.c_int, c.c_void_p,                                # gids, E, out
-                    c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.POINTER(c.c_int),
-                    c.c_void_p, c.c_int]
+                    c.c_void_p, c.c_int, c.c_void_p, c.c_void_p,        # gids, E, offsets, counts
+                    c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # out m n k cta pol
+                    *SPLIT_ARGTYPES, c.POINTER(c.c_int), c.c_void_p, c.c_int]
     fwd.restype = c.c_int
     return fwd
 
@@ -296,14 +383,17 @@ def _device_index(x: torch.Tensor) -> int:
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
-                 bm: int, policy: str = "bf16", trans_w: bool = False) -> torch.Tensor:
+                 bm: int, policy: str = "bf16", trans_w: bool = False,
+                 group_counts: torch.Tensor | None = None) -> torch.Tensor:
     """out[r] = x[r] @ w[g] (``trans_w``: @ w[g]^T) for the rows r of
     group g; f32 (N, F) (or (N, D)).
 
     x: (N, D) (or (N, F)) sorted by group, runs aligned to ``bm``,
     padding rows zero; w: (E, D, F) f32 or bf16; group_offsets: (E+1,)
-    int32.  CPU tensors run ``grouped_gemm_plain``; CUDA tensors launch
-    the kernel or raise.
+    int32; group_counts: None, or (E,) each run's real rows (the rows
+    before its padding), which lets the 16-row split-K stream skip the
+    tiles that hold only padding (the same result).  CPU tensors run
+    ``grouped_gemm_plain``; CUDA tensors launch the kernel or raise.
     """
     _check_policy(policy)
     cta = cta_rows(bm, policy)
@@ -314,24 +404,36 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, 
     if x.shape[1] != k_dim or group_offsets.shape != (w.shape[0] + 1,):
         raise ValueError(f"grouped_gemm shapes: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"trans_w={trans_w}, offsets {tuple(group_offsets.shape)}")
-    if on_cpu(x, w, group_offsets):
-        return grouped_gemm_plain(x, w, group_offsets, policy=policy, trans_w=trans_w, bm=bm)
+    if group_counts is not None and group_counts.shape != (w.shape[0],):
+        raise ValueError(f"grouped_gemm: group_counts must be (E,) = ({w.shape[0]},); got "
+                         f"{tuple(group_counts.shape)}")
+    if on_cpu(x, w, group_offsets, *(() if group_counts is None else (group_counts,))):
+        return grouped_gemm_plain(x, w, group_offsets, policy=policy, trans_w=trans_w, bm=bm,
+                                  group_counts=group_counts)
     x, w = _operand(x), _operand(w)
     e, d, f = w.shape
     n_rows = x.shape[0]
     n_out = d if trans_w else f
     out = torch.empty((n_rows, n_out), dtype=torch.float32, device=x.device)
     if out.numel():
-        gids = tile_group_ids(group_offsets, n_rows, cta)
+        offsets = group_offsets.to(torch.int32).contiguous()
+        gids = tile_group_ids(offsets, n_rows, cta)
+        counts = None if group_counts is None else group_counts.to(torch.int32).contiguous()
+        splits, ws = 1, (None, 0, None, 0)
+        index = _device_index(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if cta == ROW_TILE and policy in SPLITK_POLICIES:
+            splits = grouped_splits(n_rows, n_out, x.shape[1], sm_count(index))
+            ws = split_workspace(index, stream)
         # B = w[g] (K x N): row-major (k-stride F) or, for dx, w[g]^T (k-stride 1)
         sbk, sbn = (1, f) if trans_w else (f, 1)
         loop = ctypes.c_int(-1)
         rc = _forward_launcher(policy in _EXT_POLICIES)(
             x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0), 1,
             w.data_ptr(), int(w.dtype == torch.bfloat16), d * f, sbk, sbn,
-            gids.data_ptr(), e, out.data_ptr(), n_rows, n_out, x.shape[1], cta,
-            POLICY_CODES[policy], ctypes.byref(loop),
-            torch.cuda.current_stream(x.device).cuda_stream, _device_index(x))
+            gids.data_ptr(), e, offsets.data_ptr(), None if counts is None else counts.data_ptr(),
+            out.data_ptr(), n_rows, n_out, x.shape[1], cta, POLICY_CODES[policy], splits, *ws,
+            ctypes.byref(loop), stream, index)
         _build.check(rc, "grouped_gemm_launch")
         LAUNCHES["grouped_gemm"] += 1
         LAUNCHES_BY_LOOP[MAINLOOPS[loop.value]] += 1
@@ -430,13 +532,15 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tens
 class _Grouped(torch.autograd.Function):
     """Twin of the JAX ``_grouped`` custom VJP: dx is the forward kernel
     against w^T (``trans_w``), dW the dW kernel, both on the forward's
-    rung; gradients come back in the operands' dtypes."""
+    rung; gradients come back in the operands' dtypes.  ``group_counts``
+    reaches the forward only: the cotangent's padding rows need not be
+    zero, and dx computes them."""
 
     @staticmethod
-    def forward(ctx, x, w, group_offsets, bm, policy):
+    def forward(ctx, x, w, group_offsets, bm, policy, group_counts):
         ctx.save_for_backward(x, w, group_offsets)
         ctx.bm, ctx.policy = bm, policy
-        return grouped_gemm(x, w, group_offsets, bm=bm, policy=policy)
+        return grouped_gemm(x, w, group_offsets, bm=bm, policy=policy, group_counts=group_counts)
 
     @staticmethod
     def backward(ctx, g):
@@ -448,10 +552,11 @@ class _Grouped(torch.autograd.Function):
                               trans_w=True).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = grouped_gemm_dw(x, g, offsets, policy=ctx.policy).to(w.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
 def grouped(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
-            bm: int, policy: str = "bf16") -> torch.Tensor:
+            bm: int, policy: str = "bf16",
+            group_counts: torch.Tensor | None = None) -> torch.Tensor:
     """Differentiable ``grouped_gemm`` (the ``cuda_grouped`` impl's call)."""
-    return _Grouped.apply(x, w, group_offsets, bm, policy)
+    return _Grouped.apply(x, w, group_offsets, bm, policy, group_counts)

@@ -15,7 +15,9 @@ What follows depends on the route's ``grouped`` impl:
 any other impl (``cuda_grouped``) — sort-based DROPLESS dispatch: a
   stable argsort of the assignments by expert, each expert's run padded
   only to the alignment ``bm`` (at least one tile), and three
-  ``grouped_matmul`` calls (wi, wg, wo).  No token is dropped and every
+  ``grouped_matmul`` calls (wi, wg, wo), each given the real per-expert
+  counts (``group_counts``), with which the kernel's 16-row decode tiles
+  that hold only padding read no weights.  No token is dropped and every
   output row is its own dot product, so a token's output does not
   depend on the rest of its batch.  Each token's k contributions are
   gathered back and summed in the JAX package's scatter order (by
@@ -119,9 +121,9 @@ def _sorted_ffn(p: dict, xf: torch.Tensor, gate_vals, expert_idx, *,
     flat_expert = expert_idx.reshape(-1)                            # (T*k,)
     order = torch.argsort(flat_expert, stable=True)
     # a scatter, not bincount: bincount reads the largest id back to the
-    # host on CUDA
-    counts = torch.zeros(num_experts, dtype=torch.long, device=dev).scatter_add_(
-        0, flat_expert, torch.ones_like(flat_expert))
+    # host on CUDA; int32, as the kernels read it (group_counts)
+    counts = torch.zeros(num_experts, dtype=torch.int32, device=dev).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
     aligned = ops.align_group_counts(counts, bm)
     offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                          torch.cumsum(aligned, 0).to(torch.int32)])  # (E+1,)
@@ -130,18 +132,20 @@ def _sorted_ffn(p: dict, xf: torch.Tensor, gate_vals, expert_idx, *,
     # destination row of each sorted assignment: its group's aligned
     # start plus its rank within the group
     sorted_e = flat_expert[order]
-    group_first = torch.cat([torch.zeros(1, dtype=counts.dtype, device=dev),
+    group_first = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
                              torch.cumsum(counts, 0)[:-1]])
     rank = torch.arange(tk, device=dev) - group_first[sorted_e]
     dest = offsets[:-1].long()[sorted_e] + rank                     # (T*k,)
     tok = order // top_k
 
     xs = torch.zeros((n_buf, d), dtype=dtype, device=dev).index_put((dest,), xf[tok].to(dtype))
-    h = ops.grouped_matmul(xs, p["wi"]["w"], offsets, policy=route, bm=bm)
-    g = (ops.grouped_matmul(xs, p["wg"]["w"], offsets, policy=route, bm=bm)
-         if mlp_kind == "swiglu" else None)
+    # the real counts let a 16-row tile that holds only padding skip its
+    # expert's weights (the result is the same)
+    kw = dict(policy=route, bm=bm, group_counts=counts)
+    h = ops.grouped_matmul(xs, p["wi"]["w"], offsets, **kw)
+    g = ops.grouped_matmul(xs, p["wg"]["w"], offsets, **kw) if mlp_kind == "swiglu" else None
     h = _activate(h, g, mlp_kind)
-    ys = ops.grouped_matmul(h.to(dtype), p["wo"]["w"], offsets, policy=route, bm=bm)
+    ys = ops.grouped_matmul(h.to(dtype), p["wo"]["w"], offsets, **kw)
 
     # Combine.  JAX scatter-adds ys[dest] * gate in sorted order, so each
     # token sums its k contributions by ascending expert, starting from 0:

@@ -1228,3 +1228,118 @@ def test_gemm_lowp_decode_calls_are_deterministic(dev):
     assert torch.equal(first[1], gl.gemm_lowp_plain(h, wo, "int8x3", 4, 256, 256))
     ref = gl.gemm_lowp_plain(x, wi, "fp8x3", 4, 256, 256)
     assert (first[0] - ref).abs().max().item() <= LOWP_REL * ref.abs().max().item()
+
+
+# ---- the grouped forward and dx at a 16-row CTA tile (every decode call
+# of the MoE FFN): bf16 and the refined rungs on the split-K weight
+# stream's group-rows mode (gemm_splitk.cuh, counted as splitk), only the
+# tiles with live rows (group_counts) reading their expert's weights.
+# Smallest first, each call under the watchdog.
+
+def _grouped_decode(rng, sizes, k, dev, dtype, noise=False):
+    """A buffer sorted by group, runs aligned to 16 (at least one tile) and
+    one dead tile after them, padding rows zero (or noise); offsets and the
+    real counts on the card."""
+    aligned = np.maximum(-(-np.asarray(sizes) // 16) * 16, 16)
+    off = np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)
+    x = np.zeros((int(off[-1]) + 16, k), np.float32)
+    if noise:
+        x[:] = rng.uniform(-1, 1, x.shape)
+    for g, n in enumerate(sizes):
+        x[off[g]:off[g] + n] = rng.uniform(-1, 1, (n, k))
+    return (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(off).to(dev),
+            torch.tensor(sizes, dtype=torch.int32, device=dev))
+
+
+GROUPED_SPLITK_CASES = [   # (sizes, d, f, trans_w, x dtype, w dtype)
+    ([3, 0, 1], 64, 64, False, torch.bfloat16, torch.float32),       # one tile of one expert
+    ([5, 0, 20, 16], 1152, 256, False, torch.bfloat16, torch.float32),   # splits > 1
+    ([5, 0, 20, 16], 1152, 256, True, torch.float32, torch.float32),     # dx: K-major B
+    ([9, 1, 0, 2], 200, 300, False, torch.float32, torch.bfloat16),  # ragged, element-staged
+    ([2, 0, 1, 0, 3, 0, 2, 0], 4096, 14336, False, torch.bfloat16, torch.float32),  # wi
+    ([2, 0, 1, 0, 3, 0, 2, 0], 14336, 4096, False, torch.bfloat16, torch.float32),  # wo
+]
+
+
+@pytest.mark.parametrize("policy,sizes,d,f,trans_w,x_dtype,w_dtype", [
+    (policy, *case) for case in GROUPED_SPLITK_CASES for policy in gg.SPLITK_POLICIES
+    if case[1] * case[2] < 1 << 20 or policy in ("bf16", "refine_ab")])   # Mixtral: 2 rungs
+def test_grouped_gemm_splitk_matches_plain(dev, record_property, policy, sizes, d, f, trans_w,
+                                           x_dtype, w_dtype):
+    """Each call adds one splitk launch; the result is within GEMM_ATOL of
+    the split sum's plain model at the host's split count and of the plain
+    twin, and its padding and dead rows are exactly 0."""
+    rng = np.random.default_rng(len(sizes) + d + f)
+    k = f if trans_w else d
+    x, off, counts = _grouped_decode(rng, sizes, k, dev, x_dtype)
+    w = _u(rng, (len(sizes), d, f), dev, w_dtype, k ** -0.5)
+    before = dict(gg.LAUNCHES_BY_LOOP)
+    with _within(120, "gemm_grouped"):
+        out = gg.grouped_gemm(x, w, off, bm=16, policy=policy, trans_w=trans_w,
+                              group_counts=counts)
+        torch.cuda.synchronize()
+    assert gg.LAUNCHES_BY_LOOP == {**before, "splitk": before["splitk"] + 1}
+    splits = gg.grouped_splits(x.shape[0], d if trans_w else f, k, gt.sm_count(dev.index or 0))
+    record_property("splits", splits)
+    _hold(record_property, "model", out,
+          gg.grouped_gemm_splitk_plain(x, w, off, policy=policy, splits=splits, trans_w=trans_w,
+                                       group_counts=counts), GEMM_ATOL)
+    _hold(record_property, "plain", out,
+          gg.grouped_gemm_plain(x, w, off, bm=16, policy=policy, trans_w=trans_w), GEMM_ATOL)
+    live = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    for g, n in enumerate(sizes):
+        live[int(off[g]):int(off[g]) + n] = True
+    assert not out[~live].any()
+
+
+@pytest.mark.parametrize("policy", ["bf16", "refine_ab"])
+@pytest.mark.parametrize("f", [256, 4096])
+def test_grouped_gemm_splitk_skips_padding_and_dead_tiles(dev, policy, f):
+    """Noise in the padding and dead rows: with the counts those rows come
+    back exactly 0 and the live rows equal the zero-padded buffer's; without
+    them every aligned row is computed (the noise rows too), dead tiles
+    still 0."""
+    rng = np.random.default_rng(f)
+    x, off, counts = _grouped_decode(rng, [5, 0, 20, 16], 1152, dev, torch.bfloat16, noise=True)
+    w = _u(rng, (4, 1152, f), dev, scale=1152 ** -0.5)
+    live = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    for g, n in enumerate(counts.tolist()):
+        live[int(off[g]):int(off[g]) + n] = True
+    with _within(120, "gemm_grouped"):
+        out = gg.grouped_gemm(x, w, off, bm=16, policy=policy, group_counts=counts)
+        clean = gg.grouped_gemm(x * live[:, None], w, off, bm=16, policy=policy)
+        every = gg.grouped_gemm(x, w, off, bm=16, policy=policy)
+        torch.cuda.synchronize()
+    assert not out[~live].any()
+    assert torch.equal(out, clean)
+    assert not every[int(off[-1]):].any()
+    ref = gg.grouped_gemm_plain(x, w, off, bm=16, policy=policy)
+    assert (every - ref).abs().max().item() <= GEMM_ATOL
+
+
+def test_grouped_gemm_splitk_many_calls_finish(dev):
+    """2000 calls each of bf16 and refine_ab at a split shape (3 row tiles x
+    8 N tiles, K = 4096 in 11 splits) and of bf16 at Mixtral's decode wi,
+    under the watchdog, each result equal to the first call's bit for bit
+    (a ticket left set would show as a wrong result)."""
+    rng = np.random.default_rng(15)
+    x, off, counts = _grouped_decode(rng, [7, 12], 4096, dev, torch.bfloat16)
+    w = _u(rng, (2, 4096, 512), dev, scale=4096 ** -0.5)
+    xm, offm, cm = _grouped_decode(rng, [2, 0, 1, 0, 3, 0, 2, 0], 4096, dev, torch.bfloat16)
+    wm = _u(rng, (8, 4096, 14336), dev, scale=4096 ** -0.5)
+    assert gg.grouped_splits(x.shape[0], 512, 4096, gt.sm_count(dev.index or 0)) > 1
+    calls = [lambda: gg.grouped_gemm(x, w, off, bm=16, group_counts=counts),
+             lambda: gg.grouped_gemm(x, w, off, bm=16, policy="refine_ab", group_counts=counts),
+             lambda: gg.grouped_gemm(xm, wm, offm, bm=16, group_counts=cm)]
+    before = dict(gg.LAUNCHES_BY_LOOP)
+    with _within(240, "gemm_grouped"):
+        first = [c() for c in calls]
+        differ = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(2000):
+            for c, f in zip(calls, first):
+                differ += (c() != f).sum()
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    assert differ.item() == 0
+    assert gg.LAUNCHES_BY_LOOP == {**before, "splitk": before["splitk"] + 6003}
