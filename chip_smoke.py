@@ -157,10 +157,12 @@ The ``check`` phase also holds the paper's naive GEMM at gemma3's prefill
 MLP and decode unembed and at a square 4096^3 point (Fig. 6, with the
 tiled kernel checked there too, bf16 cuBLAS and f32 SGEMM beside it), both batched kernels
 at n = 16 (G = 256 and 16384) and n = 8, 32, 64 (G = 4096) with the B
-batch rolled by one matrix as their control, and ``wkv6`` at B = 4,
-S = 1024, H = 64 on the JAX test's input recipe, against its chunked plain
-version and the sequential recurrence, with the state reset at every
-chunk boundary as its control (its bound on the f32 CUDA-core rate).
+batch rolled by one matrix as their control (``torch.bmm`` with an f32
+output as the library call, the bf16-out call beside it), and ``wkv6`` at
+B = 4, S = 1024, H = 64 on the JAX test's input recipe, against its
+chunked plain version and the sequential recurrence, with the state reset
+at every chunk boundary and its own arithmetic on one TF32 pass as its
+controls (its operations bound at 3xTF32 on the tensor cores).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a GPU, or without ``src/repro_torch`` beside
@@ -183,6 +185,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_LOWP_OPS = 1979e12       # H100 SXM dense fp8 / int8 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 rate on the CUDA cores (no tensor cores)
+PEAK_TF32_FLOPS = 495e12      # H100 SXM dense TF32 tensor-core rate
 
 # kernel-vs-plain bounds (max |kernel - plain|): same bf16 terms, exact
 # products, f32 sums in another order; for attention also expf ulps and
@@ -267,9 +270,12 @@ MOE_STEP0_GRAD_BOUND = STEP0_GRAD_BOUND
 # same exact bf16 products, f32 sums in another order.
 BATCHED_BOUND = 1e-4
 # wkv6 vs its chunked plain version and the sequential recurrence: f32
-# throughout, sums in other orders and exp ulps (TestWKV6Kernel's 1e-4).
-# Absolute on the JAX test's input recipe; on the model's layer inputs,
-# relative to the largest |out| (and |state|) of the plain version.
+# elementwise work, products at 3xTF32 (~21 significand bits), sums in
+# other orders and exp ulps (TestWKV6Kernel's 1e-4).  Absolute on the JAX
+# test's input recipe; on the model's layer inputs, relative to the
+# largest |out| (and |state|) of the plain version.  The kernel's own
+# arithmetic on one TF32 pass (``wkv6_scan_plain(passes=1)``) must land
+# above it.
 WKV_BOUND = 1e-4
 # serve_rwkv.  This random full-size stack amplifies a rounding difference
 # some 300-fold over its 32 layers: on the H100 the serve policy's two
@@ -1424,21 +1430,31 @@ def main() -> None:
     del a_sq, b_sq, a_sq32, b_sq32
 
     # ---- the batched small GEMMs (Fig. 7): bf16 operands, f32 out, n = 16
-    # at G = 256 and 16384, n = 8, 32 and 64 at G = 4096.  Yardstick:
-    # torch.bmm on the bf16 operands (bf16 out).  Control: the plain
-    # version on the B batch rolled by one matrix.
+    # at G = 256 and 16384, n = 8, 32 and 64 at G = 4096.  Yardstick: the
+    # same function in one call, torch.bmm on the bf16 operands with an f32
+    # output (``out_dtype``), and beside it the bf16-out call (6 bytes an
+    # element where the kernels move 8).  Control: the plain version on the
+    # B batch rolled by one matrix.
     for n_b, g_b in ((16, 256), (16, 16384), (8, 4096), (32, 4096), (64, 4096)):
         a_b = randn((g_b, n_b, n_b), dtype=torch.bfloat16)
         b_b = randn((g_b, n_b, n_b), dtype=torch.bfloat16)
         b_roll = b_b.roll(1, 0)
+        try:
+            torch.bmm(a_b, b_b, out_dtype=torch.float32)
+            bmm_f32, bmm_call = (lambda a=a_b, b=b_b: torch.bmm(a, b, out_dtype=torch.float32),
+                                 "torch.bmm(out_dtype=torch.float32) on the bf16 operands")
+        except (RuntimeError, TypeError) as e:
+            bmm_f32, bmm_call = None, f"none: torch.bmm(out_dtype=torch.float32) raised {e}"[:200]
+        bmm_bf16 = {"library_bf16_out_call": "torch.bmm bf16 (bf16 out)",
+                    "library_bf16_out_ms": timed(lambda a=a_b, b=b_b: torch.bmm(a, b))}
         for name, kern, plain in (
                 ("batched_gemm", bg.batched_gemm, bg.batched_gemm_plain),
                 ("batched_gemm_naive", bg.batched_gemm_naive, bg.batched_gemm_naive_plain)):
             check(name, f"G={g_b} n={n_b} bf16", lambda a=a_b, b=b_b, f=kern: f(a, b),
-                  lambda a=a_b, b=b_b, f=plain: f(a, b), lambda a=a_b, b=b_b: torch.bmm(a, b),
+                  lambda a=a_b, b=b_b, f=plain: f(a, b), bmm_f32,
                   BATCHED_BOUND, 2 * g_b * n_b ** 3, g_b * n_b * n_b * (2 + 2 + 4),
                   control=lambda a=a_b, b=b_roll, f=plain: f(a, b),
-                  library_call="torch.bmm bf16 (bf16 out)")
+                  library_call=bmm_call, extra=bmm_bf16)
     del a_b, b_b, b_roll
 
     # ---- wkv6 at a full grid: B = 4, S = 1024, H = 64 (256 blocks), K = 64,
@@ -1453,15 +1469,22 @@ def main() -> None:
         return torch.cat([o for o, _ in parts], 1), parts[-1][1]
 
     def wkv_cost(b, s, h, kd, chunk):
-        """(operations, bytes) of the chunked form: per (b, h) and chunk the
-        state read and update (2 C K^2 each), the strictly-lower scores
-        (C(C-1)/2 K terms of an exp, two products and a sum) and their
-        product with v (C(C-1)/2 K multiply-adds); r, k, v, logw read once,
-        u, out and the final state."""
+        """(operations, bytes, extra) of the chunked form at the rung that
+        holds WKV_BOUND: per (b, h) and chunk the products (the state read
+        and update, 2 C K^2 each; the strictly-lower scores and their
+        product with v, C(C-1) K each) on three TF32 passes, as operations
+        at PEAK_TF32_FLOPS; r, k, v, logw read once, u, out and the final
+        state.  ``extra``: the old bound of the whole chunked form (its
+        exp terms too) on the f32 CUDA cores, and the bytes of the chunk
+        states the design writes and reads (B H (S/C) K^2 f32 each way)."""
         pairs = chunk * (chunk - 1) // 2
-        per_chunk = 4 * chunk * kd * kd + pairs * kd * 4 + 2 * pairs * kd + 3 * chunk * kd
-        return (b * h * (s // chunk) * per_chunk,
-                4 * (5 * b * s * h * kd + h * kd + b * h * kd * kd))
+        chunks = b * h * (s // chunk)
+        products = chunks * (4 * chunk * kd * kd + 4 * pairs * kd)
+        f32_form = chunks * (4 * chunk * kd * kd + pairs * kd * 4 + 2 * pairs * kd
+                             + 3 * chunk * kd)
+        extra = {"ops_bound_f32_cuda_cores_ms": f32_form / PEAK_F32_FLOPS * 1e3,
+                 "chunk_state_bytes": 2 * 4 * chunks * kd * kd}
+        return (3 * products, 4 * (5 * b * s * h * kd + h * kd + b * h * kd * kd), extra)
 
     def wkv_recipe(b, s, h, kd):
         r, k, v = (randn((b, s, h, kd), 0.5) for _ in range(3))
@@ -1472,11 +1495,13 @@ def main() -> None:
     o_r, s_r = kref.wkv6_ref(*wkv_in)
     wkv_ref_err = max((o_k - o_r).abs().max().item(), (s_k - s_r).abs().max().item())
     del o_k, s_k, o_r, s_r
+    w_flops, w_bytes, w_extra = wkv_cost(4, 1024, 64, 64, 64)
     check("wkv6", "recipe B=4 S=1024 H=64 K=64 chunk 64", lambda: wk.wkv6(*wkv_in, chunk=64),
-          lambda: wk.wkv6_plain(*wkv_in, chunk=64), None, WKV_BOUND,
-          *wkv_cost(4, 1024, 64, 64, 64), control=lambda: wkv_reset_each_chunk(*wkv_in, 64),
-          peak=PEAK_F32_FLOPS, library_call="none",
-          extra={"sequential_ref_err": wkv_ref_err})
+          lambda: wk.wkv6_plain(*wkv_in, chunk=64), None, WKV_BOUND, w_flops, w_bytes,
+          control=lambda: wkv_reset_each_chunk(*wkv_in, 64),
+          rung_control=lambda: wk.wkv6_scan_plain(*wkv_in, chunk=64, passes=1),
+          peak=PEAK_TF32_FLOPS, library_call="none",
+          extra={"sequential_ref_err": wkv_ref_err, **w_extra})
     if not wkv_ref_err <= WKV_BOUND:
         fail(f"wkv6: max |kernel - sequential recurrence| {wkv_ref_err} > {WKV_BOUND}")
     del wkv_in
@@ -2253,9 +2278,12 @@ def main() -> None:
               f"max|state|",
               lambda: scaled(wk.wkv6(*xs, chunk=rchunk)),
               lambda: scaled(wk.wkv6_plain(*xs, chunk=rchunk)), None, WKV_BOUND,
-              *wkv_cost(1, xs[0].shape[1], xs[0].shape[2], rhd, rchunk),
+              *wkv_cost(1, xs[0].shape[1], xs[0].shape[2], rhd, rchunk)[:2],
               control=lambda: scaled(wkv_reset_each_chunk(*xs, rchunk)),
-              peak=PEAK_F32_FLOPS, library_call="none", extra=model_errs)
+              rung_control=lambda: scaled(wk.wkv6_scan_plain(*xs, chunk=rchunk, passes=1)),
+              peak=PEAK_TF32_FLOPS, library_call="none",
+              extra={**model_errs, **wkv_cost(1, xs[0].shape[1], xs[0].shape[2], rhd,
+                                              rchunk)[2]})
         if not max(model_errs.values()) <= WKV_BOUND:
             rwkv_faults.append(f"wkv6 on the model's inputs: {model_errs}")
     del wkv_inputs, xs

@@ -7,29 +7,33 @@ Replaces two TPU kernels of ``repro/kernels/batched_gemm.py``:
   ``_packed_kernel`` (``pallas_call`` at :84)
       ``batched_gemm``: the TPU packs ``pack = tile // n`` matrices
       block-diagonally into one (tile x tile) MXU operand pair (tile 128:
-      ``PACK_TILE``; on Hopper it only sets how many matrices a CTA takes) and slices
-      the diagonal blocks back out.  Here one CTA takes the same group of
-      ``pack`` matrices (the JAX grid's step), stages the group's operands
-      once in shared memory, rounding them to bf16 on the way in, and runs
-      WMMA only on the diagonal blocks; at n = 8 two matrices share one
-      16 x 16 fragment block-diagonally (exact: the off-diagonal blocks
-      are zero).  It raises where the JAX wrapper raises (n must divide
-      the tile, pack must divide G) and takes n in {8, 16, 32, 64}
-      (``PACKED_N``, checked on the CPU too); ``ops.gemm_batched`` sends
-      the other divisors of the tile (1, 2, 4, 128) to the naive kernel,
-      whose one warp per matrix takes any n, rather than instantiate a
-      packed kernel for sizes below a fragment or of one matrix per CTA.
+      ``PACK_TILE``; on Hopper it sets only the contract: n divides the
+      tile, pack divides G) and slices the diagonal blocks back out.  Here
+      a persistent stream (``packed_schedule``): CTAs walk chunks of
+      ``CHUNK`` consecutive elements of each operand (whole matrices, 16 KB
+      an operand in bf16) with a grid stride; one producer thread fills a
+      ring of 2-4 stages by TMA (128-byte lines, 128B swizzle, so fragment
+      reads are free of bank conflicts), eight consumer warps run
+      ``mma.sync`` on the diagonal blocks only (at n = 8 two matrices share
+      one 16 x 16 fragment block-diagonally: exact, the off-diagonal
+      blocks are zero), rounding f32 operands to bf16 in the fragment load,
+      and the f32 output leaves by a TMA store from shared memory while the
+      next stage's loads are in flight.  It raises where the JAX wrapper
+      raises and takes n in {8, 16, 32, 64} (``PACKED_N``, checked on the
+      CPU too); ``ops.gemm_batched`` sends the other divisors of the tile
+      (1, 2, 4, 128) to the naive kernel, whose one warp per matrix takes
+      any n.
   ``_naive_kernel`` (``pallas_call`` at :120)
       ``batched_gemm_naive``: one warp per matrix, the paper's own Fig. 7
       mapping, its fragments read from global memory element by element
       (``mma.sync`` m16n8k16, the ragged edge zero-filled): any n.
 
-What bounds them on the H100: bytes.  A 16 x 16 product does 8 KFLOP on
-2 KB of bf16 operands and writes 1 KB of f32 (4 KB of f32 operands read
-where they are f32): ~3 FLOP per byte against the 295 the tensor cores
-need, so at any G the floor is the operand and output stream.  The
-packed kernel reads each operand once with 16-byte loads; the naive one
-issues scalar loads per fragment element, the baseline the paper measured.
+What bounds them on the H100: bytes.  A product does n/4 FLOP a byte of
+bf16 operands and f32 output (16 at n = 64) against the 295 the tensor
+cores need, so at any G the floor is the operand and output stream.  The
+packed stream keeps several chunks' loads and one store in flight on
+every SM; the naive kernel issues scalar loads per fragment element, the
+baseline the paper measured.
 """
 
 from __future__ import annotations
@@ -41,14 +45,18 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import batched_gemm_ref
-from repro_torch.kernels.gemm_tiled import on_cpu
+from repro_torch.kernels.gemm_tiled import SMEM_LIMIT, on_cpu, sm_count
 
 __all__ = ["batched_gemm", "batched_gemm_naive", "batched_gemm_plain",
-           "batched_gemm_naive_plain", "check_batched", "LAUNCHES", "PACKED_N", "PACK_TILE"]
+           "batched_gemm_naive_plain", "check_batched", "packed_schedule", "packed_chunks",
+           "LAUNCHES", "PACKED_N", "PACK_TILE", "CHUNK"]
 
 LAUNCHES = {"batched_gemm": 0, "batched_gemm_naive": 0}
 PACKED_N = (8, 16, 32, 64)       # the n the packed kernel is instantiated for
-PACK_TILE = 128                  # the JAX kernel's MXU tile: a CTA takes PACK_TILE // n matrices
+PACK_TILE = 128                  # the JAX kernel's MXU tile: G must be a multiple of PACK_TILE // n
+CHUNK = 8192                     # elements of each operand a stage holds (csrc: CHUNK)
+OUT_BYTES = 4 * CHUNK            # a chunk's f32 output buffer
+MAX_STAGES = 4
 
 _c = ctypes
 
@@ -67,6 +75,31 @@ def _pack(g: int, n: int) -> int:
     if g % pack:
         raise ValueError(f"G={g} must be a multiple of pack={pack} (pad in ops.py)")
     return pack
+
+
+def packed_schedule(g: int, n: int, a_bf16: bool, b_bf16: bool, sms: int) -> dict:
+    """The packed stream's launch: ``chunks`` chunks of ``CHUNK``
+    elements of each operand (8192 / n^2 whole matrices; the last one
+    ragged), ``grid`` persistent CTAs over them (two an SM where both
+    operands are bf16 and a ring of 2 stages fits twice, one an SM with
+    up to ``MAX_STAGES`` otherwise), a ring of ``stages`` and ``smem``
+    bytes of shared memory a CTA (the 1024-byte alignment slack, the
+    ring, the output buffer and two mbarriers a stage)."""
+    stage = CHUNK * ((2 if a_bf16 else 4) + (2 if b_bf16 else 4))
+    fixed = 1024 + OUT_BYTES
+    if a_bf16 and b_bf16:
+        per_sm, stages = 2, 2
+    else:
+        per_sm = 1
+        stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // (stage + 16))
+    chunks = -(-g * n * n // CHUNK)
+    return {"chunks": chunks, "grid": min(chunks, per_sm * sms), "stages": stages,
+            "per_sm": per_sm, "smem": fixed + stages * (stage + 16)}
+
+
+def packed_chunks(cta: int, grid: int, chunks: int) -> range:
+    """The chunks CTA ``cta`` of a ``grid``-CTA launch takes, in order."""
+    return range(cta, chunks, grid)
 
 
 def batched_gemm_naive_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -100,7 +133,7 @@ def _launchers():
     lib = _build.load("batched_gemm")
     packed, naive = lib.batched_gemm_launch, lib.batched_gemm_naive_launch
     packed.argtypes = [_c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p,
-                       _c.c_int, _c.c_int, _c.c_int, _c.c_void_p, _c.c_int]
+                       _c.c_longlong, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p, _c.c_int]
     naive.argtypes = [_c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p,
                       _c.c_int, _c.c_int, _c.c_void_p, _c.c_int]
     packed.restype = naive.restype = _c.c_int
@@ -113,12 +146,12 @@ def _device_args(x: torch.Tensor) -> tuple[int, int]:
 
 
 def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(G, n, n) x (G, n, n) -> (G, n, n) f32, ``pack = PACK_TILE // n``
-    matrices per CTA.  Requires n | PACK_TILE and pack | G
+    """(G, n, n) x (G, n, n) -> (G, n, n) f32 by the packed stream
+    (``packed_schedule``).  Requires n | PACK_TILE and PACK_TILE // n | G
     (``ops.gemm_batched`` pads G).  CPU tensors run ``batched_gemm_plain``;
     CUDA tensors launch the kernel or raise."""
     g, n = check_batched(a, b)
-    pack = _pack(g, n)
+    _pack(g, n)
     if n not in PACKED_N:
         raise ValueError(f"the packed kernel takes n in {PACKED_N}; got n={n} "
                          f"(ops.gemm_batched sends it to batched_gemm_naive)")
@@ -128,8 +161,11 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b, b16 = _operand(b)
     c = torch.empty((g, n, n), dtype=torch.float32, device=a.device)
     if g:
+        stream, dev = _device_args(a)
+        plan = packed_schedule(g, n, bool(a16), bool(b16), sm_count(dev))
         _build.check(_launchers()[0](a.data_ptr(), a16, b.data_ptr(), b16, c.data_ptr(), g, n,
-                                     pack, *_device_args(a)), "batched_gemm_launch")
+                                     plan["grid"], plan["stages"], stream, dev),
+                     "batched_gemm_launch")
         LAUNCHES["batched_gemm"] += 1
     return c
 

@@ -169,6 +169,9 @@ def gemm_tiled_splitk_plain(a: torch.Tensor, b: torch.Tensor, splits: int) -> to
     return out
 
 
+SMEM_LIMIT = 232448              # bytes of shared memory a block may use on the H100
+
+
 @functools.cache
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -591,17 +591,63 @@ def test_cuda_naive_route_matches_the_oracle(dev, policy):
 @pytest.mark.parametrize("groups", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_gemm_matches_plain(dev, n, groups, dtype):
+    """One ragged chunk of the packed stream; a zero matrix stays exactly
+    zero and leaves its neighbour (its fragment partner at n = 8) as it
+    was: no crosstalk between the diagonal blocks."""
     rng = np.random.default_rng(n + groups)
     g = groups * 128 // n
     a, b = _u(rng, (g, n, n), dev, dtype), _u(rng, (g, n, n), dev, dtype)
-    out = bg.batched_gemm(a, b)
-    torch.cuda.synchronize()
+    with _within(120, "batched_gemm"):
+        out = bg.batched_gemm(a, b)
+        torch.cuda.synchronize()
     ref = bg.batched_gemm_plain(a, b)
     assert out.shape == (g, n, n) and (out - ref).abs().max().item() <= BATCHED_ATOL
     a2 = a.clone()
     a2[1] = 0
-    out2 = bg.batched_gemm(a2, b)
+    with _within(120, "batched_gemm"):
+        out2 = bg.batched_gemm(a2, b)
+        torch.cuda.synchronize()
     assert not out2[1].any() and (out2[0] - out[0]).abs().max().item() <= BATCHED_ATOL
+
+
+@pytest.mark.parametrize("n", bg.PACKED_N)
+@pytest.mark.parametrize("a_dtype,b_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32)])
+def test_batched_gemm_stream_wraps_the_ring(dev, n, a_dtype, b_dtype):
+    """G large enough that every persistent CTA takes its ring's stages
+    three times over, plus a ragged last chunk; f32 operands rounded in the
+    fragment load, bf16 ones by TMA as stored."""
+    sms = gt.sm_count(dev.index or 0)
+    plan = bg.packed_schedule(1, n, a_dtype == torch.bfloat16, b_dtype == torch.bfloat16, sms)
+    per_chunk, pack = bg.CHUNK // (n * n), bg.PACK_TILE // n
+    g = (plan["per_sm"] * sms * plan["stages"] * 3 + 1) * per_chunk - pack
+    rng = np.random.default_rng(n)
+    a, b = _u(rng, (g, n, n), dev, a_dtype), _u(rng, (g, n, n), dev, b_dtype)
+    before = bg.LAUNCHES["batched_gemm"]
+    with _within(120, "batched_gemm"):
+        out = bg.batched_gemm(a, b)
+        torch.cuda.synchronize()
+    assert bg.LAUNCHES["batched_gemm"] == before + 1
+    assert (out - bg.batched_gemm_plain(a, b)).abs().max().item() <= BATCHED_ATOL
+
+
+def test_batched_gemm_stream_many_calls_finish(dev):
+    """2000 calls of the packed stream (G = 4096, n = 64, bf16) under the
+    watchdog, each bit-equal to the first: a ring or store-buffer phase
+    fault would hang or leave a stale chunk."""
+    rng = np.random.default_rng(64)
+    a, b = (_u(rng, (4096, 64, 64), dev, torch.bfloat16) for _ in range(2))
+    with _within(240, "batched_gemm"):
+        first = bg.batched_gemm(a, b)
+        for i in range(2000):
+            out = bg.batched_gemm(a, b)
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+                assert torch.equal(out, first), i
+        torch.cuda.synchronize()
+    assert (first - bg.batched_gemm_plain(a, b)).abs().max().item() <= BATCHED_ATOL
 
 
 @pytest.mark.parametrize("n", [8, 16, 24, 37, 64])
@@ -653,16 +699,21 @@ def _wkv_inputs(rng, b, s, h, kd, dev, decay_scale=0.7):
 
 
 @pytest.mark.parametrize("s,chunk", [(64, 64), (128, 64), (256, 32), (128, 128), (96, 16),
-                                     (192, 96), (160, 80)])
+                                     (192, 96), (160, 80), (80, 40)])
 @pytest.mark.parametrize("kd", wk.HEAD_DIMS)
 def test_wkv6_matches_plain_and_the_recurrence(dev, s, chunk, kd):
+    """The two launches against the chunked plain form, the sequential
+    recurrence and the model of their own arithmetic (3xTF32); chunk 40
+    ends in a ragged sub-block."""
     rng = np.random.default_rng(s + kd)
     xs = _wkv_inputs(rng, 2, s, 3, kd, dev)
     before = wk.LAUNCHES
-    out, st = wk.wkv6(*xs, chunk=chunk)
-    torch.cuda.synchronize()
+    with _within(120, "wkv6"):
+        out, st = wk.wkv6(*xs, chunk=chunk)
+        torch.cuda.synchronize()
     assert wk.LAUNCHES == before + 1
-    for ro, rs in (wk.wkv6_plain(*xs, chunk=chunk), kref.wkv6_ref(*xs)):
+    for ro, rs in (wk.wkv6_plain(*xs, chunk=chunk), kref.wkv6_ref(*xs),
+                   wk.wkv6_scan_plain(*xs, chunk=chunk)):
         assert out.shape == ro.shape and st.shape == rs.shape == (2, 3, kd, kd)
         torch.testing.assert_close(out, ro, rtol=WKV_TOL, atol=WKV_TOL)
         torch.testing.assert_close(st, rs, rtol=WKV_TOL, atol=WKV_TOL)
@@ -671,8 +722,9 @@ def test_wkv6_matches_plain_and_the_recurrence(dev, s, chunk, kd):
 def test_wkv6_strong_decay_and_its_limits(dev):
     rng = np.random.default_rng(9)
     xs = _wkv_inputs(rng, 2, 128, 2, 64, dev, decay_scale=-1.5)
-    out, _ = wk.wkv6(*xs, chunk=64)
-    torch.cuda.synchronize()
+    with _within(120, "wkv6"):
+        out, _ = wk.wkv6(*xs, chunk=64)
+        torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, kref.wkv6_ref(*xs)[0], rtol=WKV_TOL, atol=WKV_TOL)
     with pytest.raises(ValueError, match="multiple of chunk"):
