@@ -81,7 +81,8 @@ Phases, each printing one JSON line:
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
 Phases 10 and 11 run right after 6, while gemma3's params are loaded;
-12 runs after 9, once Mixtral is freed.
+12 runs after 9, once Mixtral is freed, and 13 and 14 after 12, each once
+the model before it is freed.
 
 10. serve_naive — gemma3-1b again (full width and depth, the serve
    phase's params, requests, slots and context) on the paper's unstaged
@@ -114,7 +115,34 @@ Phases 10 and 11 run right after 6, while gemma3's params are loaded;
    on each prompt's first-layer r/k/v/logw/u (the ``wkv6`` path) and held
    against the model's chunked form at f32; its check row takes the
    665-token prompt's.  Then a profiled prefill and decode tick.
-13. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+13. serve_zamba2 — zamba2-7b at full width and depth, nothing cut (81
+   mixers: 68 Mamba-2 layers and 13 occurrences of one shared attention
+   block, hd 112, 32 heads on 32 kv heads; random f32 weights from a
+   seeded generator, 22.95 GB) behind the same engine on ``gemm=cuda,
+   attention=cuda_fused`` with the serve policy: the same 8 prompt lengths
+   (ids within 32000), 32 new tokens each, 4 slots.  Every request must
+   finish and every kernel of the serve path launch.  On the prompt past
+   the first 256-step SSD chunk whose last token sits earliest in its
+   chunk, and on a copy of the stack whose SSD state decays slowly (the
+   random init's decays within a few steps, so a state fault hides under
+   rounding; for the bf16 layers a second copy with the D skip at 0, the
+   mixer's output all SSD), the serve policy's prefill
+   logits, the prefill logits at f32 activations on the refine_ab rung and
+   every sublayer at the serve policy (at bf16 and at f32 activations) are
+   held against the ``torch`` routes, with the SSD state reset at every
+   chunk boundary as the faulty reference above each bound.  Then ``serve_zamba2_paged``: the same requests from 8-row
+   bf16 pages (a pool per shared-block occurrence), whose tokens must equal
+   the dense run's, which must hand every page back and launch the paged
+   decode; then a profiled prefill and decode tick.
+14. serve_nemotron — nemotron-4-340b at full width (d 18432, 96 heads of
+   192 on 8 kv heads, d_ff 73728, vocab 256000), depth cut to 2 (65.4 GB
+   of f32 weights), the same engine, policy and requests (ids within
+   256000).  Every request must finish and every kernel launch; one
+   prompt's prefill logits are held against the ``torch`` routes (bound
+   and greedy token; the reference's refine_ab unembed over vocab chunks),
+   with fp8 MLPs on the kernel routes as the control above the bound; then
+   a profiled prefill and decode tick.
+15. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -152,6 +180,18 @@ decode, fp8x3 paged decode, fp8x3 grouped forward, int8x3 dW), the
 forward's bf16x6 and the grouped fp8x3 also against the ``torch`` route at
 that rung, and the grouped forward at alignments 128 and 64 (the wgmma
 mainloop's two row tiles).
+
+The ``check`` phase also holds the kernels at zamba2-7b's and
+nemotron-4-340b's shapes: the flash forward (S = 700, causal) and decode
+(B = 4, linear 1024) at hd 112 (32 heads on 32 kv) and hd 192 (96 on 8,
+G = 12), the paged decode at hd 112, ``gemm_tiled`` at Mamba-2's in_proj
+(3584 -> 14576, a partial 64-column tile; M = 4 and 700), the SSD's batched
+C.B^T (three 256-step chunks) and nemotron's decode MLP (4 x 18432 x 73728
+and back), and ``gemm_refined`` at nemotron's refine_ab decode unembed
+(4 x 18432 against its 256000 x 18432 f32 table; the plain version over
+vocab chunks).  The hd 192 forward holds its query rows with 64 keys or
+more at the attention bound and its first 64 rows in units of each
+output's softmax-weighted |v| (see FEW_KEYS).
 
 The ``check`` phase also holds the paper's naive GEMM at gemma3's prefill
 MLP and decode unembed and at a square 4096^3 point (Fig. 6, with the
@@ -294,6 +334,58 @@ WKV_BOUND = 1e-4
 # layers, every layer's control 0.13-0.68; (b) 0.0024, the control 6.3.
 RWKV_LAYER_BOUND = 2 ** -5
 RWKV_LOGITS_BOUND = 2e-2
+# the flash forward at nemotron's head shape (S = 700 causal, 96 heads on 8
+# kv heads, hd 192): kernel and plain version part where a probability
+# rounds to the neighbouring bf16 value in one of them, which moves an
+# output by up to 2^-8 |v| / l, largest in the early causal rows (few keys,
+# l near 1).  96 heads give that many chances: over 40 seeded draws on the
+# H100 (tools/flash_flip_tails.py) the whole output read 0.0005-0.0039, 8
+# draws above ATTN_BOUND, every one at a query row with under 40 keys.  So
+# the rows with FEW_KEYS keys or more are held at ATTN_BOUND like every
+# other flash row, and the first FEW_KEYS rows in units of the row's
+# softmax-weighted |v| (sum_j w_j |v_j| per output element): each side's
+# weights sit within 2^-7 of their own (a P and the normalizer rounded),
+# so the two part by at most 2^-6 of it.  A missing or extra key moves
+# such a row by 1 / (keys + 1) of it or more.  Over the 40 draws the rows
+# with 64+ keys read at most 0.0012 and the first rows at most 0.0039 of
+# their weighted |v|.
+FEW_KEYS = 64
+FEW_KEYS_SCALED_BOUND = 2 ** -6
+# serve_zamba2 (81 mixers, the SSD state carried over 256-step chunks),
+# kernel routes vs torch routes on the prompt past the first chunk whose
+# last token sits earliest in its chunk (545 tokens), the chunk-reset
+# fault (the SSD state reset at every chunk boundary) as the control.  The
+# random init's SSD state decays within a few steps (per-step decay
+# e^(-dt a), a from 1 to 8, dt ~ 0.7), so a reset moved little: on the H100
+# the serve policy's logits parted by 0.196 with the control at 0.141, and
+# at bf16 a layer's reset hid under a rounding.  So the comparisons run on
+# copies of the stack whose SSD state decays slowly (ZAMBA2_SLOW_A, dt_bias
+# ZAMBA2_SLOW_DT_BIAS: dt ~ 0.13, e^(-0.0013..-0.013) a step, a chunk keeps
+# 4%-72% of its input state), the weights shared with the served stack.
+# Held, each with its control above: (a) the serve policy's prefill
+# logits; (b) the prefill logits at f32 activations on the refine_ab rung;
+# (c) every sublayer at the serve policy on the same input, at f32
+# activations max |kernel - torch| over the layer's max |out - in|; on the
+# H100 (a) 0.211 (control 4.07), (b) 2.2e-4 (4.20), (c) 0.00057-0.0018
+# (0.139-0.387).  And (d) every sublayer at bf16 activations, max |kernel -
+# torch| over the layer's max |out|, on a second copy whose D skip is 0
+# (the mixer's output all SSD): with the skip at 1 a deep layer's reset
+# moved its bf16 output by only 0.014 of max |out|, under 2^-5; at 0, 0.051
+# or more (the errors 0.0021-0.0082).  The all-SSD stack is not used for
+# (a)-(c): over 81 mixers it carries rounding further (the serve policy's
+# logits 1.42 apart, the f32 ones 0.0031, an f32 layer 0.0035).
+ZAMBA2_SLOW_A = (0.01, 0.1)
+ZAMBA2_SLOW_DT_BIAS = -2.0
+ZAMBA2_LOGITS_BOUND = 0.5
+ZAMBA2_F32_LOGITS_BOUND = 2e-3
+ZAMBA2_LAYER_BOUND = RWKV_LAYER_BOUND
+ZAMBA2_F32_LAYER_BOUND = 3e-3
+# serve_nemotron (depth 2 of 96: 65.4 GB of f32 weights), kernel routes vs
+# torch routes (|logits| <= 5.14): 0.038 on the H100, the control (fp8
+# MLPs on the kernel routes) 0.335, which every run requires above gemma3's
+# bound.
+NEMOTRON_DEPTH = 2
+NEMOTRON_LOGITS_BOUND = LOGITS_BOUND
 
 
 TRAIN_STEPS = 3
@@ -426,7 +518,7 @@ def main() -> None:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import wkv6 as wk
-    from repro_torch.configs.base import Segment, execution_policy_for
+    from repro_torch.configs.base import Segment, execution_policy_for, layer_kinds
     from repro_torch.core.tree import leaves
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.launch.serve import Request, ServeEngine
@@ -436,6 +528,7 @@ def main() -> None:
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.runtime import serve_step
     from repro_torch.runtime.device import resolve_device
 
@@ -1507,6 +1600,162 @@ def main() -> None:
     del wkv_in
     torch.cuda.empty_cache()
 
+    # ---- zamba2-7b's and nemotron-4-340b's shapes.  zamba2-7b: hd 112
+    # (two 64-column blocks, the second half out of bounds), 32 heads on 32
+    # kv heads; Mamba-2's in_proj 3584 -> 14576 (a partial 64-column N tile)
+    # at decode and prefill; the SSD's batched C.B^T (a 700-token prompt's
+    # three 256-step chunks, f32 operands, B as a K-major view, as the model
+    # calls it).  nemotron-4-340b: hd 192 (three column blocks), 96 heads on
+    # 8 kv heads (G = 12); the 18432-wide decode MLP (K = 73728 on the down
+    # projection) and the refine_ab decode unembed against its 256000 x
+    # 18432 f32 table, whose plain version (each logit one row's product)
+    # runs over vocab chunks: its whole-table hi/lo split would take ~47 GB
+    # more.  Attention controls: the forward's plain version at window S / 2,
+    # the decodes' one key short (pos - 1).
+    def vocab_chunked(fn, table, rows=32768):
+        """``fn`` over ``table``'s row blocks, concatenated on the last dim."""
+        return torch.cat([fn(table[v0:v0 + rows]) for v0 in range(0, table.shape[0], rows)], -1)
+
+    zcfg_full, ncfg_full = get_config("zamba2-7b"), get_config("nemotron-4-340b")
+    s, s_cache = 700, 1024
+    rows = torch.arange(s, device=dev)
+    keep = rows[None, :] <= rows[:, None]
+    live = torch.arange(s_cache, device=dev)[None, :] <= pos.long()[:, None]
+    n_live = int(live.sum())
+    for acfg in (zcfg_full, ncfg_full):
+        a_heads, a_kvh, a_hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+        a_grp = a_heads // a_kvh
+        shape = f"H={a_heads} Kv={a_kvh} hd={a_hd} ({acfg.name})"
+        q = randn((1, s, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
+        k, v = (randn((1, s, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+        qh = q.reshape(1, s, a_heads, a_hd).transpose(1, 2)
+        kr, vr = (c.transpose(1, 2).repeat_interleave(a_grp, 1) for c in (k, v))
+        # nemotron's row holds the query rows with FEW_KEYS keys or more at
+        # ATTN_BOUND and the first FEW_KEYS rows scaled (see FEW_KEYS)
+        r0 = FEW_KEYS if acfg is ncfg_full else 0
+        few = {}
+        if r0:
+            o_k = af.flash_attention(q, k, v, causal=True)[0, :r0]
+            o_p = af.flash_attention_plain(q, k, v, causal=True)[0][0, :r0]
+            sc = torch.einsum("tkgd,jkd->kgtj", q[0, :r0].float(), k[0, :r0].float())
+            sc = sc.masked_fill(~keep[:r0, :r0], float("-inf"))
+            wv = torch.einsum("kgtj,jkd->tkgd", torch.softmax(sc, -1), v[0, :r0].float().abs())
+            few = {"rows_held": f"query rows {r0}-{s - 1} ({r0}+ keys)",
+                   "first_rows_scaled_err": ((o_k - o_p).abs() / wv).max().item(),
+                   "first_rows_abs_err": (o_k - o_p).abs().max().item(),
+                   "first_rows_scaled_bound": FEW_KEYS_SCALED_BOUND}
+            del o_k, o_p, sc, wv
+        check("flash_attention", f"prefill S={s} {shape} causal",
+              lambda: af.flash_attention(q, k, v, causal=True)[:, r0:],
+              lambda: af.flash_attention_plain(q, k, v, causal=True)[0][:, r0:],
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qh, kr, vr, attn_mask=keep, scale=1.0),
+              ATTN_BOUND, 4 * int(keep.sum()) * a_hd * a_heads,
+              (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
+              control=lambda: af.flash_attention_plain(
+                  q, k, v, causal=True, window=s // 2)[0][:, r0:],
+              library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+              loop="sm90", extra=few)
+        if few and not few["first_rows_scaled_err"] <= FEW_KEYS_SCALED_BOUND:
+            fail(f"flash_attention prefill {shape}: the first {r0} rows part by "
+                 f"{few['first_rows_scaled_err']} of their weighted |v| > "
+                 f"{FEW_KEYS_SCALED_BOUND}")
+        del q, k, v, qh, kr, vr
+        qd = randn((4, 1, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
+        qdh = qd.reshape(4, 1, a_heads, a_hd).transpose(1, 2)
+        dmask = live[:, None, None, :].expand(4, a_heads, 1, s_cache)
+        kc, vc = (randn((4, s_cache, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+        kr, vr = (c.transpose(1, 2).repeat_interleave(a_grp, 1) for c in (kc, vc))
+        splits = {"splits": af.decode_splits(4, a_kvh, s_cache, sms)}
+        check("flash_decode", f"decode B=4 linear {s_cache} {shape}",
+              lambda: af.flash_decode(qd, kc, vc, pos),
+              lambda: af.flash_decode_plain(qd, kc, vc, pos),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qdh, kr, vr, attn_mask=dmask, scale=1.0),
+              ATTN_BOUND, 4 * n_live * a_grp * a_hd * a_kvh,
+              qd.numel() * 2 + 2 * n_live * a_kvh * a_hd * 2 + qd.numel() * 4,
+              control=lambda: af.flash_decode_plain(qd, kc, vc, pos - 1),
+              library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+              extra=splits)
+        del kc, vc, kr, vr
+        if acfg is zcfg_full:
+            # zamba2's paged run: 8-row bf16 pages behind a shuffled table
+            n_log = paged.num_logical_pages(s_cache, ps)
+            table_p = (1 + torch.randperm(4 * n_log, generator=gen, device=dev)
+                       ).reshape(4, n_log)
+            table_p = torch.where(torch.arange(n_log, device=dev)[None, :] * ps
+                                  <= pos.long()[:, None], table_p,
+                                  torch.zeros_like(table_p)).to(torch.int32)
+            n_pages = int((table_p > 0).sum())
+            pcache = paged.init_paged(4, s_cache, a_kvh, a_hd, page_size=ps,
+                                      num_pages=1 + 4 * n_log, device=dev)
+            pcache.page_table = table_p
+            pcache.k_pages, pcache.v_pages = (
+                randn((1 + 4 * n_log, ps, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+            kr, vr = (x.to(torch.bfloat16).transpose(1, 2).repeat_interleave(a_grp, 1)
+                      for x in paged.gather_dense(pcache))
+            check("flash_paged_decode", f"paged decode B=4 linear {s_cache} page {ps} bf16 "
+                  f"pages {shape}",
+                  lambda: ap.flash_paged_decode(qd, pcache, pos),
+                  lambda: ap.flash_paged_decode_plain(qd, pcache, pos),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qdh, kr, vr, attn_mask=dmask, scale=1.0),
+                  ATTN_BOUND, 4 * n_live * a_grp * a_hd * a_kvh,
+                  qd.numel() * 2 + 2 * n_live * a_kvh * a_hd * 2 + n_pages * 4
+                  + qd.numel() * 4,
+                  control=lambda: ap.flash_paged_decode_plain(qd, pcache, pos - 1),
+                  library_call="scaled_dot_product_attention on the cache gathered dense "
+                               "(bf16), gather not timed", extra=splits)
+            del pcache, kr, vr
+        del qd, qdh
+    z_d = zcfg_full.d_model
+    z_inner, z_nh, z_conv = ssm_mod._dims(z_d, zcfg_full.ssm_head_dim, zcfg_full.ssm_state)
+    z_n = z_inner + z_conv + z_nh
+    w = randn((z_d, z_n), z_d ** -0.5)
+    w16 = w.to(torch.bfloat16)
+    for m, loop in ((4, "splitk"), (700, "sm90")):
+        x = randn((m, z_d), dtype=torch.bfloat16)
+        phase_name = "decode" if m == 4 else "prefill"
+        check("gemm_tiled", f"{phase_name} mamba2 in_proj {m}x{z_d}x{z_n} ({zcfg_full.name})",
+              lambda x=x: gt.gemm_tiled(x, w),
+              lambda x=x: gt.gemm_tiled_plain(x, w), lambda x=x: torch.matmul(x, w16),
+              GEMM_BOUND, 2 * m * z_d * z_n, x.numel() * 2 + w.numel() * 4 + m * z_n * 4,
+              loop=loop)
+    del w, w16
+    n_ch, chunk, z_state = 3, zcfg_full.ssm_chunk, zcfg_full.ssm_state
+    cc, bc = (randn((n_ch, chunk, z_state)) for _ in range(2))
+    check("gemm_tiled", f"SSD C.B^T batched {n_ch}x{chunk}x{z_state}x{chunk}, K-major B "
+          f"({zcfg_full.name})", lambda: gt.gemm_tiled(cc, bc.transpose(1, 2)),
+          lambda: gt.gemm_tiled_plain(cc, bc.transpose(1, 2)),
+          lambda c16=cc.to(torch.bfloat16), b16=bc.to(torch.bfloat16): torch.matmul(
+              c16, b16.transpose(1, 2)),
+          GEMM_BOUND, 2 * n_ch * chunk * chunk * z_state,
+          (cc.numel() + bc.numel() + n_ch * chunk * chunk) * 4, loop="sm90")
+    del cc, bc
+    n_d, n_ff, n_vocab = ncfg_full.d_model, ncfg_full.d_ff, ncfg_full.vocab_size
+    for kk, nn in ((n_d, n_ff), (n_ff, n_d)):
+        a4 = randn((4, kk), dtype=torch.bfloat16)
+        w = randn((kk, nn), kk ** -0.5)
+        w16 = w.to(torch.bfloat16)
+        check("gemm_tiled", f"decode mlp {'up' if kk == n_d else 'down'} 4x{kk}x{nn} "
+              f"({ncfg_full.name})", lambda: gt.gemm_tiled(a4, w),
+              lambda: gt.gemm_tiled_plain(a4, w), lambda: torch.matmul(a4, w16), GEMM_BOUND,
+              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4, loop="splitk")
+        del w, w16
+    torch.cuda.empty_cache()
+    xn4 = randn((4, n_d), dtype=torch.bfloat16)
+    table = randn((n_vocab, n_d), n_d ** -0.5)
+    check("gemm_refined", f"decode unembed refine_ab 4x{n_d}x{n_vocab} NT ({ncfg_full.name})",
+          lambda: gr.gemm_refined(xn4, table.t(), policy="refine_ab"),
+          lambda: vocab_chunked(lambda t: gr.gemm_refined_plain(xn4, t.t(), "refine_ab"), table),
+          lambda: torch.matmul(xn4.float(), table.t()), GEMM_BOUND,
+          refined_flops(xn4, table, 4, n_vocab, n_d),
+          xn4.numel() * 2 + table.numel() * 4 + 4 * n_vocab * 4, loop="splitk",
+          extra={**refined_extra(4, n_vocab, n_d),
+                 "plain": "gemm_refined_plain over 32768-row vocab chunks"})
+    del table, xn4
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 4 serve
     policy = ops.ExecutionPolicy(
         default="bf16", logits="refine_ab",
@@ -2317,15 +2566,334 @@ def main() -> None:
     if rwkv_faults:
         fail("serve_rwkv: " + "; ".join(rwkv_faults))
     del reng, rparams, rlk, rlr, rlc
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 13 kernels
+    # ----------------------------------------------------- 13 serve_zamba2
+    # zamba2-7b at full width and depth (81 mixers: 68 Mamba-2 + 13
+    # occurrences of the one shared attention block) on the kernel routes
+    # with the serve policy; then its paged run and a profile.
+    zcfg = get_config("zamba2-7b")
+    zvocab, zchunk = zcfg.vocab_size, zcfg.ssm_chunk
+    zpolicy = ops.ExecutionPolicy(
+        default="bf16", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"},
+        require={"attention": ("decode",)})
+    zref_policy = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+    mem_before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.monotonic()
+    zparams = api.init_params(zcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    z_init_s = time.monotonic() - t0
+    z_n_params = sum(t.numel() for t in leaves(zparams))
+    zeng = ServeEngine(zcfg, batch_size=4, max_ctx=1024, policy=zpolicy, device=dev)
+    zeng.load(zparams)
+    zeng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    zrng = np.random.default_rng(3)
+    zreqs = [Request(rid=i, prompt=zrng.integers(2, zvocab, int(n)).astype(np.int32),
+                     max_new_tokens=32) for i, n in enumerate(lens)]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zstats = zeng.run(zreqs)
+    launches_z = read_launches(mods)
+    z_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    zamba_faults = []
+    if not all(r.done and len(r.out_tokens) == 32 for r in zreqs):
+        zamba_faults.append(f"not every request finished with 32 tokens: "
+                            f"{[(r.rid, r.done, len(r.out_tokens)) for r in zreqs]}")
+    if any(not 0 <= t < zvocab for r in zreqs for t in r.out_tokens):
+        zamba_faults.append("a token outside the vocabulary")
+    if not all(launches_z[k] > 0 for k in SERVE_KERNELS):
+        zamba_faults.append(f"a kernel of the path never launched: {launches_z}")
+
+    # the comparisons take the prompt (past the first SSD chunk) whose last
+    # token sits earliest in its chunk: there the carried state weighs most;
+    # they run on slowly decaying copies of the stack (ZAMBA2_SLOW_A), the
+    # bf16 layers on the one whose D skip is 0
+    zkinds = layer_kinds(zcfg)
+    z_nh = zparams["layers"][0]["a_log"].shape[0]
+
+    def slow_copy(**extra):
+        return {**zparams, "layers": [
+            {**p, "a_log": torch.log(torch.linspace(*ZAMBA2_SLOW_A, z_nh, device=dev)),
+             "dt_bias": torch.full((z_nh,), ZAMBA2_SLOW_DT_BIAS, device=dev), **extra}
+            if kind == "mamba2" else p for kind, p in zip(zkinds, zparams["layers"])]}
+
+    zslow = slow_copy()
+    zslow_ssd = slow_copy(d_skip=torch.zeros(z_nh, device=dev))
+    zpick = min((i for i, n in enumerate(lens) if n > zchunk),
+                key=lambda i: (lens[i] - 1) % zchunk)
+    zprompt = {"tokens": torch.as_tensor(zreqs[zpick].prompt, device=dev)[None].long()}
+    real_ssd = ssm_mod._ssd_chunked
+
+    def ssd_reset_each_chunk(x, bmat, cmat, rel, dt, chunk, policy):
+        """The model's chunked SSD scan with the state reset at every chunk
+        boundary (a fault)."""
+        parts = [real_ssd(*(t[:, c0:c0 + chunk] for t in (x, bmat, cmat, rel, dt)), chunk,
+                          policy) for c0 in range(0, x.shape[1], chunk)]
+        return torch.cat([y for y, _ in parts], 1), parts[-1][1]
+
+    def zamba_prefill(c, pol, reset=False):
+        ssm_mod._ssd_chunked = ssd_reset_each_chunk if reset else real_ssd
+        try:
+            with torch.no_grad():
+                return serve_step.make_prefill(c, pol, s_ctx=1024)(zslow, zprompt)[0]
+        finally:
+            ssm_mod._ssd_chunked = real_ssd
+
+    # (a) the serve policy's prefill logits, kernel routes vs torch routes
+    zlk = zamba_prefill(zcfg, zpolicy)
+    zlr = zamba_prefill(zcfg, zref_policy)
+    zlc = zamba_prefill(zcfg, zref_policy, reset=True)
+    if zlk.shape != (1, 1, zvocab) or not torch.isfinite(zlk).all():
+        zamba_faults.append(f"prefill logits shape {tuple(zlk.shape)} or non-finite")
+    z_err = (zlk - zlr).abs().max().item()
+    z_ctrl = (zlc - zlr).abs().max().item()
+    # (b) f32 activations, the refine_ab rung on every contraction
+    zcfg32 = dataclasses.replace(zcfg, activation_dtype="float32")
+    zab_kernel = ops.ExecutionPolicy(default="refine_ab",
+                                     backends={"gemm": "cuda", "attention": "cuda_fused"})
+    zab_torch = ops.ExecutionPolicy(default="refine_ab")
+    zlk32 = zamba_prefill(zcfg32, zab_kernel)
+    zlr32 = zamba_prefill(zcfg32, zab_torch)
+    zlc32 = zamba_prefill(zcfg32, zab_torch, reset=True)
+    z32_err = (zlk32 - zlr32).abs().max().item()
+    z32_ctrl = (zlc32 - zlr32).abs().max().item()
+    # (c) every sublayer at the serve policy, both routes (and, for the
+    # Mamba-2 layers, the chunk-reset control) on the torch route's input:
+    # at bf16 activations, max |kernel - torch| over the layer's max |out|;
+    # at f32 activations, over its max |out - in| (what the layer adds)
+    def layer_errors(params, act_dtype, relative_to_delta):
+        errs, ctrls = [], []
+        with torch.no_grad():
+            x = layers_mod.embed(params["embed"], zprompt["tokens"], act_dtype)
+            for kind, p in zip(zkinds, params["layers"]):
+                x_in = x
+
+                def sub(pol, x_in=x_in, kind=kind, p=p):
+                    return transformer._sublayer(kind, p, x_in, cfg=zcfg, policy=pol,
+                                                 mode="prefill", cache=None, pos=None,
+                                                 shared=params["shared"])[0].float()
+
+                out_k = sub(zpolicy)
+                x = sub(zref_policy).to(act_dtype)
+                ref = x.float()
+                scale = ((ref - x_in.float()) if relative_to_delta else ref).abs().max()
+                errs.append(((out_k - ref).abs().max() / scale).item())
+                if kind == "mamba2":
+                    ssm_mod._ssd_chunked = ssd_reset_each_chunk
+                    try:
+                        out_c = sub(zref_policy)
+                    finally:
+                        ssm_mod._ssd_chunked = real_ssd
+                    ctrls.append(((out_c - ref).abs().max() / scale).item())
+        return errs, ctrls
+
+    zlayer_errs, zlayer_ctrl = layer_errors(zslow_ssd, getattr(torch, zcfg.activation_dtype),
+                                            False)
+    zl32_errs, zl32_ctrl = layer_errors(zslow, torch.float32, True)
+    ztop2 = zlr.flatten().topk(2).values
+    ztop2_32 = zlr32.flatten().topk(2).values
+    zline = dict(
+        arch=zcfg.name, layers=len(zparams["layers"]), mamba2_layers=zkinds.count("mamba2"),
+        shared_attn_occurrences=zkinds.count("shared_attn"), params=z_n_params,
+        weights_gb=z_n_params * 4 / 1e9, mem_before_load_gb=mem_before_gb, init_s=z_init_s,
+        requests=zstats["requests"], prompt_lens=[int(n) for n in lens],
+        tokens=zstats["tokens"], ticks=zstats["ticks"], wall_s=zstats["wall_s"],
+        tok_per_s=zstats["tok_per_s"], ttft_mean_s=zstats["ttft_mean_s"],
+        latency_mean_s=zstats["latency_mean_s"], peak_mem_gb=z_peak_gb, launches=launches_z,
+        logits_prompt_len=int(lens[zpick]), compared_on="slow-decay copy",
+        slow_a=list(ZAMBA2_SLOW_A), slow_dt_bias=ZAMBA2_SLOW_DT_BIAS,
+        bf16_layers_d_skip=0.0,
+        prefill_logits_max_abs_err=z_err, prefill_logits_bound=ZAMBA2_LOGITS_BOUND,
+        prefill_argmax_agrees=bool(zlk.argmax() == zlr.argmax()),
+        reference_top2_gap=(ztop2[0] - ztop2[1]).item(), control_chunk_reset_err=z_ctrl,
+        logits_absmax=zlr.abs().max().item(),
+        f32_refine_ab_logits_err=z32_err, f32_refine_ab_bound=ZAMBA2_F32_LOGITS_BOUND,
+        f32_refine_ab_argmax_agrees=bool(zlk32.argmax() == zlr32.argmax()),
+        f32_refine_ab_top2_gap=(ztop2_32[0] - ztop2_32[1]).item(),
+        f32_refine_ab_control_err=z32_ctrl,
+        layer_rel_err=zlayer_errs, layer_bound=ZAMBA2_LAYER_BOUND,
+        mamba2_layer_control_rel_err=zlayer_ctrl,
+        f32_layer_delta_rel_err=zl32_errs, f32_layer_bound=ZAMBA2_F32_LAYER_BOUND,
+        f32_mamba2_layer_control_delta_rel_err=zl32_ctrl)
+    del zlk32, zlr32, zlc32, zslow, zslow_ssd
+    # (a), (b) and (c) at both activation dtypes, each with the same greedy
+    # token where it has one and the chunk-reset control above its bound
+    for what, err, lim, ctrl, same in (
+            ("serve-policy prefill logits", z_err, ZAMBA2_LOGITS_BOUND, z_ctrl,
+             zline["prefill_argmax_agrees"]),
+            ("f32 refine_ab prefill logits", z32_err, ZAMBA2_F32_LOGITS_BOUND, z32_ctrl,
+             zline["f32_refine_ab_argmax_agrees"]),
+            ("every sublayer at bf16", max(zlayer_errs), ZAMBA2_LAYER_BOUND, min(zlayer_ctrl),
+             True),
+            ("every sublayer at f32", max(zl32_errs), ZAMBA2_F32_LAYER_BOUND, min(zl32_ctrl),
+             True)):
+        if not err <= lim:
+            zamba_faults.append(f"{what}: kernel routes vs torch routes {err} > {lim}")
+        if not same:
+            zamba_faults.append(f"{what}: the kernel routes pick another greedy token")
+        if not ctrl > lim:
+            zamba_faults.append(f"{what}: the chunk-reset control ({ctrl}) is within {lim}")
+
+    # serve_zamba2_paged: the same requests and slots from 8-row bf16 pages
+    # (one pool per shared-block occurrence), token for token the dense run
+    zpaged_policy = ops.ExecutionPolicy(
+        default="bf16", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"},
+        require={"attention": ("decode", "paged_decode")})
+    zeng_p = ServeEngine(zcfg, batch_size=4, max_ctx=1024, policy=zpaged_policy, device=dev,
+                         kv_layout="paged", kv_page_size=8)
+    zeng_p.load(zparams)
+    zeng_p.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    zreqs_p = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in zreqs]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zstats_p = zeng_p.run(zreqs_p)
+    launches_zp = read_launches(mods)
+    zp_tokens_equal = [r.out_tokens for r in zreqs_p] == [r.out_tokens for r in zreqs]
+    zp_line = dict(
+        page_size=8, pools=sum(isinstance(c, paged.PagedKVCache) for c in zeng_p.cache),
+        requests=zstats_p["requests"], tokens=zstats_p["tokens"], ticks=zstats_p["ticks"],
+        wall_s=zstats_p["wall_s"], tok_per_s=zstats_p["tok_per_s"],
+        ttft_mean_s=zstats_p["ttft_mean_s"], latency_mean_s=zstats_p["latency_mean_s"],
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        pages_outstanding=zeng_p.pages_outstanding(),
+        tables_clear=all(not bool(t.any()) for t in zeng_p._tables.values()),
+        tokens_equal_dense=zp_tokens_equal, launches=launches_zp)
+    if not zp_tokens_equal:
+        zamba_faults.append("paged: tokens differ from the dense run's: "
+                            f"{[(r.rid, r.out_tokens[:4]) for r in zreqs_p]}")
+    if zp_line["pages_outstanding"] or not zp_line["tables_clear"]:
+        zamba_faults.append(f"paged: pages still held after the run: {zp_line}")
+    if not all(launches_zp[n] > 0 for n in PAGED_KERNELS):
+        zamba_faults.append(f"paged: a kernel of the path never launched: {launches_zp}")
+
+    # profile: the longest prompt's prefill and one 4-slot decode tick, dense
+    zlong = int(np.argmax(lens))
+    zlong_prompt = {"tokens": torch.as_tensor(zreqs[zlong].prompt, device=dev)[None].long()}
+    with torch.no_grad():
+        z_prefill_prof = profile_window(lambda: zeng._prefill(zparams, zlong_prompt))
+    for i in range(4):
+        zeng.submit(Request(rid=100 + i, prompt=zreqs[i].prompt, max_new_tokens=16))
+    zeng.step()                                 # admit (prefill) all four
+    z_tick_prof = profile_window(zeng.tick)
+    zeng.run([])
+    emit(phase="serve_zamba2", **zline, prefill_tokens=int(lens[zlong]),
+         prefill=z_prefill_prof, decode_tick=z_tick_prof)
+    emit(phase="serve_zamba2_paged", **zp_line)
+    if zamba_faults:
+        fail("serve_zamba2: " + "; ".join(zamba_faults))
+    del zeng, zeng_p, zparams, zlk, zlr, zlc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 14 serve_nemotron
+    # nemotron-4-340b at full width, depth NEMOTRON_DEPTH, on the kernel
+    # routes with the serve policy.  Its torch-route reference splits the
+    # refine_ab unembed's table over vocab chunks (the whole table's hi/lo
+    # split would not fit beside the params); each logit is one row's
+    # product either way.
+    full_n = get_config("nemotron-4-340b")
+    ncfg = dataclasses.replace(full_n, num_layers=NEMOTRON_DEPTH,
+                               segments=(Segment(("attn", "mlp"), NEMOTRON_DEPTH),))
+    nvocab = ncfg.vocab_size
+    mem_before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.monotonic()
+    nparams = api.init_params(ncfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    n_init_s = time.monotonic() - t0
+    n_n_params = sum(t.numel() for t in leaves(nparams))
+    neng = ServeEngine(ncfg, batch_size=4, max_ctx=1024, policy=policy, device=dev)
+    neng.load(nparams)
+    neng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    nrng = np.random.default_rng(4)
+    nreqs = [Request(rid=i, prompt=nrng.integers(2, nvocab, int(n)).astype(np.int32),
+                     max_new_tokens=32) for i, n in enumerate(lens)]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    nstats = neng.run(nreqs)
+    launches_nm = read_launches(mods)
+    n_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    nemo_faults = []
+    if not all(r.done and len(r.out_tokens) == 32 for r in nreqs):
+        nemo_faults.append(f"not every request finished with 32 tokens: "
+                           f"{[(r.rid, r.done, len(r.out_tokens)) for r in nreqs]}")
+    if any(not 0 <= t < nvocab for r in nreqs for t in r.out_tokens):
+        nemo_faults.append("a token outside the vocabulary")
+    if not all(launches_nm[k] > 0 for k in SERVE_KERNELS):
+        nemo_faults.append(f"a kernel of the path never launched: {launches_nm}")
+    real_unembed = layers_mod.unembed
+
+    def unembed_by_vocab_chunks(p, x, pol):
+        return vocab_chunked(lambda t: real_unembed({"table": t}, x, pol), p["table"])
+
+    nprompt = {"tokens": torch.as_tensor(nreqs[0].prompt, device=dev)[None].long()}
+
+    def nemotron_prefill(pol, chunked=False):
+        layers_mod.unembed = unembed_by_vocab_chunks if chunked else real_unembed
+        try:
+            with torch.no_grad():
+                return serve_step.make_prefill(ncfg, pol, s_ctx=1024)(nparams, nprompt)[0]
+        finally:
+            layers_mod.unembed = real_unembed
+
+    nlk = nemotron_prefill(policy)
+    nlr = nemotron_prefill(ref_policy, chunked=True)
+    # faulty control: fp8 MLPs (on the kernel routes: gemm_lowp's quantize
+    # pass reads the f32 weights in place)
+    nl8 = nemotron_prefill(ops.ExecutionPolicy(
+        default="bf16", mlp="fp8", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"}))
+    if nlk.shape != (1, 1, nvocab) or not torch.isfinite(nlk).all():
+        nemo_faults.append(f"prefill logits shape {tuple(nlk.shape)} or non-finite")
+    n_err = (nlk - nlr).abs().max().item()
+    n_ctrl = (nl8 - nlr).abs().max().item()
+    if not n_err <= NEMOTRON_LOGITS_BOUND:
+        nemo_faults.append(f"prefill logits: kernel routes vs torch routes {n_err} > "
+                           f"{NEMOTRON_LOGITS_BOUND}")
+    if nlk.argmax() != nlr.argmax():
+        nemo_faults.append("prefill logits: the kernel routes pick another greedy token")
+    if not n_ctrl > NEMOTRON_LOGITS_BOUND:
+        nemo_faults.append(f"prefill logits: the fp8-MLP control ({n_ctrl}) is within "
+                           f"{NEMOTRON_LOGITS_BOUND}")
+    nlong_prompt = {"tokens": torch.as_tensor(nreqs[zlong].prompt, device=dev)[None].long()}
+    with torch.no_grad():
+        n_prefill_prof = profile_window(lambda: neng._prefill(nparams, nlong_prompt))
+    for i in range(4):
+        neng.submit(Request(rid=100 + i, prompt=nreqs[i].prompt, max_new_tokens=16))
+    neng.step()                                 # admit (prefill) all four
+    n_tick_prof = profile_window(neng.tick)
+    neng.run([])
+    ntop2 = nlr.flatten().topk(2).values
+    emit(phase="serve_nemotron", arch=ncfg.name, depth=NEMOTRON_DEPTH,
+         layers=len(nparams["layers"]), params=n_n_params, weights_gb=n_n_params * 4 / 1e9,
+         mem_before_load_gb=mem_before_gb, init_s=n_init_s, requests=nstats["requests"],
+         prompt_lens=[int(n) for n in lens], tokens=nstats["tokens"], ticks=nstats["ticks"],
+         wall_s=nstats["wall_s"], tok_per_s=nstats["tok_per_s"],
+         ttft_mean_s=nstats["ttft_mean_s"], latency_mean_s=nstats["latency_mean_s"],
+         peak_mem_gb=n_peak_gb, launches=launches_nm,
+         logits_prompt_len=int(lens[0]), prefill_logits_max_abs_err=n_err,
+         prefill_logits_bound=NEMOTRON_LOGITS_BOUND,
+         prefill_argmax_agrees=bool(nlk.argmax() == nlr.argmax()),
+         reference_top2_gap=(ntop2[0] - ntop2[1]).item(), control_fp8_mlp_err=n_ctrl,
+         logits_absmax=nlr.abs().max().item(), prefill_tokens=int(lens[zlong]),
+         prefill=n_prefill_prof, decode_tick=n_tick_prof)
+    if nemo_faults:
+        fail("serve_nemotron: " + "; ".join(nemo_faults))
+    del neng, nparams, nlk, nlr, nl8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 15 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
                "serve_moe": launches_ms, "serve_moe_paged": launches_pm,
                "train_moe": launches_mt, "serve_naive": launches_n,
-               "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv}
+               "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv,
+               "serve_zamba2": launches_z, "serve_zamba2_paged": launches_zp,
+               "serve_nemotron": launches_nm}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above
@@ -2350,7 +2918,8 @@ def main() -> None:
         if name in TRAIN_ONLY:
             path_launches = train_launches[name]
         elif name == "flash_paged_decode":
-            path_launches = launches_pa[name] + launches_pb[name] + launches_pm[name]
+            path_launches = (launches_pa[name] + launches_pb[name] + launches_pm[name]
+                             + launches_zp[name])
         elif name == "gemm_lowp":
             path_launches = launches_pb[name]
         elif name == "grouped_gemm":

@@ -7,12 +7,15 @@ keeps one flat list of sublayers in execution order
 (``layer_kinds``): ``for seg in segments: for c in range(count): for
 kind in pattern``.
 
-Ported families: ``dense``, ``moe`` and the ``ssm`` family's RWKV-6
-stacks.  Ported kinds: ``attn`` (global GQA self-attention),
-``attn_local`` (sliding-window attention with a ring-buffer cache),
-``mlp``, ``moe`` (top-k routed experts) and ``rwkv6`` (RWKV-6 time-mix +
-channel-mix layer).  ``mamba2`` and ``shared_attn`` (zamba2) count as
-mixers, as in the JAX package, but no model of the port runs them.
+Ported families: ``dense``, ``moe``, the ``ssm`` family's RWKV-6
+stacks and the ``hybrid`` family (zamba2).  Ported kinds: ``attn``
+(global GQA self-attention), ``attn_local`` (sliding-window attention
+with a ring-buffer cache), ``mlp``, ``moe`` (top-k routed experts),
+``rwkv6`` (RWKV-6 time-mix + channel-mix layer), ``mamba2`` (Mamba-2 SSD
+mixer) and ``shared_attn`` (a zamba2 transformer block whose params are
+stored once and applied at every occurrence).  The ``audio`` and ``vlm``
+families (whisper's ``cross_attn``, internvl2's image prefix) are not
+ported.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class Segment:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm (rwkv6) are ported
+    family: str                      # dense | moe | ssm (rwkv6) | hybrid are ported
     d_model: int
     num_layers: int                  # mixer sublayers (bookkeeping)
     segments: tuple[Segment, ...]
@@ -54,6 +57,11 @@ class ModelConfig:
     num_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # ssm (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 0
+    ssm_chunk: int = 256             # SSD chunk of the chunked scan
+    conv_width: int = 4
     # rwkv6
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 64             # WKV chunk of the chunked parallel form

@@ -11,7 +11,9 @@ The JAX tree stacks each segment's sublayer params on a leading
 ``count`` axis (``seg{i}/pos{j}/...``) and scans the periods, running
 each period's pattern in order; the flat layer order is therefore
 ``for i in segments: for c in range(count): for j in pattern`` — not
-position-major.
+position-major.  A zamba2 ``shared_attn`` position holds ``{}`` in the
+JAX tree and in the port; the block it applies (``tree["shared"]``) is
+carried across once, unstacked.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ def from_jax_numpy(tree: dict, cfg: ModelConfig,
     device = resolve_device(device)
     params = {"embed": _tensors(tree["embed"], None, device),
               "final_norm": _tensors(tree["final_norm"], None, device)}
-    if "unembed" in tree:
-        params["unembed"] = _tensors(tree["unembed"], None, device)
+    for key in ("unembed", "shared"):
+        if key in tree:
+            params[key] = _tensors(tree[key], None, device)
     layers = []
     for i, seg in enumerate(cfg.segments):
         seg_tree = tree[f"seg{i}"]

@@ -21,6 +21,14 @@ wait for their slices (their flags are absent).
     python -m repro_torch.launch.serve --arch mixtral-8x7b --backend gemm=cuda \\
         --backend attention=cuda_fused --backend grouped=cuda_grouped
     python -m repro_torch.launch.serve --arch rwkv6-7b --backend gemm=cuda
+    python -m repro_torch.launch.serve --arch zamba2-7b --backend gemm=cuda \\
+        --backend attention=cuda_fused [--kv-layout paged]
+
+``--arch`` takes every ported architecture: gemma3-1b, starcoder2-15b,
+command-r-35b and nemotron-4-340b (dense), mixtral-8x7b and dbrx-132b
+(moe), rwkv6-7b (RWKV-6) and zamba2-7b (Mamba-2 + shared attention).
+Recurrent state (RWKV-6's, Mamba-2's conv and SSD state) stays dense per
+slot in both KV layouts.
 """
 
 from __future__ import annotations
@@ -363,7 +371,8 @@ class ServeEngine:
             self._splice_paged(cache1, slot, alloc_map)
             self._slot_pages[slot] = alloc_map
         # every dense leaf of the slot's state: KV rows (dense layout) and
-        # recurrent state (both layouts)
+        # recurrent state (both layouts: RWKVState's three leaves,
+        # MambaState's conv and SSD state)
         for full, one in zip(self.cache, cache1):
             if full is not None and not isinstance(full, paged_kv.PagedKVCache):
                 for dst, src in zip(full, one):
@@ -525,7 +534,8 @@ class ServeEngine:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, default="gemma3-1b")
+    ap.add_argument("--arch", choices=ARCHS, default="gemma3-1b",
+                    help="a ported architecture: " + ", ".join(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)

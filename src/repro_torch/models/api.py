@@ -1,5 +1,6 @@
 """Family-dispatching facade (twin of ``repro.models.api``) for the
-``dense`` and ``moe`` families and the ``ssm`` family's RWKV-6 stacks:
+``dense`` and ``moe`` families, the ``ssm`` family's RWKV-6 stacks and
+the ``hybrid`` family (zamba2):
 runtime/ and launch/ talk to models only through this module.  ``policy`` is a ``PrecisionPolicy`` (matmuls on the
 ``torch`` reference) or an ``ExecutionPolicy`` (plus the
 ``backends: {family: impl}`` routing onto the CUDA kernels).
@@ -35,8 +36,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda") -> list:
     """Dense decode cache (an ``AttnCache`` per attention sublayer, an
-    ``RWKVState`` per rwkv6 sublayer) on ``device``: the card unless the
-    caller asks for the CPU."""
+    ``RWKVState`` per rwkv6 sublayer, a ``MambaState`` per mamba2
+    sublayer) on ``device``: the card unless the caller asks for the CPU."""
     _ported(cfg)
     return T.init_cache(cfg, batch, s_ctx, dtype, resolve_device(device))
 

@@ -1,13 +1,17 @@
 """Decoder-only LM over the config's segment programs (twin of
 ``repro.models.transformer``), for the dense and moe families (kinds
-``attn``, ``attn_local``, ``mlp`` and ``moe``) and the ssm family's
-RWKV-6 stacks (every kind ``rwkv6``; zamba2's ``mamba2`` /
-``shared_attn`` are not ported and raise).
+``attn``, ``attn_local``, ``mlp`` and ``moe``), the ssm family's RWKV-6
+stacks (every kind ``rwkv6``) and the hybrid family (zamba2: ``mamba2``
+and ``shared_attn``).
 
 The JAX package stacks each segment's params on a ``count`` axis and
 runs ``lax.scan``; the port keeps one flat list of sublayers in the same
 execution order (``configs.base.layer_kinds``) and runs a Python loop.
-``params["layers"][i]`` and ``cache[i]`` belong to sublayer ``i``.
+``params["layers"][i]`` and ``cache[i]`` belong to sublayer ``i``.  A
+``shared_attn`` sublayer's slot in ``params["layers"]`` is an empty
+dict: its block (norm, attention, norm, MLP) lives once in
+``params["shared"]`` and is applied at every occurrence, while each
+occurrence keeps a KV cache of its own.
 ``forward`` returns the MoE sublayers' load-balancing loss summed over
 the stack, as the JAX package's third value.
 With ``remat`` each period of a segment's pattern (one scan step in the
@@ -28,27 +32,29 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 from repro_torch.models.attention import AttnCache, attention, init_attn
 
-__all__ = ["init_params", "forward", "init_cache", "lm_loss"]
+__all__ = ["init_params", "forward", "init_cache", "recurrent_state", "lm_loss"]
 
 _ATTN_KINDS = ("attn", "attn_local")
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the kinds each ported family may hold
 _FAMILY_KINDS = {"dense": (*_ATTN_KINDS, "mlp", "moe"), "moe": (*_ATTN_KINDS, "mlp", "moe"),
-                 "ssm": ("rwkv6",)}
+                 "ssm": ("rwkv6",), "hybrid": ("mamba2", "shared_attn")}
 
 
 def check_kinds(cfg: ModelConfig) -> list[str]:
     """The flat layer kinds of a ported stack; raises on a family or a
-    kind the port does not run (zamba2's mamba2 / shared_attn among them)."""
+    kind the port does not run (whisper's audio family with cross_attn,
+    internvl2's vlm family)."""
     kinds = layer_kinds(cfg)
     allowed = _FAMILY_KINDS.get(cfg.family, ())
     bad = sorted({k for k in kinds if k not in allowed})
     if bad or not allowed:
         raise ValueError(f"{cfg.name}: the port runs dense/moe stacks of attn/attn_local/"
-                         f"mlp/moe and ssm stacks of rwkv6; got family {cfg.family!r}, "
-                         f"kinds {bad}")
+                         f"mlp/moe, ssm stacks of rwkv6 and hybrid stacks of mamba2/"
+                         f"shared_attn; got family {cfg.family!r}, kinds {bad}")
     return kinds
 
 
@@ -79,38 +85,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                         cfg.num_experts, cfg.mlp_kind)})
         elif kind == "rwkv6":
             layers.append(R.init_rwkv6(generator, cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim))
+        elif kind == "mamba2":
+            layers.append(S.init_mamba2(generator, cfg.d_model, cfg.ssm_head_dim,
+                                        cfg.ssm_state, cfg.conv_width))
+        elif kind == "shared_attn":
+            layers.append({})               # its params live in params["shared"]
         else:
             layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
                            **L.init_mlp(generator, cfg.d_model, cfg.d_ff,
                                         cfg.mlp_kind, bias=cfg.mlp_bias)})
     params["layers"] = layers
+    if "shared_attn" in kinds:
+        params["shared"] = {
+            "norm1": L.init_rmsnorm(cfg.d_model, dev),
+            "attn": init_attn(generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim),
+            "norm2": L.init_rmsnorm(cfg.d_model, dev),
+            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind),
+        }
     return params
 
 
 def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
-    """Rows of a sublayer's KV cache: the context for global layers, the
-    window (at most) for local ones, None for stateless sublayers."""
-    if kind == "attn" or (kind == "attn_local" and cfg.window is None):
+    """Rows of a sublayer's KV cache: the context for global layers (a
+    shared block's occurrences among them), the window (at most) for local
+    ones, None for stateless and recurrent sublayers."""
+    if kind in ("attn", "shared_attn") or (kind == "attn_local" and cfg.window is None):
         return s_ctx
     if kind == "attn_local":
         return min(s_ctx, cfg.window)
     return None
 
 
+def recurrent_state(kind: str, cfg: ModelConfig, batch: int,
+                    device: torch.device | str):
+    """A recurrent sublayer's zero decode state on ``device`` (an f32
+    ``RWKVState`` for rwkv6, an f32 ``MambaState`` for mamba2); None for
+    every other kind.  Dense in both KV layouts."""
+    if kind == "rwkv6":
+        return R.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_head_dim, device=device)
+    if kind == "mamba2":
+        return S.init_mamba_state(batch, cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state,
+                                  cfg.conv_width, device=device)
+    return None
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype, device: torch.device | str) -> list:
     """Pre-allocated decode cache on ``device``: an ``AttnCache`` per
-    attention sublayer, an f32 ``RWKVState`` per rwkv6 sublayer, None per
-    mlp or moe sublayer."""
+    attention sublayer (each shared_attn occurrence its own), the
+    ``recurrent_state`` of each rwkv6 or mamba2 sublayer, None per mlp or
+    moe sublayer."""
     cache: list = []
     for kind in check_kinds(cfg):
-        if kind == "rwkv6":
-            cache.append(R.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_head_dim,
-                                           device=device))
-            continue
+        state = recurrent_state(kind, cfg, batch, device)
         cap = cache_capacity(kind, cfg, s_ctx)
-        if cap is None:
-            cache.append(None)
+        if state is not None or cap is None:
+            cache.append(state)
             continue
         shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
         cache.append(AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -119,15 +150,32 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
 
 
 def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
-              policy: PrecisionPolicy, mode: str, cache, pos):
+              policy: PrecisionPolicy, mode: str, cache, pos, shared: dict | None):
     """One pre-norm residual sublayer.  Returns (x, new cache or None,
-    aux loss or None).  An rwkv6 layer carries its own two norms and
-    residuals, so it is dispatched before the shared pre-norm."""
+    aux loss or None).  An rwkv6 or mamba2 layer carries its own norms and
+    residuals, and a shared_attn block its two, so they are dispatched
+    before the sublayer pre-norm."""
     if kind == "rwkv6":
         x, st = R.rwkv6_layer(p, x, head_dim=cfg.rwkv_head_dim, policy=policy.for_("mlp"),
                               state=cache if mode == "decode" else None, chunk=cfg.rwkv_chunk,
                               norm_eps=cfg.norm_eps, return_state=(mode == "prefill"))
         return x, st, None
+    if kind == "mamba2":
+        x, st = S.mamba2_layer(p, x, head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
+                               conv_width=cfg.conv_width, policy=policy.for_("mlp"),
+                               chunk=cfg.ssm_chunk, state=cache if mode == "decode" else None,
+                               norm_eps=cfg.norm_eps, return_state=(mode == "prefill"))
+        return x, st, None
+    if kind == "shared_attn":
+        out, nc = attention(
+            shared["attn"], L.rmsnorm(shared["norm1"], x, cfg.norm_eps), mode=mode,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            policy=policy.for_("attention"), rope_theta=cfg.rope_theta,
+            softcap=cfg.attn_logit_softcap, cache=cache if mode == "decode" else None, pos=pos)
+        x = x + out
+        xn2 = L.rmsnorm(shared["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp(shared["mlp"], xn2, cfg.mlp_kind, policy.for_("mlp"))
+        return x, (nc if mode != "train" else None), None
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     if kind in _ATTN_KINDS:
         out, nc = attention(
@@ -181,7 +229,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             for i in range(start, stop):
                 x, nc, ai = _sublayer(kinds[i], params["layers"][i], x, cfg=cfg,
                                       policy=policy, mode=mode, pos=pos,
-                                      cache=cache[i] if cache is not None else None)
+                                      cache=cache[i] if cache is not None else None,
+                                      shared=params.get("shared"))
                 ncs.append(nc)
                 if ai is not None:
                     a = a + ai

@@ -8,11 +8,12 @@ run under ``torch.no_grad``: params that carry ``requires_grad`` (a
 trained model) build no autograd graph while serving.
 
 ``init_paged_cache`` builds the paged decode cache for any family: a page
-pool per attention sublayer, and one page table per capacity class
+pool per attention sublayer (each occurrence of zamba2's shared block its
+own, in the context class), and one page table per capacity class
 (global layers at the context, local layers at the window) shared by the
-layers of that class; recurrent state (``RWKVState``) stays dense and MoE
-sublayers hold nothing, as in ``repro``.  A stack without attention has
-no classes and no pools.  ``paged_classes`` sizes the pools.
+layers of that class; recurrent state (``RWKVState``, ``MambaState``)
+stays dense and MoE sublayers hold nothing, as in ``repro``.  A stack
+without attention has no classes and no pools.  ``paged_classes`` sizes the pools.
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.ops import paged as paged_kv
 from repro_torch.models import api
-from repro_torch.models import rwkv as R
 from repro_torch.models.attention import AttnCache
-from repro_torch.models.transformer import cache_capacity, check_kinds
+from repro_torch.models.transformer import cache_capacity, check_kinds, recurrent_state
 from repro_torch.runtime.device import resolve_device
 
 __all__ = ["pad_cache", "make_prefill", "make_decode", "make_engine_tick",
@@ -60,8 +60,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
                      dtype: torch.dtype = torch.bfloat16,
                      device: torch.device | str = "cuda") -> list:
     """The decode cache with a ``PagedKVCache`` pool per attention
-    sublayer, a dense ``RWKVState`` per rwkv6 sublayer and None per mlp or
-    moe sublayer, on ``device``.  Every table entry
+    sublayer, a dense ``RWKVState`` per rwkv6 sublayer, a dense
+    ``MambaState`` per mamba2 sublayer and None per mlp or moe sublayer,
+    on ``device``.  Every table entry
     starts on the trash page (0); the engine owns allocation
     (``launch/serve.py``).  The layers of one capacity class share one
     page-table tensor: a slot's page ids are the same in each of their
@@ -71,9 +72,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
                             num_pages=num_pages)
     tables = {cap: torch.zeros((batch, paged_kv.num_logical_pages(cap, page_size)),
                                dtype=torch.int32, device=dev) for cap in classes}
-    kinds = check_kinds(cfg)
-    cache: list = [R.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_head_dim, device=dev)
-                   if kind == "rwkv6" else None for kind in kinds]
+    cache: list = [recurrent_state(kind, cfg, batch, dev) for kind in check_kinds(cfg)]
     for i, _, cap in attn_cache_walk(cfg, s_ctx):
         cache[i] = paged_kv.init_paged(
             batch, cap, cfg.num_kv_heads, cfg.head_dim, page_size=page_size,
@@ -85,8 +84,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
 def pad_cache(cache: list, cfg: ModelConfig, s_ctx: int) -> list:
     """Pad every dense attention cache along its sequence dim to its
     decode capacity (ring caches are already window-sized); paged pools
-    and recurrent ``RWKVState`` leaves (O(1) in the context) pass through
-    untouched."""
+    and recurrent ``RWKVState`` / ``MambaState`` leaves (O(1) in the
+    context) pass through untouched."""
     out = []
     for kind, c in zip(layer_kinds(cfg), cache):
         cap = cache_capacity(kind, cfg, s_ctx)
