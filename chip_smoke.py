@@ -81,8 +81,8 @@ Phases, each printing one JSON line:
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
 Phases 10 and 11 run right after 6, while gemma3's params are loaded;
-12 runs after 9, once Mixtral is freed, and 13 and 14 after 12, each once
-the model before it is freed.
+12 runs after 9, once Mixtral is freed, and 13, 14, 15 and 16 after 12,
+each once the model before it is freed.
 
 10. serve_naive — gemma3-1b again (full width and depth, the serve
    phase's params, requests, slots and context) on the paper's unstaged
@@ -142,7 +142,31 @@ the model before it is freed.
    and greedy token; the reference's refine_ab unembed over vocab chunks),
    with fp8 MLPs on the kernel routes as the control above the bound; then
    a profiled prefill and decode tick.
-15. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+15. serve_whisper — whisper-medium whole, nothing cut (24 encoder and 24
+   decoder layers, d 1024, 16 heads of 64, vocab 51865 tied, learned
+   positional tables; random f32 weights from a seeded generator, 3.2 GB)
+   behind the same engine, policy and requests (ids within 51865); each
+   prefill encodes 1500 zero frames, as ``repro``'s engine does, and keeps
+   each decoder layer's cross-attention K/V (1500 rows, never padded or
+   paged).  Every request must finish and every kernel of the serve path
+   launch.  On seeded random frames, one prompt's prefill logits (bound and
+   greedy token) and the encoder's hidden states are held against the
+   ``torch`` routes, with the reference's encoder run causal as the control
+   above each bound.  Then ``serve_whisper_paged`` (8-row bf16 pages for the
+   self-attention, the cross caches dense beside them; tokens equal to the
+   dense run's, every page handed back) and a profiled prefill and decode
+   tick.
+16. serve_internvl2 — internvl2-76b at full width (d 8192, 64 heads of 128
+   on 8 kv heads, d_ff 28672, vocab 128256), depth cut to 8 of 80 (36 GB of
+   f32 weights), the same engine, policy and requests (ids within 128256),
+   each after 256 image rows (zero embeddings in the engine, as in
+   ``repro``): at most 256 + 700 + 32 rows of the 1024-row context.  Every
+   request must finish and every kernel launch; one prompt's prefill logits
+   on seeded random image embeddings are held against the ``torch`` routes
+   (bound and greedy token), with the image rows rolled by one position as
+   the control above the bound; then ``serve_internvl2_paged`` (tokens equal
+   to the dense run's) and a profiled prefill and decode tick.
+17. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -192,6 +216,16 @@ and back), and ``gemm_refined`` at nemotron's refine_ab decode unembed
 vocab chunks).  The hd 192 forward holds its query rows with 64 keys or
 more at the attention bound and its first 64 rows in units of each
 output's softmax-weighted |v| (see FEW_KEYS).
+
+The ``check`` phase also holds the kernels at whisper-medium's and
+internvl2-76b's shapes: the flash forward at hd 64 (16 heads on 16 kv)
+over the encoder's 1500 frames without a mask, and as cross-attention at a
+700-row prefill and a one-row decode (B = 4) against 1500 keys; the dense
+and paged decode at hd 64, G = 1 and the decode at hd 128, G = 8; the
+refine_ab decode unembeds onto 51865 columns (whisper's tied table, its
+25-column tail checked apart) and 128256 columns (d 8192); ``gemm_tiled``
+at the cross K/V projection (1500 x 1024 x 1024) and internvl2's decode
+MLP (4 x 8192 x 28672 and back).
 
 The ``check`` phase also holds the paper's naive GEMM at gemma3's prefill
 MLP and decode unembed and at a square 4096^3 point (Fig. 6, with the
@@ -386,6 +420,18 @@ ZAMBA2_F32_LAYER_BOUND = 3e-3
 # bound.
 NEMOTRON_DEPTH = 2
 NEMOTRON_LOGITS_BOUND = LOGITS_BOUND
+# serve_whisper (whole, 0.79 B params): prefill logits on seeded random
+# frames, kernel routes vs torch routes, and the encoder's hidden states
+# (final-normed, 1500 x 1024) the same way, each at gemma3's bound; the
+# reference with its encoder run causal is the control above both.
+WHISPER_LOGITS_BOUND = LOGITS_BOUND
+WHISPER_ENCODER_BOUND = LOGITS_BOUND
+# serve_internvl2 (depth 8 of 80 at full width: 36 GB of f32 weights):
+# prefill logits on seeded random image embeddings, kernel routes vs torch
+# routes, at gemma3's bound; the reference with the image rows rolled by one
+# position is the control above it.
+INTERNVL2_DEPTH = 8
+INTERNVL2_LOGITS_BOUND = LOGITS_BOUND
 
 
 TRAIN_STEPS = 3
@@ -525,6 +571,7 @@ def main() -> None:
     from repro_torch.launch.train import TrainLoop
     from repro_torch.optim import adamw
     from repro_torch.models import api, transformer
+    from repro_torch.models import encdec as encdec_mod
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import rwkv as rwkv_mod
@@ -1616,23 +1663,21 @@ def main() -> None:
         """``fn`` over ``table``'s row blocks, concatenated on the last dim."""
         return torch.cat([fn(table[v0:v0 + rows]) for v0 in range(0, table.shape[0], rows)], -1)
 
-    zcfg_full, ncfg_full = get_config("zamba2-7b"), get_config("nemotron-4-340b")
-    s, s_cache = 700, 1024
-    rows = torch.arange(s, device=dev)
-    keep = rows[None, :] <= rows[:, None]
-    live = torch.arange(s_cache, device=dev)[None, :] <= pos.long()[:, None]
-    n_live = int(live.sum())
-    for acfg in (zcfg_full, ncfg_full):
+    def causal_prefill_row(acfg, s, r0=0):
+        """The flash forward at ``acfg``'s head shape over one causal
+        ``s``-row prompt against its plain version, the control at window
+        s / 2.  With ``r0`` > 0 the query rows with r0 keys or more are held
+        at ATTN_BOUND and the first r0 rows in units of their
+        softmax-weighted |v| (see FEW_KEYS)."""
         a_heads, a_kvh, a_hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
         a_grp = a_heads // a_kvh
         shape = f"H={a_heads} Kv={a_kvh} hd={a_hd} ({acfg.name})"
+        rows = torch.arange(s, device=dev)
+        keep = rows[None, :] <= rows[:, None]
         q = randn((1, s, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
         k, v = (randn((1, s, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
         qh = q.reshape(1, s, a_heads, a_hd).transpose(1, 2)
         kr, vr = (c.transpose(1, 2).repeat_interleave(a_grp, 1) for c in (k, v))
-        # nemotron's row holds the query rows with FEW_KEYS keys or more at
-        # ATTN_BOUND and the first FEW_KEYS rows scaled (see FEW_KEYS)
-        r0 = FEW_KEYS if acfg is ncfg_full else 0
         few = {}
         if r0:
             o_k = af.flash_attention(q, k, v, causal=True)[0, :r0]
@@ -1654,13 +1699,24 @@ def main() -> None:
               (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
               control=lambda: af.flash_attention_plain(
                   q, k, v, causal=True, window=s // 2)[0][:, r0:],
-              library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+              library_call="scaled_dot_product_attention"
+                           + (", kv heads repeated (not timed)" if a_grp > 1 else ""),
               loop="sm90", extra=few)
         if few and not few["first_rows_scaled_err"] <= FEW_KEYS_SCALED_BOUND:
             fail(f"flash_attention prefill {shape}: the first {r0} rows part by "
                  f"{few['first_rows_scaled_err']} of their weighted |v| > "
                  f"{FEW_KEYS_SCALED_BOUND}")
-        del q, k, v, qh, kr, vr
+
+    zcfg_full, ncfg_full = get_config("zamba2-7b"), get_config("nemotron-4-340b")
+    s_cache = 1024
+    live = torch.arange(s_cache, device=dev)[None, :] <= pos.long()[:, None]
+    n_live = int(live.sum())
+    for acfg in (zcfg_full, ncfg_full):
+        a_heads, a_kvh, a_hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+        a_grp = a_heads // a_kvh
+        shape = f"H={a_heads} Kv={a_kvh} hd={a_hd} ({acfg.name})"
+        # nemotron's row holds its first FEW_KEYS rows scaled (see FEW_KEYS)
+        causal_prefill_row(acfg, 700, FEW_KEYS if acfg is ncfg_full else 0)
         qd = randn((4, 1, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
         qdh = qd.reshape(4, 1, a_heads, a_hd).transpose(1, 2)
         dmask = live[:, None, None, :].expand(4, a_heads, 1, s_cache)
@@ -1754,6 +1810,156 @@ def main() -> None:
           extra={**refined_extra(4, n_vocab, n_d),
                  "plain": "gemm_refined_plain over 32768-row vocab chunks"})
     del table, xn4
+    torch.cuda.empty_cache()
+
+    # ---- whisper-medium's and internvl2-76b's shapes.  whisper: hd 64 (one
+    # 64-column block), 16 heads on 16 kv heads; the encoder's bidirectional
+    # attention over 1500 frames (a 28-row KV tail past 23 stages of 64);
+    # cross-attention, the flash forward with Sq != Skv and no mask, at a
+    # prefill (700 prompt rows against 1500 keys) and at a decode tick (one
+    # query row per slot against 1500 keys, grid (1, 16, 4)); the decoder's
+    # decode, dense and paged, at G = 1; the tied refine_ab unembed onto 51865
+    # = 64 * 810 + 25 columns (a 207460-byte logits row); the cross K/V
+    # projection (1500 x 1024 x 1024).  internvl2: the decode at 64 heads on 8
+    # kv (G = 8, hd 128), the refine_ab unembed onto 128256 columns at d 8192
+    # and the decode MLP (4 x 8192 x 28672 and back).  Both decoders' causal
+    # prefill: whisper's self-attention over a 700-token prompt, internvl2's
+    # over 256 image rows and a 700-token prompt (956 rows; its 64 heads
+    # hold the first FEW_KEYS rows scaled, as nemotron's 96 do).  Controls:
+    # the encoder's plain version run causal, the cross rows' plain version
+    # over the first 1499 keys, the causal prefills' at window S / 2, the
+    # decodes' one key short (pos - 1).
+    wcfg_full, icfg_full = get_config("whisper-medium"), get_config("internvl2-76b")
+    w_heads, w_kvh, w_hd = wcfg_full.num_heads, wcfg_full.num_kv_heads, wcfg_full.head_dim
+    w_seq, w_d = wcfg_full.encoder_seq, wcfg_full.d_model
+    wshape = f"H={w_heads} Kv={w_kvh} hd={w_hd} ({wcfg_full.name})"
+    q = randn((1, w_seq, w_kvh, 1, w_hd), w_hd ** -0.5, torch.bfloat16)
+    k, v = (randn((1, w_seq, w_kvh, w_hd), dtype=torch.bfloat16) for _ in range(2))
+    qh, kh, vh = (c.reshape(1, w_seq, w_heads, w_hd).transpose(1, 2) for c in (q, k, v))
+    check("flash_attention", f"encoder S={w_seq} non-causal {wshape}",
+          lambda: af.flash_attention(q, k, v, causal=False),
+          lambda: af.flash_attention_plain(q, k, v, causal=False)[0],
+          lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0),
+          ATTN_BOUND, 4 * w_seq * w_seq * w_hd * w_heads,
+          (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4,
+          control=lambda: af.flash_attention_plain(q, k, v, causal=True)[0],
+          library_call="scaled_dot_product_attention, no mask", loop="sm90")
+    for b_x, s_x in ((1, 700), (4, 1)):
+        qx = randn((b_x, s_x, w_kvh, 1, w_hd), w_hd ** -0.5, torch.bfloat16)
+        kx, vx = (randn((b_x, w_seq, w_kvh, w_hd), dtype=torch.bfloat16) for _ in range(2))
+        qxh = qx.reshape(b_x, s_x, w_heads, w_hd).transpose(1, 2)
+        kxh, vxh = (c.transpose(1, 2) for c in (kx, vx))
+        check("flash_attention",
+              f"cross {'prefill' if s_x > 1 else 'decode'} B={b_x} Sq={s_x} Skv={w_seq} "
+              f"{wshape}",
+              lambda qx=qx, kx=kx, vx=vx: af.flash_attention(qx, kx, vx, causal=False),
+              lambda qx=qx, kx=kx, vx=vx: af.flash_attention_plain(qx, kx, vx, causal=False)[0],
+              lambda qxh=qxh, kxh=kxh, vxh=vxh: torch.nn.functional.scaled_dot_product_attention(
+                  qxh, kxh, vxh, scale=1.0),
+              ATTN_BOUND, 4 * b_x * s_x * w_seq * w_hd * w_heads,
+              (qx.numel() + kx.numel() + vx.numel()) * 2 + qx.numel() * 4,
+              control=lambda qx=qx, kx=kx, vx=vx: af.flash_attention_plain(
+                  qx, kx[:, :-1], vx[:, :-1], causal=False)[0],
+              library_call="scaled_dot_product_attention, no mask", loop="sm90",
+              extra={"grid": [-(-s_x // af.BQ), w_heads, b_x]})
+        del qx, kx, vx, qxh, kxh, vxh
+    del q, k, v, qh, kh, vh
+    causal_prefill_row(wcfg_full, 700)
+    causal_prefill_row(icfg_full, icfg_full.num_image_tokens + 700, FEW_KEYS)
+    for acfg in (wcfg_full, icfg_full):
+        a_heads, a_kvh, a_hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+        a_grp = a_heads // a_kvh
+        shape = f"H={a_heads} Kv={a_kvh} hd={a_hd} G={a_grp} ({acfg.name})"
+        qd = randn((4, 1, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
+        qdh = qd.reshape(4, 1, a_heads, a_hd).transpose(1, 2)
+        dmask = live[:, None, None, :].expand(4, a_heads, 1, s_cache)
+        kc, vc = (randn((4, s_cache, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+        kr, vr = (c.transpose(1, 2).repeat_interleave(a_grp, 1) for c in (kc, vc))
+        splits = {"splits": af.decode_splits(4, a_kvh, s_cache, sms)}
+        check("flash_decode", f"decode B=4 linear {s_cache} {shape}",
+              lambda: af.flash_decode(qd, kc, vc, pos),
+              lambda: af.flash_decode_plain(qd, kc, vc, pos),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qdh, kr, vr, attn_mask=dmask, scale=1.0),
+              ATTN_BOUND, 4 * n_live * a_grp * a_hd * a_kvh,
+              qd.numel() * 2 + 2 * n_live * a_kvh * a_hd * 2 + qd.numel() * 4,
+              control=lambda: af.flash_decode_plain(qd, kc, vc, pos - 1),
+              library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+              extra=splits)
+        del kc, vc, kr, vr
+        if acfg is wcfg_full:
+            # whisper's paged decode: 8-row bf16 pages behind a shuffled table
+            n_log = paged.num_logical_pages(s_cache, ps)
+            table_p = (1 + torch.randperm(4 * n_log, generator=gen, device=dev)
+                       ).reshape(4, n_log)
+            table_p = torch.where(torch.arange(n_log, device=dev)[None, :] * ps
+                                  <= pos.long()[:, None], table_p,
+                                  torch.zeros_like(table_p)).to(torch.int32)
+            n_pages = int((table_p > 0).sum())
+            pcache = paged.init_paged(4, s_cache, a_kvh, a_hd, page_size=ps,
+                                      num_pages=1 + 4 * n_log, device=dev)
+            pcache.page_table = table_p
+            pcache.k_pages, pcache.v_pages = (
+                randn((1 + 4 * n_log, ps, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+            kr, vr = (x.to(torch.bfloat16).transpose(1, 2).repeat_interleave(a_grp, 1)
+                      for x in paged.gather_dense(pcache))
+            check("flash_paged_decode", f"paged decode B=4 linear {s_cache} page {ps} bf16 "
+                  f"pages {shape}",
+                  lambda: ap.flash_paged_decode(qd, pcache, pos),
+                  lambda: ap.flash_paged_decode_plain(qd, pcache, pos),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qdh, kr, vr, attn_mask=dmask, scale=1.0),
+                  ATTN_BOUND, 4 * n_live * a_grp * a_hd * a_kvh,
+                  qd.numel() * 2 + 2 * n_live * a_kvh * a_hd * 2 + n_pages * 4
+                  + qd.numel() * 4,
+                  control=lambda: ap.flash_paged_decode_plain(qd, pcache, pos - 1),
+                  library_call="scaled_dot_product_attention on the cache gathered dense "
+                               "(bf16), gather not timed", extra=splits)
+            del pcache, kr, vr
+        del qd, qdh
+    # whisper's cross K/V projection of the encoder's output (sm90)
+    x = randn((w_seq, w_d), dtype=torch.bfloat16)
+    w = randn((w_d, w_d), w_d ** -0.5)
+    w16 = w.to(torch.bfloat16)
+    check("gemm_tiled", f"cross K/V projection {w_seq}x{w_d}x{w_d} ({wcfg_full.name})",
+          lambda: gt.gemm_tiled(x, w), lambda: gt.gemm_tiled_plain(x, w),
+          lambda: torch.matmul(x, w16), GEMM_BOUND, 2 * w_seq * w_d * w_d,
+          x.numel() * 2 + w.numel() * 4 + w_seq * w_d * 4, loop="sm90")
+    del x, w, w16
+    # internvl2's decode MLP: up (wi, wg) and down
+    i_d, i_ff = icfg_full.d_model, icfg_full.d_ff
+    for kk, nn in ((i_d, i_ff), (i_ff, i_d)):
+        a4 = randn((4, kk), dtype=torch.bfloat16)
+        w = randn((kk, nn), kk ** -0.5)
+        w16 = w.to(torch.bfloat16)
+        check("gemm_tiled", f"decode mlp {'up' if kk == i_d else 'down'} 4x{kk}x{nn} "
+              f"({icfg_full.name})", lambda: gt.gemm_tiled(a4, w),
+              lambda: gt.gemm_tiled_plain(a4, w), lambda: torch.matmul(a4, w16), GEMM_BOUND,
+              2 * 4 * kk * nn, a4.numel() * 2 + w.numel() * 4 + 4 * nn * 4, loop="splitk")
+        del w, w16
+    # the refine_ab decode unembeds: whisper's tied 51865-row table (the last
+    # 25 columns are a partial tile; their error is recorded apart) and
+    # internvl2's 128256 x 8192 table, f32, NT
+    for acfg in (wcfg_full, icfg_full):
+        a_d, a_vocab = acfg.d_model, acfg.vocab_size
+        xn4 = randn((4, a_d), dtype=torch.bfloat16)
+        table = randn((a_vocab, a_d), a_d ** -0.5)
+        tail = a_vocab % 64
+        tail_err = (gr.gemm_refined(xn4, table.t(), policy="refine_ab")[:, -tail:]
+                    - gr.gemm_refined_plain(xn4, table[-tail:].t(), "refine_ab")
+                    ).abs().max().item() if tail else None
+        check("gemm_refined", f"decode unembed refine_ab 4x{a_d}x{a_vocab} NT ({acfg.name})",
+              lambda: gr.gemm_refined(xn4, table.t(), policy="refine_ab"),
+              lambda: gr.gemm_refined_plain(xn4, table.t(), "refine_ab"),
+              lambda: torch.matmul(xn4.float(), table.t()), GEMM_BOUND,
+              refined_flops(xn4, table, 4, a_vocab, a_d),
+              xn4.numel() * 2 + table.numel() * 4 + 4 * a_vocab * 4, loop="splitk",
+              extra={**refined_extra(4, a_vocab, a_d),
+                     **({"tail_cols": tail, "tail_cols_err": tail_err} if tail else {})})
+        if tail and not tail_err <= GEMM_BOUND:
+            fail(f"gemm_refined {acfg.name} unembed: the last {tail} columns part by "
+                 f"{tail_err} > {GEMM_BOUND}")
+        del table, xn4
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 4 serve
@@ -2885,7 +3091,246 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 15 kernels
+    # Phases 15 and 16 share this: serve ``reqs`` on ``eng`` (and on a paged
+    # engine beside it), hold the prefill logits of one prompt against the
+    # torch routes with a faulty control, and profile a prefill and a tick.
+    def served(reqs_, vocab_, launches_, faults, kernels=SERVE_KERNELS):
+        """Every request finished (32 tokens, or EOS sooner), in the
+        vocabulary, every kernel of the path launched."""
+        if not all(r.done and (len(r.out_tokens) == 32 or r.out_tokens[-1] == 1)
+                   for r in reqs_):
+            faults.append(f"not every request finished: "
+                          f"{[(r.rid, r.done, len(r.out_tokens)) for r in reqs_]}")
+        if any(not 0 <= t < vocab_ for r in reqs_ for t in r.out_tokens):
+            faults.append("a token outside the vocabulary")
+        if not all(launches_[k] > 0 for k in kernels):
+            faults.append(f"a kernel of the path never launched: {launches_}")
+
+    def serve_paged_twin(c, prm, dense_reqs, faults):
+        """The same requests and slots from 8-row bf16 pages: token for token
+        the dense run's, every page handed back, the paged decode launched."""
+        pol = ops.ExecutionPolicy(
+            default="bf16", logits="refine_ab",
+            backends={"gemm": "cuda", "attention": "cuda_fused"},
+            require={"attention": ("decode", "paged_decode")})
+        e = ServeEngine(c, batch_size=4, max_ctx=1024, policy=pol, device=dev,
+                        kv_layout="paged", kv_page_size=8)
+        e.load(prm)
+        e.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+        preqs = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in dense_reqs]
+        zero_launches(mods)
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = e.run(preqs)
+        ls = read_launches(mods)
+        equal = [r.out_tokens for r in preqs] == [r.out_tokens for r in dense_reqs]
+        line = dict(
+            page_size=8, pools=sum(isinstance(x, paged.PagedKVCache) for x in e.cache),
+            dense_caches=sum(isinstance(x, tuple) for x in e.cache),
+            requests=st["requests"], tokens=st["tokens"], ticks=st["ticks"],
+            wall_s=st["wall_s"], tok_per_s=st["tok_per_s"], ttft_mean_s=st["ttft_mean_s"],
+            latency_mean_s=st["latency_mean_s"],
+            peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            pages_outstanding=e.pages_outstanding(),
+            tables_clear=all(not bool(t.any()) for t in e._tables.values()),
+            tokens_equal_dense=equal, launches=ls)
+        if not equal:
+            faults.append("paged: tokens differ from the dense run's: "
+                          f"{[(r.rid, r.out_tokens[:4]) for r in preqs]}")
+        if line["pages_outstanding"] or not line["tables_clear"]:
+            faults.append(f"paged: pages still held after the run: {line}")
+        if not all(ls[n] > 0 for n in PAGED_KERNELS):
+            faults.append(f"paged: a kernel of the path never launched: {ls}")
+        del e
+        return line, ls
+
+    def profiled(e, prm, batch, dense_reqs):
+        """A prefill of ``batch`` and one 4-slot decode tick, profiled."""
+        with torch.no_grad():
+            pre = profile_window(lambda: e._prefill(prm, batch))
+        for i in range(4):
+            e.submit(Request(rid=100 + i, prompt=dense_reqs[i].prompt, max_new_tokens=16))
+        e.step()                                # admit (prefill) all four
+        tick = profile_window(e.tick)
+        e.run([])
+        return pre, tick
+
+    def held(what, err, lim, ctrl, ctrl_name, same, faults):
+        if not err <= lim:
+            faults.append(f"{what}: kernel routes vs torch routes {err} > {lim}")
+        if same is False:
+            faults.append(f"{what}: the kernel routes pick another greedy token")
+        if not ctrl > lim:
+            faults.append(f"{what}: the {ctrl_name} control ({ctrl}) is within {lim}")
+
+    # ---------------------------------------------------- 15 serve_whisper
+    # whisper-medium whole (24 encoder + 24 decoder layers, tied 51865-row
+    # embedding) on the kernel routes with the serve policy.  The engine's
+    # prefill encodes zero frames, as repro's does; the held comparisons run
+    # api.prefill and the encoder on seeded random frames.
+    wcfg = get_config("whisper-medium")
+    wvocab = wcfg.vocab_size
+    mem_before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.monotonic()
+    wparams = api.init_params(wcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    w_init_s = time.monotonic() - t0
+    w_n_params = sum(t.numel() for t in leaves(wparams))
+    weng = ServeEngine(wcfg, batch_size=4, max_ctx=1024, policy=policy, device=dev)
+    weng.load(wparams)
+    weng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    wrng = np.random.default_rng(5)
+    wreqs = [Request(rid=i, prompt=wrng.integers(2, wvocab, int(n)).astype(np.int32),
+                     max_new_tokens=32) for i, n in enumerate(lens)]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wstats = weng.run(wreqs)
+    launches_w = read_launches(mods)
+    w_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    whisper_faults: list[str] = []
+    served(wreqs, wvocab, launches_w, whisper_faults)
+    wframes = randn((1, wcfg.encoder_seq, wcfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(15))
+    wbatch = {"tokens": torch.as_tensor(wreqs[0].prompt, device=dev)[None].long(),
+              "frames": wframes}
+    real_attention = transformer.attention
+
+    def causal_encoder(*a, **kw):
+        """The encoder's attention run causal: the fault a dropped
+        ``causal=False`` would be."""
+        return real_attention(*a, **({**kw, "causal": True} if kw.get("mode") == "encode"
+                                     else kw))
+
+    def whisper_runs(pol, fault=False):
+        """(prefill logits, encoder states) on ``wbatch`` under ``pol``."""
+        transformer.attention = causal_encoder if fault else real_attention
+        try:
+            with torch.no_grad():
+                logits = serve_step.make_prefill(wcfg, pol, s_ctx=1024)(wparams, wbatch)[0]
+                states = encdec_mod.encode(wparams, wframes, wcfg, policy=pol).float()
+            return logits, states
+        finally:
+            transformer.attention = real_attention
+
+    (wlk, wek), (wlr, wer), (wlc, wec) = (whisper_runs(policy), whisper_runs(ref_policy),
+                                          whisper_runs(ref_policy, fault=True))
+    torch.cuda.synchronize(dev)
+    if wlk.shape != (1, 1, wvocab) or not torch.isfinite(wlk).all():
+        whisper_faults.append(f"prefill logits shape {tuple(wlk.shape)} or non-finite")
+    if wek.shape != (1, wcfg.encoder_seq, wcfg.d_model) or not torch.isfinite(wek).all():
+        whisper_faults.append(f"encoder states shape {tuple(wek.shape)} or non-finite")
+    w_err, w_ctrl = ((wlk - wlr).abs().max().item(), (wlc - wlr).abs().max().item())
+    we_err, we_ctrl = ((wek - wer).abs().max().item(), (wec - wer).abs().max().item())
+    held("prefill logits", w_err, WHISPER_LOGITS_BOUND, w_ctrl, "causal-encoder",
+         bool(wlk.argmax() == wlr.argmax()), whisper_faults)
+    held("encoder states", we_err, WHISPER_ENCODER_BOUND, we_ctrl, "causal-encoder", None,
+         whisper_faults)
+    wtop2 = wlr.flatten().topk(2).values
+    wline = dict(
+        arch=wcfg.name, encoder_layers=len(wparams["enc_layers"]),
+        decoder_sublayers=len(wparams["layers"]), encoder_seq=wcfg.encoder_seq,
+        params=w_n_params, weights_gb=w_n_params * 4 / 1e9, mem_before_load_gb=mem_before_gb,
+        init_s=w_init_s, requests=wstats["requests"], prompt_lens=[int(n) for n in lens],
+        tokens=wstats["tokens"], ticks=wstats["ticks"], wall_s=wstats["wall_s"],
+        tok_per_s=wstats["tok_per_s"], ttft_mean_s=wstats["ttft_mean_s"],
+        latency_mean_s=wstats["latency_mean_s"], peak_mem_gb=w_peak_gb, launches=launches_w,
+        cross_caches=[tuple(c.k.shape) for c, kd in zip(weng.cache, layer_kinds(wcfg))
+                      if kd == "cross_attn"][:1],
+        logits_prompt_len=int(lens[0]), compared_on="seeded random frames",
+        prefill_logits_max_abs_err=w_err, prefill_logits_bound=WHISPER_LOGITS_BOUND,
+        prefill_argmax_agrees=bool(wlk.argmax() == wlr.argmax()),
+        reference_top2_gap=(wtop2[0] - wtop2[1]).item(), control_causal_encoder_err=w_ctrl,
+        logits_absmax=wlr.abs().max().item(), encoder_states_max_abs_err=we_err,
+        encoder_states_bound=WHISPER_ENCODER_BOUND, encoder_control_causal_err=we_ctrl,
+        encoder_states_absmax=wer.abs().max().item())
+    del wlk, wek, wlr, wer, wlc, wec
+    wp_line, launches_wp = serve_paged_twin(wcfg, wparams, wreqs, whisper_faults)
+    wlong = int(np.argmax(lens))
+    wlong_batch = {"tokens": torch.as_tensor(wreqs[wlong].prompt, device=dev)[None].long(),
+                   "frames": torch.zeros_like(wframes)}
+    w_prefill_prof, w_tick_prof = profiled(weng, wparams, wlong_batch, wreqs)
+    emit(phase="serve_whisper", **wline, prefill_tokens=int(lens[wlong]),
+         prefill=w_prefill_prof, decode_tick=w_tick_prof)
+    emit(phase="serve_whisper_paged", arch=wcfg.name, **wp_line)
+    if whisper_faults:
+        fail("serve_whisper: " + "; ".join(whisper_faults))
+    del weng, wparams, wframes, wbatch, wlong_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- 16 serve_internvl2
+    # internvl2-76b at full width, depth INTERNVL2_DEPTH, on the kernel
+    # routes with the serve policy; every prompt follows 256 image rows (zero
+    # embeddings in the engine, as in repro; seeded random ones, at the token
+    # embeddings' scale, in the held comparison).
+    full_i = get_config("internvl2-76b")
+    icfg = dataclasses.replace(full_i, num_layers=INTERNVL2_DEPTH,
+                               segments=(Segment(("attn", "mlp"), INTERNVL2_DEPTH),))
+    ivocab, n_img = icfg.vocab_size, icfg.num_image_tokens
+    mem_before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.monotonic()
+    iparams = api.init_params(icfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    i_init_s = time.monotonic() - t0
+    i_n_params = sum(t.numel() for t in leaves(iparams))
+    ieng = ServeEngine(icfg, batch_size=4, max_ctx=1024, policy=policy, device=dev)
+    ieng.load(iparams)
+    ieng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+    irng = np.random.default_rng(6)
+    ireqs = [Request(rid=i, prompt=irng.integers(2, ivocab, int(n)).astype(np.int32),
+                     max_new_tokens=32) for i, n in enumerate(lens)]
+    zero_launches(mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    istats = ieng.run(ireqs)
+    launches_i = read_launches(mods)
+    i_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    ivl_faults: list[str] = []
+    served(ireqs, ivocab, launches_i, ivl_faults)
+    img = randn((1, n_img, icfg.d_model), icfg.d_model ** -0.5,
+                generator=torch.Generator(device=dev).manual_seed(16))
+    itoks = torch.as_tensor(ireqs[0].prompt, device=dev)[None].long()
+
+    def internvl2_prefill(pol, image):
+        with torch.no_grad():
+            return serve_step.make_prefill(icfg, pol, s_ctx=1024)(
+                iparams, {"tokens": itoks, "image_embeds": image})[0]
+
+    ilk = internvl2_prefill(policy, img)
+    ilr = internvl2_prefill(ref_policy, img)
+    ilc = internvl2_prefill(ref_policy, img.roll(1, dims=1))    # faulty: rows rolled by one
+    if ilk.shape != (1, 1, ivocab) or not torch.isfinite(ilk).all():
+        ivl_faults.append(f"prefill logits shape {tuple(ilk.shape)} or non-finite")
+    i_err, i_ctrl = (ilk - ilr).abs().max().item(), (ilc - ilr).abs().max().item()
+    held("prefill logits", i_err, INTERNVL2_LOGITS_BOUND, i_ctrl, "rolled-image",
+         bool(ilk.argmax() == ilr.argmax()), ivl_faults)
+    itop2 = ilr.flatten().topk(2).values
+    iline = dict(
+        arch=icfg.name, depth=INTERNVL2_DEPTH, layers=len(iparams["layers"]),
+        image_tokens=n_img, params=i_n_params, weights_gb=i_n_params * 4 / 1e9,
+        mem_before_load_gb=mem_before_gb, init_s=i_init_s, requests=istats["requests"],
+        prompt_lens=[int(n) for n in lens], rows_at_most=n_img + int(max(lens)) + 32,
+        tokens=istats["tokens"], ticks=istats["ticks"], wall_s=istats["wall_s"],
+        tok_per_s=istats["tok_per_s"], ttft_mean_s=istats["ttft_mean_s"],
+        latency_mean_s=istats["latency_mean_s"], peak_mem_gb=i_peak_gb, launches=launches_i,
+        logits_prompt_len=int(lens[0]), compared_on="seeded random image embeddings",
+        prefill_logits_max_abs_err=i_err, prefill_logits_bound=INTERNVL2_LOGITS_BOUND,
+        prefill_argmax_agrees=bool(ilk.argmax() == ilr.argmax()),
+        reference_top2_gap=(itop2[0] - itop2[1]).item(), control_rolled_image_err=i_ctrl,
+        logits_absmax=ilr.abs().max().item())
+    del ilk, ilr, ilc
+    ip_line, launches_ip = serve_paged_twin(icfg, iparams, ireqs, ivl_faults)
+    ilong_batch = {"tokens": torch.as_tensor(ireqs[wlong].prompt, device=dev)[None].long(),
+                   "image_embeds": torch.zeros_like(img)}
+    i_prefill_prof, i_tick_prof = profiled(ieng, iparams, ilong_batch, ireqs)
+    emit(phase="serve_internvl2", **iline, prefill_tokens=n_img + int(lens[wlong]),
+         prefill=i_prefill_prof, decode_tick=i_tick_prof)
+    emit(phase="serve_internvl2_paged", arch=icfg.name, **ip_line)
+    if ivl_faults:
+        fail("serve_internvl2: " + "; ".join(ivl_faults))
+    del ieng, iparams, img, itoks, ilong_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 17 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
@@ -2893,7 +3338,9 @@ def main() -> None:
                "train_moe": launches_mt, "serve_naive": launches_n,
                "batched": launches_bt, "serve_rwkv": launches_rw, "wkv6": launches_wkv,
                "serve_zamba2": launches_z, "serve_zamba2_paged": launches_zp,
-               "serve_nemotron": launches_nm}
+               "serve_nemotron": launches_nm, "serve_whisper": launches_w,
+               "serve_whisper_paged": launches_wp, "serve_internvl2": launches_i,
+               "serve_internvl2_paged": launches_ip}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above
@@ -2919,7 +3366,7 @@ def main() -> None:
             path_launches = train_launches[name]
         elif name == "flash_paged_decode":
             path_launches = (launches_pa[name] + launches_pb[name] + launches_pm[name]
-                             + launches_zp[name])
+                             + launches_zp[name] + launches_wp[name] + launches_ip[name])
         elif name == "gemm_lowp":
             path_launches = launches_pb[name]
         elif name == "grouped_gemm":

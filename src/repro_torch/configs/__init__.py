@@ -1,11 +1,11 @@
 """Architecture registry (twin of ``repro.configs``).
 
-Ported so far: ``gemma3-1b``, ``starcoder2-15b``, ``command-r-35b`` and
-``nemotron-4-340b`` (dense), ``mixtral-8x7b`` and ``dbrx-132b`` (moe),
-``rwkv6-7b`` (ssm, RWKV-6) and ``zamba2-7b`` (hybrid: Mamba-2 + shared
-attention); ``whisper-medium`` (audio) and ``internvl2-76b`` (vlm) are
-not, and ``input_specs`` (JAX abstract shapes for the dry-run) has no
-counterpart yet.
+Every architecture of the JAX package: ``gemma3-1b``, ``starcoder2-15b``,
+``command-r-35b`` and ``nemotron-4-340b`` (dense), ``mixtral-8x7b`` and
+``dbrx-132b`` (moe), ``rwkv6-7b`` (ssm, RWKV-6), ``zamba2-7b`` (hybrid:
+Mamba-2 + shared attention), ``whisper-medium`` (audio: encoder-decoder)
+and ``internvl2-76b`` (vlm: image prefix).  ``input_specs`` (JAX abstract
+shapes for the dry-run) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ _MODULES = {
     "command-r-35b": "command_r_35b",
     "nemotron-4-340b": "nemotron4_340b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-medium": "whisper_medium",
+    "internvl2-76b": "internvl2_76b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)

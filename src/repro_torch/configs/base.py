@@ -7,15 +7,19 @@ keeps one flat list of sublayers in execution order
 (``layer_kinds``): ``for seg in segments: for c in range(count): for
 kind in pattern``.
 
-Ported families: ``dense``, ``moe``, the ``ssm`` family's RWKV-6
-stacks and the ``hybrid`` family (zamba2).  Ported kinds: ``attn``
-(global GQA self-attention), ``attn_local`` (sliding-window attention
-with a ring-buffer cache), ``mlp``, ``moe`` (top-k routed experts),
-``rwkv6`` (RWKV-6 time-mix + channel-mix layer), ``mamba2`` (Mamba-2 SSD
-mixer) and ``shared_attn`` (a zamba2 transformer block whose params are
-stored once and applied at every occurrence).  The ``audio`` and ``vlm``
-families (whisper's ``cross_attn``, internvl2's image prefix) are not
-ported.
+Every family of the JAX package is ported: ``dense``, ``moe``, the
+``ssm`` family's RWKV-6 stacks, the ``hybrid`` family (zamba2), ``audio``
+(whisper: an encoder of ``encoder_segments`` over ``encoder_seq``
+embedded frames, a decoder with cross-attention) and ``vlm`` (internvl2:
+``num_image_tokens`` embedded patches prepended to the text).  Kinds:
+``attn`` (global GQA self-attention), ``attn_local`` (sliding-window
+attention with a ring-buffer cache), ``cross_attn`` (attention from the
+decoder onto the encoder's keys and values, cached once per request),
+``mlp``, ``moe`` (top-k routed experts), ``rwkv6`` (RWKV-6 time-mix +
+channel-mix layer), ``mamba2`` (Mamba-2 SSD mixer) and ``shared_attn`` (a
+zamba2 transformer block whose params are stored once and applied at
+every occurrence).  ``rope_theta=None`` means learned positional tables
+in place of RoPE (whisper).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ class Segment:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm (rwkv6) | hybrid are ported
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
     d_model: int
     num_layers: int                  # mixer sublayers (bookkeeping)
     segments: tuple[Segment, ...]
@@ -46,7 +50,7 @@ class ModelConfig:
     num_heads: int = 0
     num_kv_heads: int = 0
     head_dim: int = 0
-    rope_theta: float = 10_000.0
+    rope_theta: float | None = 10_000.0   # None: learned positional tables
     window: int | None = None        # sliding window of attn_local
     attn_logit_softcap: float | None = None
     qkv_bias: bool = False
@@ -65,6 +69,12 @@ class ModelConfig:
     # rwkv6
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 64             # WKV chunk of the chunked parallel form
+    # enc-dec (whisper): the frontend is a stub, frames arrive embedded
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    encoder_segments: tuple[Segment, ...] = ()
+    # vlm (internvl2): embedded image patches prepended to the text
+    num_image_tokens: int = 0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     activation_dtype: str = "bfloat16"
@@ -94,10 +104,12 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
 
-def layer_kinds(cfg: ModelConfig) -> list[str]:
+def layer_kinds(cfg: ModelConfig, *, encoder: bool = False) -> list[str]:
     """Every sublayer's kind in execution order (segment-major, then
-    period, then pattern position) — the order the JAX scan runs."""
-    return [kind for seg in cfg.segments for _ in range(seg.count)
+    period, then pattern position) — the order the JAX scan runs — of the
+    decoder stack, or with ``encoder`` of the encoder's segments."""
+    segments = cfg.encoder_segments if encoder else cfg.segments
+    return [kind for seg in segments for _ in range(seg.count)
             for kind in seg.pattern]
 
 

@@ -13,7 +13,10 @@ each period's pattern in order; the flat layer order is therefore
 ``for i in segments: for c in range(count): for j in pattern`` — not
 position-major.  A zamba2 ``shared_attn`` position holds ``{}`` in the
 JAX tree and in the port; the block it applies (``tree["shared"]``) is
-carried across once, unstacked.
+carried across once, unstacked.  An encoder-decoder's ``enc_seg{i}``
+become ``enc_layers`` in the same scan order, and its ``enc_final_norm``
+and the learned positional tables (``pos_embed``, ``enc_pos_embed``)
+come across as they are.
 """
 
 from __future__ import annotations
@@ -46,14 +49,21 @@ def from_jax_numpy(tree: dict, cfg: ModelConfig,
     device = resolve_device(device)
     params = {"embed": _tensors(tree["embed"], None, device),
               "final_norm": _tensors(tree["final_norm"], None, device)}
-    for key in ("unembed", "shared"):
+    for key in ("unembed", "shared", "pos_embed", "enc_final_norm", "enc_pos_embed"):
         if key in tree:
             params[key] = _tensors(tree[key], None, device)
+    params["layers"] = _flat_layers(tree, cfg.segments, "seg", device)
+    if cfg.encoder_segments:
+        params["enc_layers"] = _flat_layers(tree, cfg.encoder_segments, "enc_seg", device)
+    return params
+
+
+def _flat_layers(tree: dict, segments, prefix: str, device) -> list:
+    """The stacked ``{prefix}{i}/pos{j}`` params as one list in scan order."""
     layers = []
-    for i, seg in enumerate(cfg.segments):
-        seg_tree = tree[f"seg{i}"]
+    for i, seg in enumerate(segments):
+        seg_tree = tree[f"{prefix}{i}"]
         for c in range(seg.count):
             for j, _ in enumerate(seg.pattern):
                 layers.append(_tensors(seg_tree[f"pos{j}"], c, device))
-    params["layers"] = layers
-    return params
+    return layers

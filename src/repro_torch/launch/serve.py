@@ -23,12 +23,20 @@ wait for their slices (their flags are absent).
     python -m repro_torch.launch.serve --arch rwkv6-7b --backend gemm=cuda
     python -m repro_torch.launch.serve --arch zamba2-7b --backend gemm=cuda \\
         --backend attention=cuda_fused [--kv-layout paged]
+    python -m repro_torch.launch.serve --arch whisper-medium --backend gemm=cuda \\
+        --backend attention=cuda_fused --max-ctx 1024 [--kv-layout paged]
+    python -m repro_torch.launch.serve --arch internvl2-76b --backend gemm=cuda \\
+        --backend attention=cuda_fused --max-ctx 1024 [--kv-layout paged]
 
-``--arch`` takes every ported architecture: gemma3-1b, starcoder2-15b,
+``--arch`` takes every architecture: gemma3-1b, starcoder2-15b,
 command-r-35b and nemotron-4-340b (dense), mixtral-8x7b and dbrx-132b
-(moe), rwkv6-7b (RWKV-6) and zamba2-7b (Mamba-2 + shared attention).
-Recurrent state (RWKV-6's, Mamba-2's conv and SSD state) stays dense per
-slot in both KV layouts.
+(moe), rwkv6-7b (RWKV-6), zamba2-7b (Mamba-2 + shared attention),
+whisper-medium (encoder-decoder) and internvl2-76b (image prefix).
+Recurrent state (RWKV-6's, Mamba-2's conv and SSD state) and whisper's
+cross-attention caches stay dense per slot in both KV layouts.  As in
+``repro``, a request carries no media: an audio prefill encodes zero
+frames and a vlm prefill prepends zero image embeddings, and the image
+rows count against the context.
 """
 
 from __future__ import annotations
@@ -225,12 +233,31 @@ class ServeEngine:
                 return i
         return None
 
+    @property
+    def _n_img(self) -> int:
+        """Image rows ahead of every VLM prompt (0 for other families)."""
+        return api.context_len(self.cfg, 0)
+
     def _validate(self, req: Request) -> None:
         # a recovered request re-prefills prompt + out_tokens[:-1]
         plen = len(req.prompt) + max(0, len(req.out_tokens) - 1)
-        if plen >= self.max_ctx:
-            raise ValueError(f"request {req.rid}: prompt length {plen} does not "
+        n_img = self._n_img
+        if n_img + plen >= self.max_ctx:
+            raise ValueError(f"request {req.rid}: prompt length {plen}"
+                             f"{f' (+{n_img} image tokens)' if n_img else ''} does not "
                              f"fit the engine context (max_ctx={self.max_ctx})")
+
+    def _prefill_batch(self, toks: np.ndarray) -> dict:
+        """The prefill's inputs: the tokens, and zero frames (audio) or zero
+        image embeddings (vlm), as ``repro``'s engine feeds them."""
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)[None].long()}
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros((1, self.cfg.encoder_seq, self.cfg.d_model),
+                                          device=self.device)
+        if self.cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros((1, self._n_img, self.cfg.d_model),
+                                                device=self.device)
+        return batch
 
     # -------------------------------------------------------- paged KV
 
@@ -238,7 +265,7 @@ class ServeEngine:
         """Worst-case page demand of one request in a capacity class:
         linear layers touch rows [0, prompt + budget), ring layers at most
         ``cap`` slots, so ``min(cap, total)`` covers both."""
-        total = len(req.prompt) + req.max_new_tokens
+        total = self._n_img + len(req.prompt) + req.max_new_tokens
         return paged_kv.num_logical_pages(min(cap, total), self.kv_page_size)
 
     def _alloc_pages(self, req: Request) -> dict[int, list[int]] | None:
@@ -345,8 +372,7 @@ class ServeEngine:
         toks = (np.concatenate([np.asarray(req.prompt, np.int32),
                                 np.asarray(req.out_tokens[:-1], np.int32)])
                 if resume else np.asarray(req.prompt, np.int32))
-        prompt = torch.as_tensor(toks, device=self.device)[None].long()
-        logits, cache1 = self._prefill(self.params, {"tokens": prompt})
+        logits, cache1 = self._prefill(self.params, self._prefill_batch(toks))
         first = int(torch.argmax(logits[0, -1]))
         if resume:
             if first != req.out_tokens[-1]:
@@ -370,16 +396,17 @@ class ServeEngine:
         if alloc_map is not None:
             self._splice_paged(cache1, slot, alloc_map)
             self._slot_pages[slot] = alloc_map
-        # every dense leaf of the slot's state: KV rows (dense layout) and
-        # recurrent state (both layouts: RWKVState's three leaves,
-        # MambaState's conv and SSD state)
+        # every dense leaf of the slot's state: KV rows (dense layout), the
+        # cross-attention K/V of encoder_seq rows and recurrent state (both
+        # layouts: RWKVState's three leaves, MambaState's conv and SSD state)
         for full, one in zip(self.cache, cache1):
             if full is not None and not isinstance(full, paged_kv.PagedKVCache):
                 for dst, src in zip(full, one):
                     dst[slot] = src[0].to(dst.dtype)
         self.slot_req[slot] = req
         self.last_tok[slot] = req.out_tokens[-1]
-        self.pos[slot] = len(toks)
+        # the next input sits after the image rows and the prompt
+        self.pos[slot] = self._n_img + len(toks)
         self.active[slot] = True
         self.remaining[slot] = req.max_new_tokens - len(req.out_tokens)
         return True

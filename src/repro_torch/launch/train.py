@@ -11,7 +11,9 @@ Fault-tolerance contract, as in the JAX package:
   * per-step wall-time telemetry flags stragglers (runtime/monitor.py).
 
 The mesh, elastic resharding and gradient compression wait for the
-multi-device slice.  Entry points run on ``cuda`` unless asked for
+multi-device slice, and training the audio (whisper) and vlm (internvl2)
+families waits for its own: ``TrainLoop`` refuses them
+(``api.check_trainable``).  Entry points run on ``cuda`` unless asked for
 ``cpu``; ``cuda`` with no card raises.
 
 Usage (CPU-scale example):
@@ -52,6 +54,7 @@ class TrainLoop:
                  ckpt_dir: str | None = None, microbatches: int = 1,
                  remat: bool = True, ckpt_every: int = 25,
                  device: str | torch.device = "cuda"):
+        api.check_trainable(cfg)
         self.cfg = cfg
         self.policy = policy
         self.opt_cfg = opt_cfg

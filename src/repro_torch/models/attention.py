@@ -14,7 +14,9 @@ PLACE (the JAX package returns an updated copy); ``attention`` returns
 the same cache object.  A decode cache may also be a paged pool
 (``core.ops.paged.PagedKVCache``): the row goes through the page table
 to the same logical slot, and the decode runs the family's
-``paged_decode``.  Cross-attention waits for its slice.
+``paged_decode``.  Cross-attention (``cross_kv``: keys and values
+projected once from the encoder's output) takes no RoPE and no mask and
+runs the family's forward at every mode, a decode step at Sq = 1 too.
 """
 
 from __future__ import annotations
@@ -179,21 +181,30 @@ def attention(p: dict, x: torch.Tensor, *, mode: str, num_heads: int,
               rope_theta: float | None = 10_000.0,
               window: int | None = None, softcap: float | None = None,
               causal: bool = True, cache: AttnCache | PagedKVCache | None = None,
-              pos: torch.Tensor | None = None, kv_chunk: int = 2048,
+              pos: torch.Tensor | None = None, cross_kv: AttnCache | None = None,
+              kv_chunk: int = 2048,
               ) -> tuple[torch.Tensor, AttnCache | PagedKVCache | None]:
     """Returns (output (B,S,D) in x.dtype, new or updated cache or None).
-    mode: "train" | "prefill" | "decode"."""
+    mode: "train" | "prefill" | "decode" | "encode" (the encoder's: no
+    cache; ``causal=False`` for its bidirectional attention).  With
+    ``cross_kv`` the queries attend to those keys and values (no RoPE, no
+    mask) and no cache is returned."""
     b, s, _ = x.shape
     grp = num_heads // num_kv_heads
     dtype = x.dtype
 
     q = L.linear(p["wq"], x, policy).reshape(b, s, num_kv_heads, grp, head_dim)
-    k = L.linear(p["wk"], x, policy).reshape(b, s, num_kv_heads, head_dim)
-    v = L.linear(p["wv"], x, policy).reshape(b, s, num_kv_heads, head_dim)
     q = (q * head_dim ** -0.5).to(dtype)
+    if cross_kv is None:
+        k = L.linear(p["wk"], x, policy).reshape(b, s, num_kv_heads, head_dim)
+        v = L.linear(p["wv"], x, policy).reshape(b, s, num_kv_heads, head_dim)
 
     new_cache = None
-    if mode in ("train", "prefill"):
+    if cross_kv is not None:
+        out = ops.attention_forward(q, cross_kv.k.to(dtype), cross_kv.v.to(dtype),
+                                    causal=False, window=None, softcap=softcap,
+                                    policy=policy, kv_chunk=kv_chunk)
+    elif mode in ("train", "prefill", "encode"):
         if rope_theta is not None:
             sin, cos = rope_table(torch.arange(s, device=x.device), head_dim,
                                   rope_theta, dtype)

@@ -1,8 +1,10 @@
-"""Decoder-only LM over the config's segment programs (twin of
-``repro.models.transformer``), for the dense and moe families (kinds
+"""The LM stack over the config's segment programs (twin of
+``repro.models.transformer``), for every family: dense and moe (kinds
 ``attn``, ``attn_local``, ``mlp`` and ``moe``), the ssm family's RWKV-6
-stacks (every kind ``rwkv6``) and the hybrid family (zamba2: ``mamba2``
-and ``shared_attn``).
+stacks (every kind ``rwkv6``), the hybrid family (zamba2: ``mamba2`` and
+``shared_attn``), audio (whisper's decoder: ``attn``, ``cross_attn``,
+``mlp``; its encoder, ``attn`` and ``mlp`` run in ``mode="encode"``) and
+vlm (internvl2: a dense stack whose input starts with ``extra_embeds``).
 
 The JAX package stacks each segment's params on a ``count`` axis and
 runs ``lax.scan``; the port keeps one flat list of sublayers in the same
@@ -12,6 +14,13 @@ execution order (``configs.base.layer_kinds``) and runs a Python loop.
 dict: its block (norm, attention, norm, MLP) lives once in
 ``params["shared"]`` and is applied at every occurrence, while each
 occurrence keeps a KV cache of its own.
+An encoder-decoder keeps its encoder's sublayers in a second flat list,
+``params["enc_layers"]`` (the JAX package's ``enc_seg*``), with
+``enc_final_norm`` and a learned ``enc_pos_embed`` table; a stack without
+RoPE (``rope_theta=None``) adds the rows of ``pos_embed`` to its inputs.
+A ``cross_attn`` sublayer projects the encoder's output through its
+``wk`` / ``wv`` once at train and prefill, keeps the result as its cache
+(``encoder_seq`` rows, never padded or paged) and reads it at decode.
 ``forward`` returns the MoE sublayers' load-balancing loss summed over
 the stack, as the JAX package's third value.
 With ``remat`` each period of a segment's pattern (one scan step in the
@@ -35,33 +44,67 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import AttnCache, attention, init_attn
 
-__all__ = ["init_params", "forward", "init_cache", "recurrent_state", "lm_loss"]
+__all__ = ["init_params", "init_layer", "forward", "init_cache", "recurrent_state",
+           "lm_loss"]
 
-_ATTN_KINDS = ("attn", "attn_local")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-# the kinds each ported family may hold
-_FAMILY_KINDS = {"dense": (*_ATTN_KINDS, "mlp", "moe"), "moe": (*_ATTN_KINDS, "mlp", "moe"),
-                 "ssm": ("rwkv6",), "hybrid": ("mamba2", "shared_attn")}
+_ATTN_KINDS = ("attn", "attn_local", "cross_attn")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the kinds each family may hold (an audio config's encoder: attn and mlp)
+_FAMILY_KINDS = {"dense": ("attn", "attn_local", "mlp", "moe"),
+                 "moe": ("attn", "attn_local", "mlp", "moe"),
+                 "ssm": ("rwkv6",), "hybrid": ("mamba2", "shared_attn"),
+                 "audio": ("attn", "cross_attn", "mlp"), "vlm": ("attn", "attn_local", "mlp")}
+_ENCODER_KINDS = ("attn", "mlp")
 
 
 def check_kinds(cfg: ModelConfig) -> list[str]:
-    """The flat layer kinds of a ported stack; raises on a family or a
-    kind the port does not run (whisper's audio family with cross_attn,
-    internvl2's vlm family)."""
+    """The flat layer kinds of a stack the port runs; raises on a family
+    or a kind it does not know, on an audio config without an encoder (or
+    a non-audio config with one), and on an ``encoder_layers`` that is not
+    the encoder segments' depth."""
     kinds = layer_kinds(cfg)
     allowed = _FAMILY_KINDS.get(cfg.family, ())
     bad = sorted({k for k in kinds if k not in allowed})
-    if bad or not allowed:
-        raise ValueError(f"{cfg.name}: the port runs dense/moe stacks of attn/attn_local/"
-                         f"mlp/moe, ssm stacks of rwkv6 and hybrid stacks of mamba2/"
-                         f"shared_attn; got family {cfg.family!r}, kinds {bad}")
+    enc = layer_kinds(cfg, encoder=True)
+    bad_enc = sorted({k for k in enc if k not in _ENCODER_KINDS})
+    enc_depth = sum(seg.count for seg in cfg.encoder_segments)
+    if cfg.encoder_layers != enc_depth:
+        raise ValueError(f"{cfg.name}: encoder_layers={cfg.encoder_layers} but the "
+                         f"encoder segments hold {enc_depth} layers")
+    if bad or bad_enc or not allowed or bool(enc) != (cfg.family == "audio"):
+        raise ValueError(f"{cfg.name}: the port runs the families {FAMILIES} with the kinds "
+                         f"{_FAMILY_KINDS} (an audio encoder of {_ENCODER_KINDS}); got family "
+                         f"{cfg.family!r}, kinds {bad}, encoder kinds {bad_enc or enc}")
     return kinds
+
+
+def init_layer(kind: str, cfg: ModelConfig, generator: torch.Generator,
+               dev: torch.device) -> dict:
+    """One sublayer's random params (an empty dict for ``shared_attn``,
+    whose params live in ``params["shared"]``)."""
+    if kind in _ATTN_KINDS:
+        return {"norm": L.init_rmsnorm(cfg.d_model, dev),
+                **init_attn(generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim, bias=cfg.qkv_bias)}
+    if kind == "moe":
+        return {"norm": L.init_rmsnorm(cfg.d_model, dev),
+                **M.init_moe(generator, cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.mlp_kind)}
+    if kind == "rwkv6":
+        return R.init_rwkv6(generator, cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim)
+    if kind == "mamba2":
+        return S.init_mamba2(generator, cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state,
+                             cfg.conv_width)
+    if kind == "shared_attn":
+        return {}
+    return {"norm": L.init_rmsnorm(cfg.d_model, dev),
+            **L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, bias=cfg.mlp_bias)}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str) -> dict:
     """Random params on ``device``, drawn from ``generator`` (which must
-    live there), with the JAX package's shapes and scales."""
+    live there), with the JAX package's shapes and scales: the decoder
+    stack (an encoder-decoder's encoder is ``models.encdec``'s)."""
     kinds = check_kinds(cfg)
     dev = torch.device(device)
     if generator.device.type != dev.type:
@@ -72,29 +115,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(generator, cfg.vocab_size, cfg.d_model)
-    layers = []
-    for kind in kinds:
-        if kind in _ATTN_KINDS:
-            layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
-                           **init_attn(generator, cfg.d_model, cfg.num_heads,
-                                       cfg.num_kv_heads, cfg.head_dim,
-                                       bias=cfg.qkv_bias)})
-        elif kind == "moe":
-            layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
-                           **M.init_moe(generator, cfg.d_model, cfg.d_ff,
-                                        cfg.num_experts, cfg.mlp_kind)})
-        elif kind == "rwkv6":
-            layers.append(R.init_rwkv6(generator, cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim))
-        elif kind == "mamba2":
-            layers.append(S.init_mamba2(generator, cfg.d_model, cfg.ssm_head_dim,
-                                        cfg.ssm_state, cfg.conv_width))
-        elif kind == "shared_attn":
-            layers.append({})               # its params live in params["shared"]
-        else:
-            layers.append({"norm": L.init_rmsnorm(cfg.d_model, dev),
-                           **L.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                        cfg.mlp_kind, bias=cfg.mlp_bias)})
-    params["layers"] = layers
+    params["layers"] = [init_layer(kind, cfg, generator, dev) for kind in kinds]
     if "shared_attn" in kinds:
         params["shared"] = {
             "norm1": L.init_rmsnorm(cfg.d_model, dev),
@@ -103,13 +124,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "norm2": L.init_rmsnorm(cfg.d_model, dev),
             "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind),
         }
+    if cfg.rope_theta is None and cfg.family != "ssm":
+        # learned positional embeddings (whisper's decoder)
+        params["pos_embed"] = {"table": 0.02 * torch.randn(
+            (max(32_768, cfg.encoder_seq), cfg.d_model), generator=generator,
+            device=dev, dtype=torch.float32)}
     return params
 
 
 def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
-    """Rows of a sublayer's KV cache: the context for global layers (a
-    shared block's occurrences among them), the window (at most) for local
-    ones, None for stateless and recurrent sublayers."""
+    """Rows of a sublayer's growable KV cache: the context for global
+    layers (a shared block's occurrences among them), the window (at most)
+    for local ones; None for stateless and recurrent sublayers and for
+    cross-attention, whose cache is the encoder's length (never padded to
+    the context or paged)."""
     if kind in ("attn", "shared_attn") or (kind == "attn_local" and cfg.window is None):
         return s_ctx
     if kind == "attn_local":
@@ -118,27 +146,32 @@ def cache_capacity(kind: str, cfg: ModelConfig, s_ctx: int) -> int | None:
 
 
 def recurrent_state(kind: str, cfg: ModelConfig, batch: int,
-                    device: torch.device | str):
-    """A recurrent sublayer's zero decode state on ``device`` (an f32
-    ``RWKVState`` for rwkv6, an f32 ``MambaState`` for mamba2); None for
-    every other kind.  Dense in both KV layouts."""
+                    device: torch.device | str, dtype: torch.dtype = torch.bfloat16):
+    """A sublayer's fixed-size zero decode state on ``device``: an f32
+    ``RWKVState`` for rwkv6, an f32 ``MambaState`` for mamba2, and for
+    cross_attn an ``AttnCache`` of ``encoder_seq`` rows in ``dtype``; None
+    for every other kind.  Dense in both KV layouts."""
     if kind == "rwkv6":
         return R.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_head_dim, device=device)
     if kind == "mamba2":
         return S.init_mamba_state(batch, cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state,
                                   cfg.conv_width, device=device)
+    if kind == "cross_attn":
+        shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device))
     return None
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
                dtype: torch.dtype, device: torch.device | str) -> list:
     """Pre-allocated decode cache on ``device``: an ``AttnCache`` per
-    attention sublayer (each shared_attn occurrence its own), the
-    ``recurrent_state`` of each rwkv6 or mamba2 sublayer, None per mlp or
-    moe sublayer."""
+    attention sublayer (each shared_attn occurrence its own; a cross_attn
+    one of ``encoder_seq`` rows), the ``recurrent_state`` of each rwkv6 or
+    mamba2 sublayer, None per mlp or moe sublayer."""
     cache: list = []
     for kind in check_kinds(cfg):
-        state = recurrent_state(kind, cfg, batch, device)
+        state = recurrent_state(kind, cfg, batch, device, dtype)
         cap = cache_capacity(kind, cfg, s_ctx)
         if state is not None or cap is None:
             cache.append(state)
@@ -150,11 +183,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
 
 
 def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
-              policy: PrecisionPolicy, mode: str, cache, pos, shared: dict | None):
+              policy: PrecisionPolicy, mode: str, cache, pos, shared: dict | None,
+              enc_x: torch.Tensor | None = None):
     """One pre-norm residual sublayer.  Returns (x, new cache or None,
     aux loss or None).  An rwkv6 or mamba2 layer carries its own norms and
     residuals, and a shared_attn block its two, so they are dispatched
-    before the sublayer pre-norm."""
+    before the sublayer pre-norm.  ``enc_x``: the encoder's output, which a
+    cross_attn sublayer projects at train and prefill."""
     if kind == "rwkv6":
         x, st = R.rwkv6_layer(p, x, head_dim=cfg.rwkv_head_dim, policy=policy.for_("mlp"),
                               state=cache if mode == "decode" else None, chunk=cfg.rwkv_chunk,
@@ -177,15 +212,28 @@ def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
         x = x + L.mlp(shared["mlp"], xn2, cfg.mlp_kind, policy.for_("mlp"))
         return x, (nc if mode != "train" else None), None
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
+    if kind == "cross_attn":
+        if mode == "decode":
+            ckv = cache
+        else:       # train / prefill: project the encoder's output once
+            b, se, _ = enc_x.shape
+            apol = policy.for_("attention")
+            ckv = AttnCache(*(L.linear(p[w], enc_x, apol).reshape(
+                b, se, cfg.num_kv_heads, cfg.head_dim).to(x.dtype) for w in ("wk", "wv")))
+        out, _ = attention(p, xn, mode=mode, num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                           policy=policy.for_("attention"), rope_theta=None,
+                           softcap=cfg.attn_logit_softcap, cross_kv=ckv, pos=pos)
+        return x + out, (ckv if mode in ("prefill", "decode") else None), None
     if kind in _ATTN_KINDS:
         out, nc = attention(
             p, xn, mode=mode, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
             policy=policy.for_("attention"), rope_theta=cfg.rope_theta,
             window=cfg.window if kind == "attn_local" else None,
-            softcap=cfg.attn_logit_softcap,
+            softcap=cfg.attn_logit_softcap, causal=(mode != "encode"),
             cache=cache if mode == "decode" else None, pos=pos)
-        return x + out, (nc if mode != "train" else None), None
+        return x + out, (nc if mode in ("prefill", "decode") else None), None
     if kind == "moe":
         out, aux = M.moe_ffn(
             p, xn, num_experts=cfg.num_experts, top_k=cfg.top_k,
@@ -195,42 +243,65 @@ def _sublayer(kind: str, p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     return x + L.mlp(p, xn, cfg.mlp_kind, policy.for_("mlp")), None, None
 
 
-def _periods(cfg: ModelConfig) -> list[tuple[int, int]]:
+def _periods(segments) -> list[tuple[int, int]]:
     """[start, stop) sublayer ranges of every period of every segment."""
     out, i = [], 0
-    for seg in cfg.segments:
+    for seg in segments:
         for _ in range(seg.count):
             out.append((i, i + len(seg.pattern)))
             i += len(seg.pattern)
     return out
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
             policy: PrecisionPolicy, mode: str = "train",
             cache: list | None = None, pos: torch.Tensor | None = None,
             last_only: bool = False, remat: bool = False,
+            extra_embeds: torch.Tensor | None = None,
+            enc_x: torch.Tensor | None = None,
             ) -> tuple[torch.Tensor, list, torch.Tensor]:
     """Run the LM stack.  tokens (B, S) int; mode train | prefill |
-    decode; decode takes the per-row ``pos`` (B,) and updates ``cache``
-    in place.  ``last_only`` projects only the last position onto the
-    vocabulary (each row of the unembed is independent, so its logits
-    equal the full projection's last row).  ``remat`` (train) recomputes
-    each period's activations in the backward.  Returns (logits f32,
-    cache, aux loss f32: the MoE sublayers' sum, 0 without them).
+    decode | encode; decode takes the per-row ``pos`` (B,) and updates
+    ``cache`` in place.  ``extra_embeds`` (B, S_x, D) go before the token
+    embeddings (the VLM's image rows; with ``tokens`` None they are the
+    whole input, the encoder's frames).  ``enc_x``: the encoder's output
+    for the cross_attn sublayers.  ``mode="encode"`` runs the encoder's
+    stack (``enc_layers``, bidirectional) and returns its final-normed
+    hidden states in place of logits.  ``last_only`` projects only the
+    last position onto the vocabulary (each row of the unembed is
+    independent, so its logits equal the full projection's last row).
+    ``remat`` (train) recomputes each period's activations in the
+    backward.  Returns (logits f32 | hidden states, cache, aux loss f32:
+    the MoE sublayers' sum, 0 without them).
     """
-    kinds = check_kinds(cfg)
+    check_kinds(cfg)
+    encode = mode == "encode"
+    kinds = layer_kinds(cfg, encoder=encode)
+    layers = params["enc_layers" if encode else "layers"]
     dtype = getattr(torch, cfg.activation_dtype)
-    x = L.embed(params["embed"], tokens, dtype)
+    if tokens is None:
+        x = extra_embeds.to(dtype)
+    else:
+        x = L.embed(params["embed"], tokens, dtype)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(dtype), x], dim=1)
+    pe_key = "enc_pos_embed" if encode else "pos_embed"
+    if cfg.rope_theta is None and pe_key in params:
+        table = params[pe_key]["table"]
+        if mode == "decode":    # one row per slot, at its own position
+            x = x + table[pos.long().expand(x.shape[0])].to(dtype)[:, None, :]
+        else:
+            x = x + table[:x.shape[1]].to(dtype)[None]
     new_cache: list = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for start, stop in _periods(cfg):
+    for start, stop in _periods(cfg.encoder_segments if encode else cfg.segments):
         def period(x, start=start, stop=stop):
             ncs, a = [], torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(start, stop):
-                x, nc, ai = _sublayer(kinds[i], params["layers"][i], x, cfg=cfg,
+                x, nc, ai = _sublayer(kinds[i], layers[i], x, cfg=cfg,
                                       policy=policy, mode=mode, pos=pos,
                                       cache=cache[i] if cache is not None else None,
-                                      shared=params.get("shared"))
+                                      shared=params.get("shared"), enc_x=enc_x)
                 ncs.append(nc)
                 if ai is not None:
                     a = a + ai
@@ -242,6 +313,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, ncs, a = period(x)
         new_cache.extend(ncs)
         aux = aux + a
+    if encode:
+        return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps), new_cache, aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

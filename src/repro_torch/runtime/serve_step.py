@@ -11,9 +11,12 @@ trained model) build no autograd graph while serving.
 pool per attention sublayer (each occurrence of zamba2's shared block its
 own, in the context class), and one page table per capacity class
 (global layers at the context, local layers at the window) shared by the
-layers of that class; recurrent state (``RWKVState``, ``MambaState``)
-stays dense and MoE sublayers hold nothing, as in ``repro``.  A stack
-without attention has no classes and no pools.  ``paged_classes`` sizes the pools.
+layers of that class; recurrent state (``RWKVState``, ``MambaState``) and
+whisper's cross-attention caches (``encoder_seq`` rows each) stay dense
+and MoE sublayers hold nothing, as in ``repro``.  A stack without
+attention has no classes and no pools.  ``paged_classes`` sizes the pools.
+``make_prefill`` hands the batch (``tokens``, and ``frames`` or
+``image_embeds`` for the audio and vlm families) to ``api.prefill``.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ __all__ = ["pad_cache", "make_prefill", "make_decode", "make_engine_tick",
 
 
 def attn_cache_walk(cfg: ModelConfig, s_ctx: int):
-    """Yield ``(index, kind, cap)`` for every attention sublayer of the
-    flat layer list: the capacity classes of the paged pools."""
+    """Yield ``(index, kind, cap)`` for every growable attention sublayer
+    of the flat layer list (cross-attention, at the encoder's length, is
+    not one): the capacity classes of the paged pools."""
     for i, kind in enumerate(layer_kinds(cfg)):
         cap = cache_capacity(kind, cfg, s_ctx)
         if cap is not None:
@@ -59,10 +63,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
                      num_pages: int | None = None,
                      dtype: torch.dtype = torch.bfloat16,
                      device: torch.device | str = "cuda") -> list:
-    """The decode cache with a ``PagedKVCache`` pool per attention
+    """The decode cache with a ``PagedKVCache`` pool per growable attention
     sublayer, a dense ``RWKVState`` per rwkv6 sublayer, a dense
-    ``MambaState`` per mamba2 sublayer and None per mlp or moe sublayer,
-    on ``device``.  Every table entry
+    ``MambaState`` per mamba2 sublayer, a dense ``AttnCache`` of
+    ``encoder_seq`` rows per cross_attn sublayer and None per mlp or moe
+    sublayer, on ``device``.  Every table entry
     starts on the trash page (0); the engine owns allocation
     (``launch/serve.py``).  The layers of one capacity class share one
     page-table tensor: a slot's page ids are the same in each of their
@@ -72,7 +77,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
                             num_pages=num_pages)
     tables = {cap: torch.zeros((batch, paged_kv.num_logical_pages(cap, page_size)),
                                dtype=torch.int32, device=dev) for cap in classes}
-    cache: list = [recurrent_state(kind, cfg, batch, dev) for kind in check_kinds(cfg)]
+    cache: list = [recurrent_state(kind, cfg, batch, dev, dtype) for kind in check_kinds(cfg)]
     for i, _, cap in attn_cache_walk(cfg, s_ctx):
         cache[i] = paged_kv.init_paged(
             batch, cap, cfg.num_kv_heads, cfg.head_dim, page_size=page_size,
@@ -82,10 +87,12 @@ def init_paged_cache(cfg: ModelConfig, batch: int, s_ctx: int, *,
 
 
 def pad_cache(cache: list, cfg: ModelConfig, s_ctx: int) -> list:
-    """Pad every dense attention cache along its sequence dim to its
-    decode capacity (ring caches are already window-sized); paged pools
-    and recurrent ``RWKVState`` / ``MambaState`` leaves (O(1) in the
-    context) pass through untouched."""
+    """Pad every growable dense attention cache along its sequence dim to
+    its decode capacity (ring caches are already window-sized); paged
+    pools, cross-attention caches (the encoder's length: rows of zeros
+    there would be keys the decoder attends to) and recurrent
+    ``RWKVState`` / ``MambaState`` leaves (O(1) in the context) pass
+    through untouched."""
     out = []
     for kind, c in zip(layer_kinds(cfg), cache):
         cap = cache_capacity(kind, cfg, s_ctx)

@@ -1395,3 +1395,87 @@ def test_grouped_gemm_splitk_many_calls_finish(dev):
         torch.cuda.synchronize()
     assert differ.item() == 0
     assert gg.LAUNCHES_BY_LOOP == {**before, "splitk": before["splitk"] + 6003}
+
+
+# ---- whisper-medium's and internvl2-76b's shapes: the flash forward
+# without a mask at hd 64 with Sq != Skv (the encoder's 1500 frames; cross-
+# attention from a prompt and from one decode row; Skv = 1500 leaves a
+# 28-row tail in the last 64-row stage), the decode at hd 64 G = 1 and at
+# hd 128 G = 8, and the GEMMs onto whisper's 51865 = 64 * 810 + 25 vocab
+# columns, whose logits rows end off a 16-byte boundary.  Smallest first,
+# each call under the watchdog.
+
+@pytest.mark.parametrize("sq", [1, 37, 1500])
+def test_flash_attention_noncausal_hd64_against_1500_keys(dev, record_property, sq):
+    rng = np.random.default_rng(sq)
+    b = 4 if sq == 1 else 1
+    q = (_u(rng, (b, sq, 4, 1, 64), dev) * 64 ** -0.5).to(torch.bfloat16)
+    k, v = (_u(rng, (b, 1500, 4, 64), dev, torch.bfloat16) for _ in range(2))
+    _hold_sm90_flash(record_property, q, k, v, ATTN_ATOL, causal=False)
+    # the 28-row tail past the last whole 64-row stage reaches every row:
+    # the plain version without it lands outside the bound
+    out = af.flash_attention(q, k, v, causal=False)
+    short = af.flash_attention_plain(q, k[:, :1472], v[:, :1472], causal=False)[0]
+    assert (out - short).abs().max().item() > ATTN_ATOL
+
+
+@pytest.mark.parametrize("kv,g,hd,paged_kv", [(16, 1, 64, False), (16, 1, 64, True),
+                                               (8, 8, 128, False)])
+def test_flash_decode_whisper_and_internvl2_heads(dev, record_property, kv, g, hd, paged_kv):
+    """The dense and paged decode at whisper's heads and the dense one at
+    internvl2's, B = 4 over a 1024-row linear cache at positions 0, 37, 611
+    and 1023, split over CTAs, against the plain twin; one key short lands
+    outside the bound."""
+    rng = np.random.default_rng(kv * g + hd)
+    s, ps = 1024, 8
+    q = (_u(rng, (4, 1, kv, g, hd), dev) * hd ** -0.5).to(torch.bfloat16)
+    pos = torch.tensor([0, 37, 611, 1023], dtype=torch.int32, device=dev)
+    if paged_kv:
+        n_log = paged.num_logical_pages(s, ps)
+        cache = paged.init_paged(4, s, kv, hd, page_size=ps, num_pages=1 + 4 * n_log,
+                                 device=dev)
+        cache.page_table = (1 + torch.randperm(4 * n_log, device=dev)).reshape(
+            4, n_log).to(torch.int32)
+        cache.k_pages, cache.v_pages = (_u(rng, (1 + 4 * n_log, ps, kv, hd), dev, torch.bfloat16)
+                                        for _ in range(2))
+        kernel = lambda: ap.flash_paged_decode(q, cache, pos)  # noqa: E731
+        plain = lambda p: ap.flash_paged_decode_plain(q, cache, p)  # noqa: E731
+        lib = "attention_paged"
+    else:
+        k, v = (_u(rng, (4, s, kv, hd), dev, torch.bfloat16) for _ in range(2))
+        kernel = lambda: af.flash_decode(q, k, v, pos)  # noqa: E731
+        plain = lambda p: af.flash_decode_plain(q, k, v, p)  # noqa: E731
+        lib = "attention_fused"
+    with _within(120, lib):
+        out = kernel()
+        torch.cuda.synchronize()
+    _hold(record_property, "out", out, plain(pos), ATTN_ATOL)
+    assert (out - plain(pos - 1))[1:].abs().max().item() > ATTN_ATOL
+
+
+@pytest.mark.parametrize("m", [4, 37])
+@pytest.mark.parametrize("kernel", ["gemm_tiled", "gemm_refined"])
+def test_gemm_onto_51865_vocab_columns(dev, record_property, kernel, m):
+    """The unembed onto whisper's tied 51865 x 1024 table (NT, f32) from bf16
+    rows, on both mainloops (``splitk`` at M = 4, ``sm90`` at M = 37): the
+    whole product and the last 25 columns (the partial 64-column tile)
+    within GEMM_ATOL of the plain twin."""
+    rng = np.random.default_rng(m)
+    n, k = 51865, 1024
+    a = _u(rng, (m, k), dev, torch.bfloat16)
+    table = _u(rng, (n, k), dev, scale=k ** -0.5)
+    mod = gt if kernel == "gemm_tiled" else gr
+    loop = "splitk" if m <= 16 else "sm90"
+    before = dict(mod.LAUNCHES_BY_LOOP)
+    with _within(120, kernel):
+        if kernel == "gemm_tiled":
+            out = gt.gemm_tiled(a, table.t())
+        else:
+            out = gr.gemm_refined(a, table.t(), policy="refine_ab")
+        torch.cuda.synchronize()
+    assert mod.LAUNCHES_BY_LOOP == {**before, loop: before[loop] + 1}
+    ref = (gt.gemm_tiled_plain(a, table.t()) if kernel == "gemm_tiled"
+           else gr.gemm_refined_plain(a, table.t(), "refine_ab"))
+    assert out.shape == (m, n)
+    _hold(record_property, "out", out, ref, GEMM_ATOL)
+    _hold(record_property, "tail", out[:, -25:], ref[:, -25:], GEMM_ATOL)

@@ -85,8 +85,9 @@ def _exact(fn, *args):
 def twin_fields(tcfg, jcfg):
     """(port, repro) values of every field of the port's schema, the
     segments as (pattern, count) pairs (the two packages' ``Segment``
-    classes differ); repro's fields of unported families (encoder, image
-    tokens, the legacy per-family backends) are left out."""
+    classes differ); repro's fields the port's schema does not have (the
+    legacy per-family backends, ``ssm_heads``, ``supported_shapes``) are
+    left out."""
     def fields(cfg):
         out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(tcfg)}
         out["segments"] = tuple((s.pattern, s.count) for s in cfg.segments)

@@ -25,9 +25,10 @@ from repro.launch.serve import ServeEngine as JServeEngine
 from repro.models import api as japi
 from repro.runtime import serve_step as jserve_step
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.configs.base import ModelConfig, Segment, execution_policy_for, layer_kinds
+from repro_torch.configs.base import execution_policy_for, layer_kinds
 from repro_torch.convert import from_jax_numpy
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.launch.serve import Request, ServeEngine
 from repro_torch.models import api
 from repro_torch.models.rwkv import RWKVState
@@ -205,27 +206,18 @@ def test_serve_cli_runs_rwkv_on_the_cpu():
     assert "served 3 requests" in text
 
 
-def test_audio_and_vlm_families_are_still_refused():
-    """What the port does not run yet: whisper's audio family (an
-    encoder-decoder with cross_attn) and internvl2's vlm family (an image
-    prefix), by the model, the cache and the paged engine alike; neither
-    arch is registered."""
-    whisper = ModelConfig(name="whisper-like", family="audio", d_model=64, num_layers=2,
-                          segments=(Segment(("attn", "cross_attn", "mlp"), 2),),
-                          vocab_size=256, num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128)
-    vlm = ModelConfig(name="internvl2-like", family="vlm", d_model=64, num_layers=2,
-                      segments=(Segment(("attn", "mlp"), 2),), vocab_size=256,
-                      num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128)
-    for cfg in (whisper, vlm):
-        with pytest.raises(ValueError, match="the port runs"):
-            api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(ValueError, match="the port runs"):
-            api.init_cache(cfg, 1, 16, device="cpu")
-        with pytest.raises(ValueError, match="the port runs"):
-            ServeEngine(cfg, batch_size=1, max_ctx=16, device="cpu", kv_layout="paged").load({})
+def test_audio_and_vlm_training_is_still_refused():
+    """What the port does not run yet: training whisper's audio family and
+    internvl2's vlm family (the port serves both).  ``api.loss_fn`` and the
+    train CLI refuse each arch, smoke and full config alike, before any
+    step runs."""
     for arch in ("whisper-medium", "internvl2-76b"):
-        with pytest.raises(KeyError):
-            get_config(arch)
+        for cfg in (get_config(arch), get_smoke(arch)):
+            with pytest.raises(NotImplementedError, match="not ported yet"):
+                api.loss_fn({}, {}, cfg, policy=execution_policy_for(cfg))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
+                         "--batch", "1", "--seq", "8"])
 
 
 def test_paged_rwkv_serves_as_the_dense_engine(jparams):
