@@ -81,8 +81,8 @@ Phases, each printing one JSON line:
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
 Phases 10 and 11 run right after 6, while gemma3's params are loaded;
-12 runs after 9, once Mixtral is freed, and 13, 14, 15 and 16 after 12,
-each once the model before it is freed.
+12 runs after 9, once Mixtral is freed, and 13 to 21 after 12, each once
+the model before it is freed.
 
 10. serve_naive — gemma3-1b again (full width and depth, the serve
    phase's params, requests, slots and context) on the paper's unstaged
@@ -166,7 +166,45 @@ each once the model before it is freed.
    (bound and greedy token), with the image rows rolled by one position as
    the control above the bound; then ``serve_internvl2_paged`` (tokens equal
    to the dense run's) and a profiled prefill and decode tick.
-17. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+17. train_rwkv — rwkv6-7b at full width, depth 4 of 32 (1.41 B params),
+   trains 3 AdamW steps (batch 1 x 1024, remat, warmup 1) through
+   ``TrainLoop`` on ``gemm=cuda`` with phase 7's policy, the tiled and
+   refined GEMMs launched; before it, step 0's per-token loss and five
+   gradient leaves (the embedding, a time-mix LoRA, the channel-mix key, a
+   time-mix output, the unembed) on the kernel routes are held against the
+   ``torch`` routes at phase 7's bounds, on a copy whose WKV state decays
+   slowly (the random init forgets it within a chunk), with the state reset
+   at every 64-step chunk boundary as the control above both bounds; then
+   one profiled step.
+18. train_zamba2 — zamba2-7b at full width, two periods of [5 mamba2 +
+   shared_attn] (12 mixers, the shared block applied twice), the same way:
+   batch 1 x 1024, every kernel of the train path launched (the flash
+   forward and backward at hd 112 on ``sm90``); the leaves include the
+   shared block's ``wq`` and MLP ``wo`` and an ``in_proj``; slow-decay copy,
+   the SSD state reset at every 256-step chunk boundary as the control.
+19. train_whisper — whisper-medium whole (24 + 24 layers), batch 2 x 448
+   decoder tokens against 1500 random frames: the encoder's flash forward
+   and backward without a mask, the cross-attention's at Sq 448 against
+   1500 keys, the tied table's gradient through the lookup and the unembed;
+   the leaves include an encoder ``wq``, a cross ``wk`` and the tied table;
+   the control runs the encoder causal.
+20. train_internvl2 — internvl2-76b at full width, depth 1 of 80 (2.96 B
+   params, 47 GB with AdamW state; depth 2 peaked at 80 GB), batch 1 x
+   (256 image rows + 256 text
+   tokens), the loss on the text rows: the flash backward at 64 heads on 8
+   kv (G = 8); the control rolls the image rows by one position.
+21. precision — the paper's Fig. 8 protocol (``core/error.py``) on card
+   tensors: A, B ~ U[-1, 1] and U[-16, 16] at N = 1024, 4096 and 8192
+   (``random_operands``), every ``gemm`` rung on the ``cuda`` route (bf16,
+   refine_a, bf16x3, refine_ab, bf16x6, f32, fp8x3, int8x3) and on the
+   ``torch`` route, and cuBLAS (bf16 with an f32 output, f32 SGEMM with
+   TF32 off and on): each row's max-norm error against the f64 product
+   formed on the card and against the f32 product, its relative Frobenius
+   error and its ms.  Held at every point: the ladder order of
+   ``tests/test_precision.py``, each ``cuda`` rung within twice the
+   ``torch`` route's error, and the rung each refined rung refines (one
+   refinement dropped) above that bound.
+22. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -227,6 +265,15 @@ refine_ab decode unembeds onto 51865 columns (whisper's tied table, its
 at the cross K/V projection (1500 x 1024 x 1024) and internvl2's decode
 MLP (4 x 8192 x 28672 and back).
 
+The ``check`` phase also holds the flash backward (dq and dk/dv) at the
+training shapes of phases 17-20: whisper's encoder (B = 2, 1500 frames,
+no mask, hd 64), its cross-attention (B = 2, Sq 448 against 1500 keys),
+zamba2's shared block (S = 1024 causal, hd 112, 32 on 32 kv) and
+internvl2's heads (S = 512 causal, 64 on 8 kv, hd 128), each with SDPA's
+backward as its yardstick and the mask flipped as its control, and
+``gemm_refined`` at whisper's train unembed dX (896 x 51865 x 1024,
+refine_ab).
+
 The ``check`` phase also holds the paper's naive GEMM at gemma3's prefill
 MLP and decode unembed and at a square 4096^3 point (Fig. 6, with the
 tiled kernel checked there too, bf16 cuBLAS and f32 SGEMM beside it), both batched kernels
@@ -245,6 +292,7 @@ this file, nothing is measured and the script exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -432,9 +480,41 @@ WHISPER_ENCODER_BOUND = LOGITS_BOUND
 # position is the control above it.
 INTERNVL2_DEPTH = 8
 INTERNVL2_LOGITS_BOUND = LOGITS_BOUND
+# train_whisper: whisper's decoder tokens per row against its 1500 frames
+WHISPER_TRAIN_SEQ = 448
 
 
 TRAIN_STEPS = 3
+# phases 17-20: the depth cuts (every width full) and the slow-decay copies'
+# RWKV-6 decay bias (log decay -exp(-4) = -0.018 a step: a 64-step chunk
+# keeps 0.31 of its input state, where the init's -0.7 keeps 1e-14)
+TRAIN_RWKV_DEPTH = 4
+TRAIN_ZAMBA2_PERIODS = 2
+# internvl2 at depth 2 peaked at 80.06 GB on the H100 (AdamW's per-leaf
+# temporaries over the two 128256 x 8192 tables), past ~75 GB: depth 1
+TRAIN_INTERNVL2_DEPTH = 1
+RWKV_SLOW_W0 = -4.0
+# phase 21 (Fig. 8): matrix sizes, input ranges, the rungs on the cuda and
+# torch routes, the factor each cuda rung is held to (its bound: the factor
+# times the torch route's max-norm error for the rung on the same inputs),
+# and the controls: for each rung, the rung it refines (one refinement
+# dropped), whose error must land above the rung's bound.  refine_a has
+# none: it refines A alone, so bf16 reads only ~1.3-1.5x its error
+# (tests/test_torch_precision_error.py's readings on the torch route),
+# inside the factor; the strict order refine_a < bf16 holds it.  A control
+# is held where the torch route's own lower rung lands above the bound (so
+# the bound can tell the two rungs apart); from N = 4096 the torch route's
+# bf16x3 lies within twice its bf16x6 (both stand on SGEMM's accumulation),
+# and there the strict order bf16x6 < refine_ab holds the top rung.  Each
+# control must be held at one point at least; the order and the bounds at
+# every point.
+PRECISION_N = (1024, 4096, 8192)
+PRECISION_RANGES = (1.0, 16.0)
+PRECISION_RUNGS = ("bf16", "refine_a", "bf16x3", "refine_ab", "bf16x6", "f32", "fp8x3",
+                   "int8x3")
+PRECISION_ROUTE_FACTOR = 2.0
+PRECISION_CONTROLS = {"bf16x3": "refine_a", "refine_ab": "refine_a", "bf16x6": "bf16x3",
+                      "fp8x3": "fp8", "int8x3": "int8"}
 # kernel -> (source under src/repro_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
     "gemm_tiled": ("gemm_tiled.cu", "src/repro/kernels/gemm_tiled.py:31"),
@@ -465,6 +545,8 @@ MOE_SERVE_DEPTH, MOE_TRAIN_DEPTH = 4, 2
 SERVE_NAIVE_KERNELS = ("gemm_naive", "flash_attention", "flash_decode")
 BATCHED_KERNELS = ("batched_gemm", "batched_gemm_naive")
 SERVE_RWKV_KERNELS = ("gemm_tiled", "gemm_refined")
+TRAIN_RWKV_KERNELS = ("gemm_tiled", "gemm_refined")
+PRECISION_KERNELS = ("gemm_tiled", "gemm_refined", "gemm_lowp")
 
 
 # The kernels with two mainloops: their wrappers' per-mainloop counts
@@ -532,6 +614,35 @@ def emit(**obj) -> None:
     print(json.dumps({**obj, "t_s": round(time.monotonic() - _T0, 1)}), flush=True)
 
 
+def split_chunks(fn, seq, size, *rest, **kw):
+    """``fn`` (a chunked WKV or SSD scan) on each ``size``-step slice of the
+    sequence tensors ``seq`` (B, S, ...) alone, ``rest`` and ``kw`` after
+    them: the state reset at every chunk boundary, the faulty control of
+    the recurrent paths.  Returns (outputs concatenated, the last state)."""
+    import torch
+    parts = [fn(*(t[:, c0:c0 + size] for t in seq), *rest, **kw)
+             for c0 in range(0, seq[0].shape[1], size)]
+    return torch.cat([o for o, _ in parts], 1), parts[-1][1]
+
+
+def slow_decay(p: dict, **extra) -> dict:
+    """A copy of a recurrent stack's params whose state decays slowly (the
+    weights shared): RWKV-6's decay bias at RWKV_SLOW_W0, Mamba-2's A and
+    dt_bias at ZAMBA2_SLOW_A / ZAMBA2_SLOW_DT_BIAS, ``extra`` replacing more
+    of each Mamba-2 layer's fields."""
+    import torch
+    layers = []
+    for lp in p["layers"]:
+        if "w0" in lp:
+            lp = {**lp, "w0": torch.full_like(lp["w0"], RWKV_SLOW_W0)}
+        if "a_log" in lp:
+            nh, dev = lp["a_log"].shape[0], lp["a_log"].device
+            lp = {**lp, "a_log": torch.log(torch.linspace(*ZAMBA2_SLOW_A, nh, device=dev)),
+                  "dt_bias": torch.full((nh,), ZAMBA2_SLOW_DT_BIAS, device=dev), **extra}
+        layers.append(lp)
+    return {**p, "layers": layers}
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
@@ -548,6 +659,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
 
     from repro_torch.configs import get_config
+    from repro_torch.core import error as error_mod
     from repro_torch.core import ops
     from repro_torch.core.precision import num_passes
     from repro_torch.kernels import _build
@@ -1604,9 +1716,7 @@ def main() -> None:
     # version with the state reset at every chunk boundary.
     def wkv_reset_each_chunk(r, k, v, logw, u, chunk):
         """wkv6_plain with the state reset at every chunk boundary (a fault)."""
-        parts = [wk.wkv6_plain(*(t[:, c0:c0 + chunk] for t in (r, k, v, logw)), u, chunk=chunk)
-                 for c0 in range(0, r.shape[1], chunk)]
-        return torch.cat([o for o, _ in parts], 1), parts[-1][1]
+        return split_chunks(wk.wkv6_plain, (r, k, v, logw), chunk, u, chunk=chunk)
 
     def wkv_cost(b, s, h, kd, chunk):
         """(operations, bytes, extra) of the chunked form at the rung that
@@ -1960,6 +2070,78 @@ def main() -> None:
             fail(f"gemm_refined {acfg.name} unembed: the last {tail} columns part by "
                  f"{tail_err} > {GEMM_BOUND}")
         del table, xn4
+    torch.cuda.empty_cache()
+
+    # ---- the flash backward at the shapes the trainings of phases 17-20 give
+    # it: whisper's encoder (B = 2, 1500 frames, no mask, hd 64, 16 heads on
+    # 16 kv), its cross-attention (Sq 448 against Skv 1500: dk/dv summed over
+    # seven 64-row query tiles), zamba2's shared block (S = 1024 causal, hd
+    # 112: a 48-column tail past one 64-column block, 32 heads on 32 kv) and
+    # internvl2's 64 heads on 8 kv (G = 8, hd 128, S = 512 causal), on the
+    # forward kernel's own out and lse; dO ~ 1e-2 as on gemma3's rows.
+    # Yardstick: SDPA's backward through autograd (kv heads repeated for G >
+    # 1, so it also computes dk/dv per query head; the repeat is outside the
+    # timed call).  Control: the plain version with the mask flipped (causal
+    # for the unmasked shapes).  Then whisper's train unembed dX at refine_ab
+    # onto its 51865-row tied table (K = 51865).
+    def train_bwd_rows(acfg, b, sq, skv, causal, what):
+        a_heads, a_kvh, a_hd = acfg.num_heads, acfg.num_kv_heads, acfg.head_dim
+        a_grp = a_heads // a_kvh
+        q = randn((b, sq, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
+        k, v = (randn((b, skv, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+        do = randn((b, sq, a_kvh, a_grp, a_hd), 1e-2)
+        out, lse = af.flash_attention_fwd(q, k, v, causal=causal)
+        di = af.bwd_delta(out, do)
+        pairs = (sq * (sq + 1) // 2 if causal else sq * skv) * b * a_heads
+        qh = q.reshape(b, sq, a_heads, a_hd).transpose(1, 2).detach().requires_grad_(True)
+        kr, vr = (c.transpose(1, 2).repeat_interleave(a_grp, 1).detach().requires_grad_(True)
+                  for c in (k, v))
+        sd_out = torch.nn.functional.scaled_dot_product_attention(qh, kr, vr, is_causal=causal,
+                                                                  scale=1.0)
+        do_h = do.reshape(b, sq, a_heads, a_hd).transpose(1, 2).to(torch.bfloat16)
+        lib = {"library_backend": sdpa_backend(qh, kr, vr, is_causal=causal, scale=1.0)}
+        in_bytes = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 + 2 * lse.numel() * 4
+        tag = (f"{what} B={b} Sq={sq} Skv={skv} H={a_heads} Kv={a_kvh} hd={a_hd} "
+               f"{'causal' if causal else 'no mask'} ({acfg.name})")
+        lib_call = ("SDPA backward through autograd" + (
+            ", kv heads repeated (dk/dv per query head)" if a_grp > 1 else ""))
+        check("flash_attention_bwd_dq", tag,
+              lambda: af.flash_attention_bwd_dq(q, k, v, do, lse, di, causal=causal),
+              lambda: af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal=causal),
+              lambda: torch.autograd.grad(sd_out, (qh,), do_h, retain_graph=True),
+              ATTN_BWD_DQ_BOUND, 6 * pairs * a_hd, in_bytes + q.numel() * 4,
+              control=lambda: af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di,
+                                                              causal=not causal),
+              extra=lib, loop="sm90", library_call=lib_call)
+        check("flash_attention_bwd_dkv", tag,
+              lambda: af.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=causal),
+              lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal=causal),
+              lambda: torch.autograd.grad(sd_out, (kr, vr), do_h, retain_graph=True),
+              ATTN_BWD_DKV_BOUND, 8 * pairs * a_hd, in_bytes + 2 * k.numel() * 4,
+              control=lambda: af.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di,
+                                                               causal=not causal),
+              extra={**lib, "dkv_per_head": af._dkv_per_head(b, skv, a_kvh, a_grp, dev.index)},
+              loop="sm90", library_call=lib_call)
+        del q, k, v, do, out, lse, di, qh, kr, vr, sd_out, do_h
+
+    zcfg_full = get_config("zamba2-7b")
+    train_bwd_rows(wcfg_full, 2, w_seq, w_seq, False, "encoder train")
+    train_bwd_rows(wcfg_full, 2, WHISPER_TRAIN_SEQ, w_seq, False, "cross train")
+    train_bwd_rows(zcfg_full, 1, 1024, 1024, True, "shared block train")
+    train_bwd_rows(icfg_full, 1, 512, 512, True, "train")
+    torch.cuda.empty_cache()
+    m_w = 2 * WHISPER_TRAIN_SEQ
+    g_log = randn((m_w, wcfg_full.vocab_size), wcfg_full.vocab_size ** -0.5)
+    table = randn((wcfg_full.vocab_size, w_d), w_d ** -0.5)
+    check("gemm_refined", f"train unembed dX refine_ab {m_w}x{wcfg_full.vocab_size}x{w_d} "
+          f"({wcfg_full.name})",
+          lambda: gr.gemm_refined(g_log, table, policy="refine_ab"),
+          lambda: gr.gemm_refined_plain(g_log, table, "refine_ab"),
+          lambda: torch.matmul(g_log, table), GEMM_BOUND,
+          refined_flops(g_log, table, m_w, w_d, wcfg_full.vocab_size),
+          (g_log.numel() + table.numel() + m_w * w_d) * 4, loop="sm90",
+          extra=refined_extra(m_w, w_d, wcfg_full.vocab_size))
+    del g_log, table
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 4 serve
@@ -2621,9 +2803,7 @@ def main() -> None:
     def chunked_reset_each_chunk(r, k, v, logw, u, chunk, policy="bf16"):
         """The model's chunked WKV with the state reset at every chunk
         boundary (a fault)."""
-        parts = [real_chunked(*(t[:, c0:c0 + chunk] for t in (r, k, v, logw)), u, chunk,
-                              policy=policy) for c0 in range(0, r.shape[1], chunk)]
-        return torch.cat([o for o, _ in parts], 1), parts[-1][1]
+        return split_chunks(real_chunked, (r, k, v, logw), chunk, u, chunk, policy=policy)
 
     def prefill_logits(c, pol, reset=False):
         rwkv_mod._wkv_chunked = chunked_reset_each_chunk if reset else real_chunked
@@ -2818,15 +2998,8 @@ def main() -> None:
     # bf16 layers on the one whose D skip is 0
     zkinds = layer_kinds(zcfg)
     z_nh = zparams["layers"][0]["a_log"].shape[0]
-
-    def slow_copy(**extra):
-        return {**zparams, "layers": [
-            {**p, "a_log": torch.log(torch.linspace(*ZAMBA2_SLOW_A, z_nh, device=dev)),
-             "dt_bias": torch.full((z_nh,), ZAMBA2_SLOW_DT_BIAS, device=dev), **extra}
-            if kind == "mamba2" else p for kind, p in zip(zkinds, zparams["layers"])]}
-
-    zslow = slow_copy()
-    zslow_ssd = slow_copy(d_skip=torch.zeros(z_nh, device=dev))
+    zslow = slow_decay(zparams)
+    zslow_ssd = slow_decay(zparams, d_skip=torch.zeros(z_nh, device=dev))
     zpick = min((i for i, n in enumerate(lens) if n > zchunk),
                 key=lambda i: (lens[i] - 1) % zchunk)
     zprompt = {"tokens": torch.as_tensor(zreqs[zpick].prompt, device=dev)[None].long()}
@@ -2835,9 +3008,7 @@ def main() -> None:
     def ssd_reset_each_chunk(x, bmat, cmat, rel, dt, chunk, policy):
         """The model's chunked SSD scan with the state reset at every chunk
         boundary (a fault)."""
-        parts = [real_ssd(*(t[:, c0:c0 + chunk] for t in (x, bmat, cmat, rel, dt)), chunk,
-                          policy) for c0 in range(0, x.shape[1], chunk)]
-        return torch.cat([y for y, _ in parts], 1), parts[-1][1]
+        return split_chunks(real_ssd, (x, bmat, cmat, rel, dt), chunk, chunk, policy)
 
     def zamba_prefill(c, pol, reset=False):
         ssm_mod._ssd_chunked = ssd_reset_each_chunk if reset else real_ssd
@@ -3330,7 +3501,265 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 17 kernels
+    # ------------------------------------------ 17-20 train the other families
+    # rwkv6-7b (depth TRAIN_RWKV_DEPTH of 32), zamba2-7b (TRAIN_ZAMBA2_PERIODS
+    # periods of [5 mamba2 + shared_attn]), whisper-medium whole and
+    # internvl2-76b (depth TRAIN_INTERNVL2_DEPTH of 80), each at full width
+    # through TrainLoop on the kernel routes, as phase 7 trains gemma3.  Step
+    # 0: per-token loss and five gradient leaves on the kernel routes against
+    # the torch routes on the same params and batch, and a faulty torch-route
+    # control; the recurrent stacks compare on slow-decay copies (their random
+    # init forgets the state within a chunk), the control the state reset at
+    # every chunk boundary; whisper's control runs its encoder causal,
+    # internvl2's rolls the image rows by one.  Then TRAIN_STEPS steps, their
+    # launches, and one profiled step.
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import vlm as vlm_mod
+
+    def token_nll(p, b, c, pol):
+        """Per-token losses of the train forward (remat on): f32 logsumexp
+        minus the label logit, on the text rows."""
+        if c.family == "audio":
+            logits = encdec_mod.forward(p, b["tokens"], b["frames"], c, policy=pol,
+                                        mode="train", remat=True)[0]
+        elif c.family == "vlm":
+            logits = vlm_mod.forward(p, b["tokens"], b["image_embeds"], c, policy=pol,
+                                     mode="train", remat=True)[0][:, c.num_image_tokens:]
+        else:
+            logits = transformer.forward(p, b["tokens"], c, policy=pol, mode="train",
+                                         remat=True)[0]
+        logits = logits.float()
+        return torch.logsumexp(logits, dim=-1) - logits.gather(
+            -1, b["labels"].long()[..., None])[..., 0]
+
+    @contextlib.contextmanager
+    def chunk_reset(fault):
+        """serve_rwkv's and serve_zamba2's chunk-reset faults while ``fault``
+        holds (the backward's remat recompute included)."""
+        if fault:
+            rwkv_mod._wkv_chunked = chunked_reset_each_chunk
+            ssm_mod._ssd_chunked = ssd_reset_each_chunk
+        try:
+            yield
+        finally:
+            rwkv_mod._wkv_chunked, ssm_mod._ssd_chunked = real_chunked, real_ssd
+
+    @contextlib.contextmanager
+    def causal_encoder_ctx(fault):
+        """serve_whisper's causal-encoder fault while ``fault`` holds."""
+        transformer.attention = causal_encoder if fault else real_attention
+        try:
+            yield
+        finally:
+            transformer.attention = real_attention
+
+    def train_family(phase, c, b_rows, seq, five_fn, fault_ctx, kernels, *, slow=False,
+                     roll_image=False, **line):
+        """Step 0 against the torch routes with its control, then TRAIN_STEPS
+        steps through TrainLoop and one profiled step.  Returns the steps'
+        launches."""
+        t_phase = time.monotonic()
+        tpol = execution_policy_for(c, default="bf16", logits="refine_ab",
+                                    backends={"gemm": "cuda", "attention": "cuda_fused"},
+                                    require={fam: ("vjp",) for fam in ops.families()})
+        tloop = TrainLoop(c, policy=tpol,
+                          opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                          data_cfg=data_config(c, batch=b_rows, seq=seq), remat=True,
+                          device=dev)
+        p0, _, _ = tloop.init_or_restore(0)
+        n_params = sum(t.numel() for t in leaves(p0))
+        cp = slow_decay(p0) if slow else p0
+        b0 = tloop.batch(SyntheticLMDataset(tloop.data_cfg), 0)
+        five = five_fn(cp)
+        ref_pol = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+
+        def run(pol, fault=False):
+            b = b0
+            if fault and roll_image:
+                b = {**b0, "image_embeds": b0["image_embeds"].roll(1, dims=1)}
+            with fault_ctx(fault):
+                nll = token_nll(cp, b, c, pol)
+                grads = torch.autograd.grad(nll.mean(), list(five.values()))
+            return nll.detach(), grads
+
+        (nll_k, g_k), (nll_t, g_t), (nll_c, g_c) = run(tpol), run(ref_pol), run(ref_pol, True)
+
+        def rel(a, b):
+            return {k: ((x - y).norm() / y.norm()).item() for k, x, y in zip(five, a, b)}
+
+        step0 = {"loss_kernel": nll_k.mean().item(), "loss_torch": nll_t.mean().item(),
+                 "token_loss_max_err": (nll_k - nll_t).abs().max().item(),
+                 "grad_rel_err": rel(g_k, g_t),
+                 "control_token_loss_max_err": (nll_c - nll_t).abs().max().item(),
+                 "control_grad_rel_err": rel(g_c, g_t),
+                 "compared_on": "slow-decay copy" if slow else "the initial params",
+                 "token_loss_bound": STEP0_TOKEN_LOSS_BOUND, "grad_bound": STEP0_GRAD_BOUND}
+        del p0, cp, five, g_k, g_t, g_c, nll_k, nll_t, nll_c, b0
+        gc.collect()
+        torch.cuda.empty_cache()
+        faults = []
+        if not (math.isfinite(step0["loss_kernel"])
+                and step0["token_loss_max_err"] <= STEP0_TOKEN_LOSS_BOUND
+                and max(step0["grad_rel_err"].values()) <= STEP0_GRAD_BOUND):
+            faults.append("step 0: kernel routes vs torch routes out of bounds")
+        if not (step0["control_token_loss_max_err"] > STEP0_TOKEN_LOSS_BOUND
+                and max(step0["control_grad_rel_err"].values()) > STEP0_GRAD_BOUND):
+            faults.append("step 0: the control lands within the bounds")
+
+        zero_launches(mods)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        tp, topt, hist = tloop.run(TRAIN_STEPS, log_every=0)
+        torch.cuda.synchronize(dev)
+        wall = time.monotonic() - t0
+        ls = read_launches(mods)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        step_s = sorted(r["step_s"] for r in tloop.log)[len(tloop.log) // 2]
+        prof = profile_window(lambda: tloop.step_fn(tp, topt, tloop.batch(
+            SyntheticLMDataset(tloop.data_cfg), TRAIN_STEPS))[2]["loss"].item())
+        emit(phase=phase, arch=c.name, **line, params=n_params, steps=TRAIN_STEPS,
+             batch=b_rows, seq=seq, remat=True, policy="default=bf16 logits=refine_ab",
+             step0=step0, loss=hist, grad_norm=[r["grad_norm"] for r in tloop.log],
+             lr=[r["lr"] for r in tloop.log], step_s=[r["step_s"] for r in tloop.log],
+             median_step_s=step_s, tok_per_s=b_rows * seq / step_s, wall_s=wall,
+             peak_mem_gb=peak_gb, launches=ls, profile_step=prof,
+             phase_s=time.monotonic() - t_phase)
+        if not all(ls[n] > 0 for n in kernels):
+            faults.append(f"a kernel of the path never launched: {ls}")
+        if not all(math.isfinite(x) for r in tloop.log for x in (r["loss"], r["grad_norm"])):
+            faults.append(f"non-finite loss or grad norm: {tloop.log}")
+        if faults:
+            fail(f"{phase}: {'; '.join(faults)}: {step0}")
+        del tp, topt, tloop
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ls
+
+    # 17 train_rwkv
+    rcfg_t = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_RWKV_DEPTH,
+                                 segments=(Segment(("rwkv6",), TRAIN_RWKV_DEPTH),))
+    launches_trw = train_family(
+        "train_rwkv", rcfg_t, 1, 1024,
+        lambda p: {"embed": p["embed"]["table"], "lora_w_a": p["layers"][0]["lora_w"]["a"]["w"],
+                   "ffn_k": p["layers"][1]["ffn_k"]["w"], "wo": p["layers"][3]["wo"]["w"],
+                   "unembed": p["unembed"]["table"]},
+        chunk_reset, TRAIN_RWKV_KERNELS, slow=True, depth=TRAIN_RWKV_DEPTH)
+    # 18 train_zamba2
+    zcfg_t = dataclasses.replace(
+        zcfg_full, num_layers=6 * TRAIN_ZAMBA2_PERIODS,
+        segments=(Segment(("mamba2",) * 5 + ("shared_attn",), TRAIN_ZAMBA2_PERIODS),))
+    launches_tz = train_family(
+        "train_zamba2", zcfg_t, 1, 1024,
+        lambda p: {"embed": p["embed"]["table"], "in_proj": p["layers"][0]["in_proj"]["w"],
+                   "shared_wq": p["shared"]["attn"]["wq"]["w"],
+                   "shared_mlp_wo": p["shared"]["mlp"]["wo"]["w"],
+                   "unembed": p["unembed"]["table"]},
+        chunk_reset, TRAIN_KERNELS, slow=True, periods=TRAIN_ZAMBA2_PERIODS,
+        shared_applications=TRAIN_ZAMBA2_PERIODS)
+    # 19 train_whisper
+    launches_tw = train_family(
+        "train_whisper", wcfg_full, 2, WHISPER_TRAIN_SEQ,
+        lambda p: {"tied_table": p["embed"]["table"], "enc_wq": p["enc_layers"][0]["wq"]["w"],
+                   "cross_wk": p["layers"][1]["wk"]["w"], "dec_wq": p["layers"][0]["wq"]["w"],
+                   "enc_mlp_wi": p["enc_layers"][1]["wi"]["w"]},
+        causal_encoder_ctx, TRAIN_KERNELS, encoder_seq=wcfg_full.encoder_seq)
+    # 20 train_internvl2
+    icfg_t = dataclasses.replace(full_i, num_layers=TRAIN_INTERNVL2_DEPTH,
+                                 segments=(Segment(("attn", "mlp"), TRAIN_INTERNVL2_DEPTH),))
+    launches_ti = train_family(
+        "train_internvl2", icfg_t, 1, 256,
+        lambda p: {"embed": p["embed"]["table"], "wq": p["layers"][0]["wq"]["w"],
+                   "mlp_wo": p["layers"][1]["wo"]["w"],
+                   "wk": p["layers"][2 * TRAIN_INTERNVL2_DEPTH - 2]["wk"]["w"],
+                   "unembed": p["unembed"]["table"]},
+        lambda fault: contextlib.nullcontext(), TRAIN_KERNELS, roll_image=True,
+        depth=TRAIN_INTERNVL2_DEPTH, image_rows=full_i.num_image_tokens)
+
+    # ----------------------------------------------------------- 21 precision
+    # The paper's Fig. 8 protocol (core/error.py) on card tensors: A, B ~
+    # U[-r, r]^(N x N) from random_operands, every gemm rung on the cuda
+    # route and the same rung on the torch route, cuBLAS's bf16 GEMM (f32
+    # out) and f32 SGEMM with TF32 off and on, against the f64 product formed
+    # on the card.  Held at every N and range: each cuda rung within its
+    # bound (PRECISION_ROUTE_FACTOR times the torch route's max-norm error
+    # for the rung), the ladder order of tests/test_precision.py, and each
+    # PRECISION_CONTROLS rung's error above the bound of the rung it refines
+    # wherever the torch route tells the two apart.
+    zero_launches(mods)
+    fig8_rows, prec_faults, held_controls = [], [], set()
+    t_prec = time.monotonic()
+    for n_p in PRECISION_N:
+        for r_p in PRECISION_RANGES:
+            a_p, b_p = error_mod.random_operands(n_p, value_range=r_p, seed=n_p, device=dev)
+            calls = {f"cuda:{rung}": (lambda rung=rung: ops.gemm(a_p, b_p, policy=rung,
+                                                                backend="cuda"))
+                     for rung in PRECISION_RUNGS}
+            a16, b16 = a_p.to(torch.bfloat16), b_p.to(torch.bfloat16)
+            calls["cublas:bf16"] = lambda: torch.mm(a16, b16, out_dtype=torch.float32)
+            calls["cublas:f32"] = lambda: torch.mm(a_p, b_p)
+
+            def tf32_mm():
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    return torch.mm(a_p, b_p)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+            calls["cublas:f32_tf32"] = tf32_mm
+            results = {name: fn() for name, fn in calls.items()}
+            results.update({f"torch:{rung}": ops.gemm(a_p, b_p, policy=rung, backend="torch")
+                            for rung in PRECISION_RUNGS})
+            results.update({f"{route}:{below}": ops.gemm(a_p, b_p, policy=below, backend=route)
+                            for below in PRECISION_CONTROLS.values() for route in ("cuda", "torch")
+                            if f"{route}:{below}" not in results})
+            torch.cuda.synchronize(dev)
+            rep = error_mod.error_report(a_p, b_p, results)
+            del results
+            for name, fn in calls.items():
+                fig8_rows.append({"n": n_p, "range": r_p, "row": name, **rep[name],
+                                  "ms": timed(fn)})
+            err_k = {rung: rep[f"cuda:{rung}"]["max_vs_f64"] for rung in PRECISION_RUNGS}
+            err_t = {rung: rep[f"torch:{rung}"]["max_vs_f64"] for rung in PRECISION_RUNGS}
+            bound_of = {rung: PRECISION_ROUTE_FACTOR * err_t[rung] for rung in PRECISION_RUNGS}
+            where = f"N={n_p} U[-{r_p}, {r_p}]"
+            # (smaller, larger, factor): test_precision's order, every pair held
+            pairs = [("refine_a", "bf16", 1), ("bf16x3", "refine_a", 1),
+                     ("refine_ab", "refine_a", 0.5), ("bf16x6", "refine_ab", 1),
+                     ("f32", "bf16", 1 / 50), ("refine_ab", "bf16", 1 / 8)]
+            order = {f"{lo} < {f:g} {hi}": err_k[lo] < f * err_k[hi] for lo, hi, f in pairs}
+            if not all(order.values()):
+                prec_faults.append(f"{where}: the ladder order fails ({order}): {err_k}")
+            for rung in PRECISION_RUNGS:
+                if not err_k[rung] <= bound_of[rung]:
+                    prec_faults.append(f"{where}: cuda {rung} {err_k[rung]} > its bound "
+                                       f"{bound_of[rung]} (torch {err_t[rung]})")
+            controls = {}
+            for rung, below in PRECISION_CONTROLS.items():
+                lower = rep[f"cuda:{below}"]["max_vs_f64"]
+                apart = rep[f"torch:{below}"]["max_vs_f64"] > bound_of[rung]
+                controls[f"{below} over {rung}"] = {"err": lower, "bound": bound_of[rung],
+                                                    "held": apart}
+                if apart:
+                    held_controls.add(rung)
+                    if not lower > bound_of[rung]:
+                        prec_faults.append(f"{where}: the control {below} ({lower}) lands "
+                                           f"within {rung}'s bound {bound_of[rung]}")
+            emit(phase="precision_point", n=n_p, range=r_p, max_vs_f64=err_k,
+                 torch_max_vs_f64=err_t, bounds=bound_of, order=order, controls_held=controls,
+                 cublas={k.split(":")[1]: rep[k] for k in rep if k.startswith("cublas:")})
+            del a_p, b_p, a16, b16, calls
+            torch.cuda.empty_cache()
+    launches_pr = read_launches(mods)
+    emit(phase="precision", rows=fig8_rows, route_factor=PRECISION_ROUTE_FACTOR,
+         controls=PRECISION_CONTROLS, launches=launches_pr,
+         phase_s=time.monotonic() - t_prec)
+    if held_controls != set(PRECISION_CONTROLS):
+        prec_faults.append(f"controls never held: {set(PRECISION_CONTROLS) - held_controls}")
+    if not all(launches_pr[n] > 0 for n in PRECISION_KERNELS):
+        prec_faults.append(f"a kernel of the path never launched: {launches_pr}")
+    if prec_faults:
+        fail("precision: " + "; ".join(prec_faults))
+
+    # ----------------------------------------------------------- 22 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
@@ -3340,7 +3769,9 @@ def main() -> None:
                "serve_zamba2": launches_z, "serve_zamba2_paged": launches_zp,
                "serve_nemotron": launches_nm, "serve_whisper": launches_w,
                "serve_whisper_paged": launches_wp, "serve_internvl2": launches_i,
-               "serve_internvl2_paged": launches_ip}
+               "serve_internvl2_paged": launches_ip, "train_rwkv": launches_trw,
+               "train_zamba2": launches_tz, "train_whisper": launches_tw,
+               "train_internvl2": launches_ti, "precision": launches_pr}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above

@@ -2,13 +2,22 @@
 // paper's Eq. 2-3) for M > 16, and their dispatch: M <= 16 runs the split-K
 // weight stream of gemm_splitk.cuh.  Included by gemm_refined.cu alone.
 //
-// C = A.B = small + main: each operand x is split into bf16 hi = bf16(x) and
-// lo = bf16(x - hi) (core/precision.py:split2), the policy's small terms are
-// summed in one f32 accumulator in policy_terms order (a_lo.b_lo, a_lo.b_hi,
-// a_hi.b_lo) and a_hi.b_hi in another, and the epilogue stores small + main.
+// C = A.B as a sum of terms: each operand x is split into bf16 hi = bf16(x)
+// and lo = bf16(x - hi) (core/precision.py:split2), and per 16-deep step
+// the policy's small terms are issued in policy_terms order (a_lo.b_lo,
+// a_lo.b_hi, a_hi.b_lo) and then a_hi.b_hi, into one wgmma accumulator.
 // A bf16 operand's lo is identically zero, so the host drops every term that
 // reads it (the term set TS, common.cuh): refine_ab on f32 x f32 runs 4
 // terms, on a bf16 A or B 2, refine_a on a bf16 A the bf16 product alone.
+//
+// Promotion: the tensor cores' f32 accumulation loses precision with the
+// products it sums (on an H100 80GB HBM3 a whole-K accumulator reads 16x
+// SGEMM's max error at K = 8192, 256-deep chunks summed in f32 half of
+// it; tools/probe_accumulation.py).  So the accumulator spans a chunk of
+// sixteen wgmma (Ring::PROMOTE stages: four for one term, two for two, one
+// for three or four), is then added into an f32 total on the CUDA cores,
+// and the next chunk's first wgmma overwrites it (scale_d 0).  The total is
+// the tile's product.
 //
 // The shape is gemm_sm90.cuh's: one producer warpgroup and two consumer
 // warpgroups of 64 rows, a CTA a 128 x 128 tile of C, K in 64-deep stages of
@@ -19,14 +28,13 @@
 // bf16 operand by TMA into its hi plane (it has no lo plane), and an f32
 // operand (or one TMA cannot take) by the converting path: each element is
 // read once into registers and its hi and lo are written to their planes.
-// Each consumer issues, per 16-deep step, the small terms' wgmma
-// m64n128k16 into `small` and then hi.hi into `main`, one commit group a
-// stage, one group kept in flight.
+// Each consumer issues, per 16-deep step, the terms' wgmma m64n128k16,
+// one commit group a stage, one group kept in flight but at a chunk's end.
 //
 // What bounds it: the converting path, by its loads' latency (one f32 tile
 // of a stage in flight in the producer's registers: 1.8-2.7 us a stage
 // against 0.6-1.1 us of wgmma on an H100, PERF.md).  More loads in flight
-// need registers that the consumers' two 64-float accumulators leave none
+// need registers that the consumers' 64-float accumulator and total leave none
 // of at 384 threads: a second producer warpgroup (512 threads, setmaxnreg)
 // and a second tile in flight in the one producer both spilled.
 //
@@ -35,7 +43,7 @@
 // 144 tiles on 132 SMs, two waves for 1.09 waves of work).  The host then
 // splits K (kernels/gemm_tiled.py:sm90_splits, whole waves) and each CTA
 // walks K tiles [s * per, min((s + 1) * per, kt)) with per = ceil(kt /
-// splits); as in gemm_splitk.cuh each writes its f32 partial (small + main)
+// splits); as in gemm_splitk.cuh each writes its f32 partial (its total)
 // to a workspace slot and draws a ticket, and the CTA that draws the last
 // sums the partials in split order (deterministic), stores C and resets the
 // ticket.  With one split the consumers store C from registers, masked for
@@ -63,6 +71,8 @@ struct Ring {
   static constexpr int PLANES = 2 + A_LO + B_LO;
   static constexpr int STAGE = PLANES * PLANE;          // A_hi, B_hi, A_lo?, B_lo?
   static constexpr int STAGES = PLANES == 4 ? 3 : 4;
+  static constexpr int TERMS = 1 + ((TS & T_LL) != 0) + A_LO + B_LO;
+  static constexpr int PROMOTE = TERMS == 1 ? 4 : TERMS == 2 ? 2 : 1;  // 16 wgmma a chunk at most
   static constexpr int A_LO_AT = 2 * PLANE, B_LO_AT = (2 + A_LO) * PLANE;
   static constexpr size_t smem = 1024 + STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
 };
@@ -202,12 +212,13 @@ __device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uin
 }
 
 // A consumer's walk (rows [64 cw, 64 cw + 64) of the tile): per 16-deep
-// step the small terms into `small` in policy_terms order, then hi.hi into
-// `main`; one commit group a stage, one kept in flight, each stage released
-// once the next one's group is issued.
+// step the small terms in policy_terms order, then hi.hi, into `acc`; one
+// commit group a stage, one kept in flight, each stage released once the
+// next one's group is issued.  The stage that ends a chunk of Ring::PROMOTE
+// (or the walk) waits for every group instead and adds `acc` into `total`.
 template <bool A_K, bool B_K, int TS>
 __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uint64_t* empty,
-                                        float (&small)[64], float (&main)[64], int nk, int cw,
+                                        float (&acc)[64], float (&total)[64], int nk, int cw,
                                         int t) {
   using Rg = Ring<TS>;
   constexpr int TA = A_K ? 0 : 1, TB = B_K ? 0 : 1;
@@ -219,6 +230,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uin
     return B_K ? sm90::make_desc(p + kk * 32, 16, 1024)
                : sm90::make_desc(p + kk * 16 * ROW, BLOCK, 1024);
   };
+#pragma unroll
+  for (int i = 0; i < 64; ++i) total[i] = 0.f;
   int stage = 0, phase = 0, prev = 0;
   for (int kt = 0; kt < nk; ++kt) {
     sm90::mbar_wait(&full[stage], phase);
@@ -227,24 +240,31 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uin
     const unsigned char* bh = st + PLANE;
     const unsigned char* al = st + Rg::A_LO_AT + cw * 64 * ROW;
     const unsigned char* bl = st + Rg::B_LO_AT;
+    const int chunk_on = kt % Rg::PROMOTE != 0;  // 0: the chunk's first product writes `acc`
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const int acc = kt > 0 || kk > 0;  // 0: the first product writes the accumulator
+      const int on = chunk_on || kk > 0;
       if constexpr ((TS & T_LL) != 0)
-        sm90::wgmma_m64n128k16<TA, TB>(small, desc_a(al, kk), desc_b(bl, kk), acc);
+        sm90::wgmma_m64n128k16<TA, TB>(acc, desc_a(al, kk), desc_b(bl, kk), on);
       if constexpr ((TS & T_LH) != 0)
-        sm90::wgmma_m64n128k16<TA, TB>(small, desc_a(al, kk), desc_b(bh, kk),
-                                       (TS & T_LL) ? 1 : acc);
+        sm90::wgmma_m64n128k16<TA, TB>(acc, desc_a(al, kk), desc_b(bh, kk),
+                                       (TS & T_LL) ? 1 : on);
       if constexpr ((TS & T_HL) != 0)
-        sm90::wgmma_m64n128k16<TA, TB>(small, desc_a(ah, kk), desc_b(bl, kk),
-                                       (TS & T_LH) ? 1 : acc);
-      sm90::wgmma_m64n128k16<TA, TB>(main, desc_a(ah, kk), desc_b(bh, kk), acc);
+        sm90::wgmma_m64n128k16<TA, TB>(acc, desc_a(ah, kk), desc_b(bl, kk),
+                                       (TS & (T_LL | T_LH)) ? 1 : on);
+      sm90::wgmma_m64n128k16<TA, TB>(acc, desc_a(ah, kk), desc_b(bh, kk), TS ? 1 : on);
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-    sm90::fence_acc(main);
-    if constexpr (TS != 0) sm90::fence_acc(small);
+    if ((kt + 1) % Rg::PROMOTE == 0 || kt + 1 == nk) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) total[i] += acc[i];
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      sm90::fence_acc(acc);
+    }
     if (kt > 0 && t % 32 == 0) sm90::mbar_arrive(&empty[prev]);
     prev = stage;
     if (++stage == Rg::STAGES) {
@@ -252,9 +272,6 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uin
       phase ^= 1;
     }
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  sm90::fence_acc(main);
-  if constexpr (TS != 0) sm90::fence_acc(small);
   if (nk > 0 && t % 32 == 0) sm90::mbar_arrive(&empty[prev]);
 }
 
@@ -294,12 +311,8 @@ refined_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                             za, zb, kt0, nk, t);
     return;
   }
-  float small[64], main[64];  // each written first by a wgmma with scale_d 0
-  consume<A_K, B_K, TS>(smem, full, empty, small, main, nk, wg - 1, t);
-  if constexpr (TS != 0) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) main[i] = small[i] + main[i];
-  }
+  float acc[64], main[64];  // acc written first by a wgmma with scale_d 0; main the total
+  consume<A_K, B_K, TS>(smem, full, empty, acc, main, nk, wg - 1, t);
   float* cb = g.c + static_cast<long long>(bz) * g.m * g.n;
   const int r_first = m0 + (wg - 1) * 64;
   if (splits == 1) {

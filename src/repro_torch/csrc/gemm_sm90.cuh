@@ -30,11 +30,18 @@
 // train dW's x^T (M-contiguous A) and the NN weights (N-contiguous B).
 //
 // Each consumer issues four wgmma m64n128k16 per stage, keeps one group in
-// flight (wait_group 1) and then releases the previous stage.  No register
-// rebalancing (setmaxnreg): a consumer holds 64 accumulators and the CTA's
-// ~130 KB of stages already keep it alone on its SM.  The epilogue stores
-// the f32 registers straight to global memory, masked for ragged M and N
-// (two-float stores where N is even); nothing is padded or copied.
+// flight (wait_group 1) and then releases the previous stage.  Every
+// PROMOTE stages (256 of K) it waits for its groups and adds the wgmma
+// accumulator into an f32 total on the CUDA cores, and the next stage's
+// first wgmma overwrites the accumulator (scale_d 0): the tensor cores'
+// own f32 accumulation loses precision with the K it spans (on an H100 80GB
+// HBM3 a whole-K accumulator reads 16x SGEMM's max error at K = 8192,
+// 256-deep chunks summed in f32 half of it; tools/probe_accumulation.py).
+// No register rebalancing (setmaxnreg): a consumer holds 64 accumulators
+// and 64 totals, and the CTA's ~130 KB of stages already keep it alone on
+// its SM.  The epilogue stores the f32 totals straight to global memory,
+// masked for ragged M and N (two-float stores where N is even); nothing is
+// padded or copied.
 //
 // Group-rows mode (G_ROWS, the grouped forward): the CTA reads its tile's
 // group id before any load; a dead tile (id E) stores zeros and loads
@@ -71,6 +78,7 @@ namespace rt {
 namespace sm90 {
 
 constexpr int BN = 128, BK = 64, STAGES = 4;
+constexpr int PROMOTE = 4;         // K stages a wgmma accumulator spans before its f32 total takes it
 constexpr int ROW = 128;           // bytes of one swizzle row: 64 bf16
 constexpr int BLOCK = 64 * ROW;    // one MN-major block: 64 K rows of 64 M/N values
 constexpr int B_TILE = BN * ROW;   // 16 KB
@@ -403,17 +411,22 @@ __device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uin
 // A consumer's K walk of one tile (rows [64 cw, 64 cw + 64) of it): four
 // wgmma m64n128k16 a stage, one group kept in flight (wait_group 1), each
 // stage released once the next one's group is issued and the last one at
-// the end, so the ring runs on into the next tile.
+// the end, so the ring runs on into the next tile.  The stage that ends a
+// chunk of PROMOTE (or the walk) waits for every group instead and adds
+// `acc` into `total`, which holds the tile's product at the end.
 template <int BM, bool A_K, bool B_K>
 __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uint64_t* empty,
-                                        int& stage, int& phase, float (&acc)[64], int nk,
-                                        int cw, int t) {
+                                        int& stage, int& phase, float (&acc)[64],
+                                        float (&total)[64], int nk, int cw, int t) {
   using C = Cfg<BM>;
   int prev = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) total[i] = 0.f;
   for (int kt = 0; kt < nk; ++kt) {
     mbar_wait(&full[stage], phase);
     const unsigned char* sa = smem + stage * C::STAGE + cw * 64 * ROW;
     const unsigned char* sb = smem + stage * C::STAGE + C::A_TILE;
+    const int chunk_on = kt % PROMOTE != 0;  // 0: the chunk's first product writes `acc`
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -421,11 +434,18 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uin
                               : make_desc(sa + kk * 16 * ROW, BLOCK, 1024);
       const uint64_t db = B_K ? make_desc(sb + kk * 32, 16, 1024)
                               : make_desc(sb + kk * 16 * ROW, BLOCK, 1024);
-      wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db, kt > 0 || kk > 0);
+      wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db, chunk_on || kk > 0);
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-    fence_acc(acc);
+    if ((kt + 1) % PROMOTE == 0 || kt + 1 == nk) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_acc(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) total[i] += acc[i];
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(acc);
+    }
     if (kt > 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
     prev = stage;
     if (++stage == STAGES) {
@@ -433,8 +453,6 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* full, uin
       phase ^= 1;
     }
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_acc(acc);
   if (nk > 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
 }
 
@@ -513,9 +531,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       produce<BM, A_K, B_K>(smem, full, empty, stage, phase, g.a, g.b, a_base, b_base, &map_a,
                             &map_b, m0, n0, za, zb, nk, t);
   } else {
-    float acc[64];  // written first by a wgmma with scale_d 0
-    consume<BM, A_K, B_K>(smem, full, empty, stage, phase, acc, nk, wg - 1, t);
-    store_tile(acc, g.c + static_cast<long long>(bz) * g.m * g.n, g.m, g.n,
+    float acc[64], total[64];  // acc written first by a wgmma with scale_d 0
+    consume<BM, A_K, B_K>(smem, full, empty, stage, phase, acc, total, nk, wg - 1, t);
+    store_tile(total, g.c + static_cast<long long>(bz) * g.m * g.n, g.m, g.n,
                m0 + (wg - 1) * 64, n0, nk, t);
   }
 }
@@ -545,7 +563,7 @@ gemm_sm90_group_k_kernel(const __grid_constant__ CUtensorMap map_a,
   const int n_tiles = tiles_m * tiles_n * g.num_groups;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   int stage = 0, phase = 0;
-  float acc[64];
+  float acc[64], total[64];
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int m0 = (tile % tiles_m) * BM, n0 = (tile / tiles_m % tiles_n) * BN;
     const int grp = tile / (tiles_m * tiles_n);
@@ -560,8 +578,8 @@ gemm_sm90_group_k_kernel(const __grid_constant__ CUtensorMap map_a,
         produce<BM, false, false>(smem, full, empty, stage, phase, oa, ob, a_run, b_run, &map_a,
                                   &map_b, m0, n0, 0, 0, nk, t, tail, &tail_phase, k_begin);
     } else {
-      consume<BM, false, false>(smem, full, empty, stage, phase, acc, nk, wg - 1, t);
-      store_tile(acc, g.c + static_cast<long long>(grp) * g.m * g.n, g.m, g.n,
+      consume<BM, false, false>(smem, full, empty, stage, phase, acc, total, nk, wg - 1, t);
+      store_tile(total, g.c + static_cast<long long>(grp) * g.m * g.n, g.m, g.n,
                  m0 + (wg - 1) * 64, n0, nk, t);
     }
   }

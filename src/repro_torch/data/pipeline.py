@@ -1,8 +1,9 @@
 """Deterministic synthetic LM data (twin of ``repro.data.pipeline``).
 
 Batch i is a pure function of (seed, i, proc): the same numpy stream
-``SeedSequence([seed, i, proc])`` as the JAX package draws, so the two
-packages train on bit-equal batches, and a restart needs no data state
+``SeedSequence([seed, i, proc])`` as the JAX package draws (the tokens,
+then an audio config's frames, then a VLM config's image rows), so the
+two packages train on bit-equal batches, and a restart needs no data state
 (the checkpoint stores only the step).  Batches are host numpy arrays;
 the train loop moves them to the device.  Host sharding across
 processes (``host_slice``) waits for the multi-device slice.
@@ -26,11 +27,16 @@ class DataConfig:
     seq_len: int
     vocab_size: int
     seed: int = 0
+    frames_dim: int = 0        # audio stub: emit frames (B, frames_seq, frames_dim)
+    frames_seq: int = 0
+    image_tokens: int = 0      # vlm stub: emit image_embeds (B, image_tokens, image_dim)
+    image_dim: int = 0
 
 
 class SyntheticLMDataset:
     """batch(i) -> {"tokens", "labels"} int32 (B, seq_len) numpy arrays for
-    process ``proc`` of ``nproc``."""
+    process ``proc`` of ``nproc``, with f32 ``frames`` and ``image_embeds``
+    where the config asks for them."""
 
     def __init__(self, cfg: DataConfig, proc: int = 0, nproc: int = 1):
         if cfg.global_batch % nproc:
@@ -45,7 +51,14 @@ class SyntheticLMDataset:
             np.random.SeedSequence([cfg.seed, i, self.proc]))
         shape = (self.local_batch, cfg.seq_len + 1)
         stream = rng.integers(0, cfg.vocab_size, size=shape, dtype=np.int32)
-        return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+        out = {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+        if cfg.frames_dim:
+            out["frames"] = rng.standard_normal(
+                (self.local_batch, cfg.frames_seq, cfg.frames_dim), dtype=np.float32)
+        if cfg.image_tokens:
+            out["image_embeds"] = rng.standard_normal(
+                (self.local_batch, cfg.image_tokens, cfg.image_dim), dtype=np.float32)
+        return out
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         i = 0

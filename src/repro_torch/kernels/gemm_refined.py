@@ -6,8 +6,8 @@ Replaces the TPU kernel ``repro/kernels/gemm_refined.py:_refined_kernel``
 kernel.  Each operand is split into bf16 hi = bf16(x) and lo = bf16(x -
 hi) inside the kernel and the policy's terms run on the tensor cores --
 refine_a a_lo.b_hi + a_hi.b_hi, bf16x3 + a_hi.b_lo, refine_ab + a_lo.b_lo
--- the small terms (``core/precision.py:policy_terms`` order) in their own
-f32 accumulator, added before the leading term.  A bf16 operand's lo is
+-- the small terms (``core/precision.py:policy_terms`` order) issued before
+the leading term.  A bf16 operand's lo is
 identically zero, so the kernel skips every term that reads it
 (``kept_terms``): refine_ab on a bf16 A (the forward, dTable, the decode
 unembed) runs 2 terms, not 4, with the same result.
@@ -21,7 +21,9 @@ What bounds it on the H100, and the design, by regime:
            ring of 128-byte swizzled planes (a bf16 operand's hi by TMA, an
            f32 operand's hi and lo converted from one read of each
            element), two consumer warpgroups issue ``wgmma`` m64n128k16 per
-           kept term into two accumulators.  Where the 128 x 128 tiles
+           kept term into one accumulator, added into an f32 total every
+           16 ``wgmma`` (the tensor cores' own accumulation loses
+           precision with K).  Where the 128 x 128 tiles
            leave most SMs idle in a last wave (dX: 144 tiles on 132 SMs) the
            host splits K into whole waves (``gemm_tiled.sm90_splits``) and
            the last CTA of a tile sums the f32 partials in split order.

@@ -19,7 +19,9 @@ The design, by shape:
            for bf16 operands that are contiguous along K or M/N and 16-byte
            aligned; 16-byte loads rounded to bf16 on the way in for f32
            operands and odd strides), one or two consumer warpgroups run
-           ``wgmma`` m64n128k16 on it, BM 64 up to 64 rows, else 128.
+           ``wgmma`` m64n128k16 on it, BM 64 up to 64 rows, else 128; each
+           adds its accumulator into an f32 total every 256 of K (the
+           tensor cores' own accumulation loses precision with K).
   M <= 16  the split-K weight stream (``csrc/gemm_splitk.cuh``): a grid of
            64-column N tiles by K splits (``splitk_splits``: enough splits
            of >= 4 64-row K tiles for twice the SM count, one when the N

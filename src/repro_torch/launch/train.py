@@ -10,17 +10,19 @@ Fault-tolerance contract, as in the JAX package:
     of (seed, i), so only the step counter is checkpointed;
   * per-step wall-time telemetry flags stragglers (runtime/monitor.py).
 
+Every family trains: an audio config's batches carry the encoder's
+frames and a VLM config's its image rows (``DataConfig``'s frame and
+image fields, set from the config as the JAX package's CLI sets them).
 The mesh, elastic resharding and gradient compression wait for the
-multi-device slice, and training the audio (whisper) and vlm (internvl2)
-families waits for its own: ``TrainLoop`` refuses them
-(``api.check_trainable``).  Entry points run on ``cuda`` unless asked for
+multi-device slice.  Entry points run on ``cuda`` unless asked for
 ``cpu``; ``cuda`` with no card raises.
 
 Usage (CPU-scale example):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --smoke --device cpu --steps 5 --batch 2 --seq 32 \\
       --backend gemm=cuda --backend attention=cuda_fused
-  (an MoE arch: --arch mixtral-8x7b ... --backend grouped=cuda_grouped)
+  (an MoE arch: --arch mixtral-8x7b ... --backend grouped=cuda_grouped;
+  whisper-medium, internvl2-76b, rwkv6-7b and zamba2-7b take the same flags)
 """
 
 from __future__ import annotations
@@ -43,7 +45,19 @@ from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.monitor import StepMonitor, run_header
 from repro_torch.runtime.train_step import make_train_step
 
-__all__ = ["TrainLoop", "main"]
+__all__ = ["TrainLoop", "data_config", "main"]
+
+
+def data_config(cfg, *, batch: int, seq: int, seed: int = 0) -> DataConfig:
+    """The synthetic batches for ``cfg``: tokens, plus the encoder's frames
+    (B, encoder_seq, d_model) for audio and the image rows (B,
+    num_image_tokens, d_model) for vlm."""
+    audio, vlm = cfg.family == "audio", cfg.family == "vlm"
+    return DataConfig(global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, seed=seed,
+                      frames_dim=cfg.d_model if audio else 0,
+                      frames_seq=cfg.encoder_seq if audio else 0,
+                      image_tokens=cfg.num_image_tokens if vlm else 0,
+                      image_dim=cfg.d_model if vlm else 0)
 
 
 class TrainLoop:
@@ -54,7 +68,6 @@ class TrainLoop:
                  ckpt_dir: str | None = None, microbatches: int = 1,
                  remat: bool = True, ckpt_every: int = 25,
                  device: str | torch.device = "cuda"):
-        api.check_trainable(cfg)
         self.cfg = cfg
         self.policy = policy
         self.opt_cfg = opt_cfg
@@ -166,8 +179,7 @@ def main(argv=None) -> None:
     loop = TrainLoop(
         cfg, policy=policy,
         opt_cfg=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps),
-        data_cfg=DataConfig(global_batch=args.batch, seq_len=args.seq,
-                            vocab_size=cfg.vocab_size),
+        data_cfg=data_config(cfg, batch=args.batch, seq=args.seq),
         ckpt_dir=args.ckpt_dir, microbatches=args.microbatches,
         ckpt_every=args.ckpt_every, device=device)
     t0 = time.time()

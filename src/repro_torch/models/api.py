@@ -4,10 +4,9 @@ audio (whisper's encoder-decoder, ``models.encdec``) and vlm (internvl2's
 image prefix, ``models.vlm``).  runtime/ and launch/ talk to models only
 through this module.  ``policy`` is a ``PrecisionPolicy`` (matmuls on the
 ``torch`` reference) or an ``ExecutionPolicy`` (plus the
-``backends: {family: impl}`` routing onto the CUDA kernels).
-
-Training the audio and vlm families is not ported yet: ``loss_fn`` (and
-the train CLI, through ``check_trainable``) refuses them.
+``backends: {family: impl}`` routing onto the CUDA kernels).  Every
+family trains through ``loss_fn``: the audio family's batches carry the
+encoder's ``frames``, the vlm family's its ``image_embeds``.
 """
 
 from __future__ import annotations
@@ -22,26 +21,14 @@ from repro_torch.models import vlm as V
 from repro_torch.runtime.device import resolve_device
 
 __all__ = ["AUX_LOSS_WEIGHT", "init_params", "init_cache", "loss_fn", "prefill", "decode",
-           "context_len", "check_trainable"]
+           "context_len"]
 
 # weight of the MoE load-balancing loss in the training loss
 AUX_LOSS_WEIGHT = 0.01
-# the families whose training is not ported yet
-_SERVE_ONLY = ("audio", "vlm")
 
 
 def _ported(cfg: ModelConfig) -> None:
     T.check_kinds(cfg)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a family the port serves but does not
-    train yet (audio, vlm)."""
-    _ported(cfg)
-    if cfg.family in _SERVE_ONLY:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported yet "
-            f"(the port serves it; its loss and backward come in a later slice)")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -74,13 +61,24 @@ def init_cache(cfg: ModelConfig, batch: int, s_ctx: int,
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
             policy: PrecisionPolicy, remat: bool = False) -> tuple[torch.Tensor, dict]:
-    """Training loss for one (micro)batch of tokens and labels (B, S).
+    """Training loss for one (micro)batch of tokens and labels (B, S), with
+    ``frames`` (B, encoder_seq, D) for audio and ``image_embeds`` (B,
+    num_image_tokens, D) for vlm, whose loss scores the text rows only.
     Returns (loss + AUX_LOSS_WEIGHT * aux, {"loss", "aux_loss"}); the aux
-    loss is the MoE load-balancing loss (0 for the dense family)."""
-    check_trainable(cfg)
-    logits, _, aux = T.forward(params, batch["tokens"], cfg, policy=policy,
-                               mode="train", remat=remat)
-    loss = T.lm_loss(logits, batch["labels"])
+    loss is the MoE load-balancing loss (0 without MoE sublayers)."""
+    _ported(cfg)
+    if cfg.family == "audio":
+        logits, _, aux = E.forward(params, batch["tokens"], batch.get("frames"), cfg,
+                                   policy=policy, mode="train", remat=remat)
+        loss = T.lm_loss(logits, batch["labels"])
+    elif cfg.family == "vlm":
+        logits, _, aux = V.forward(params, batch["tokens"], batch.get("image_embeds"), cfg,
+                                   policy=policy, mode="train", remat=remat)
+        loss = V.vlm_loss(logits, batch["labels"], cfg.num_image_tokens)
+    else:
+        logits, _, aux = T.forward(params, batch["tokens"], cfg, policy=policy,
+                                   mode="train", remat=remat)
+        loss = T.lm_loss(logits, batch["labels"])
     return loss + AUX_LOSS_WEIGHT * aux, {"loss": loss, "aux_loss": aux}
 
 

@@ -25,8 +25,9 @@ A ``cross_attn`` sublayer projects the encoder's output through its
 the stack, as the JAX package's third value.
 With ``remat`` each period of a segment's pattern (one scan step in the
 JAX package, which wraps it in ``jax.checkpoint``) runs under
-``torch.utils.checkpoint``: its activations are recomputed in the
-backward instead of kept.
+``torch.utils.checkpoint`` in every mode, an encoder's periods included:
+its activations are recomputed in the backward instead of kept.  The
+serve paths pass ``remat=False``.
 """
 
 from __future__ import annotations
@@ -270,8 +271,8 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
     hidden states in place of logits.  ``last_only`` projects only the
     last position onto the vocabulary (each row of the unembed is
     independent, so its logits equal the full projection's last row).
-    ``remat`` (train) recomputes each period's activations in the
-    backward.  Returns (logits f32 | hidden states, cache, aux loss f32:
+    ``remat`` recomputes each period's activations in the backward (the
+    encoder's too).  Returns (logits f32 | hidden states, cache, aux loss f32:
     the MoE sublayers' sum, 0 without them).
     """
     check_kinds(cfg)
@@ -307,7 +308,7 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
                     a = a + ai
             return x, ncs, a
 
-        if remat and mode == "train":
+        if remat:
             x, ncs, a = checkpoint(period, x, use_reentrant=False)
         else:
             x, ncs, a = period(x)

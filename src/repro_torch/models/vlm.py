@@ -26,6 +26,8 @@ def forward(params: dict, tokens: torch.Tensor | None,
     """train / prefill: the image rows (B, N_img, D) then the text tokens
     (B, S_text), one sequence [img; text]; decode: one token against the
     cache (whose rows count the image's)."""
+    if mode in ("train", "prefill") and image_embeds is None:
+        raise ValueError(f"{cfg.name}: {mode} needs the image rows (image_embeds)")
     return T.forward(params, tokens, cfg, policy=policy, mode=mode, cache=cache, pos=pos,
                      last_only=last_only, remat=remat,
                      extra_embeds=image_embeds if mode != "decode" else None)

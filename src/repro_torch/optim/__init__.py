@@ -1,1 +1,2 @@
-"""Optimizers (twin of ``repro.optim``): AdamW so far."""
+"""Optimizers (twin of ``repro.optim``): AdamW, dynamic loss scaling and
+(hi, lo) bf16 master weights."""

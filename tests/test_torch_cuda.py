@@ -1479,3 +1479,153 @@ def test_gemm_onto_51865_vocab_columns(dev, record_property, kernel, m):
     assert out.shape == (m, n)
     _hold(record_property, "out", out, ref, GEMM_ATOL)
     _hold(record_property, "tail", out[:, -25:], ref[:, -25:], GEMM_ATOL)
+
+
+# ---- the backward at the shapes the recurrent, audio and VLM trainings
+# give it: whisper's cross-attention (Sq 448 against 1500 keys: dk/dv
+# summed over seven 64-row query tiles) and encoder (1500 frames, no mask,
+# hd 64), zamba2's shared block (hd 112: a 48-column tail past one 64-column
+# block, G = 1) and internvl2's 64 heads on 8 kv (G = 8, hd 128), smallest
+# first, each launch under the watchdog.  Control: the plain version with
+# the mask flipped (causal for the unmasked shapes) lands outside the bound.
+
+TRAIN_BWD_SHAPES = [   # (b, sq, skv, kv, g, hd, causal)
+    (1, 448, 1500, 4, 1, 64, False),
+    (1, 1024, 1024, 4, 1, 112, True),
+    (1, 512, 512, 8, 8, 128, True),
+    (2, 1500, 1500, 16, 1, 64, False),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,kv,g,hd,causal", TRAIN_BWD_SHAPES)
+def test_flash_attention_bwd_sm90_train_shapes(dev, record_property, b, sq, skv, kv, g, hd,
+                                               causal):
+    q, k, v, do = _sm90_bwd_inputs(np.random.default_rng(sq + hd), dev, b, sq, skv, kv, g, hd,
+                                   torch.bfloat16)
+    _hold_sm90_bwd(record_property, q, k, v, do, causal=causal)
+    out, lse = af.flash_attention_plain(q, k, v, causal=causal)
+    di = af.bwd_delta(out, do)
+    dq = af.flash_attention_bwd_dq(q, k, v, do, lse, di, causal=causal)
+    wrong = af.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal=not causal)
+    assert (dq - wrong).abs().max().item() > BWD_ATOL
+
+
+@pytest.mark.parametrize("what", ["forward", "dX", "dTable"])
+def test_gemm_refined_train_unembed_at_51865(dev, record_property, what):
+    """whisper's train unembed at refine_ab on the wgmma mainloop (448 rows,
+    d 1024, vocab 51865 = 64 * 810 + 25: f32 rows of 207460 bytes): the
+    forward (bf16 x NT table), dX (the logits' gradient against the table,
+    K = 51865) and dTable (x^T against the logits' gradient, N = 51865)."""
+    rng = np.random.default_rng(len(what))
+    m, d, n = 448, 1024, 51865
+    table = _u(rng, (n, d), dev, scale=d ** -0.5)
+    x = _u(rng, (m, d), dev, torch.bfloat16)
+    g_log = _u(rng, (m, n), dev, scale=n ** -0.5)
+    a, b = {"forward": (x, table.t()), "dX": (g_log, table), "dTable": (x.t(), g_log)}[what]
+    before = dict(gr.LAUNCHES_BY_LOOP)
+    with _within(120, "gemm_refined"):
+        out = gr.gemm_refined(a, b, policy="refine_ab")
+        torch.cuda.synchronize()
+    assert gr.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 1}
+    ref = gr.gemm_refined_plain(a, b, "refine_ab")
+    _hold(record_property, "out", out, ref, GEMM_ATOL)
+    if what != "dX":
+        _hold(record_property, "tail", out[:, -25:], ref[:, -25:], GEMM_ATOL)
+
+
+def test_loss_scale_and_dual_half_on_the_card_equal_the_cpu(dev):
+    """Loss scaling over a pattern of finite and non-finite steps, and a
+    walk of 20 dual-half updates, bit-equal on the card and the CPU."""
+    from repro_torch.optim import dual_half, loss_scale
+    states = {d: loss_scale.init(initial=2.0 ** 10, growth_interval=2, device=d)
+              for d in ("cpu", dev)}
+    rng = np.random.default_rng(0)
+    g = rng.standard_normal((5, 7)).astype(np.float32) * 100
+    for flag in [1, 1, 1, 0, 1, 0, 0, 1, 1, 1]:
+        gg_ = g if flag else np.full_like(g, np.inf)
+        outs = {}
+        for d, st in states.items():
+            un, fin = loss_scale.unscale_and_check(st, {"g": torch.from_numpy(gg_).to(d)})
+            states[d] = loss_scale.update(st, fin)
+            outs[d] = (un["g"].cpu(), bool(fin))
+        assert torch.equal(outs["cpu"][0], outs[dev][0]) and outs["cpu"][1] == outs[dev][1]
+        assert float(states["cpu"].scale) == float(states[dev].scale)
+        assert int(states["cpu"].good_steps) == int(states[dev].good_steps)
+    w = torch.from_numpy(rng.uniform(-1, 1, (64, 33)).astype(np.float32))
+    duals = {d: dual_half.to_dual({"w": w.to(d)}) for d in ("cpu", dev)}
+    for _ in range(20):
+        u = torch.from_numpy((rng.standard_normal((64, 33)) * 1e-3).astype(np.float32))
+        duals = {d: dual_half.apply_update(x, {"w": u.to(d)}) for d, x in duals.items()}
+        for half in ("hi", "lo"):
+            assert torch.equal(getattr(duals["cpu"], half)["w"],
+                               getattr(duals[dev], half)["w"].cpu())
+
+
+def test_error_report_on_the_card_equals_the_cpus(dev):
+    """core/error.py on card tensors (the f64 product formed and the
+    metrics taken on the card) against the same report on the host: the
+    max-norm of the same two arrays is the same number, and the report's
+    errors against the f64 product agree to its rounding."""
+    from repro_torch.core import error as err
+    from repro_torch.core.ops import gemm
+    a, b = err.random_operands(512, seed=1, device="cpu")
+    results = {p: gemm(a, b, policy=p, backend="torch") for p in ("bf16", "refine_ab")}
+    host = err.error_report(a, b, results)
+    card = err.error_report(a.to(dev), b.to(dev), {k: v.to(dev) for k, v in results.items()})
+    for p in results:
+        for key in ("max_vs_f64", "rel_fro_vs_f64"):
+            assert card[p][key] == pytest.approx(host[p][key], rel=1e-9), (p, key)
+    c, ref = results["bf16"], a.double() @ b.double()
+    assert err.max_norm_error(c.to(dev), ref.to(dev)) == err.max_norm_error(c, ref)
+
+
+# ---- the wgmma mainloops' accumulation over a long K.  Operands whose
+# products the tensor cores form exactly (bf16 values; for refine_ab f32
+# values that are exactly bf16 hi + lo), so the only error left is the
+# sum's.  The tensor cores' own f32 accumulation loses precision with the K
+# it spans: a whole-K accumulator read 8-30x SGEMM's max error here on an
+# H100 80GB HBM3 (tools/probe_accumulation.py), so each mainloop adds its
+# accumulator into an f32 total every 256 of K (16 wgmma).  Held, as Fig. 8
+# holds a rung against the torch route: the max error against the f64
+# product within 2x the plain version's (SGEMM, TF32 off, on the same
+# exact bf16 parts).  M = N = 2048 for the refined case: 256 output tiles,
+# so the host does not split K (a split sum would promote by itself).
+
+PROMOTION_CASES = [   # (kernel, m, k, A as f32 or bf16)
+    ("gemm_tiled", 512, 16384, torch.bfloat16),
+    ("gemm_refined", 2048, 16384, torch.bfloat16),
+    ("gemm_refined", 2048, 16384, torch.float32),
+]
+
+
+@pytest.mark.parametrize("kernel,m,k,a_dtype", PROMOTION_CASES)
+def test_wgmma_mainloops_promote_their_accumulator(dev, record_property, kernel, m, k, a_dtype):
+    gen = torch.Generator(device=dev).manual_seed(k + m)
+
+    def exact(shape, dtype):
+        x = (2 * torch.rand(shape, generator=gen, device=dev) - 1).to(torch.bfloat16)
+        if kernel == "gemm_tiled" or dtype == torch.bfloat16:
+            return x if dtype == torch.bfloat16 else x.float()
+        # lo under half an ulp of hi: split2 gives back exactly hi and lo
+        u = 0.99 * (2 * torch.rand(shape, generator=gen, device=dev) - 1)
+        return x.float() + (x.float() * u * 2.0 ** -9).to(torch.bfloat16).float()
+
+    a = exact((m, k), a_dtype)
+    b = exact((k, m), torch.bfloat16 if kernel == "gemm_tiled" else torch.float32)
+    if kernel == "gemm_refined":
+        assert gt.sm90_splits(1, m, m, k, gt.sm_count(dev.index or 0)) == 1
+    mod = gt if kernel == "gemm_tiled" else gr
+    before = dict(mod.LAUNCHES_BY_LOOP)
+    with _within(120, kernel):
+        out = (gt.gemm_tiled(a, b) if kernel == "gemm_tiled"
+               else gr.gemm_refined(a, b, policy="refine_ab"))
+        torch.cuda.synchronize()
+    assert mod.LAUNCHES_BY_LOOP == {**before, "sm90": before["sm90"] + 1}
+    plain = (gt.gemm_tiled_plain(a, b) if kernel == "gemm_tiled"
+             else gr.gemm_refined_plain(a, b, "refine_ab"))
+    ref = a.double() @ b.double()
+    err = (out.double() - ref).abs().max().item()
+    plain_err = (plain.double() - ref).abs().max().item()
+    record_property("err", err)
+    record_property("plain_err", plain_err)
+    assert err <= 2 * plain_err, (err, plain_err)

@@ -297,15 +297,29 @@ def test_paged_engine_matches_repros_paged_engine(jparams, repro_tokens):
 
 
 def test_prefill_needs_frames_and_training_is_refused(jparams):
+    """Prefill, and training on a batch, without frames are refused."""
     _, tcfg = _cfgs("float32")
     tparams = _port_params(jparams, tcfg)
     toks = torch.ones((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="frames"):
         encdec.forward(tparams, toks, None, tcfg, policy=execution_policy_for(tcfg),
                        mode="prefill")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="frames"):
         api.loss_fn(tparams, {"tokens": toks, "labels": toks}, tcfg,
                     policy=execution_policy_for(tcfg))
+
+
+def test_loss_fn_is_lm_loss_on_the_forward_with_frames(jparams):
+    """With frames in the batch, ``api.loss_fn`` is the decoder's cross
+    entropy on the forward's logits."""
+    _, tcfg = _cfgs("float32")
+    tparams = _port_params(jparams, tcfg)
+    toks = torch.ones((1, 4), dtype=torch.long)
+    frames = torch.from_numpy(_frames(tcfg, 1))
+    total, metrics = api.loss_fn(tparams, {"tokens": toks, "labels": toks, "frames": frames},
+                                 tcfg, policy=execution_policy_for(tcfg))
+    logits, _, _ = encdec.forward(tparams, toks, frames, tcfg, policy=execution_policy_for(tcfg))
+    assert float(total) == float(metrics["loss"]) == float(T.lm_loss(logits, toks))
 
 
 def test_serve_cli_runs_whisper_on_the_cpu():

@@ -28,9 +28,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import execution_policy_for, layer_kinds
 from repro_torch.convert import from_jax_numpy
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.launch.serve import Request, ServeEngine
-from repro_torch.models import api
 from repro_torch.models.rwkv import RWKVState
 from repro_torch.runtime import serve_step
 
@@ -204,20 +202,6 @@ def test_serve_cli_runs_rwkv_on_the_cpu():
     text = out.getvalue()
     assert "arch=rwkv6-smoke layers=2 device=cpu" in text
     assert "served 3 requests" in text
-
-
-def test_audio_and_vlm_training_is_still_refused():
-    """What the port does not run yet: training whisper's audio family and
-    internvl2's vlm family (the port serves both).  ``api.loss_fn`` and the
-    train CLI refuse each arch, smoke and full config alike, before any
-    step runs."""
-    for arch in ("whisper-medium", "internvl2-76b"):
-        for cfg in (get_config(arch), get_smoke(arch)):
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                api.loss_fn({}, {}, cfg, policy=execution_policy_for(cfg))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
-                         "--batch", "1", "--seq", "8"])
 
 
 def test_paged_rwkv_serves_as_the_dense_engine(jparams):

@@ -239,8 +239,8 @@ def test_validate_refuses_a_prompt_beside_the_image_rows(jparams):
 
 
 def test_vlm_loss_matches_repro_and_training_is_refused(jparams):
-    """The text-only cross entropy on the same logits and labels; the
-    family's training itself is refused."""
+    """The text-only cross entropy on the same logits and labels; training
+    on a batch without image rows is refused."""
     _, tcfg = _cfgs("float32")
     rng = np.random.default_rng(2)
     logits = rng.standard_normal((2, 8 + 5, tcfg.vocab_size)).astype(np.float32)
@@ -250,10 +250,26 @@ def test_vlm_loss_matches_repro_and_training_is_refused(jparams):
     assert abs(ours - theirs) <= 1e-5
     tparams = _port_params(jparams, tcfg)
     toks = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        api.loss_fn(tparams, {"tokens": toks, "labels": toks,
-                              "image_embeds": torch.zeros((1, 8, tcfg.d_model))}, tcfg,
+    with pytest.raises(ValueError, match="image rows"):
+        api.loss_fn(tparams, {"tokens": toks, "labels": toks}, tcfg,
                     policy=execution_policy_for(tcfg))
+
+
+def test_loss_fn_is_vlm_loss_on_the_forward_with_image_rows(jparams):
+    """With image rows in the batch, ``api.loss_fn`` is the text-only cross
+    entropy on the forward's logits."""
+    _, tcfg = _cfgs("float32")
+    rng = np.random.default_rng(2)
+    tparams = _port_params(jparams, tcfg)
+    toks = torch.ones((1, 4), dtype=torch.long)
+    img = torch.from_numpy(rng.standard_normal((1, tcfg.num_image_tokens, tcfg.d_model))
+                           .astype(np.float32))
+    total, metrics = api.loss_fn(tparams, {"tokens": toks, "labels": toks, "image_embeds": img},
+                                 tcfg, policy=execution_policy_for(tcfg))
+    logits, _, _ = vlm.forward(tparams, toks, img, tcfg, policy=execution_policy_for(tcfg))
+    assert logits.shape[1] == tcfg.num_image_tokens + 4
+    assert float(total) == float(metrics["loss"]) == float(
+        vlm.vlm_loss(logits, toks, tcfg.num_image_tokens))
 
 
 def test_serve_cli_runs_internvl2_on_the_cpu():
