@@ -81,7 +81,7 @@ Phases, each printing one JSON line:
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
 Phases 10 and 11 run right after 6, while gemma3's params are loaded;
-12 runs after 9, once Mixtral is freed, and 13 to 21 after 12, each once
+12 runs after 9, once Mixtral is freed, and 13 to 22 after 12, each once
 the model before it is freed.
 
 10. serve_naive — gemma3-1b again (full width and depth, the serve
@@ -204,7 +204,32 @@ the model before it is freed.
    ``tests/test_precision.py``, each ``cuda`` rung within twice the
    ``torch`` route's error, and the rung each refined rung refines (one
    refinement dropped) above that bound.
-22. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+22. serve_stack — the serve stack (``repro_torch.serve``) over gemma3-1b
+   at full width and depth, fresh params from phase 4's seed, phase 4's
+   policy, 4 slots a replica, 1024-token context: (a) phase 4's 8
+   requests through ``ReplicaPool`` at 1 and at 2 replicas sharing one
+   params tree, every request's tokens equal to phase 4's, every page
+   handed back, and one profiled pool step with both replicas' slots busy;
+   (b) ``run_sweep`` at 2 replicas, ``max_queue`` 8, 16
+   open-loop Poisson requests (lognormal prompts, median 256, up to 900;
+   outputs median 32, up to 96) at 0.1, 0.2 and 0.4 requests a tick (p50 /
+   p99 TTFT and end-to-end latency in ticks, goodput in tokens a tick,
+   rejection rate, wall tok/s and seconds, peak memory), the 0.4 point
+   queueing or rejecting, and 0.4 again under the autoscaler (1 to 3
+   replicas, starting at 1), which must scale; (c) the fault plan ``7:crash@6,hang@14x4``
+   at 0.2 on 8-row bf16 pages, every completed stream token-exact against
+   a single-slot reference engine (a rehomed stream resumes by replaying
+   its held tokens through decode steps), a recovery, no page outstanding,
+   and a
+   re-admission with a forged last token raising ``RecoveryMismatch`` and
+   freeing its pages; (d) the HTTP gateway on 127.0.0.1: 4 of phase 4's
+   prompts streamed at once (tokens equal to the pool's in (a)), a submit
+   past the in-flight watermark answered 429 with Retry-After,
+   ``/metrics``' ``serve_tokens`` total equal to the tokens streamed, a
+   client that leaves mid-stream freeing its slot, ``/healthz`` ok.  The
+   tiled and refined GEMMs, the flash forward, the decode and the paged
+   decode must all launch.
+23. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -292,6 +317,7 @@ this file, nothing is measured and the script exits 1.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import gc
@@ -515,6 +541,20 @@ PRECISION_RUNGS = ("bf16", "refine_a", "bf16x3", "refine_ab", "bf16x6", "f32", "
 PRECISION_ROUTE_FACTOR = 2.0
 PRECISION_CONTROLS = {"bf16x3": "refine_a", "refine_ab": "refine_a", "bf16x6": "bf16x3",
                       "fp8x3": "fp8", "int8x3": "int8"}
+# phase 22 (serve_stack): gemma3-1b behind the port's replica pool, at
+# phase 4's slots (4 a replica) and context.  The sweep's workload (ids
+# within the vocabulary, lengths lognormal, Poisson arrivals per tick), its
+# rates (8 slots at ~32 tokens a request sustain ~0.25 a tick, so the last
+# point must queue or reject), the fault plan of the chaos point (8-row bf16
+# pages) and the gateway's streams.
+STACK_SPEC = dict(n_requests=16, prompt_median=256, prompt_sigma=0.8, max_prompt=900,
+                  out_median=32, out_sigma=0.5, max_out=96, seed=0)
+STACK_RATES = (0.1, 0.2, 0.4)
+STACK_MAX_QUEUE = 8
+STACK_CHAOS = "7:crash@6,hang@14x4"
+STACK_CHAOS_RATE = 0.2
+STACK_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_decode",
+                 "flash_paged_decode")
 # kernel -> (source under src/repro_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
     "gemm_tiled": ("gemm_tiled.cu", "src/repro/kernels/gemm_tiled.py:31"),
@@ -648,6 +688,35 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[f
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+async def http_open(port: int, method: str, path: str, body=None):
+    """A loopback HTTP/1.1 request to the gateway; returns (reader, writer)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode() if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(data)}"
+                 f"\r\n\r\n".encode() + data)
+    await writer.drain()
+    return reader, writer
+
+
+async def http_call(port: int, method: str, path: str, body=None) -> str:
+    """The whole response (the gateway closes every connection)."""
+    reader, writer = await http_open(port, method, path, body)
+    try:
+        return (await asyncio.wait_for(reader.read(-1), timeout=300)).decode()
+    finally:
+        writer.close()
+
+
+async def next_line(reader) -> dict:
+    """The next ndjson object of a chunked token stream."""
+    while True:
+        line = await asyncio.wait_for(reader.readline(), timeout=300)
+        if not line:
+            raise EOFError("the gateway closed the stream")
+        if line.startswith(b"{"):
+            return json.loads(line)
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -690,6 +759,13 @@ def main() -> None:
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.runtime import serve_step
     from repro_torch.runtime.device import resolve_device
+    from repro_torch.launch.serve import RecoveryMismatch
+    from repro_torch.serve import loadgen
+    from repro_torch.serve.autoscale import Autoscaler, AutoscalePolicy
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.gateway import Gateway
+    from repro_torch.serve.metrics import MetricsRegistry
+    from repro_torch.serve.pool import ReplicaPool
 
     mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
             "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES},
@@ -3759,7 +3835,213 @@ def main() -> None:
     if prec_faults:
         fail("precision: " + "; ".join(prec_faults))
 
-    # ----------------------------------------------------------- 22 kernels
+    # ---------------------------------------------------------- 22 serve_stack
+    # The serve stack (repro_torch.serve) over gemma3-1b at full size, fresh
+    # params from phase 4's seed, phase 4's policy, 4 slots a replica and a
+    # 1024-token context: (a) phase 4's requests through the replica pool at
+    # 1 and 2 replicas (one params tree); (b) open-loop Poisson sweeps at 2
+    # replicas, and the last rate again under the autoscaler; (c) the chaos
+    # point on 8-row bf16 pages, every completed stream against a single-slot
+    # reference engine, and the RecoveryMismatch control; (d) the HTTP
+    # gateway over loopback.
+    t_stack = time.monotonic()
+    stack_faults: list[str] = []
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    zero_launches(mods)
+
+    def phase4_requests(n=None, max_new=32):
+        return [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=max_new) for r in reqs[:n]]
+
+    # (a) replica-count invariance
+    invariance = {}
+    pool_tokens = {}
+    for n_rep in (1, 2):
+        pool_a = ReplicaPool(cfg, params, replicas=n_rep, batch_size=4, max_ctx=1024,
+                             policy=policy)
+        ra = phase4_requests()
+        st = pool_a.run(ra)
+        pool_tokens[n_rep] = [r.out_tokens for r in ra]
+        invariance[n_rep] = {
+            "wall_s": st["wall_s"], "tok_per_s": st["tok_per_s"], "tokens": st["tokens"],
+            "tokens_by_replica": [rep.engine.tokens_generated for rep in pool_a.replicas],
+            "shared_params": all(rep.engine.params is params for rep in pool_a.replicas),
+            "pages_outstanding": pool_a.pages_outstanding(),
+            "tokens_equal_phase4": pool_tokens[n_rep] == [r.out_tokens for r in reqs]}
+        if not invariance[n_rep]["tokens_equal_phase4"]:
+            stack_faults.append(f"(a) {n_rep} replica(s): tokens differ from phase 4's: "
+                                f"{[(r.rid, r.out_tokens[:4]) for r in ra]}")
+        if invariance[n_rep]["pages_outstanding"] or not invariance[n_rep]["shared_params"] \
+                or not all(invariance[n_rep]["tokens_by_replica"]):
+            stack_faults.append(f"(a) {n_rep} replica(s): {invariance[n_rep]}")
+        del pool_a
+    # one pool step with both replicas' 4 slots busy (after the step that
+    # admits them): host wall time against the kernels' (idle share)
+    pool_p = ReplicaPool(cfg, params, replicas=2, batch_size=4, max_ctx=1024, policy=policy)
+    for r in phase4_requests(max_new=16):
+        pool_p.submit(r)
+    pool_p.step()
+    pool_step_profile = profile_window(pool_p.step)
+    pool_p.run([])
+    del pool_p
+    torch.cuda.empty_cache()
+
+    # (b) the load sweep, then its last rate under the autoscaler, which
+    # starts at its least replica count
+    spec = loadgen.LoadSpec(**STACK_SPEC)
+    sweep = loadgen.run_sweep(cfg, params, rates=STACK_RATES, spec=spec, replicas=2,
+                              batch_size=4, max_ctx=1024, policy=policy,
+                              max_queue=STACK_MAX_QUEUE)
+    scaled = loadgen.run_sweep(cfg, params, rates=STACK_RATES[-1:], spec=spec, replicas=1,
+                               batch_size=4, max_ctx=1024, policy=policy,
+                               max_queue=STACK_MAX_QUEUE,
+                               autoscale=AutoscalePolicy(min_replicas=1, max_replicas=3))
+    points = sweep["points"]
+    top = points[-1]
+    if len(points) != len(STACK_RATES) or any(p["completed"] + p["rejected"] != spec.n_requests
+                                              for p in points):
+        stack_faults.append(f"(b) the sweep lost requests: {points}")
+    if not (top["rejected"] or top["p99_ttft_ticks"] > 1):
+        stack_faults.append(f"(b) rate {top['arrival_rate']} neither queued nor rejected: {top}")
+    if scaled["points"][0]["scale_events"] < 1:
+        stack_faults.append(f"(b) the autoscaled point never scaled: {scaled['points'][0]}")
+    torch.cuda.empty_cache()
+
+    # (c) chaos on 8-row bf16 pages: the pool under the fault plan, the
+    # autoscaler repairing, each completed stream against one single-slot
+    # reference engine (memoized per prompt and budget)
+    plan = FaultPlan.parse(STACK_CHAOS)
+
+    def paged_engine(idx, pol, batch=4):
+        e = ServeEngine(cfg, batch_size=batch, max_ctx=1024, policy=pol, eos_id=-1,
+                        max_queue=STACK_MAX_QUEUE, replica=str(idx), device=dev,
+                        kv_layout="paged", kv_page_size=8)
+        e.load(params)
+        return e
+
+    pool_c = ReplicaPool(cfg, params, replicas=2, batch_size=4, max_ctx=1024,
+                         policy=paged_policy, max_queue=STACK_MAX_QUEUE, eos_id=-1,
+                         engine_factory=plan.wrap_factory(paged_engine, n_replicas=2))
+    ref_eng = paged_engine("ref", paged_policy, batch=1)
+    ref_tokens: dict = {}
+
+    def reference(prompt, max_new):
+        key = (bytes(np.asarray(prompt, np.int32)), max_new)
+        if key not in ref_tokens:
+            rq = Request(rid=0, prompt=prompt, max_new_tokens=max_new)
+            ref_eng.run([rq])
+            ref_tokens[key] = list(rq.out_tokens)
+        return ref_tokens[key]
+
+    work = loadgen.sample_workload(spec, STACK_CHAOS_RATE, vocab)
+    torch.cuda.reset_peak_memory_stats(dev)
+    chaos_point = loadgen.run_point(
+        pool_c, spec, STACK_CHAOS_RATE, vocab=vocab, chaos=plan, reference=reference, work=work,
+        autoscaler=Autoscaler(pool_c, AutoscalePolicy(min_replicas=2, max_replicas=2)))
+    chaos_point["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    completed = [r for _, r in work if r.done and not (r.expired or r.cancelled)]
+    chaos_point["completed_token_exact"] = all(
+        r.out_tokens == reference(r.prompt, r.max_new_tokens) for r in completed)
+    chaos_point["fired"] = [getattr(rep.engine, "fired", None) for rep in pool_c.replicas]
+    if not (chaos_point["completed_token_exact"] and chaos_point["recovered_token_exact"]
+            and chaos_point["requests_recovered"] >= 1 and chaos_point["leaked_pages"] == 0
+            and chaos_point["replica_deaths"] >= 1 and len(completed) == spec.n_requests
+            - chaos_point["rejected"]):
+        stack_faults.append(f"(c) chaos: {chaos_point}")
+    # control: a recovery re-admission whose last emitted token was changed
+    # must raise RecoveryMismatch and hand back the pages it reserved
+    victim = completed[0]
+    forged = Request(rid=-2, prompt=victim.prompt, max_new_tokens=victim.max_new_tokens,
+                     out_tokens=list(victim.out_tokens[:5]))
+    forged.out_tokens[-1] = (forged.out_tokens[-1] + 1) % vocab
+    try:
+        ref_eng.admit(forged)
+        mismatch = None
+    except RecoveryMismatch as e:
+        mismatch = {"rid": e.rid, "index": e.index, "expected": e.expected, "got": e.got}
+    control = {"raised": mismatch, "pages_outstanding_after": ref_eng.pages_outstanding(),
+               "slot_free": ref_eng.slot_req == [None]}
+    if mismatch is None or control["pages_outstanding_after"] or not control["slot_free"]:
+        stack_faults.append(f"(c) the RecoveryMismatch control did not fire cleanly: {control}")
+    del pool_c, ref_eng
+    torch.cuda.empty_cache()
+
+    # (d) the gateway over loopback: 4 of phase 4's prompts streamed at once
+    # (tokens equal to pool.run's in (a)), a submit past the in-flight
+    # watermark (429 + Retry-After), /metrics, then a client that leaves
+    # mid-stream (its slot freed) and /healthz
+    reg = MetricsRegistry()
+    pool_d = ReplicaPool(cfg, params, replicas=2, batch_size=4, max_ctx=1024, policy=policy,
+                         max_queue=STACK_MAX_QUEUE, metrics=reg)
+
+    async def gateway_run():
+        gw = Gateway(pool_d, host="127.0.0.1", port=0, metrics=reg, max_inflight=4)
+        await gw.start()
+        try:
+            opened = [await http_open(gw.port, "POST", "/v1/generate",
+                                      {"prompt": r.prompt.tolist(), "max_new_tokens": 32})
+                      for r in reqs[:4]]
+            firsts = [await next_line(rd) for rd, _ in opened]
+            over = await http_call(gw.port, "POST", "/v1/generate",
+                                   {"prompt": reqs[4].prompt.tolist(), "max_new_tokens": 4})
+            streams = []
+            for (rd, wr), first in zip(opened, firsts):
+                lines = [first]
+                while "done" not in lines[-1]:
+                    lines.append(await next_line(rd))
+                wr.close()
+                streams.append(lines)
+            metrics_text = await http_call(gw.port, "GET", "/metrics")
+            rd, wr = await http_open(gw.port, "POST", "/v1/generate",
+                                     {"prompt": reqs[5].prompt.tolist(), "max_new_tokens": 96})
+            await next_line(rd)
+            await next_line(rd)
+            wr.close()
+            for _ in range(3000):
+                if pool_d.idle and not gw._inflight:
+                    break
+                await asyncio.sleep(0.01)
+            health = await http_call(gw.port, "GET", "/healthz")
+            return streams, over, metrics_text, health
+        finally:
+            await gw.stop()
+
+    streams, over, metrics_text, health = asyncio.run(asyncio.wait_for(gateway_run(), 600))
+    streamed = [[ln["token"] for ln in lines[:-1]] for lines in streams]
+    served = sum(float(ln.split()[-1]) for ln in metrics_text.splitlines()
+                 if ln.startswith("serve_tokens_total{"))
+    health_obj = json.loads(health.split("\r\n\r\n", 1)[1])
+    cancelled = reg.counter("serve_requests_cancelled")
+    gateway = {
+        "streams_equal_pool_run": streamed == pool_tokens[2][:4],
+        "streamed_tokens": sum(map(len, streamed)),
+        "metrics_serve_tokens": served,
+        "over_watermark_status": int(over.split(" ", 2)[1]),
+        "retry_after": "Retry-After: " in over,
+        "disconnect_cancelled": sum(cancelled.value(replica=str(i)) for i in range(2)),
+        "gateway_disconnects": reg.counter("gateway_disconnects").value(),
+        "slots_free": all(r is None for rep in pool_d.replicas for r in rep.engine.slot_req),
+        "healthz": health_obj}
+    if not (gateway["streams_equal_pool_run"] and served == gateway["streamed_tokens"]
+            and gateway["over_watermark_status"] == 429 and gateway["retry_after"]
+            and gateway["disconnect_cancelled"] == 1 and gateway["gateway_disconnects"] == 1
+            and gateway["slots_free"] and health_obj.get("ok") is True):
+        stack_faults.append(f"(d) gateway: {gateway}")
+    del pool_d, params
+    torch.cuda.empty_cache()
+
+    launches_ss = read_launches(mods)
+    if not all(launches_ss[n] > 0 for n in STACK_KERNELS):
+        stack_faults.append(f"a kernel of the path never launched: {launches_ss}")
+    emit(phase="serve_stack", arch=cfg.name, slots_per_replica=4, max_ctx=1024,
+         invariance=invariance, pool_step_profile=pool_step_profile,
+         sweep_spec=STACK_SPEC, max_queue=STACK_MAX_QUEUE,
+         sweep=points, autoscaled=scaled["points"][0], chaos=chaos_point,
+         recovery_mismatch_control=control, gateway=gateway, launches=launches_ss,
+         phase_s=time.monotonic() - t_stack)
+    if stack_faults:
+        fail("serve_stack: " + "; ".join(stack_faults))
+
+    # ----------------------------------------------------------- 23 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
@@ -3771,7 +4053,8 @@ def main() -> None:
                "serve_whisper_paged": launches_wp, "serve_internvl2": launches_i,
                "serve_internvl2_paged": launches_ip, "train_rwkv": launches_trw,
                "train_zamba2": launches_tz, "train_whisper": launches_tw,
-               "train_internvl2": launches_ti, "precision": launches_pr}
+               "train_internvl2": launches_ti, "precision": launches_pr,
+               "serve_stack": launches_ss}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above

@@ -12,8 +12,10 @@
 
 A staggered batch produces token for token the same outputs as serving
 each request alone, and an unquantized paged engine the same outputs as
-the dense one.  Replicas, the gateway, meshes, metrics and the tile cache
-wait for their slices (their flags are absent).
+the dense one.  ``--replicas`` puts a replica pool in front of the engine
+and ``--gateway-port`` the HTTP gateway in front of the pool
+(``repro_torch.serve``); meshes and the tile cache wait for their slices
+(their flags are absent).
 
     python -m repro_torch.launch.serve --arch gemma3-1b \\
         --backend gemm=cuda --backend attention=cuda_fused \\
@@ -27,6 +29,8 @@ wait for their slices (their flags are absent).
         --backend attention=cuda_fused --max-ctx 1024 [--kv-layout paged]
     python -m repro_torch.launch.serve --arch internvl2-76b --backend gemm=cuda \\
         --backend attention=cuda_fused --max-ctx 1024 [--kv-layout paged]
+    python -m repro_torch.launch.serve --arch gemma3-1b --backend gemm=cuda \\
+        --backend attention=cuda_fused --replicas 2 [--gateway-port 8080]
 
 ``--arch`` takes every architecture: gemma3-1b, starcoder2-15b,
 command-r-35b and nemotron-4-340b (dense), mixtral-8x7b and dbrx-132b
@@ -101,13 +105,14 @@ class QueueFull(RuntimeError):
 
 
 class RecoveryMismatch(RuntimeError):
-    """Token-exact recovery failed: re-prefilling ``prompt +
-    out_tokens[:-1]`` predicted a different token than the one already
-    emitted, so recovery refuses to fork the stream."""
+    """Token-exact recovery failed: replaying the stream (the prompt's
+    prefill, then ``out_tokens[:-1]`` decoded one by one) predicted a
+    different token than the one already emitted at ``index``, so recovery
+    refuses to fork the stream."""
 
     def __init__(self, rid: int, index: int, expected: int, got: int):
         super().__init__(
-            f"request {rid}: recovery re-prefill predicted token {got} "
+            f"request {rid}: recovery replay predicted token {got} "
             f"at output index {index} but the original stream emitted "
             f"{expected} — replicas are not bit-identical under this policy")
         self.rid = rid
@@ -121,12 +126,14 @@ class Request:
     rid: int
     prompt: np.ndarray           # (S,) int32
     max_new_tokens: int = 16
+    session: str | None = None   # pool-level affinity key (multi-turn)
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
     deadline_ticks: int | None = None   # in engine ticks (virtual time)
     ticks_used: int = 0
     cancelled: bool = False
     expired: bool = False
+    recoveries: int = 0          # rehomings after a replica death
     # monotonic-clock latency accounting, seconds
     t_submit: float | None = None
     t_admit: float | None = None
@@ -165,11 +172,17 @@ class ServeEngine:
     pool (``kv_page_size`` rows per page, ``kv_quant`` None or "int8",
     ``kv_pages`` pages per capacity class, default full capacity); the
     engine owns the per-class free lists and each slot's pages.
+
+    ``metrics`` is a duck-typed registry (``counter`` / ``gauge`` /
+    ``histogram``, e.g. ``repro_torch.serve.metrics.MetricsRegistry``)
+    fed ``repro``'s series labelled ``replica``; the hooks read only host
+    values the engine already holds, so they add no device read.
     """
 
     def __init__(self, cfg, *, batch_size: int, max_ctx: int,
                  policy: PrecisionPolicy | None = None, eos_id: int = 1,
-                 max_queue: int | None = None, device: str | torch.device = "cuda",
+                 max_queue: int | None = None, metrics=None, replica: str = "0",
+                 device: str | torch.device = "cuda",
                  kv_layout: str = "dense", kv_page_size: int = 8,
                  kv_quant: str | None = None, kv_pages: int | None = None):
         if kv_layout not in ("dense", "paged"):
@@ -190,10 +203,13 @@ class ServeEngine:
         self.policy = policy or PrecisionPolicy.uniform("bf16")
         self.eos_id = eos_id
         self.max_queue = max_queue
+        self.metrics = metrics
+        self.replica = replica
         self.params = None
         self._tick = serve_step.make_engine_tick(cfg, self.policy, eos_id=eos_id,
                                                  max_ctx=max_ctx)
         self._prefill = serve_step.make_prefill(cfg, self.policy, s_ctx=max_ctx)
+        self._decode = serve_step.make_decode(cfg, self.policy)
         self.cache = None
         self.slot_req: list[Request | None] = [None] * batch_size
         z = dict(dtype=torch.int32, device=self.device)
@@ -239,7 +255,7 @@ class ServeEngine:
         return api.context_len(self.cfg, 0)
 
     def _validate(self, req: Request) -> None:
-        # a recovered request re-prefills prompt + out_tokens[:-1]
+        # a recovered request replays out_tokens[:-1] after its prompt
         plen = len(req.prompt) + max(0, len(req.out_tokens) - 1)
         n_img = self._n_img
         if n_img + plen >= self.max_ctx:
@@ -332,16 +348,43 @@ class ServeEngine:
         engine reports 0)."""
         return sum(a.num_pages - 1 - a.available for a in self._allocators.values())
 
+    # -------------------------------------------------------- metrics
+
+    def _m_queue_depth(self) -> None:
+        if self.metrics is not None:
+            self.metrics.gauge(
+                "serve_queue_depth", "requests awaiting a free slot").set(
+                    len(self.queue), replica=self.replica)
+
+    def _m_occupancy(self) -> None:
+        if self.metrics is not None:
+            occupied = sum(r is not None for r in self.slot_req)
+            self.metrics.gauge(
+                "serve_slot_occupancy",
+                "fraction of decode slots holding a request").set(
+                    occupied / self.batch, replica=self.replica)
+
     def submit(self, req: Request) -> None:
         """Queue a request; ValueError for prompts that cannot fit,
         QueueFull at the ``max_queue`` watermark."""
         self._validate(req)
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            if self.metrics is not None:
+                self.metrics.counter(
+                    "serve_requests_rejected",
+                    "submissions refused at the queue watermark").inc(
+                        replica=self.replica)
             raise QueueFull(req.rid, len(self.queue), self.max_queue)
         if req.t_submit is None:
             req.t_submit = time.monotonic()
             req.wall_time = time.time()
         self.queue.append(req)
+        if self.metrics is not None:
+            self.metrics.counter(
+                "serve_requests_submitted",
+                "requests accepted into the admission queue").inc(
+                    replica=self.replica)
+            self._m_queue_depth()
 
     def admit(self, req: Request) -> bool:
         """Prefill ``req`` into a free slot; False if none is free.
@@ -349,9 +392,15 @@ class ServeEngine:
         The prompt's first sampled token counts against the budget and
         may itself be EOS (then the request completes without a slot).
         A request arriving with ``out_tokens`` is a RECOVERY
-        re-admission: the engine re-prefills ``prompt + out_tokens[:-1]``
-        and checks that the greedy next token equals the last emitted
-        one, raising ``RecoveryMismatch`` otherwise.
+        re-admission: the engine prefills the prompt, then replays
+        ``out_tokens[:-1]`` through the slot one decode step at a time
+        (``_replay``), checking that each greedy prediction equals the
+        token emitted there and raising ``RecoveryMismatch`` otherwise.
+        ``repro`` re-prefills ``prompt + out_tokens[:-1]`` in one call; at
+        bf16 activations that prefill's K/V round apart from the decode's
+        now and then, and the resumed stream can fork.  The replay writes
+        the K/V the stream's own decode wrote, wherever a row's decode does
+        not depend on its slot or on the other rows.
         """
         slot = self._free_slot()
         if slot is None:
@@ -369,22 +418,29 @@ class ServeEngine:
             if alloc_map is None:
                 return False
         resume = len(req.out_tokens) > 0
-        toks = (np.concatenate([np.asarray(req.prompt, np.int32),
-                                np.asarray(req.out_tokens[:-1], np.int32)])
-                if resume else np.asarray(req.prompt, np.int32))
+        toks = np.asarray(req.prompt, np.int32)
         logits, cache1 = self._prefill(self.params, self._prefill_batch(toks))
         first = int(torch.argmax(logits[0, -1]))
         if resume:
-            if first != req.out_tokens[-1]:
+            if first != req.out_tokens[0]:
                 if alloc_map is not None:
                     self._free_pages(alloc_map)
-                raise RecoveryMismatch(req.rid, len(req.out_tokens) - 1,
-                                       req.out_tokens[-1], first)
+                raise RecoveryMismatch(req.rid, 0, req.out_tokens[0], first)
         else:
             req.t_admit = time.monotonic()
             req.out_tokens.append(first)
             req.t_first = time.monotonic()
             self.tokens_generated += 1
+            if self.metrics is not None:
+                self.metrics.histogram(
+                    "serve_queue_wait_seconds", "submit-to-admission wait").observe(
+                        req.queue_s, replica=self.replica)
+                self.metrics.histogram(
+                    "serve_ttft_seconds", "submit-to-first-token latency").observe(
+                        req.ttft_s, replica=self.replica)
+                # the prefill's token is generated here, before the slot ticks
+                self.metrics.counter("serve_tokens", "decoded tokens").inc(
+                    1, replica=self.replica)
         if (req.out_tokens[-1] == self.eos_id
                 or len(req.out_tokens) >= req.max_new_tokens):
             req.done = True
@@ -403,13 +459,45 @@ class ServeEngine:
             if full is not None and not isinstance(full, paged_kv.PagedKVCache):
                 for dst, src in zip(full, one):
                     dst[slot] = src[0].to(dst.dtype)
+        if resume:
+            try:
+                self._replay(req, slot)
+            except RecoveryMismatch:
+                if alloc_map is not None:
+                    self._free_pages(alloc_map, slot=slot)
+                    self._slot_pages[slot] = None
+                raise
         self.slot_req[slot] = req
         self.last_tok[slot] = req.out_tokens[-1]
-        # the next input sits after the image rows and the prompt
-        self.pos[slot] = self._n_img + len(toks)
+        # the next input sits after the image rows, the prompt and the
+        # tokens already fed back
+        self.pos[slot] = self._n_img + len(toks) + len(req.out_tokens) - 1
         self.active[slot] = True
         self.remaining[slot] = req.max_new_tokens - len(req.out_tokens)
         return True
+
+    def _replay(self, req: Request, slot: int) -> None:
+        """Decode ``out_tokens[:-1]`` through ``slot`` one step at a time
+        after its prompt was spliced in, each prediction held to the token
+        emitted next.  Each step is a decode of the whole batch, as a tick
+        is, so the slot's row is computed as the stream's own ticks computed
+        it.  The other rows are left as they were: an attention row rewrites
+        the K/V of its pending token at its position, which its next tick
+        writes again, and recurrent state, which the decode returns anew,
+        is copied back for ``slot`` only."""
+        pos0 = self._n_img + len(req.prompt)
+        for i, tok in enumerate(req.out_tokens[:-1]):
+            toks, pos = self.last_tok.clone(), self.pos.clone()
+            toks[slot], pos[slot] = tok, pos0 + i
+            logits, new = self._decode(self.params, self.cache, toks[:, None], pos)
+            for full, got in zip(self.cache, new):
+                if full is not None and not isinstance(full, paged_kv.PagedKVCache):
+                    for dst, src in zip(full, got):
+                        if src is not dst:
+                            dst[slot] = src[slot]
+            got_tok = int(torch.argmax(logits[slot, -1]))
+            if got_tok != req.out_tokens[i + 1]:
+                raise RecoveryMismatch(req.rid, i + 1, req.out_tokens[i + 1], got_tok)
 
     # ------------------------------------------------------------- tick
 
@@ -419,7 +507,9 @@ class ServeEngine:
         active_before = self.active.cpu().numpy()
         n_active = int(active_before.sum())
         if n_active == 0:
+            self._m_occupancy()
             return 0
+        t0 = time.monotonic()
         (self.cache, self.last_tok, self.pos, self.remaining, self.active,
          finished) = self._tick(self.params, self.cache, self.last_tok,
                                 self.pos, self.active, self.remaining)
@@ -438,6 +528,22 @@ class ServeEngine:
                     self._slot_pages[i] = None
         self.ticks += 1
         self.tokens_generated += n_active
+        if self.metrics is not None:
+            dt = now - t0
+            self.metrics.histogram(
+                "serve_tick_seconds", "one engine decode tick (all active slots)").observe(
+                    dt, replica=self.replica)
+            # one tick is one token per active slot: a slot's inter-token
+            # latency is the tick's duration
+            self.metrics.histogram(
+                "serve_inter_token_seconds", "per-slot inter-token latency").observe(
+                    dt, replica=self.replica)
+            self.metrics.counter("serve_tokens", "decoded tokens").inc(
+                n_active, replica=self.replica)
+            self.metrics.gauge(
+                "serve_tokens_per_s", "decode throughput over the last tick").set(
+                    n_active / max(dt, 1e-9), replica=self.replica)
+            self._m_occupancy()
         return n_active
 
     def step(self) -> int:
@@ -445,6 +551,7 @@ class ServeEngine:
         self._expire_due()
         while self.queue and self.admit(self.queue[0]):
             self.queue.popleft()
+        self._m_queue_depth()
         n = self.tick()
         for r in self.queue:
             r.ticks_used += 1
@@ -490,21 +597,35 @@ class ServeEngine:
                 self._finish(r, expired=True)
                 self._release_slot(i)
                 expired.append(r)
+        if expired and self.metrics is not None:
+            self.metrics.counter(
+                "serve_requests_expired",
+                "requests terminated at their tick deadline").inc(
+                    len(expired), replica=self.replica)
         return expired
 
     def cancel(self, rid: int) -> bool:
-        """Abort a request by id; False when unknown or already done."""
+        """Abort a request by id (client disconnect); False when unknown
+        or already done."""
         for i, r in enumerate(self.slot_req):
             if r is not None and r.rid == rid:
                 self._finish(r, cancelled=True)
                 self._release_slot(i)
-                return True
-        for r in self.queue:
-            if r.rid == rid:
-                self.queue.remove(r)
-                self._finish(r, cancelled=True)
-                return True
-        return False
+                break
+        else:
+            for r in self.queue:
+                if r.rid == rid:
+                    self.queue.remove(r)
+                    self._finish(r, cancelled=True)
+                    break
+            else:
+                return False
+        if self.metrics is not None:
+            self.metrics.counter(
+                "serve_requests_cancelled",
+                "requests aborted before completion (client disconnect)").inc(
+                    replica=self.replica)
+        return True
 
     def evacuate(self) -> list[Request]:
         """Strip every unfinished request off this engine (decoding slots
@@ -593,9 +714,20 @@ def main(argv=None) -> None:
                          "backpressure for memory)")
     ap.add_argument("--deadline-ticks", type=int, default=None,
                     help="per-request deadline in engine ticks")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind a least-loaded router with "
+                         "session affinity (repro_torch.serve.pool), sharing "
+                         "one params tree on the device; 1 = the single engine")
     ap.add_argument("--max-queue", type=int, default=None,
-                    help="admission-queue watermark; past it submissions "
-                         "raise QueueFull. Default: unbounded")
+                    help="per-replica admission-queue watermark; past it "
+                         "submissions raise QueueFull (the gateway answers "
+                         "429 + Retry-After). Default: unbounded")
+    ap.add_argument("--gateway-port", type=int, default=None,
+                    help="serve the asyncio HTTP/JSON gateway (token "
+                         "streaming, /metrics, /healthz, backpressure) on this "
+                         "port instead of running the synthetic batch")
+    ap.add_argument("--gateway-host", default="127.0.0.1",
+                    help="address the gateway binds (default: loopback only)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs; 'cuda' fails without a card")
     args = ap.parse_args(argv)
@@ -614,12 +746,9 @@ def main(argv=None) -> None:
           flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     params = api.init_params(cfg, gen, device)
-    eng = ServeEngine(cfg, batch_size=args.batch, max_ctx=args.max_ctx,
-                      policy=policy, max_queue=args.max_queue, device=device,
-                      kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
-                      kv_quant=None if args.kv_quant == "none" else args.kv_quant,
-                      kv_pages=args.kv_pages)
-    eng.load(params)
+    kv_kwargs = dict(kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
+                     kv_quant=None if args.kv_quant == "none" else args.kv_quant,
+                     kv_pages=args.kv_pages)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
                     prompt=rng.integers(2, cfg.vocab_size,
@@ -627,6 +756,49 @@ def main(argv=None) -> None:
                     max_new_tokens=args.max_new,
                     deadline_ticks=args.deadline_ticks)
             for i in range(args.requests)]
+
+    if args.replicas > 1 or args.gateway_port is not None:
+        # the serve stack: a replica pool, optionally behind the gateway
+        # (imported here: repro_torch.serve imports this module)
+        from repro_torch.serve.metrics import MetricsRegistry
+        from repro_torch.serve.pool import ReplicaPool
+        registry = MetricsRegistry()
+
+        def factory(idx, pol):
+            e = ServeEngine(cfg, batch_size=args.batch, max_ctx=args.max_ctx,
+                            policy=pol, max_queue=args.max_queue, metrics=registry,
+                            replica=str(idx), device=device, **kv_kwargs)
+            e.load(params)
+            return e
+
+        pool = ReplicaPool(cfg, params, replicas=args.replicas, batch_size=args.batch,
+                           max_ctx=args.max_ctx, policy=policy, max_queue=args.max_queue,
+                           metrics=registry, engine_factory=factory)
+        if args.gateway_port is not None:
+            import asyncio
+
+            from repro_torch.serve.gateway import Gateway
+            if device.type == "cuda":
+                # the pump thread launches every kernel: build them first
+                from repro_torch.kernels import _build
+                _build.build_all()
+            gw = Gateway(pool, host=args.gateway_host, port=args.gateway_port,
+                         metrics=registry)
+            print(f"gateway: listening on {args.gateway_host}:{args.gateway_port} "
+                  f"({args.replicas} replica(s), max_queue={args.max_queue})", flush=True)
+            asyncio.run(gw.serve_forever())
+            return
+        stats = pool.run(reqs)
+        print(f"pool served {stats['requests']} requests across {stats['replicas']} "
+              f"replicas ({stats['wall_s']:.2f}s, {stats['tok_per_s']:.1f} tok/s)")
+        for r in reqs[:3]:
+            print(f"  req {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens[:8]}...")
+        return
+
+    eng = ServeEngine(cfg, batch_size=args.batch, max_ctx=args.max_ctx,
+                      policy=policy, max_queue=args.max_queue, device=device,
+                      **kv_kwargs)
+    eng.load(params)
     stats = eng.run(reqs)
     print(f"served {stats['requests']} requests in {stats['ticks']} ticks "
           f"({stats['wall_s']:.2f}s, {stats['tok_per_s']:.1f} tok/s, "

@@ -2,9 +2,9 @@
 ``repro.runtime.monitor``).
 
 The monitor keeps a rolling window of per-step wall times, computes
-robust z-scores (median / MAD) and flags outliers.  There is no mesh
-yet, so ``run_header`` always reports a single device; the achieved
-FLOP/s readout and the metrics-registry hook wait for the serve stack.
+robust z-scores (median / MAD) and flags outliers, and accounts model
+FLOPs into achieved FLOP/s.  There is no mesh yet, so ``run_header``
+always reports a single device.
 """
 
 from __future__ import annotations
@@ -39,18 +39,32 @@ def _median(sorted_xs) -> float:
 
 @dataclasses.dataclass
 class StepStats:
+    mean_s: float
     median_s: float
+    mad_s: float
     last_s: float
     straggler: bool
+    achieved_tflops: float
 
 
 class StepMonitor:
-    """Rolling robust step-time stats."""
+    """Rolling robust step-time stats + optional metrics publishing.
 
-    def __init__(self, window: int = 50, z_threshold: float = 4.0):
+    ``metrics`` is duck-typed (``histogram`` / ``gauge`` / ``counter``
+    get-or-create methods, e.g. ``repro_torch.serve.metrics.MetricsRegistry``):
+    every observed step then also observes ``<name>_time_seconds``, sets
+    ``<name>_achieved_tflops`` (with ``model_flops_per_step``) and counts
+    ``<name>_straggler_flags``, as ``repro``'s monitor does.
+    """
+
+    def __init__(self, window: int = 50, z_threshold: float = 4.0,
+                 model_flops_per_step: float = 0.0, metrics=None, name: str = "step"):
         self.times: collections.deque = collections.deque(maxlen=window)
         self.z = z_threshold
+        self.flops = model_flops_per_step
         self._t0: float | None = None
+        self._metrics = metrics
+        self._name = name
 
     def start(self) -> None:
         self._t0 = time.perf_counter()
@@ -70,4 +84,15 @@ class StepMonitor:
         med = _median(ts)
         mad = _median(sorted(abs(t - med) for t in ts))
         straggler = n >= 10 and mad > 0 and (dt - med) / (1.4826 * mad) > self.z
-        return StepStats(median_s=med, last_s=dt, straggler=straggler)
+        stats = StepStats(mean_s=sum(ts) / n, median_s=med, mad_s=mad, last_s=dt,
+                          straggler=straggler,
+                          achieved_tflops=self.flops / dt / 1e12 if self.flops else 0.0)
+        if self._metrics is not None:
+            self._metrics.histogram(f"{self._name}_time_seconds", "per-step wall time").observe(dt)
+            if self.flops:
+                self._metrics.gauge(f"{self._name}_achieved_tflops",
+                                    "model FLOPs / step wall time").set(stats.achieved_tflops)
+            if straggler:
+                self._metrics.counter(f"{self._name}_straggler_flags",
+                                      "robust-z outlier steps").inc()
+        return stats

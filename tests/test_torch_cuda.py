@@ -1629,3 +1629,48 @@ def test_wgmma_mainloops_promote_their_accumulator(dev, record_property, kernel,
     record_property("err", err)
     record_property("plain_err", plain_err)
     assert err <= 2 * plain_err, (err, plain_err)
+
+
+def test_pool_at_two_replicas_equals_one_engine_on_the_kernel_routes(dev):
+    """The serve stack's replica pool on the card: two engines sharing one
+    params tree (smoke gemma3-1b, the serve policy on the kernel routes)
+    give every request the tokens one engine gives it, and hand back every
+    KV page."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import ops
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import api
+    from repro_torch.serve.pool import ReplicaPool
+
+    cfg = get_smoke("gemma3-1b")
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for layout in ("dense", "paged"):
+        policy = ops.ExecutionPolicy(
+            default="bf16", logits="refine_ab",
+            backends={"gemm": "cuda", "attention": "cuda_fused"},
+            require={"attention": ("decode", "paged_decode") if layout == "paged"
+                     else ("decode",)})
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(2, cfg.vocab_size, 4 + 5 * i).astype(np.int32)
+                   for i in range(6)]
+
+        def stream():
+            return [Request(rid=i, prompt=p, max_new_tokens=3 + i) for i, p in enumerate(prompts)]
+
+        def factory(idx, pol):
+            e = ServeEngine(cfg, batch_size=2, max_ctx=64, policy=pol, device=dev,
+                            replica=str(idx), kv_layout=layout)
+            e.load(params)
+            return e
+
+        one = stream()
+        factory(0, policy).run(one)
+        two = stream()
+        pool = ReplicaPool(cfg, params, replicas=2, batch_size=2, max_ctx=64, policy=policy,
+                           engine_factory=factory)
+        with _within(300, "gemm_tiled", "gemm_refined", "attention_fused", "attention_paged"):
+            pool.run(two)
+            torch.cuda.synchronize()
+        assert all(r.engine.tokens_generated > 0 for r in pool.replicas)
+        assert [r.out_tokens for r in two] == [r.out_tokens for r in one], layout
+        assert pool.pages_outstanding() == 0

@@ -65,3 +65,26 @@ def test_slice5_modules_are_checked():
     for module in ("kernels/gemm_naive.py", "kernels/batched_gemm.py", "kernels/wkv6.py",
                    "kernels/ref.py", "kernels/ops.py", "models/rwkv.py", "configs/rwkv6_7b.py"):
         assert module in names
+
+
+def test_serve_stack_modules_are_checked():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()
+             if "repro_torch" in p.parts}
+    for module in ("serve/__init__.py", "serve/metrics.py", "serve/health.py", "serve/faults.py",
+                   "serve/pool.py", "serve/autoscale.py", "serve/loadgen.py",
+                   "serve/gateway.py"):
+        assert module in names
+
+
+def test_serve_stack_package_is_lazy():
+    """Importing ``repro_torch.serve`` imports none of its modules; each
+    name of its table resolves to the port's class."""
+    import subprocess
+    import sys
+    code = ("import sys, repro_torch.serve as s; "
+            "assert not [m for m in sys.modules if m.startswith('repro_torch.serve.')], "
+            "sorted(sys.modules); "
+            "assert all(getattr(s, n).__module__.startswith('repro_torch.') for n in s.__all__); "
+            "assert s.ReplicaPool.__module__ == 'repro_torch.serve.pool'")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
