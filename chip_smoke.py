@@ -229,7 +229,20 @@ the model before it is freed.
    client that leaves mid-stream freeing its slot, ``/healthz`` ok.  The
    tiled and refined GEMMs, the flash forward, the decode and the paged
    decode must all launch.
-23. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+23. audit — the static auditor (``repro_torch.analysis``) on this card:
+   ``audit_all`` (every registered surface, traced by ``make_fx`` on fake
+   CUDA tensors, and the Python and CUDA source sweeps) and
+   ``audit_execution_policy`` for the policy of each serve and train
+   phase above (gemma3 serve, paged bf16 and int8 KV, the naive GEMM and
+   train, each with its refine_ab unembed; Mixtral serve and train,
+   rwkv6, zamba2).  No unsuppressed finding, every kernel counter and
+   ``torch.cuda.memory_allocated()`` unchanged by the phase, and each of
+   the 11 registry-reachable kernel entry points traced at least once
+   (the line counts the kernel sites each showed).  The line also times
+   one decode-shape ``gemm_tiled`` call's enqueue (tracing off: the
+   entry point's one flag test is all the trace hook costs it) and the
+   flag test alone.
+24. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -4041,7 +4054,80 @@ def main() -> None:
     if stack_faults:
         fail("serve_stack: " + "; ".join(stack_faults))
 
-    # ----------------------------------------------------------- 23 kernels
+    # ------------------------------------------------------------- 23 audit
+    from repro_torch import analysis
+    from repro_torch.kernels import _trace
+    audit_policies = {"serve": policy, "serve_paged_bf16": paged_policy,
+                      "serve_paged_int8_fp8x3": int8_policy, "serve_naive": naive_policy,
+                      "train": tpolicy, "serve_moe": mpolicy, "train_moe": mt_policy,
+                      "serve_rwkv": rpolicy, "serve_zamba2": zpolicy}
+    # earlier phases' garbage is collected first: a collection during the
+    # audit would free their tensors and move the reading
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    counts0, mem0 = read_launches(mods), torch.cuda.memory_allocated(dev)
+    t_audit = time.monotonic()
+    sites_seen: dict[str, int] = {}
+    traced_launch = _trace.launch
+
+    def counting_launch(site, *inputs):
+        sites_seen[site.kernel] = sites_seen.get(site.kernel, 0) + 1
+        return traced_launch(site, *inputs)
+
+    _trace.launch = counting_launch
+    try:
+        findings = analysis.audit_all(device="cuda")
+        for pol in audit_policies.values():
+            findings += analysis.audit_execution_policy(pol, device="cuda")
+    finally:
+        _trace.launch = traced_launch
+    audit_s = time.monotonic() - t_audit
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    verdict = analysis.apply_baseline(findings, analysis.load_baseline(None))
+    counts1, mem1 = read_launches(mods), torch.cuda.memory_allocated(dev)
+    registry_kernels = ("gemm_tiled", "gemm_refined", "gemm_lowp", "gemm_naive",
+                        "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                        "flash_decode", "flash_paged_decode", "grouped_gemm", "grouped_gemm_dw")
+    # the eager path's cost of the hook: one decode-shape gemm_tiled call's
+    # enqueue (gemma3's MLP in, 4 x 1152 against its f32 6912-wide weight),
+    # queued behind a device spin so the host never waits on the card, and
+    # the flag test alone
+    xa, wa = randn((4, 1152), dtype=torch.bfloat16), randn((1152, 6912), 0.03)
+    gt.gemm_tiled(xa, wa)
+    torch.cuda.synchronize(dev)
+    n_enq = 200
+    torch.cuda._sleep(int(0.05 * 2e9))
+    t = time.monotonic()
+    for _ in range(n_enq):
+        gt.gemm_tiled(xa, wa)
+    enqueue_ms = (time.monotonic() - t) * 1e3 / n_enq
+    torch.cuda.synchronize(dev)
+    t = time.monotonic()
+    for _ in range(100000):
+        if _trace.ACTIVE:
+            break
+    flag_ns = (time.monotonic() - t) * 1e9 / 100000
+    del xa, wa
+    emit(phase="audit", targets=["registry", "python_sources", "cuda_sources",
+                                 *(f"policy:{k}" for k in audit_policies)],
+         findings=len(findings), unsuppressed=[str(f) for f in verdict.unsuppressed],
+         suppressed=len(verdict.suppressed), stale=list(verdict.stale_keys),
+         kernel_sites=dict(sorted(sites_seen.items())), seconds=audit_s,
+         launches_changed={k: counts1[k] - counts0[k] for k in counts0
+                           if counts1[k] != counts0[k]},
+         memory_allocated=[mem0, mem1], gemm_tiled_decode_enqueue_ms=enqueue_ms,
+         trace_flag_test_ns=flag_ns)
+    if verdict.unsuppressed or verdict.stale_keys:
+        fail(f"audit: {len(verdict.unsuppressed)} unsuppressed finding(s), "
+             f"{len(verdict.stale_keys)} stale suppression(s)")
+    if counts1 != counts0 or mem1 != mem0:
+        fail(f"audit: kernel counters or device memory moved ({mem0} -> {mem1} bytes)")
+    missing = [k for k in registry_kernels if not sites_seen.get(k)]
+    if missing:
+        fail(f"audit: no kernel site traced for {missing}")
+
+    # ----------------------------------------------------------- 24 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,

@@ -81,7 +81,8 @@ def _oracles(a, b):
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
     a64, b64 = _host64(a), _host64(b)
-    return a64 @ b64, _host64(a64.astype(np.float32) @ b64.astype(np.float32))
+    return (a64.astype(np.float64, copy=False) @ b64.astype(np.float64, copy=False),
+            _host64(a64.astype(np.float32) @ b64.astype(np.float32)))
 
 
 def error_report(a, b, results: dict) -> dict[str, dict[str, float]]:

@@ -64,6 +64,32 @@ def _make_problem(seed: int) -> dict:
             "k": r((b, s, kv, hd)), "v": r((b, s, kv, hd))}
 
 
+def _audit_decode(problem: dict, route: Route) -> torch.Tensor:
+    """Decode surface for the static auditor: the make_problem k/v double
+    as a post-write dense cache, q's first row as the current token."""
+    k = problem["k"]
+    pos = torch.full((k.shape[0],), k.shape[1] - 1, dtype=torch.int32, device=k.device)
+    return attention_decode(problem["q"][:, :1], k, problem["v"], pos, policy=route)
+
+
+def _audit_paged_decode(problem: dict, route: Route) -> torch.Tensor:
+    """Paged-decode surface: an all-trash bf16 pool (``init_paged``'s
+    layout) of the same logical capacity on the problem's device (page
+    contents do not matter to a trace)."""
+    from repro_torch.core.ops import paged
+    k = problem["k"]
+    b, s, kv, hd = k.shape
+    n_log = paged.num_logical_pages(s, 8)
+    shape = (b * n_log + 1, 8, kv, hd)
+    cache = paged.PagedKVCache(
+        k_pages=torch.zeros(shape, dtype=torch.bfloat16, device=k.device),
+        v_pages=torch.zeros(shape, dtype=torch.bfloat16, device=k.device),
+        page_table=torch.zeros((b, n_log), dtype=torch.int32, device=k.device),
+        k_scale=None, v_scale=None, s_cache=s)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=k.device)
+    return attention_paged_decode(problem["q"][:, :1], cache, pos, policy=route)
+
+
 def _oracle(problem: dict) -> np.ndarray:
     """Dense fp64 causal softmax attention (GQA layout)."""
     qn, kn, vn = (problem[x].double().numpy() for x in ("q", "k", "v"))
@@ -90,6 +116,11 @@ register_family(OpSpec(
         problem["q"], problem["k"], problem["v"], causal=True, policy=route),
     oracle=_oracle,
     error_bound=lambda policy: LADDER_BOUNDS[policy],
+    grad_args=("q",),
+    # score + value contractions: every pass is two
+    audit_contractions=2,
+    audit_runs=(("decode", 2, _audit_decode),
+                ("paged_decode", 2, _audit_paged_decode)),
 ))
 
 

@@ -72,6 +72,7 @@ register_family(OpSpec(
     run=lambda problem, route: gemm(problem["a"], problem["b"], policy=route),
     oracle=_oracle,
     error_bound=lambda policy: LADDER_BOUNDS[policy],
+    grad_args=("a",),
 ))
 
 
@@ -122,7 +123,10 @@ def _cuda_gemm(a, b, *, policy):
 
 # The paper's Fig. 6 "WMMA without shared memory" column: the refine_ab
 # unembed on this impl is four naive bf16 passes summed at the router.
-@register_impl("gemm", "cuda_naive", fused_policies=("bf16",), features=("vjp",))
+# Its wrapper pads every operand to 16-multiples (the WMMA fragment), the
+# one port GEMM whose kernel takes only tile-divisible shapes.
+@register_impl("gemm", "cuda_naive", fused_policies=("bf16",), features=("vjp",),
+               pads_to_tiles=True)
 def _cuda_naive_gemm(a, b, *, policy):
     assert policy == "bf16", policy
     return gemm_naive(a, b)

@@ -78,7 +78,8 @@ def _oracle(problem: dict) -> np.ndarray:
     off = problem["offsets"].numpy()
     out = np.zeros((x.shape[0], w.shape[2]))
     for g in range(w.shape[0]):
-        out[off[g]:off[g + 1]] = x[off[g]:off[g + 1]] @ w[g]
+        out[off[g]:off[g + 1]] = (x[off[g]:off[g + 1]].astype(np.float64)
+                                   @ w[g].astype(np.float64))
     return out
 
 
@@ -95,6 +96,7 @@ register_family(OpSpec(
                                               policy=route, bm=problem["bm"]),
     oracle=_oracle,
     error_bound=lambda policy: LADDER_BOUNDS[policy],
+    grad_args=("x",),
 ))
 
 

@@ -5,8 +5,11 @@ and parity hooks); a ``KernelImpl`` is one registered implementation
 with declarative ``Capabilities``; ``register_impl`` is the one
 decorator every impl registers through, and routing
 (``core.ops.route``) validates requested impls against their
-capabilities at route-build time.  Partitioning, the audit hooks and
-the capability table wait for their slices.
+capabilities at route-build time.  The audit hooks (``grad_args``,
+``audit_contractions``, ``audit_runs``) drive the static auditor
+(``repro_torch.analysis``); ``capability_rows`` / ``capability_markdown``
+give the family x impl table with its ``audited`` column.
+``Partitioning`` waits for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ __all__ = [
     "families",
     "available_impls",
     "reference_impl",
+    "capability_rows",
+    "capability_markdown",
     "LADDER_BOUNDS",
 ]
 
@@ -53,11 +58,15 @@ LADDER_BOUNDS = {
 class Capabilities:
     """Declarative metadata for one registered impl: the rungs it serves
     (``policies``), the subset it runs in one fused call
-    (``fused_policies``) and feature tags."""
+    (``fused_policies``) and feature tags.  ``pads_to_tiles`` says the
+    impl's kernels take only tile-divisible operands (its wrapper pads
+    them), which the auditor's PAL002 holds every kernel site to; most
+    port kernels mask ragged edges and leave it False."""
 
     policies: frozenset[str] = ALL_POLICIES
     fused_policies: frozenset[str] = frozenset()
     features: frozenset[str] = frozenset()
+    pads_to_tiles: bool = False
 
     def has(self, feature: str) -> bool:
         return feature in self.features
@@ -68,7 +77,18 @@ class Capabilities:
 
 @dataclasses.dataclass(frozen=True)
 class OpSpec:
-    """One kernel family: abstract contract + reference + test hooks."""
+    """One kernel family: abstract contract + reference + test hooks.
+
+    The audit hooks drive the static auditor (``repro_torch.analysis``)
+    with no family-specific auditor code: ``grad_args`` names the operand
+    the backward surface differentiates; ``audit_contractions`` is the
+    number of tensor-core contraction sites one forward call performs
+    (the pass-count rule checks ``contractions == num_passes(policy) *
+    audit_contractions``); ``audit_runs`` lists extra feature-gated entry
+    points as ``(feature_tag, contractions, fn(problem, route) ->
+    tensor)``, audited only for impls declaring that feature (attention
+    registers its ``decode`` / ``paged_decode`` surfaces here).
+    """
 
     family: str
     contract: str
@@ -79,10 +99,19 @@ class OpSpec:
     run: Callable[..., Any] | None = None
     oracle: Callable[[dict], Any] | None = None
     error_bound: Callable[[str], float] | None = None
+    grad_args: tuple[str, ...] = ()
+    audit_contractions: int = 1
+    audit_runs: tuple[tuple[str, int, Callable[..., Any]], ...] = ()
 
     def __post_init__(self) -> None:
         if not self.label:
             object.__setattr__(self, "label", f"{self.family} backend")
+
+    @property
+    def auditable(self) -> bool:
+        """Whether ``repro_torch.analysis`` can audit this family (a
+        problem builder and a routed runner)."""
+        return self.make_problem is not None and self.run is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +139,8 @@ def register_impl(family: str, name: str, *,
                   capabilities: Capabilities | None = None,
                   policies: Iterable[str] | None = None,
                   fused_policies: Iterable[str] = (),
-                  features: Iterable[str] = ()):
+                  features: Iterable[str] = (),
+                  pads_to_tiles: bool = False):
     """Decorator registering ``fn`` as impl ``name`` of ``family``."""
     if family not in _FAMILIES:
         raise ValueError(
@@ -120,6 +150,7 @@ def register_impl(family: str, name: str, *,
         policies=(ALL_POLICIES if policies is None else frozenset(policies)),
         fused_policies=frozenset(fused_policies),
         features=frozenset(features),
+        pads_to_tiles=pads_to_tiles,
     )
 
     def wrap(fn):
@@ -159,3 +190,44 @@ def available_impls(family: str) -> tuple[str, ...]:
 
 def reference_impl(family: str) -> str:
     return get_family(family).reference
+
+
+# ========================================================== introspection
+
+def _fmt_policies(pols: frozenset[str]) -> str:
+    if pols == ALL_POLICIES:
+        return "all"
+    return ",".join(p for p in POLICIES if p in pols) or "-"
+
+
+def capability_rows() -> list[dict[str, str]]:
+    """The family x impl x capability table as data rows."""
+    rows = []
+    for family in families():
+        spec = get_family(family)
+        for name in available_impls(family):
+            c = get_impl(family, name).capabilities
+            rows.append({
+                "family": family,
+                "impl": name,
+                "role": "reference" if name == spec.reference else "kernel",
+                "policies": _fmt_policies(c.policies),
+                "fused": _fmt_policies(c.fused_policies),
+                "features": ",".join(sorted(c.features)) or "-",
+                "audited": "yes" if spec.auditable else "-",
+            })
+    return rows
+
+
+_COLS = ("family", "impl", "role", "policies", "fused", "features", "audited")
+
+
+def capability_markdown() -> str:
+    """The capability table as a markdown block."""
+    lines = ["| " + " | ".join(_COLS) + " |",
+             "|" + "|".join("---" for _ in _COLS) + "|"]
+    for r in capability_rows():
+        lines.append("| " + " | ".join(f"`{r[c]}`" if c == "impl" else r[c]
+                                       for c in _COLS) + " |")
+    return "\n".join(lines)
+

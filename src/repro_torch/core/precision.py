@@ -141,7 +141,7 @@ def _pow2_scale(x: torch.Tensor, qmax: float) -> torch.Tensor:
     amax = x.float().abs().max()
     amax = torch.clamp(amax, min=1e-30)
     e = torch.ceil(torch.log2(amax / qmax))
-    return torch.exp(e * torch.tensor(_LN2, dtype=torch.float32, device=e.device))
+    return torch.exp(e * e.new_full((), _LN2))
 
 
 def quantize_pow2(x: torch.Tensor, fmt: str) -> tuple[torch.Tensor, torch.Tensor]:
@@ -275,7 +275,7 @@ def tile_terms(x: torch.Tensor, policy: str, tile: Sequence[int]) -> tuple[torch
     def one(v):
         amax = torch.clamp(v.abs().amax(dim=inner, keepdim=True), min=1e-30)
         e = torch.ceil(torch.log2(amax / qmax))
-        sc = torch.exp(e * torch.tensor(_LN2, dtype=torch.float32, device=e.device))
+        sc = torch.exp(e * e.new_full((), _LN2))
         y = v / sc
         q = torch.clamp(torch.round(y), -qmax, qmax).to(dtype) if fmt == "int8" else y.to(dtype)
         return (q.float() * sc).to(torch.bfloat16)

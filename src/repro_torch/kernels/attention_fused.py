@@ -90,10 +90,10 @@ import functools
 import torch
 
 from repro_torch.core import precision as prec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 from repro_torch.kernels.gemm_tiled import (MAINLOOPS, SPLIT_ARGTYPES, TICKETS_PER_SM,
                                             WS_SLOTS_PER_SM, on_cpu, split_ranges,
-                                            split_workspace, whole_splits)
+                                            split_site_fields, split_workspace, whole_splits)
 from repro_torch.kernels.gemm_tiled import sm_count as _sm_count
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
@@ -210,6 +210,7 @@ def _keep(rows, cols, sq, skv, causal, window):
     return keep
 
 
+@_trace.plain_twin
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           softcap: float | None = None,
@@ -254,6 +255,7 @@ def _bwd_setup(q, lse, di, causal, window):
             torch.arange(sq, device=q.device))
 
 
+@_trace.plain_twin
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, *, causal: bool = True,
                                  window: int | None = None,
                                  softcap: float | None = None,
@@ -278,6 +280,7 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, di, *, causal: bool = True,
     return dq
 
 
+@_trace.plain_twin
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, *, causal: bool = True,
                                   window: int | None = None,
                                   softcap: float | None = None,
@@ -337,6 +340,7 @@ def _decode_keep(pos, s_cache, window):
     return keep_fn
 
 
+@_trace.plain_twin
 def flash_decode_plain(q, k_cache, v_cache, pos, *, window: int | None = None,
                        softcap: float | None = None,
                        precision: str = "bf16") -> torch.Tensor:
@@ -438,6 +442,26 @@ def _softcap_arg(softcap: float | None) -> float:
     return float(softcap) if softcap is not None else 0.0
 
 
+def _site(kernel: str, entry: str, precision: str, contractions: int, outputs,
+          **fields) -> _trace.KernelSite:
+    """An attention launch: ``contractions`` tensor-core products a pass
+    (forward and decode 2: S = QK^T and PV; dq 3; dk/dv 4), the bf16 rung
+    on the wgmma kernels where the launcher has them."""
+    return _trace.KernelSite(
+        kernel=kernel, entry=entry, policy=precision, terms=prec.num_passes(precision),
+        contractions=contractions, outputs=tuple((tuple(shape), torch.float32)
+                                                 for shape in outputs), **fields)
+
+
+def decode_site(kernel: str, entry: str, q, s_cache: int, precision: str) -> _trace.KernelSite:
+    """A dense or paged decode launch: its KV walk split over
+    ``decode_splits`` ranges of BKV-row tiles of the cache."""
+    b, _, kvh, _, _ = q.shape
+    splits = decode_splits(b, kvh, s_cache, _trace.AUDIT_SMS, precision)
+    return _site(kernel, entry, precision, 2, (q.shape,), mainloop=None,
+                 **split_site_fields(-(-s_cache // BKV), splits))
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         window: int | None = None,
                         softcap: float | None = None,
@@ -447,6 +471,11 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     CPU tensors run the plain twin; CUDA tensors launch the kernel (the
     Hopper one at the bf16 rung, the WMMA one at every other) or raise."""
     _check_policy(precision)
+    if _trace.ACTIVE:
+        b, sq, kvh, g, _ = q.shape
+        return _trace.launch(_site("flash_attention", "attention_fwd_launch", precision, 2,
+                                   (q.shape, (b, kvh * g, sq)),
+                                   mainloop="sm90" if precision == "bf16" else "wmma"), q, k, v)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, precision=precision)
@@ -525,6 +554,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
     every other) or raise."""
     _check_policy(precision)
     kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
+    if _trace.ACTIVE:
+        return _trace.launch(_site("flash_attention_bwd_dq", "attention_bwd_dq_launch",
+                                   precision, 3, (q.shape,),
+                                   mainloop="sm90" if precision == "bf16" else "wmma"),
+                             q, k, v, do, lse, di)
     if on_cpu(q, k, v, do, lse, di):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw)
     ptrs, _keep_alive, scalars = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
@@ -557,6 +591,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
     over the group here (one launch either way)."""
     _check_policy(precision)
     kw = dict(causal=causal, window=window, softcap=softcap, precision=precision)
+    if _trace.ACTIVE:
+        return _trace.launch(_site("flash_attention_bwd_dkv", "attention_bwd_dkv_launch",
+                                   precision, 4, (k.shape, v.shape),
+                                   mainloop="sm90" if precision == "bf16" else "wmma"),
+                             q, k, v, do, lse, di)
     if on_cpu(q, k, v, do, lse, di):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
     ptrs, _keep_alive, scalars = _bwd_args(q, k, v, do, lse, di, causal, window, softcap,
@@ -635,6 +674,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, window: int | None = None,
     _check_policy(precision)
     if q.shape[1] != 1:
         raise ValueError("flash_decode is the single-token cell")
+    if _trace.ACTIVE:
+        return _trace.launch(decode_site("flash_decode", "attention_decode_launch", q,
+                                         k_cache.shape[1], precision), q, k_cache, v_cache, pos)
     if on_cpu(q, k_cache, v_cache, pos):
         return flash_decode_plain(q, k_cache, v_cache, pos, window=window,
                                   softcap=softcap, precision=precision)

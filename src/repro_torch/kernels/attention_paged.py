@@ -37,9 +37,10 @@ import torch
 
 from repro_torch.core.ops.paged import PagedKVCache, gather_dense
 from repro_torch.kernels import _build
+from repro_torch.kernels import _trace
 from repro_torch.kernels.attention_fused import (POLICY_CODES, _check_head_dim,
                                                  _check_policy, _device_index, _sm_count,
-                                                 decode_splits, flash_decode_plain)
+                                                 decode_site, decode_splits, flash_decode_plain)
 from repro_torch.kernels.gemm_tiled import SPLIT_ARGTYPES, on_cpu, split_workspace
 
 __all__ = ["flash_paged_decode", "flash_paged_decode_plain", "LAUNCHES", "SPLIT_LAUNCHES"]
@@ -51,6 +52,7 @@ SPLIT_LAUNCHES = 0   # launches whose KV walk ran split over CTAs
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+@_trace.plain_twin
 def flash_paged_decode_plain(q, cache: PagedKVCache, pos, *,
                              window: int | None = None,
                              softcap: float | None = None,
@@ -90,6 +92,9 @@ def flash_paged_decode(q, cache: PagedKVCache, pos, *,
     pools = [cache.k_pages, cache.v_pages, cache.page_table]
     if cache.quantized:
         pools += [cache.k_scale, cache.v_scale]
+    if _trace.ACTIVE:
+        return _trace.launch(decode_site("flash_paged_decode", "attention_paged_decode_launch",
+                                         q, cache.s_cache, precision), q, pos, *pools)
     if on_cpu(q, pos, *pools):
         return flash_paged_decode_plain(q, cache, pos, window=window,
                                         softcap=softcap, precision=precision)

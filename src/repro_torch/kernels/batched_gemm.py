@@ -43,7 +43,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 from repro_torch.kernels.ref import batched_gemm_ref
 from repro_torch.kernels.gemm_tiled import SMEM_LIMIT, on_cpu, sm_count
 
@@ -102,6 +102,7 @@ def packed_chunks(cta: int, grid: int, chunks: int) -> range:
     return range(cta, chunks, grid)
 
 
+@_trace.plain_twin
 def batched_gemm_naive_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: a batched product of the
     bf16-rounded operands, upcast and summed in f32."""
@@ -109,6 +110,7 @@ def batched_gemm_naive_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return batched_gemm_ref(a, b)
 
 
+@_trace.plain_twin
 def batched_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The packed kernel's function in plain PyTorch, under its contract
     (n divides ``PACK_TILE``, pack divides G): packing changes nothing
@@ -145,6 +147,26 @@ def _device_args(x: torch.Tensor) -> tuple[int, int]:
     return torch.cuda.current_stream(x.device).cuda_stream, dev
 
 
+def _site(kernel: str, entry: str, a: torch.Tensor, b: torch.Tensor,
+          **fields) -> _trace.KernelSite:
+    return _trace.KernelSite(kernel=kernel, entry=entry, mainloop=None, policy="bf16", terms=1,
+                             contractions=1, outputs=((tuple(a.shape), torch.float32),),
+                             **fields)
+
+
+def _packed_site(a: torch.Tensor, b: torch.Tensor) -> _trace.KernelSite:
+    """The packed stream as ``packed_schedule`` hands it to the launcher:
+    ``grid`` persistent CTAs, CTA c starting on chunk c of each operand
+    (``packed_chunks``), the matrices packed ``PACK_TILE // n`` to a tile."""
+    g, n = check_batched(a, b)
+    plan = packed_schedule(g, n, a.dtype == torch.bfloat16, b.dtype == torch.bfloat16,
+                           _trace.AUDIT_SMS)
+    chunks = (_trace.Block(x, (plan["chunks"] * CHUNK,), (CHUNK,), lambda c: (c,))
+              for x in "ab")
+    return _site("batched_gemm", "batched_gemm_launch", a, b, grid=(plan["grid"],),
+                 blocks=(*chunks, _trace.Block("pack", (g,), (_pack(g, n),), divisible=True)))
+
+
 def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(G, n, n) x (G, n, n) -> (G, n, n) f32 by the packed stream
     (``packed_schedule``).  Requires n | PACK_TILE and PACK_TILE // n | G
@@ -155,6 +177,8 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n not in PACKED_N:
         raise ValueError(f"the packed kernel takes n in {PACKED_N}; got n={n} "
                          f"(ops.gemm_batched sends it to batched_gemm_naive)")
+    if _trace.ACTIVE:
+        return _trace.launch(_packed_site(a, b), a, b)
     if on_cpu(a, b):
         return batched_gemm_plain(a, b)
     a, a16 = _operand(a)
@@ -175,6 +199,9 @@ def batched_gemm_naive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CPU tensors run ``batched_gemm_naive_plain``; CUDA tensors launch the
     kernel or raise."""
     g, n = check_batched(a, b)
+    if _trace.ACTIVE:
+        return _trace.launch(_site("batched_gemm_naive", "batched_gemm_naive_launch", a, b,
+                                   grid=(g,)), a, b)
     if on_cpu(a, b):
         return batched_gemm_naive_plain(a, b)
     a, a16 = _operand(a)

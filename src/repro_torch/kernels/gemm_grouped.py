@@ -90,12 +90,13 @@ import math
 import torch
 
 from repro_torch.core import precision as prec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 from repro_torch.kernels.gemm_refined import POLICY_CODES as _REFINED_CODES
 from repro_torch.kernels.gemm_refined import gemm_refined_plain, gemm_refined_splitk_plain
-from repro_torch.kernels.gemm_tiled import (MAINLOOPS, SPLIT_ARGTYPES, gemm_tiled_plain,
+from repro_torch.kernels.gemm_tiled import (MAINLOOPS, SPLIT_ARGTYPES, SPLITK_BN,
+                                            gemm_tiled_plain,
                                             gemm_tiled_splitk_plain, on_cpu, sm_count,
-                                            split_workspace, splitk_splits)
+                                            split_site_fields, split_workspace, splitk_splits)
 
 __all__ = ["grouped_gemm", "grouped_gemm_dw", "grouped_gemm_plain", "grouped_gemm_dw_plain",
            "grouped_gemm_splitk_plain", "grouped_dw_scales", "grouped_dw_scales_plain",
@@ -199,6 +200,7 @@ def _ladder_matmul(a: torch.Tensor, b: torch.Tensor, policy: str,
     return out
 
 
+@_trace.plain_twin
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
                        bm: int, policy: str = "bf16", trans_w: bool = False,
                        group_counts: torch.Tensor | None = None) -> torch.Tensor:
@@ -253,6 +255,7 @@ def grouped_gemm_splitk_plain(x: torch.Tensor, w: torch.Tensor, group_offsets: t
 DW_SCALE_TILES = ((64, 32), (32, 128))
 
 
+@_trace.plain_twin
 def grouped_gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
                           policy: str = "bf16") -> torch.Tensor:
     """dw[g] = x_g^T . dy_g in plain PyTorch, zero for an empty run."""
@@ -308,6 +311,7 @@ def _pair_scales(v: torch.Tensor, policy: str, dims: tuple[int, ...]) -> torch.T
     return torch.stack([s_hi.squeeze(dims), s_lo.squeeze(dims)], dim=-1)
 
 
+@_trace.plain_twin
 def grouped_dw_scales_plain(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tensor, *,
                             policy: str) -> torch.Tensor:
     """The quantize pass's scales in plain PyTorch: (slots, ceil(D / 64) + ceil(F / 128),
@@ -382,6 +386,35 @@ def _device_index(x: torch.Tensor) -> int:
     return x.device.index if x.device.index is not None else torch.cuda.current_device()
 
 
+def _site(kernel: str, entry: str, policy: str, outputs, mainloop: str | None,
+          terms: int, **fields) -> _trace.KernelSite:
+    return _trace.KernelSite(kernel=kernel, entry=entry, mainloop=mainloop, policy=policy,
+                             terms=terms, contractions=1 if terms else 0,
+                             outputs=tuple((tuple(o), torch.float32) for o in outputs), **fields)
+
+
+def _forward_site(x, w, bm: int, cta: int, policy: str, trans_w: bool) -> _trace.KernelSite:
+    """The forward / dx launch: CTA row tiles of ``cta`` rows, each inside
+    one group because ``cta`` divides the alignment ``bm``; at 16 rows on
+    the split-K stream, K split by ``grouped_splits``."""
+    e, d, f = w.shape
+    n_rows, n_out = x.shape[0], (d if trans_w else f)
+    split = cta == ROW_TILE and policy in SPLITK_POLICIES
+    if split:
+        loop = "splitk"
+    elif policy == "bf16" and cta in (64, 128):
+        loop = "sm90"
+    else:
+        loop = "wmma"
+    fields = split_site_fields(-(-x.shape[1] // SPLITK_BN),
+                               grouped_splits(n_rows, n_out, x.shape[1], _trace.AUDIT_SMS)
+                               ) if split and n_rows * n_out else {}
+    return _site("grouped_gemm", "grouped_gemm_launch", policy, ((n_rows, n_out),), loop,
+                 prec.num_passes(policy),
+                 blocks=(_trace.Block("group_alignment", (bm,), (cta,), divisible=True),),
+                 **fields)
+
+
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, *,
                  bm: int, policy: str = "bf16", trans_w: bool = False,
                  group_counts: torch.Tensor | None = None) -> torch.Tensor:
@@ -407,6 +440,9 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor, 
     if group_counts is not None and group_counts.shape != (w.shape[0],):
         raise ValueError(f"grouped_gemm: group_counts must be (E,) = ({w.shape[0]},); got "
                          f"{tuple(group_counts.shape)}")
+    if _trace.ACTIVE:
+        return _trace.launch(_forward_site(x, w, bm, cta, policy, trans_w), x, w, group_offsets,
+                             group_counts)
     if on_cpu(x, w, group_offsets, *(() if group_counts is None else (group_counts,))):
         return grouped_gemm_plain(x, w, group_offsets, policy=policy, trans_w=trans_w, bm=bm,
                                   group_counts=group_counts)
@@ -484,6 +520,11 @@ def grouped_dw_scales(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Te
     _dw_shapes(x, dy)
     if policy not in _QUANT:
         raise ValueError(f"the dW quantize pass serves {_QUANT}; got {policy!r}")
+    if _trace.ACTIVE:
+        slots = _slot_count(x.shape[0], group_offsets.shape[0])
+        return _trace.launch(_site("grouped_dw_scales", "grouped_dw_scales_launch", policy,
+                                   ((slots, sum(_scale_cols(x.shape[1], dy.shape[1])), 2),),
+                                   None, 0), x, dy, group_offsets)
     if on_cpu(x, dy, group_offsets):
         return grouped_dw_scales_plain(x, dy, group_offsets, policy=policy)
     return _quantize_on_card(_operand(x), _operand(dy),
@@ -499,6 +540,11 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor, group_offsets: torch.Tens
     kernel after the quantize pass) or raise."""
     _check_policy(policy)
     _dw_shapes(x, dy)
+    if _trace.ACTIVE:
+        return _trace.launch(_site("grouped_gemm_dw", "grouped_gemm_dw_launch", policy,
+                                   ((group_offsets.shape[0] - 1, x.shape[1], dy.shape[1]),),
+                                   "sm90" if policy == "bf16" else "wmma",
+                                   prec.num_passes(policy)), x, dy, group_offsets)
     if on_cpu(x, dy, group_offsets):
         return grouped_gemm_dw_plain(x, dy, group_offsets, policy=policy)
     x, dy = _operand(x), _operand(dy)

@@ -56,7 +56,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 from repro_torch.kernels import gemm_tiled as gt
 from repro_torch.kernels.gemm_tiled import MAINLOOPS, check_operands, on_cpu, sm_count
 
@@ -145,11 +145,12 @@ def _k_terms(a, b, policy, bm, bn, bk):
         def coef(sx, sy):    # per output tile: the product of the two tiles' scales
             return _expand(sx[:, t:t + 1] * sy[t:t + 1, :], bm, bn)
 
-        hh = (qa[:, ks] @ qb[ks]) * coef(sa, sb)
+        hh = (qa[:, ks].float() @ qb[ks].float()) * coef(sa, sb)
         if qra is None:
             yield hh
         else:
-            lohi = (qra[:, ks] @ qb[ks]) * coef(sra, sb) + (qa[:, ks] @ qrb[ks]) * coef(sa, srb)
+            lohi = ((qra[:, ks].float() @ qb[ks].float()) * coef(sra, sb)
+                    + (qa[:, ks].float() @ qrb[ks].float()) * coef(sa, srb))
             yield lohi + hh
 
 
@@ -170,6 +171,7 @@ def _batched(fn, a, b, *args):
     return fn(a, b, *args)
 
 
+@_trace.plain_twin
 def gemm_lowp_plain(a: torch.Tensor, b: torch.Tensor, policy: str = "int8x3",
                     bm: int = 256, bn: int = 256, bk: int = 256) -> torch.Tensor:
     """The same function in plain PyTorch: zero-pad to the tile grid (as
@@ -309,6 +311,26 @@ def _decode_workspace(index: int, stream: int, plan: DecodePlan):
     return gt._workspace(f"lowp{floats}x{tickets}", index, stream, floats, tickets)
 
 
+def _site(a: torch.Tensor, b: torch.Tensor, policy: str, bm: int, bn: int,
+          bk: int) -> _trace.KernelSite:
+    """At M <= 16 the decode plan's grid, each CTA starting on B's
+    quantization tile (batch, kq, x // cluster) and the K tiles' terms
+    summed in f32 partials; above, the launcher's own grid."""
+    batch, m, n, k = gt.gemm_dims(a, b)
+    check_grid(m, n, k, bm, bn, bk)
+    fields = {}
+    if m <= 16:
+        plan = decode_plan(batch, m, n, k, bn, bk, _trace.AUDIT_SMS)
+        fields = {"grid": plan.grid,
+                  "blocks": (_trace.Block("b", (batch, k, n), (1, bk, bn),
+                                          lambda x, y, z: (z, y, x // plan.cluster)),),
+                  "workspace_dtype": torch.float32 if plan.slots else None}
+    return _trace.KernelSite(
+        kernel="gemm_lowp", entry="gemm_lowp_launch", mainloop="splitk" if m <= 16 else "sm90",
+        policy=policy, terms=3 if policy.endswith("x3") else 1, contractions=1,
+        outputs=gt.gemm_outputs(a, b), **fields)
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("gemm_lowp").gemm_lowp_launch
@@ -334,6 +356,8 @@ def gemm_lowp(a: torch.Tensor, b: torch.Tensor, *, policy: str = "int8x3",
     global LAUNCHES
     _check_policy(policy)
     check_operands(a, b)
+    if _trace.ACTIVE:
+        return _trace.launch(_site(a, b, policy, bm, bn, bk), a, b)
     if on_cpu(a, b):
         return gemm_lowp_plain(a, b, policy, bm, bn, bk)
     squeeze = a.dim() == 2

@@ -32,9 +32,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 from repro_torch.kernels.ref import gemm_mixed_ref
-from repro_torch.kernels.gemm_tiled import check_operands, on_cpu
+from repro_torch.kernels.gemm_tiled import check_operands, gemm_dims, gemm_outputs, on_cpu
 
 __all__ = ["gemm_naive", "gemm_naive_plain", "LAUNCHES"]
 
@@ -49,6 +49,7 @@ _ARGTYPES = [
 ]
 
 
+@_trace.plain_twin
 def gemm_naive_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: bf16-rounded operands, upcast,
     multiplied and summed in f32 (products of bf16 values are exact)."""
@@ -79,6 +80,18 @@ def _operand(x: torch.Tensor, rows: int, cols: int) -> tuple[torch.Tensor, bool,
     return buf, col, (rows if col else cols), rows * cols
 
 
+def _site(a: torch.Tensor, b: torch.Tensor) -> _trace.KernelSite:
+    """The operands as the wrapper hands them: padded to 16-multiples, one
+    warp per 16 x 16 output tile, the kernel's only shapes."""
+    batch, m, n, k = gemm_dims(a, b)
+    mp, np_, kp = _round16(m), _round16(n), _round16(k)
+    return _trace.KernelSite(
+        kernel="gemm_naive", entry="gemm_naive_launch", mainloop=None, policy="bf16", terms=1,
+        contractions=1, outputs=gemm_outputs(a, b),
+        blocks=(_trace.Block("a", (batch, mp, kp), (1, 16, 16), divisible=True),
+                _trace.Block("b", (batch, kp, np_), (1, 16, 16), divisible=True)))
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("gemm_naive").gemm_naive_launch
@@ -97,6 +110,8 @@ def gemm_naive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """
     global LAUNCHES
     check_operands(a, b)
+    if _trace.ACTIVE:
+        return _trace.launch(_site(a, b), a, b)
     if on_cpu(a, b):
         return gemm_naive_plain(a, b)
     squeeze = a.dim() == 2

@@ -47,11 +47,12 @@ import functools
 import torch
 
 from repro_torch.core import precision as prec
-from repro_torch.kernels import _build
-from repro_torch.kernels.gemm_tiled import (GEMM_ARGTYPES, MAINLOOPS, SPLIT_ARGTYPES,
-                                            SPLITK_BK, check_operands, launch_gemm, on_cpu,
-                                            sm90_splits, sm90_workspace, sm_count,
-                                            split_ranges, split_workspace, splitk_splits)
+from repro_torch.kernels import _build, _trace
+from repro_torch.kernels.gemm_tiled import (GEMM_ARGTYPES, MAINLOOPS, SM90_BK, SPLIT_ARGTYPES,
+                                            SPLITK_BK, check_operands, gemm_dims, gemm_outputs,
+                                            launch_gemm, on_cpu, sm90_splits, sm90_workspace,
+                                            sm_count, split_ranges, split_site_fields,
+                                            split_workspace, splitk_splits)
 
 __all__ = ["gemm_refined", "gemm_refined_plain", "gemm_refined_splitk_plain", "kept_terms",
            "refined_splits", "LAUNCHES", "LAUNCHES_BY_LOOP", "POLICY_CODES"]
@@ -67,6 +68,7 @@ def _check_policy(policy: str) -> None:
         raise ValueError(f"policy {policy!r} not in {sorted(POLICY_CODES)}")
 
 
+@_trace.plain_twin
 def gemm_refined_plain(a: torch.Tensor, b: torch.Tensor,
                        policy: str = "refine_ab") -> torch.Tensor:
     """The same function in plain PyTorch: the policy's bf16 terms,
@@ -110,6 +112,16 @@ def refined_splits(batch: int, m: int, n: int, k: int, sms: int) -> int:
     return (splitk_splits if m <= 16 else sm90_splits)(batch, m, n, k, sms)
 
 
+def _site(a: torch.Tensor, b: torch.Tensor, policy: str) -> _trace.KernelSite:
+    batch, m, n, k = gemm_dims(a, b)
+    splits = refined_splits(batch, m, n, k, _trace.AUDIT_SMS)
+    return _trace.KernelSite(
+        kernel="gemm_refined", entry="gemm_refined_launch",
+        mainloop="splitk" if m <= 16 else "sm90", policy=policy,
+        terms=len(prec.policy_terms(policy)), contractions=1, outputs=gemm_outputs(a, b),
+        **split_site_fields(-(-k // (SPLITK_BK if m <= 16 else SM90_BK)), splits))
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("gemm_refined").gemm_refined_launch
@@ -129,6 +141,8 @@ def gemm_refined(a: torch.Tensor, b: torch.Tensor, *,
     global LAUNCHES
     _check_policy(policy)
     check_operands(a, b)
+    if _trace.ACTIVE:
+        return _trace.launch(_site(a, b, policy), a, b)
     if on_cpu(a, b):
         return gemm_refined_plain(a, b, policy)
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()

@@ -48,7 +48,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 
 __all__ = ["gemm_tiled", "gemm_tiled_plain", "gemm_tiled_splitk_plain", "splitk_splits",
            "sm90_splits", "split_ranges", "whole_splits", "split_workspace", "sm90_workspace",
@@ -90,6 +90,7 @@ GEMM_ARGTYPES = [
 SPLIT_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_longlong, _c.c_void_p, _c.c_int]
 
 
+@_trace.plain_twin
 def gemm_tiled_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: bf16-rounded operands, upcast,
     multiplied and summed in f32 (products of bf16 values are exact)."""
@@ -165,8 +166,8 @@ def gemm_tiled_splitk_plain(a: torch.Tensor, b: torch.Tensor, splits: int) -> to
     a, b = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
     out = None
     for lo, hi in split_ranges(-(-a.shape[-1] // SPLITK_BK), splits):
-        part = torch.matmul(a[..., lo * SPLITK_BK:hi * SPLITK_BK],
-                            b[..., lo * SPLITK_BK:hi * SPLITK_BK, :])
+        part = torch.matmul(a[..., lo * SPLITK_BK:hi * SPLITK_BK].float(),
+                            b[..., lo * SPLITK_BK:hi * SPLITK_BK, :].float())
         out = part if out is None else out + part
     return out
 
@@ -232,6 +233,34 @@ def on_cpu(*xs: torch.Tensor) -> bool:
     return False
 
 
+def gemm_dims(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int, int]:
+    """(batch, m, n, k) of checked operands (batch 1 for 2-D ones)."""
+    return (a.shape[0] if a.dim() == 3 else 1), a.shape[-2], b.shape[-1], a.shape[-1]
+
+
+def gemm_outputs(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The f32 C of a (batched) GEMM launch, as a trace site's outputs."""
+    return ((tuple(a.shape[:-1]) + (b.shape[-1],), torch.float32),)
+
+
+def split_site_fields(total: int, splits: int) -> dict:
+    """A split launch's ``KernelSite`` fields: the ranges of
+    ``split_ranges`` over ``total`` tiles and f32 partials (none at 1)."""
+    if splits <= 1:
+        return {}
+    return {"split_total": total, "splits": tuple(split_ranges(total, splits)),
+            "workspace_dtype": torch.float32}
+
+
+def _site(a: torch.Tensor, b: torch.Tensor) -> _trace.KernelSite:
+    batch, m, n, k = gemm_dims(a, b)
+    splits = splitk_splits(batch, m, n, k, _trace.AUDIT_SMS)
+    return _trace.KernelSite(
+        kernel="gemm_tiled", entry="gemm_tiled_launch", mainloop="sm90" if m > 16 else "splitk",
+        policy="bf16", terms=1, contractions=1, outputs=gemm_outputs(a, b),
+        **split_site_fields(-(-k // SPLITK_BK), splits))
+
+
 def launch_gemm(fn, a: torch.Tensor, b: torch.Tensor, *extra,
                 stream: int | None = None) -> torch.Tensor:
     """Launch a strided (batched) GEMM launcher of the gemm_common.cuh
@@ -277,6 +306,8 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """
     global LAUNCHES
     check_operands(a, b)
+    if _trace.ACTIVE:
+        return _trace.launch(_site(a, b), a, b)
     if on_cpu(a, b):
         return gemm_tiled_plain(a, b)
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()

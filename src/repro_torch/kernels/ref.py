@@ -61,7 +61,8 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
     outs = []
     for t in range(s):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]           # (B, H, K, K)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u[None, :, :, None] * kv))
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                                 (state + u[None, :, :, None] * kv).float()))
         state = state * torch.exp(logw[:, t])[..., None] + kv
     out = torch.stack(outs, dim=1) if outs else torch.zeros_like(r)
     return out, state

@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _trace
 from repro_torch.kernels.gemm_tiled import SMEM_LIMIT, on_cpu
 
 __all__ = ["wkv6", "wkv6_plain", "wkv6_scan_plain", "wkv6_smem_bytes", "scan_exponents",
@@ -63,6 +63,7 @@ def _check(r, k, v, logw, u, chunk) -> tuple[int, int, int, int]:
     return b, s, h, kd
 
 
+@_trace.plain_twin
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
                u: torch.Tensor, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
     """The TPU kernel's chunked form in torch ops, every (b, h) at once:
@@ -83,17 +84,17 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
         rc, kc, vc, lw = (x[:, :, c0:c0 + chunk] for x in (rr, kk, vv, ww))
         la = torch.cumsum(lw, dim=2)
         lae = la - lw
-        inter = torch.matmul(rc * torch.exp(lae), state)
+        inter = torch.matmul((rc * torch.exp(lae)).float(), state.float())
         r_ed = rc[:, :, :, None, :] * torch.exp(torch.clamp(
             lae[:, :, :, None, :] - la[:, :, None, :, :], max=0.0))  # (B, H, C, C, K)
-        scores = torch.einsum("bhtsk,bhsk->bhts", r_ed, kc)
+        scores = torch.einsum("bhtsk,bhsk->bhts", r_ed.float(), kc.float())
         scores = torch.where(mask, scores, torch.zeros((), device=r.device))
-        intra = torch.matmul(scores, vc)
+        intra = torch.matmul(scores.float(), vc.float())
         bonus = (rc * uu * kc).sum(-1, keepdim=True)
         outs.append(inter + intra + bonus * vc)
         dec_end = torch.exp(la[:, :, -1:, :] - la)
         state = state * torch.exp(la[:, :, -1, :])[..., None] + torch.matmul(
-            (kc * dec_end).transpose(-1, -2), vc)
+            (kc * dec_end).transpose(-1, -2).float(), vc.float())
     out = torch.cat(outs, dim=2) if outs else torch.zeros_like(rr)
     return out.permute(0, 2, 1, 3).contiguous(), state
 
@@ -115,10 +116,11 @@ def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> tuple[torch.Tenso
     big.small (x = big + small, big = TF32(x), small = TF32(x - big));
     at 1 pass small is 0 (the one-pass rung)."""
     a_big, b_big = tf32_round(a), tf32_round(b)
-    main = a_big @ b_big
+    main = a_big.float() @ b_big.float()
     if passes == 1:
         return torch.zeros_like(main), main
-    small = tf32_round(a - a_big) @ b_big + a_big @ tf32_round(b - b_big)
+    small = (tf32_round(a - a_big).float() @ b_big.float()
+             + a_big.float() @ tf32_round(b - b_big).float())
     return small, main
 
 
@@ -221,8 +223,8 @@ def wkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: tor
                                (kk[..., i * SUB:(i + 1) * SUB, :] * ex(end)).transpose(-1, -2),
                                passes))
                   for i, (btw, end) in enumerate(zip(e["between"], e["to_end"]))]
-        diag = torch.einsum("bhctk,bhctsk,bhcsk->bhcts", rr[..., rows, :], ex(e["diag"]),
-                            kk[..., rows, :])
+        diag = torch.einsum("bhctk,bhctsk,bhcsk->bhcts", rr[..., rows, :].float(),
+                            ex(e["diag"]).float(), kk[..., rows, :].float())
         diag = torch.where(strict, diag, torch.zeros((), device=r.device))
         diag = diag + torch.diag_embed((rr[..., rows, :] * uu * kk[..., rows, :]).sum(-1))
         i_small, i_main = _mm_tf32(torch.cat(blocks + [diag], dim=-1), vv[..., :t0 + SUB, :],
@@ -269,6 +271,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     launch the two kernels (one call of ``LAUNCHES``) or raise."""
     global LAUNCHES
     b, s, h, kd = _check(r, k, v, logw, u, chunk)
+    if _trace.ACTIVE:
+        # four products a step (r.state, r.k scores, scores.v, the state
+        # update), each three TF32 passes; the chunk states in f32
+        return _trace.launch(_trace.KernelSite(
+            kernel="wkv6", entry="wkv6_launch", mainloop=None, policy="tf32x3", terms=3,
+            contractions=4, outputs=(((b, s, h, kd), torch.float32),
+                                     ((b, h, kd, kd), torch.float32)),
+            workspace_dtype=torch.float32, grid=(b * h,),
+            blocks=(_trace.Block("chunks", (s,), (chunk,), divisible=True),)),
+            r, k, v, logw, u)
     if on_cpu(r, k, v, logw, u):
         return wkv6_plain(r, k, v, logw, u, chunk=chunk)
     if kd not in HEAD_DIMS:

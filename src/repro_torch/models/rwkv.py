@@ -124,7 +124,7 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int, policy="bf16"):
         scores = peinsum("bhtsk,bhsk->bhts", r_ed, kk, policy)
         scores = torch.where(mask, scores, torch.zeros((), device=r.device))
         intra = peinsum("bhts,bhsv->bhtv", scores, vv, policy)
-        bonus = torch.einsum("bhck,bhck->bhc", rr * u[None, :, None, :], kk)
+        bonus = torch.einsum("bhck,bhck->bhc", (rr * u[None, :, None, :]).float(), kk.float())
         outs.append(inter + intra + bonus[..., None] * vv)
         # state update: decay to the chunk's end, add decayed outer products
         dec_end = torch.exp(la[:, :, -1:, :] - la)
@@ -179,8 +179,8 @@ def rwkv6_layer(p: dict, x: torch.Tensor, *, head_dim: int, policy,
     if decode:
         st = state.wkv                                   # (B, H, K, V)
         rr, kk, vv = r32[:, 0], k32[:, 0], v32[:, 0]     # (B, H, K)
-        bonus = torch.einsum("bhk,bhk->bh", rr * u[None], kk)
-        out = torch.einsum("bhk,bhkv->bhv", rr, st) + bonus[..., None] * vv
+        bonus = torch.einsum("bhk,bhk->bh", (rr * u[None]).float(), kk.float())
+        out = torch.einsum("bhk,bhkv->bhv", rr.float(), st.float()) + bonus[..., None] * vv
         new_wkv = st * torch.exp(logw[:, 0])[..., None] + kk[..., None] * vv[:, :, None, :]
         out = out[:, None]                               # (B, 1, H, V)
     else:

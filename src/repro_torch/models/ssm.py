@@ -121,11 +121,12 @@ def _ssd_chunked(x, bmat, cmat, rel, dt, chunk: int, policy):
         dec_ts = torch.exp(torch.clamp(ll[:, :, None, :] - ll[:, None, :, :], max=0.0))
         scores = cb[:, :, :, None] * dec_ts * dtc[:, None, :, :]
         scores = torch.where(mask[None, :, :, None], scores, torch.zeros((), device=x.device))
-        y_intra = torch.einsum("btsh,bshp->bthp", scores, xc)
+        y_intra = torch.einsum("btsh,bshp->bthp", scores.float(), xc.float())
         del dec_ts, scores
         # each chunk's state increment: decayed to the chunk's end, outer products
         dec_end = torch.exp(ll[:, -1:, :] - ll)        # (Bg, C, H)
-        upd = torch.einsum("bchp,bcn->bhpn", (dtc * dec_end)[..., None] * xc, bc)
+        upd = torch.einsum("bchp,bcn->bhpn", ((dtc * dec_end)[..., None] * xc).float(),
+                           bc.float())
         # carry the state through the group's chunks in order: each reads its input state
         decay = torch.exp(ll[:, -1]).reshape(b, g, h)[..., None, None]
         upd = upd.reshape(b, g, h, p, n)
@@ -135,7 +136,8 @@ def _ssd_chunked(x, bmat, cmat, rel, dt, chunk: int, policy):
             state = state * decay[:, c] + upd[:, c]
         state_in = torch.stack(states_in, dim=1).reshape(b * g, h, p, n)
         # inter-chunk: y_t += C_t . (exp(ll_t) * state_in)
-        y_inter = torch.einsum("bcn,bhpn->bchp", cc, state_in) * torch.exp(ll)[..., None]
+        y_inter = (torch.einsum("bcn,bhpn->bchp", cc.float(), state_in.float())
+                   * torch.exp(ll)[..., None])
         ys.append((y_inter + y_intra).reshape(b, g * chunk, h, p))
     return torch.cat(ys, dim=1)[:, :s0], state
 
@@ -183,8 +185,8 @@ def mamba2_layer(p: dict, x: torch.Tensor, *, head_dim: int, ssm_state: int,
         st = state.ssd                                    # (B, H, P, N)
         a_t = torch.exp(rel[:, 0])                        # (B, H)
         st = st * a_t[:, :, None, None] + torch.einsum(
-            "bhp,bn->bhpn", dt[:, 0, :, None] * x32[:, 0], b32[:, 0])
-        y = torch.einsum("bn,bhpn->bhp", c32[:, 0], st)[:, None]
+            "bhp,bn->bhpn", (dt[:, 0, :, None] * x32[:, 0]).float(), b32[:, 0].float())
+        y = torch.einsum("bn,bhpn->bhp", c32[:, 0].float(), st.float())[:, None]
         new_ssd = st
     else:
         y, new_ssd = _ssd_chunked(x32, b32, c32, rel, dt, min(chunk, s), policy)
