@@ -242,7 +242,32 @@ the model before it is freed.
    one decode-shape ``gemm_tiled`` call's enqueue (tracing off: the
    entry point's one flag test is all the trace hook costs it) and the
    flag test alone.
-24. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+24. mesh — the port's mesh layer (``core.ops.shard``, ``runtime.world``)
+   on this card: four ranks share it over gloo (NCCL takes one rank a
+   card; where there are as many cards as ranks the phase uses NCCL, one
+   rank a card), started after phase 2 built every library, each running
+   ``runtime.mesh_checks``' workers.  (a) The parity matrix on the kernel
+   routes (``mesh_checks.parity_cases("card")``: column- and row-parallel
+   GEMM at dp=2,tp=2, the vocab-TP refine_ab logits at tp=4, the flash
+   forward and decode at dp=2,tp=2, the grouped GEMM at ep=2 and
+   ep=2,tp=2, prefill and decode sizes), every rank's result against the
+   same call on one device in this process: the ranks agree, each case
+   is within its bound and the line names the bit-equal ones.  (b)
+   gemma3-1b at full width and depth trained at dp=2,tp=2 (FSDP over
+   ``data`` by the ``Sharder``) for 3 steps on phase 7's policy and
+   batch: step 0's per-token losses and the five gradients against phase
+   7's one-device step 0 on the same kernel routes, held at phase 7's
+   bounds and at tighter ones of its own, with two faulty controls (every
+   data rank taking rank 0's rows; every sharded GEMM row-parallel with
+   its partials reduced in bf16) above them; then the saved step-3
+   checkpoint resumed elastically on two ranks (``--mesh auto``: dp=2)
+   for 2 more steps.  (c) Mixtral 8x7B at full width, depth 2, served at
+   ep=2,tp=2: serve_moe's 8 requests, 32 tokens each, the same greedy
+   tokens as one device, prompt 0's prefill logits within serve_moe's
+   bound.  The lines give every rank's peak memory and times beside the
+   one-device phases', the share of wall time in collectives, the
+   transport and which collectives went through host memory.
+25. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -425,6 +450,45 @@ MOE_LOGITS_BOUND = 0.12
 MOE_STEP0_TOKEN_LOSS_BOUND = STEP0_TOKEN_LOSS_BOUND
 MOE_STEP0_AUX_BOUND = 1e-2
 MOE_STEP0_GRAD_BOUND = STEP0_GRAD_BOUND
+
+
+# 24 mesh.  Four ranks (two for the elastic resume) share the one card
+# over gloo, whose collectives stage CUDA tensors through host memory;
+# each world has MESH_TIMEOUT seconds.  (a) Each parity case carries its
+# bound (``mesh_checks.parity_cases("card")``).  A rank plans its block's
+# splits as one device plans the whole problem (``kernels.gemm_tiled.
+# SM_SHARE``), so every case cut on whole tiles is held bit-equal; the
+# row-parallel GEMM sums K in two halves, held at ROW_F32_BOUND's 1e-5
+# (4.77e-7 on the H100).  (b) Step 0 at dp=2,tp=2 against
+# the one-device step 0 on the same kernel routes, held at phase 7's
+# bounds and at MESH_STEP0_*, each set after the H100's reading: every
+# token's loss bit-equal (0.0), the five gradients 6.1e-8 (the unembed
+# table) to 0.016 relative (the four leaves below it).  The tp cut alone
+# gives those 1-2%: ``tools/mesh_phase.py --witness`` reads the same
+# 0.0106-0.0160 at tp=2, while dp=2 is bit-equal to one device at 2
+# microbatches (which reads 6e-8 against the whole batch).  In the
+# backward a column-parallel GEMM's dX is the f32 sum of the tp ranks'
+# partial products, an order one device never takes, and the bf16
+# backward carries it down the layers.  The controls, each on its
+# forward's per-token losses: every sharded GEMM row-parallel with its
+# partials reduced in bf16 (0.084; its gradients read 0.022-0.041 in a
+# run that took them) and every data rank on rank 0's rows (4.37; 1.0);
+# both must land above MESH_STEP0_TOKEN_LOSS_BOUND, the latter above
+# phase 7's too (the bf16 epilogue stays within that one).
+# (c) Mixtral's prefill logits at ep=2,tp=2: 0.0 on the H100, held at
+# MOE_LOGITS_BOUND, and every greedy token equal to one device's.
+MESH_RANKS = 4
+MESH_RESUME_RANKS = 2
+MESH_TRAIN = "dp=2,tp=2"
+MESH_RESUME_STEPS = 2
+MESH_SERVE = "ep=2,tp=2"
+MESH_SERVE_DEPTH = 2
+MESH_TIMEOUT = 600
+MESH_STEP0_TOKEN_LOSS_BOUND = 1e-3
+MESH_STEP0_GRAD_BOUND = 2.5e-2
+MESH_CONTROLS = ("rows_repeated", "bf16_row_epilogue")
+MESH_KERNELS = ("gemm_tiled", "gemm_refined", "flash_attention", "flash_decode",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "grouped_gemm")
 
 
 # batched small GEMMs vs their plain versions (n <= 64, |terms| ~ 1): the
@@ -728,6 +792,251 @@ async def next_line(reader) -> dict:
             raise EOFError("the gateway closed the stream")
         if line.startswith(b"{"):
             return json.loads(line)
+
+
+def prompt_lens(rng):
+    """Phase 4's eight prompt lengths from ``rng`` (two past the 512
+    window); serve_moe and the mesh phase reuse them."""
+    lens = rng.integers(16, 701, size=8)
+    lens[:2] = rng.integers(513, 701, size=2)     # two prompts past the 512 window
+    return lens
+
+
+def train_setup(cfg, dev, batch, seq):
+    """Phase 7's kernel-route policy and ``TrainLoop`` (the mesh phase's
+    one-device reference)."""
+    from repro_torch.configs.base import execution_policy_for
+    from repro_torch.core import ops
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import adamw
+    tpolicy = execution_policy_for(
+        cfg, default="bf16", logits="refine_ab",
+        backends={"gemm": "cuda", "attention": "cuda_fused"},
+        require={fam: ("vjp",) for fam in ops.families()})
+    loop = TrainLoop(cfg, policy=tpolicy,
+                     opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                     data_cfg=DataConfig(global_batch=batch, seq_len=seq,
+                                         vocab_size=cfg.vocab_size),
+                     remat=True, device=dev)
+    return tpolicy, loop
+
+
+def moe_setup(mcfg_full, lens):
+    """serve_moe's Mixtral at a depth (full width), its kernel routes and
+    policy, and its requests (``lens`` long, tokens from seed 1)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import Segment
+    from repro_torch.core import ops
+    from repro_torch.launch.serve import Request
+
+    def mixtral(depth):
+        return dataclasses.replace(mcfg_full, num_layers=depth,
+                                   segments=(Segment(("attn_local", "moe"), depth),))
+
+    moe_backends = {"gemm": "cuda", "attention": "cuda_fused", "grouped": "cuda_grouped"}
+    mpolicy = ops.ExecutionPolicy(default="bf16", logits="refine_ab", backends=moe_backends,
+                                  require={"attention": ("decode",)})
+    mrng = np.random.default_rng(1)
+    mreqs = [Request(rid=i, prompt=mrng.integers(2, mcfg_full.vocab_size, int(n))
+                     .astype(np.int32), max_new_tokens=32) for i, n in enumerate(lens)]
+    return mixtral, moe_backends, mpolicy, mreqs
+
+
+def mesh_phase(dev, cfg, loop, tpolicy, train_peak_gb, train_step_s, mixtral, mpolicy,
+               moe_backends, mreqs) -> dict:
+    """24 mesh (see the module docstring): the one-device references
+    first, then one world of MESH_RANKS ranks for (a), (b) and (c) in
+    turn, then the resume world.  Returns the path's launches (the train
+    run, the resume and the served requests), summed over every rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import api
+    from repro_torch.runtime import mesh_checks, serve_step, world
+
+    share = torch.cuda.device_count() < MESH_RANKS
+    faults: list[str] = []
+    total: dict[str, int] = {}
+    parent_gb: list[dict] = []      # this process's device memory at each spawn
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    def spawn(n, jobs):
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info(dev)
+        parent_gb.append({"reserved_gb": round(torch.cuda.memory_reserved(dev) / 1e9, 3),
+                          "card_free_gb": round(free / 1e9, 3)})
+        t0 = time.monotonic()
+        out = world.spawn(mesh_checks.jobs_worker, n, args=(jobs,), device="cuda",
+                          share_card=share, timeout=MESH_TIMEOUT)
+        return out, time.monotonic() - t0
+
+    def share_of(r):
+        return r["collective_s"] / r["wall_s"] if r["wall_s"] else None
+
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        # one-device references: (a) every parity case on this card
+        cases = mesh_checks.parity_cases("card")
+        ref = {c["name"]: {k: v.float().cpu() for k, v in mesh_checks.run_case(c, dev).items()}
+               for c in cases}
+        # (b) phase 7's step 0 on its routes, params and batch
+        torch.save(mesh_checks.step0_reference(loop, tpolicy), f"{tmp}/step0.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) Mixtral at depth MESH_SERVE_DEPTH on one device: tokens, prefill logits
+        scfg = mixtral(MESH_SERVE_DEPTH)
+        sparams = api.init_params(scfg, torch.Generator(device=dev).manual_seed(0), dev)
+        eng = ServeEngine(scfg, batch_size=4, max_ctx=1024, policy=mpolicy, device=dev)
+        eng.load(sparams)
+        eng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+        sreqs = [Request(rid=i, prompt=r.prompt, max_new_tokens=32) for i, r in enumerate(mreqs)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        eng.run(sreqs)
+        torch.cuda.synchronize(dev)
+        one_wall, one_peak = time.monotonic() - t0, torch.cuda.max_memory_allocated(dev) / 1e9
+        prompt0 = {"tokens": torch.as_tensor(sreqs[0].prompt, device=dev)[None].long()}
+        logits0, _ = serve_step.make_prefill(scfg, mpolicy, s_ctx=1024)(sparams, prompt0)
+        torch.save(logits0.cpu(), f"{tmp}/logits0.pt")
+        one_tokens = [r.out_tokens for r in sreqs]
+        del eng, sparams, logits0
+
+        tjob = dict(device="cuda", arch="gemma3-1b", mesh=MESH_TRAIN,
+                    batch=loop.data_cfg.global_batch, seq=loop.data_cfg.seq_len,
+                    run_to=TRAIN_STEPS, schedule_steps=TRAIN_STEPS + MESH_RESUME_STEPS,
+                    ckpt=f"{tmp}/ckpt", ref=f"{tmp}/step0.pt", controls=MESH_CONTROLS)
+        sjob = dict(device="cuda", arch="mixtral-8x7b", depth=MESH_SERVE_DEPTH,
+                    pattern=["attn_local", "moe"], mesh=MESH_SERVE, backends=moe_backends,
+                    slots=4, max_ctx=1024, max_new=32,
+                    prompts=[r.prompt.tolist() for r in sreqs], ref=f"{tmp}/logits0.pt")
+        ranks, world_s = spawn(MESH_RANKS, [("parity", cases), ("train", tjob),
+                                            ("serve", sjob)])
+        rjob = dict(tjob, mesh="auto", run_to=TRAIN_STEPS + MESH_RESUME_STEPS, ref=None,
+                    controls=())
+        rranks, resume_s = spawn(MESH_RESUME_RANKS, [("train", rjob)])
+
+    # (a) the parity matrix: every rank against one device
+    pranks = [r["parity"] for r in ranks]
+    rows = []
+    for c in cases:
+        held = [r["results"][c["name"]] for r in pranks if c["name"] in r["results"]]
+        err = max((torch.from_numpy(held[0][k][1]) - ref[c["name"]][k]).abs().max().item()
+                  for k in held[0])
+        agree = all(len({h[k][0] for h in held}) == 1 for k in held[0])
+        rows.append({"case": c["name"], "mesh": c["mesh"], "ranks": len(held),
+                     "max_abs_err": err, "bit_equal": err == 0.0, "bound": c["expect"],
+                     "ranks_agree": agree, "collective_s": pranks[0]["seconds"].get(c["name"])})
+        if not (agree and mesh_checks.within(err, c["expect"])):
+            faults.append(f"parity {c['name']}: err {err} (bound {c['expect']}), "
+                          f"ranks agree {agree}")
+    emit(phase="mesh_parity", ranks=MESH_RANKS, ranks_share_card=share,
+         transport=pranks[0]["transport"], host_staged=host_staged(pranks[0]["transport"]),
+         rows=rows, bit_equal=[r["case"] for r in rows if r["bit_equal"]],
+         within_bound=[r["case"] for r in rows if not r["bit_equal"]],
+         launches_by_rank=[{k: n for k, n in r["launches"].items() if n and "." not in k}
+                           for r in pranks])
+
+    # (b) gemma3-1b over dp=2,tp=2, step 0 against one device; the elastic resume
+    tranks, rranks = [r["train"] for r in ranks], [r["train"] for r in rranks]
+    s0, ctrl = tranks[0]["step0"], tranks[0]["controls"]
+    if not (s0["finite"] and s0["token_loss_max_err"] <= STEP0_TOKEN_LOSS_BOUND
+            and max(s0["grad_rel_err"].values()) <= STEP0_GRAD_BOUND):
+        faults.append(f"train step 0 outside phase 7's bounds: {s0}")
+    if not (s0["token_loss_max_err"] <= MESH_STEP0_TOKEN_LOSS_BOUND
+            and max(s0["grad_rel_err"].values()) <= MESH_STEP0_GRAD_BOUND):
+        faults.append(f"train step 0 outside the mesh bounds: {s0}")
+    for name, c in ctrl.items():
+        if not c["token_loss_max_err"] > MESH_STEP0_TOKEN_LOSS_BOUND:
+            faults.append(f"control {name} lands within the mesh bound: {c}")
+    rr = ctrl["rows_repeated"]
+    if not rr["token_loss_max_err"] > STEP0_TOKEN_LOSS_BOUND:
+        faults.append(f"control rows_repeated lands within phase 7's bound: {rr}")
+    losses = [r["losses"] for r in tranks]
+    if not (all(x == losses[0] for x in losses) and len(losses[0]) == TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses[0])):
+        faults.append(f"train losses: {losses}")
+    res = rranks[0]
+    if not (res["mesh"] == "dp=2,tp=1,ep=1" and res["start"] == TRAIN_STEPS
+            and len(res["losses"]) == MESH_RESUME_STEPS
+            and all(math.isfinite(x) for x in res["losses"])
+            and all(r["losses"] == res["losses"] for r in rranks)):
+        faults.append(f"elastic resume: {[(r['mesh'], r['start'], r['losses']) for r in rranks]}")
+    emit(phase="mesh_train", arch=cfg.name, mesh=tranks[0]["mesh"], ranks=MESH_RANKS,
+         ranks_share_card=share, transport=tranks[0]["transport"],
+         host_staged=host_staged(tranks[0]["transport"]), step0=s0, controls=ctrl,
+         token_loss_bound=STEP0_TOKEN_LOSS_BOUND, grad_bound=STEP0_GRAD_BOUND,
+         mesh_token_loss_bound=MESH_STEP0_TOKEN_LOSS_BOUND,
+         mesh_grad_bound=MESH_STEP0_GRAD_BOUND, losses=losses[0],
+         step_s_by_rank=[r["step_s"] for r in tranks],
+         median_step_s=sorted(tranks[0]["step_s"])[len(tranks[0]["step_s"]) // 2],
+         one_device_median_step_s=train_step_s,
+         peak_mem_gb_by_rank=[r["peak_mem_gb"] for r in tranks],
+         one_device_peak_mem_gb=train_peak_gb,
+         collective_share_by_rank=[share_of(r) for r in tranks],
+         collective_calls=tranks[0]["collective_calls"], collective_gb=tranks[0]["collective_gb"],
+         step0_forward_s=tranks[0].get("step0_forward_s"), checks_s=tranks[0].get("checks_s"),
+         train_wall_s=tranks[0]["wall_s"],
+         check_launches_by_rank=[{k: n for k, n in r["check_launches"].items()
+                                  if n and "." not in k} for r in tranks],
+         resume={"mesh": res["mesh"], "ranks": MESH_RESUME_RANKS, "start": res["start"],
+                 "losses": res["losses"], "step_s": res["step_s"],
+                 "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in rranks],
+                 "collective_share_by_rank": [share_of(r) for r in rranks],
+                 "world_s": resume_s})
+
+    # (c) Mixtral at full width, depth MESH_SERVE_DEPTH, served at ep=2,tp=2
+    sranks = [r["serve"] for r in ranks]
+    sv = sranks[0]
+    same = [r["tokens"] == one_tokens for r in sranks]
+    if not (all(same) and sv["done"] and sv["logits_finite"]
+            and sv["logits_max_err"] <= MOE_LOGITS_BOUND):
+        faults.append(f"serve at {MESH_SERVE}: tokens equal by rank {same}, logits err "
+                      f"{sv['logits_max_err']}")
+    emit(phase="mesh_serve", arch=scfg.name, depth=MESH_SERVE_DEPTH, mesh=MESH_SERVE,
+         ranks=MESH_RANKS, ranks_share_card=share, transport=sv["transport"],
+         host_staged=host_staged(sv["transport"]), requests=len(sreqs),
+         tokens_equal_by_rank=same, logits_max_err=sv["logits_max_err"],
+         logits_bound=MOE_LOGITS_BOUND, wall_s=sv["wall_s"], one_device_wall_s=one_wall,
+         tok_per_s=sv["tok_per_s"], peak_mem_gb_by_rank=[r["peak_mem_gb"] for r in sranks],
+         one_device_peak_mem_gb=one_peak,
+         collective_share_by_rank=[share_of(r) for r in sranks],
+         collective_calls=sv["collective_calls"])
+
+    # the path: the train run, its elastic resume and the served requests
+    # on every rank; the parity matrix's and the step-0 checks' launches
+    # are on the mesh_parity and mesh_train lines
+    for r in ranks:
+        add(r["train"]["launches"])
+        add(r["serve"]["launches"])
+    for r in rranks:
+        add(r["launches"])
+    missing = [k for k in MESH_KERNELS if not total.get(k)]
+    emit(phase="mesh", launches={k: n for k, n in total.items() if n and "." not in k},
+         world_s=world_s, resume_world_s=resume_s, missing=missing, faults=faults,
+         parent_at_spawns=parent_gb)
+    if missing:
+        faults.append(f"a kernel of the path never launched on the ranks: {missing}")
+    if faults:
+        fail("mesh: " + "; ".join(faults))
+    return total
+
+
+def host_staged(transport: str) -> str:
+    """Which of the phase's collectives went through host memory."""
+    if transport.startswith("gloo"):
+        return ("all of them: gloo stages every CUDA all-reduce and all-gather through host "
+                "memory itself; core.ops.shard stages none of its own")
+    return "none"
 
 
 def main() -> None:
@@ -2248,8 +2557,7 @@ def main() -> None:
     eng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
 
     rng = np.random.default_rng(0)
-    lens = rng.integers(16, 701, size=8)
-    lens[:2] = rng.integers(513, 701, size=2)     # two prompts past the 512 window
+    lens = prompt_lens(rng)
     reqs = [Request(rid=i, prompt=rng.integers(2, vocab, int(n)).astype(np.int32),
                     max_new_tokens=32) for i, n in enumerate(lens)]
     zero_launches(mods)
@@ -2483,14 +2791,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 7 train
-    tpolicy = execution_policy_for(
-        cfg, default="bf16", logits="refine_ab",
-        backends={"gemm": "cuda", "attention": "cuda_fused"},
-        require={fam: ("vjp",) for fam in ops.families()})
-    loop = TrainLoop(cfg, policy=tpolicy,
-                     opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
-                     data_cfg=DataConfig(global_batch=bt, seq_len=st, vocab_size=vocab),
-                     remat=True, device=dev)
+    tpolicy, loop = train_setup(cfg, dev, bt, st)
 
     # step 0: kernel routes vs torch routes on the same params and batch,
     # and a faulty torch-route control (a window one key short)
@@ -2574,9 +2875,7 @@ def main() -> None:
     # Mixtral at full width, depth cut to MOE_SERVE_DEPTH layers (the 32
     # of the full model take 186 GB in f32), on the kernel routes with the
     # experts on cuda_grouped.
-    def mixtral(depth):
-        return dataclasses.replace(mcfg_full, num_layers=depth,
-                                   segments=(Segment(("attn_local", "moe"), depth),))
+    mixtral, moe_backends, mpolicy, mreqs = moe_setup(mcfg_full, lens)
 
     def rolled_experts(p, layer):
         """A shallow copy of ``p`` whose layer ``layer`` routes every
@@ -2592,9 +2891,6 @@ def main() -> None:
     mvocab = mcfg.vocab_size
     # the reference drops nothing: capacity = T (capacity_factor = E / k)
     mcfg_dropless = dataclasses.replace(mcfg, capacity_factor=mcfg.num_experts / mcfg.top_k)
-    moe_backends = {"gemm": "cuda", "attention": "cuda_fused", "grouped": "cuda_grouped"}
-    mpolicy = ops.ExecutionPolicy(default="bf16", logits="refine_ab", backends=moe_backends,
-                                  require={"attention": ("decode",)})
     t0 = time.monotonic()
     mparams = api.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize(dev)
@@ -2603,9 +2899,6 @@ def main() -> None:
     meng = ServeEngine(mcfg, batch_size=4, max_ctx=1024, policy=mpolicy, device=dev)
     meng.load(mparams)
     meng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
-    mrng = np.random.default_rng(1)
-    mreqs = [Request(rid=i, prompt=mrng.integers(2, mvocab, int(n)).astype(np.int32),
-                     max_new_tokens=32) for i, n in enumerate(lens)]
     zero_launches(mods)
     torch.cuda.reset_peak_memory_stats(dev)
     mstats = meng.run(mreqs)
@@ -4127,7 +4420,11 @@ def main() -> None:
     if missing:
         fail(f"audit: no kernel site traced for {missing}")
 
-    # ----------------------------------------------------------- 24 kernels
+    # -------------------------------------------------------------- 24 mesh
+    mesh_launches = mesh_phase(dev, cfg, loop, tpolicy, train_peak_gb, step_s, mixtral,
+                               mpolicy, moe_backends, mreqs)
+
+    # ----------------------------------------------------------- 25 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
@@ -4140,7 +4437,7 @@ def main() -> None:
                "serve_internvl2_paged": launches_ip, "train_rwkv": launches_trw,
                "train_zamba2": launches_tz, "train_whisper": launches_tw,
                "train_internvl2": launches_ti, "precision": launches_pr,
-               "serve_stack": launches_ss}
+               "serve_stack": launches_ss, "mesh": mesh_launches}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above

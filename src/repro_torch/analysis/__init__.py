@@ -3,7 +3,7 @@
 fake tensors, and its Python and CUDA sources judged directly.  Nothing it
 does launches a kernel or allocates device memory.  ``python -m
 repro_torch.analysis`` is its command line.  The cost model of
-``repro.analysis.hlo_cost`` waits for the multi-device slice."""
+``repro.analysis.hlo_cost`` comes with the port's dry-run."""
 
 from repro_torch.analysis.auditor import (  # noqa: F401
     apply_baseline,

@@ -34,6 +34,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--impl", help="restrict --family to one impl")
     p.add_argument("--policy", action="append", dest="policies",
                    help="restrict to policy rung(s) (repeatable)")
+    p.add_argument("--no-meshes", action="store_true",
+                   help="skip the sharded (audit_meshes) traces")
     p.add_argument("--no-source", action="store_true",
                    help="skip the Python (SRC001) and CUDA (PAL003) source sweeps")
     p.add_argument("--json", action="store_true",
@@ -57,18 +59,19 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.family:
-        findings = auditor.audit_family(args.family, impl=args.impl, policies=args.policies)
+        findings = auditor.audit_family(args.family, impl=args.impl, policies=args.policies,
+                                        meshes=not args.no_meshes)
         if not args.no_source:
             findings = list(findings) + scan_source() + scan_cuda_source()
     else:
         if args.impl:
             print("--impl requires --family", file=sys.stderr)
             return 2
-        findings = auditor.audit_all(source=not args.no_source)
+        findings = auditor.audit_all(source=not args.no_source, meshes=not args.no_meshes)
         if args.policies:
             keep = set(args.policies)
             findings = [f for f in findings
-                        if f.target.split("/")[-1].split("#")[0] in keep
+                        if f.target.split("/")[-1].split("@")[0].split("#")[0] in keep
                         or "/" not in f.target]
 
     if args.update_baseline:

@@ -20,6 +20,15 @@ impl's declared capabilities:
                    in the kernel -- one launch count across fused rungs,
                    no contraction outside it -- while router-decomposed
                    rungs show one launch a pass (CAP003);
+  sharding         over each ``OpSpec.audit_meshes`` trace (``shard.
+                   abstract_meshes``: coordinate 0, no peers, every
+                   collective recorded), the body's collectives against the
+                   impl's declared ``Partitioning``: none undeclared
+                   (SHD001), none declared but never observed (SHD002), an
+                   ``*_f32`` reduction on an f32 operand (SHD003).  The
+                   gather that assembles a sharded output for the caller
+                   (``repro``'s ``shard_map`` out_specs) is not a body
+                   collective;
   kernels          each launch's split ranges, tile maps, tile divisibility
                    and accumulator dtypes (``kernel_rules``), and a ``cuda*``
                    route never reaching a plain version (PAL004).
@@ -28,8 +37,7 @@ The audited device is ``cuda`` by default: the ``cuda*`` impls' kernel
 sites are what is judged, on fake CUDA tensors that need no card.
 ``device="cpu"`` judges the routes the CPU tests run (the plain versions,
 no kernel sites).  Targets enumerate from the registry, so a future
-``register_impl`` is audited with no auditor change.  ``repro``'s sharded
-traces (SHD001-003) wait for the port's mesh.
+``register_impl`` is audited with no auditor change.
 """
 
 from __future__ import annotations
@@ -69,9 +77,27 @@ def _registry():
     return ops.registry
 
 
-def _route(family: str, impl: str, policy: str):
+def _route(family: str, impl: str, policy: str, mesh=None):
     from repro_torch.core.ops.route import Route
-    return Route(precision=policy, backends=((family, impl),))
+    return Route(precision=policy, backends=((family, impl),), mesh=mesh)
+
+
+# role -> mesh axis, as the sharded ops bind them
+ROLE_AXIS = {"dp": "data", "sp": "data", "tp": "model", "ep": "expert", "pod": "pod"}
+# longest-prefix match for declared collective names ("psum_f32:tp" ->
+# psum over the tp role's axis, f32 required)
+_COLL_PREFIXES = ("reduce_scatter", "psum_scatter", "all_gather", "all_to_all", "ppermute",
+                  "psum")
+
+
+def parse_collective(name: str) -> tuple[str, str, bool] | None:
+    """Declared collective -> (primitive, mesh axis, f32 required)."""
+    label, _, role = name.partition(":")
+    prim = next((p for p in _COLL_PREFIXES if label.startswith(p)), None)
+    axis = ROLE_AXIS.get(role)
+    if prim is None or axis is None:
+        return None
+    return prim, axis, "_f32" in label
 
 
 def _acc_ok(dtype) -> bool:
@@ -164,10 +190,65 @@ def _err(e: Exception) -> str:
     return f"{type(e).__name__}: {str(e).splitlines()[0] if str(e) else ''}"
 
 
+def _audit_sharded(spec, impl, problem, policies: Sequence[str], device: str,
+                   at: str) -> list[Finding]:
+    """SHD001-003 (and the trace rules) over the family's audit meshes."""
+    from repro_torch.core.ops import shard
+    caps = impl.capabilities
+    part = caps.partitioning
+    out: list[Finding] = []
+    declared: dict[tuple[str, str], tuple[str, bool]] = {}
+    for name in part.collectives:
+        parsed = parse_collective(name)
+        if parsed is not None:
+            prim, axis, f32 = parsed
+            declared[(prim, axis)] = (name, f32)
+    observed: set[tuple[str, str]] = set()
+    policy = next((p for p in _SURFACE_POLICIES if p in policies),
+                  next(iter(policies), "bf16"))
+    for mesh_text in spec.audit_meshes:
+        mesh = shard.MeshSpec.parse(mesh_text)
+        target = f"{spec.family}/{impl.name}/{policy}@{mesh_text}{at}"
+        route = _route(spec.family, impl.name, policy, mesh=mesh)
+        try:
+            with shard.abstract_meshes() as sites:
+                trace = trace_graph(lambda p, r=route: spec.run(p, r), problem, device=device)
+        except Exception as e:
+            out.append(make_finding("AUD001", target, f"sharded trace failed: {_err(e)}"))
+            continue
+        out.extend(_judge_trace(scan_graph(trace), target, policy, spec.audit_contractions,
+                                caps, impl.name))
+        for site in sites:
+            if site.boundary:
+                continue
+            for axis in site.axes:
+                observed.add((site.prim, axis))
+                dec = declared.get((site.prim, axis))
+                if dec is None:
+                    out.append(make_finding(
+                        "SHD001", target,
+                        f"traced {site.prim} over axis {axis!r}; the impl's Partitioning "
+                        f"declares {sorted(part.collectives) or 'no collectives'}"))
+                elif dec[1] and site.dtype != torch.float32:
+                    out.append(make_finding(
+                        "SHD003", target,
+                        f"collective {dec[0]!r} declares an f32 reduction but the traced "
+                        f"{site.prim} operand is {site.dtype}"))
+    for (prim, axis), (name, _) in sorted(declared.items()):
+        if (prim, axis) not in observed:
+            out.append(make_finding(
+                "SHD002", f"{spec.family}/{impl.name}@audit-meshes{at}",
+                f"declared collective {name!r} ({prim} over {axis!r}) never observed on "
+                f"audit meshes {list(spec.audit_meshes)} — drift between Partitioning and "
+                f"the sharded body, or a mesh gap"))
+    return out
+
+
 def audit_impl(family: str, impl_name: str, *, policies: Iterable[str] | None = None,
-               device: str = "cuda") -> list[Finding]:
+               device: str = "cuda", meshes: bool = True) -> list[Finding]:
     """All findings for one registered impl, traced on ``device`` (a
-    ``cpu`` audit's targets end in ``@cpu``)."""
+    ``cpu`` audit's targets end in ``@cpu``); ``meshes`` adds the sharded
+    traces of the family's ``audit_meshes``."""
     registry = _registry()
     spec = registry.get_family(family)
     if not spec.auditable:
@@ -233,28 +314,33 @@ def audit_impl(family: str, impl_name: str, *, policies: Iterable[str] | None = 
                 continue
             out.extend(_judge_trace(scan_graph(trace), target, policy, contractions, caps,
                                     impl_name))
+
+    if meshes and caps.partitioning is not None and spec.audit_meshes and pols:
+        out.extend(_audit_sharded(spec, impl, problem, pols, device, at))
     return out
 
 
 def audit_family(family: str, *, impl: str | None = None,
                  policies: Iterable[str] | None = None,
-                 device: str = "cuda") -> list[Finding]:
+                 device: str = "cuda", meshes: bool = True) -> list[Finding]:
     registry = _registry()
     names = (impl,) if impl else registry.available_impls(family)
     out: list[Finding] = []
     for name in names:
-        out.extend(audit_impl(family, name, policies=policies, device=device))
+        out.extend(audit_impl(family, name, policies=policies, device=device, meshes=meshes))
     return out
 
 
 def audit_all(*, source: bool = True, source_root: str | None = None,
-              cuda_root: str | None = None, device: str = "cuda") -> list[Finding]:
-    """Every registered (family, impl, policy) triple plus both source
-    sweeps (the Python SRC001 sweep and the CUDA PAL003 sweep)."""
+              cuda_root: str | None = None, device: str = "cuda",
+              meshes: bool = True) -> list[Finding]:
+    """Every registered (family, impl, policy) triple, the sharded traces
+    of each family's audit meshes (unless ``meshes=False``) and both
+    source sweeps (the Python SRC001 sweep and the CUDA PAL003 sweep)."""
     registry = _registry()
     out: list[Finding] = []
     for family in registry.families():
-        out.extend(audit_family(family, device=device))
+        out.extend(audit_family(family, device=device, meshes=meshes))
     if source:
         out.extend(scan_source(source_root))
         out.extend(scan_cuda_source(cuda_root))

@@ -9,16 +9,17 @@ proven live by a seeded violation).  The IDs and severities are
   AUD  plumbing     a declared surface fails to trace at all
   PRE  precision    f32 accumulation / pass-count / downcast structure
   CAP  capability   vjp / decode claims, fused-vs-router decomposition
+  SHD  sharding     declared ``Partitioning`` collectives vs the ones a
+                    sharded trace issues (nothing undeclared, nothing
+                    declared but never observed, f32 reductions in f32)
   PAL  kernels      split ranges and tile origins, tile divisibility,
                     accumulator dtypes, no plain version on the card
   SRC  source       raw contractions without an f32 accumulator, in the
                     Python sources and in the CUDA sources
 
-``repro``'s SHD group (declared ``Partitioning`` collectives against the
-traced ones) waits for the port's mesh: no rule is kept that nothing
-can trip.  A ``Finding`` is one violation at one target; its ``key``
+A ``Finding`` is one violation at one target; its ``key``
 (``rule_id|target``) is what baseline suppressions match, so a
-suppression pins one rule at one (family, impl, policy[#surface])
+suppression pins one rule at one (family, impl, policy[#surface][@mesh])
 coordinate and nothing else.
 """
 
@@ -55,6 +56,14 @@ RULES: dict[str, Rule] = {r.rule_id: r for r in (
     Rule("CAP003", "error",
          "fused/router decomposition structure contradicts "
          "fused_policies (kernel-launch count vs declared fusion)"),
+    Rule("SHD001", "error",
+         "sharded trace performs a collective the impl's Partitioning "
+         "does not declare"),
+    Rule("SHD002", "error",
+         "declared Partitioning collective never observed on any audit "
+         "mesh"),
+    Rule("SHD003", "error",
+         "collective declared *_f32 reduces a non-f32 operand"),
     Rule("PAL001", "error",
          "split range or tile origin leaves the operand's tile grid at a "
          "grid corner (or a split range is empty)"),

@@ -1,4 +1,4 @@
-"""Atomic, restart-safe checkpointing for one process (twin of
+"""Sharded, atomic, restart-safe checkpointing (twin of
 ``repro.checkpoint.manager``).
 
 Layout (one directory per step):
@@ -8,14 +8,22 @@ Layout (one directory per step):
         meta.json                      # step, leaf paths, shapes, dtypes
         leaf_0000.npy ...              # one file per leaf, walk order
 
+A run over a mesh passes a ``layout`` (``runtime.sharding.MeshLayout``):
+each rank then writes only its own blocks (one writer per distinct
+block), under ``proc_<rank>/leaf_<i>_shard_0.npy``, and ``meta.json``
+records every shard's GLOBAL index, so ``restore`` can assemble each
+block a rank requests on a DIFFERENT mesh from whichever saved shards
+intersect it: the elastic-rescale path (``runtime/mesh.py``).  A restore
+without a layout assembles whole leaves.
+
 A checkpoint directory is valid iff the rename happened; a crash
 mid-save leaves only ``.tmp-*`` garbage that ``latest_step`` ignores and
 ``clean_tmp`` removes.  ``save_async`` copies the tree to host memory
 first (so the train loop may update its tensors in place right after)
 and writes it on a background thread, with at most one save
-outstanding.  ``restore`` rebuilds tensors with the dtype and device of
-a template tree.  Sharded saves and resharding restore wait for the
-multi-device slice.
+outstanding (one process; a mesh run saves blocking, since the ranks
+meet at barriers).  ``restore`` rebuilds tensors with the dtype and
+device of a template tree.
 """
 
 from __future__ import annotations
@@ -53,8 +61,11 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree: Any) -> str:
-        """Blocking save of a tree of tensors."""
+    def save(self, step: int, tree: Any, layout=None) -> str:
+        """Blocking save of a tree of tensors (this rank's blocks of it
+        under a ``layout``)."""
+        if layout is not None:
+            return self._save_sharded(step, tree, layout)
         final = self._step_dir(step)
         tmp = f"{final}.tmp-{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
@@ -72,6 +83,39 @@ class CheckpointManager:
         else:
             os.replace(tmp, final)
         self._gc()
+        return final
+
+    def _save_sharded(self, step: int, tree: Any, layout) -> str:
+        final = self._step_dir(step)
+        tmp = f"{final}.tmp-mesh"
+        if layout.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)      # a crashed save's leftovers
+            os.makedirs(tmp)
+        layout.barrier()
+        mine = os.path.join(tmp, f"proc_{layout.rank:03d}")
+        os.makedirs(mine, exist_ok=True)
+        pairs = list(leaves_with_paths(tree))
+        for i, (_, leaf) in enumerate(pairs):
+            if layout.writes(i, layout.rank):
+                np.save(os.path.join(mine, f"leaf_{i:04d}_shard_0.npy"),
+                        leaf.detach().cpu().numpy())
+        layout.barrier()
+        if layout.rank == 0:
+            meta: dict[str, Any] = {"step": step, "leaves": []}
+            for i, (path, leaf) in enumerate(pairs):
+                shards = [{"file": f"proc_{r:03d}/leaf_{i:04d}_shard_0.npy",
+                           "index": [list(se) for se in layout.index(i, r)]}
+                          for r in range(layout.world) if layout.writes(i, r)]
+                meta["leaves"].append({"path": path, "shape": list(layout.shape(i)),
+                                       "dtype": str(leaf.dtype), "shards": shards})
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            if os.path.exists(final):
+                shutil.rmtree(tmp)
+            else:
+                os.replace(tmp, final)
+            self._gc()
+        layout.barrier()
         return final
 
     def save_async(self, step: int, tree: Any) -> None:
@@ -105,9 +149,10 @@ class CheckpointManager:
                  and os.path.exists(os.path.join(self.root, d, "meta.json"))]
         return max(steps) if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, layout=None) -> Any:
         """Rebuild the tree saved at ``step`` with the structure, dtypes
-        and devices of ``like``."""
+        and devices of ``like``: whole leaves, or this rank's blocks of
+        them under a ``layout`` (on any mesh, whichever mesh saved)."""
         d = self._step_dir(step)
         with open(os.path.join(d, "meta.json")) as f:
             entries = json.load(f)["leaves"]
@@ -116,10 +161,13 @@ class CheckpointManager:
             raise ValueError(f"checkpoint at step {step} holds {len(entries)} leaves "
                              f"that do not match the tree's {len(paths)}: "
                              f"structure changed?")
-        files = iter(e["file"] for e in entries)
+        it = iter(enumerate(entries))
 
         def one(x: torch.Tensor) -> torch.Tensor:
-            arr = np.load(os.path.join(d, next(files)))
+            i, e = next(it)
+            want = (layout.index(i, layout.rank) if layout is not None
+                    else tuple((0, n) for n in e.get("shape", x.shape)))
+            arr = _assemble(d, e, want)
             return torch.from_numpy(arr).to(device=x.device, dtype=x.dtype)
 
         return tree_map(one, like)
@@ -136,3 +184,29 @@ class CheckpointManager:
         for d in os.listdir(self.root):
             if ".tmp-" in d:
                 shutil.rmtree(os.path.join(self.root, d), ignore_errors=True)
+
+
+def _assemble(d: str, entry: dict, want) -> np.ndarray:
+    """The block ``want`` ((start, stop) per dim) of one saved leaf, read
+    from every saved shard that intersects it."""
+    if "file" in entry:                          # one whole-leaf file
+        arr = np.load(os.path.join(d, entry["file"]))
+        if all(a == 0 and b == n for (a, b), n in zip(want, arr.shape)):
+            return arr
+        return np.array(arr[tuple(slice(a, b) for a, b in want)])
+    out = None
+    for sh in entry["shards"]:
+        have = sh["index"]
+        lo = [max(a, h[0]) for (a, _), h in zip(want, have)]
+        hi = [min(b, h[1]) for (_, b), h in zip(want, have)]
+        if any(l_ >= h_ for l_, h_ in zip(lo, hi)) and want:
+            continue
+        arr = np.load(os.path.join(d, sh["file"]), mmap_mode="r")
+        if out is None:
+            out = np.empty(tuple(b - a for a, b in want), dtype=arr.dtype)
+        src = tuple(slice(l_ - h[0], h_ - h[0]) for l_, h_, h in zip(lo, hi, have))
+        dst = tuple(slice(l_ - a, h_ - a) for l_, h_, (a, _) in zip(lo, hi, want))
+        out[dst] = arr[src]
+    if out is None:
+        raise ValueError(f"no saved shard of {entry['path']} covers {want}")
+    return out

@@ -116,11 +116,12 @@ def layer_kinds(cfg: ModelConfig, *, encoder: bool = False) -> list[str]:
 def execution_policy_for(cfg: ModelConfig, *, default: str = "bf16",
                          logits: str | None = None, backends=None,
                          fallback: bool = False,
-                         require=None) -> ExecutionPolicy:
+                         require=None, mesh=None) -> ExecutionPolicy:
     """Precision knobs plus the ``backends`` mapping (CLI overrides
-    layered over the arch's defaults), validated at build time."""
+    layered over the arch's defaults) and the ``mesh``, validated at
+    build time."""
     merged = dict(cfg.backends)
     merged.update(dict(normalize_backends(backends or ())))
     return ExecutionPolicy(default=default, logits=logits, backends=merged,
                            fallback=fallback,
-                           require=require or ())
+                           require=require or (), mesh=mesh)

@@ -11,6 +11,7 @@ from repro_torch.core.ops.registry import (
     Capabilities,
     KernelImpl,
     OpSpec,
+    Partitioning,
     available_impls,
     families,
     get_family,
@@ -19,6 +20,7 @@ from repro_torch.core.ops.registry import (
     register_family,
     register_impl,
 )
+from repro_torch.core.ops.shard import MeshSpec
 from repro_torch.core.ops.route import (
     ExecutionPolicy,
     Route,
@@ -46,7 +48,8 @@ from repro_torch.core.ops.attention import (
 from repro_torch.core.ops.grouped import grouped_matmul, grouped_tiles
 
 __all__ = [
-    "registry", "LADDER_BOUNDS", "Capabilities", "KernelImpl", "OpSpec",
+    "registry", "LADDER_BOUNDS", "Capabilities", "KernelImpl", "OpSpec", "Partitioning",
+    "MeshSpec",
     "available_impls", "families", "get_family", "get_impl",
     "reference_impl", "register_family", "register_impl",
     "ExecutionPolicy", "Route", "as_route", "normalize_backends",

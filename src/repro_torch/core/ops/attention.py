@@ -31,8 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.ops import registry
-from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
+from repro_torch.core.ops import registry, shard
+from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec, Partitioning,
                                            register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
 from repro_torch.kernels import attention_fused, attention_paged
@@ -121,6 +121,7 @@ register_family(OpSpec(
     audit_contractions=2,
     audit_runs=(("decode", 2, _audit_decode),
                 ("paged_decode", 2, _audit_paged_decode)),
+    audit_meshes=("dp=4", "dp=2,tp=2"),
 ))
 
 
@@ -161,15 +162,34 @@ def _fused_paged_decode(q, cache, pos, *, window, softcap, route):
         precision=route.precision)
 
 
+# Batch shards over dp and KV heads over tp for any impl (independent
+# slices: bit-equal).  Only the reference additionally sequence-shards
+# (sp): its chunked online-softmax walk takes an offset mask, so a KV
+# all-gather and local q rows reproduce the one-device arithmetic.  The
+# paged pool is per replica and is never sharded.
+_ATTN_PARTITIONING_SP = Partitioning(
+    specs=(("q", ("dp", "sp", "tp", None, None)),
+           ("k", ("dp", None, "tp", None)),
+           ("v", ("dp", None, "tp", None)),
+           ("out", ("dp", "sp", "tp", None, None))),
+    collectives=("all_gather_kv:sp",),
+)
+_ATTN_PARTITIONING = Partitioning(
+    specs=(("q", ("dp", None, "tp", None, None)),
+           ("k", ("dp", None, "tp", None)),
+           ("v", ("dp", None, "tp", None)),
+           ("out", ("dp", None, "tp", None, None))),
+)
+
 register_impl("attention", "torch", fused_policies=(),
-              features=("vjp", *FEATURES))(
+              features=("vjp", *FEATURES), partitioning=_ATTN_PARTITIONING_SP)(
     AttentionOps(forward=_torch_forward, decode=_torch_decode,
                  paged_decode=_torch_paged_decode))
 
 register_impl("attention", "cuda_fused",
               policies=attention_fused.FUSED_POLICIES,
               fused_policies=attention_fused.FUSED_POLICIES,
-              features=("vjp", *FEATURES))(
+              features=("vjp", *FEATURES), partitioning=_ATTN_PARTITIONING)(
     AttentionOps(forward=_fused_forward, decode=_fused_decode,
                  paged_decode=_fused_paged_decode))
 
@@ -183,8 +203,13 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pre-scaled, k/v (B,Skv,Kv,hd); returns (B,Sq,Kv,G,hd) f32."""
     route = as_route(policy)
     impl = registry.get_impl("attention", route.impl("attention"))
+    if shard.active_mesh(route.mesh) is not None and impl.capabilities.partitioning:
+        return shard.sharded_attention_forward(
+            impl, q, k, v, causal=causal, window=window, softcap=softcap, route=route,
+            kv_chunk=kv_chunk)
     return impl.fn.forward(q, k, v, causal=causal, window=window,
-                           softcap=softcap, route=route, kv_chunk=kv_chunk)
+                           softcap=softcap, route=shard.unsharded_route(route),
+                           kv_chunk=kv_chunk)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -199,8 +224,11 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(
             f"attention impl {impl.name!r} does not support capability "
             f"'decode' (features: {sorted(impl.capabilities.features)})")
+    if shard.active_mesh(route.mesh) is not None and impl.capabilities.partitioning:
+        return shard.sharded_attention_decode(
+            impl, q, k_cache, v_cache, pos, window=window, softcap=softcap, route=route)
     return impl.fn.decode(q, k_cache, v_cache, pos, window=window,
-                          softcap=softcap, route=route)
+                          softcap=softcap, route=shard.unsharded_route(route))
 
 
 def attention_paged_decode(q: torch.Tensor, cache, pos: torch.Tensor, *,
@@ -220,4 +248,4 @@ def attention_paged_decode(q: torch.Tensor, cache, pos: torch.Tensor, *,
             f"route decode to a paged-capable impl, e.g. "
             f"{registry.reference_impl('attention')!r}")
     return impl.fn.paged_decode(q, cache, pos, window=window, softcap=softcap,
-                                route=route)
+                                route=shard.unsharded_route(route))

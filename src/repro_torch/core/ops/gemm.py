@@ -22,7 +22,8 @@ on ``torch``, with one power-of-two scale per tensor).  Specs that are not 2-D-r
 Gradients of a lowered einsum run through the same route (``_LoweredEinsum``,
 the twin of ``_lowered_einsum``): dA and dB are two more routed einsums,
 at the route's precision on the route's impl, so a model trains on the
-kernels it serves on.  Their transposed operands reach the kernels as
+kernels it serves on (over a mesh dA is sharded as the forward is, and dB
+is computed whole on every rank: see ``_LoweredEinsum.backward``).  Their transposed operands reach the kernels as
 views: ``dW = x^T.g`` has an M-contiguous A, ``dX = g.W^T`` a K-major B.
 """
 
@@ -36,8 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import precision as prec
-from repro_torch.core.ops import registry
-from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec,
+from repro_torch.core.ops import registry, shard
+from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec, Partitioning,
                                            register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
 from repro_torch.core.ops.tiles import tile_for
@@ -73,6 +74,7 @@ register_family(OpSpec(
     oracle=_oracle,
     error_bound=lambda policy: LADDER_BOUNDS[policy],
     grad_args=("a",),
+    audit_meshes=("tp=3", "dp=2,tp=2"),
 ))
 
 
@@ -96,7 +98,17 @@ def torch_policy_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-@register_impl("gemm", "torch", fused_policies=prec.POLICIES, features=("vjp",))
+# Canonical TP scheme: column-parallel (b's n dim sharded; each output
+# column whole on one rank -- bit-equal); the shard builder switches to
+# row-parallel (k split + f32 all-reduce) when only k divides.
+_GEMM_PARTITIONING = Partitioning(
+    specs=(("a", ("dp", None)), ("b", (None, "tp")), ("out", ("dp", "tp"))),
+    collectives=("psum_f32:tp",),
+)
+
+
+@register_impl("gemm", "torch", fused_policies=prec.POLICIES, features=("vjp",),
+               partitioning=_GEMM_PARTITIONING)
 def _torch_gemm(a, b, *, policy):
     return torch_policy_einsum("...mk,...kn->...mn", a, b, policy)
 
@@ -110,7 +122,7 @@ def _torch_gemm(a, b, *, policy):
 @register_impl("gemm", "cuda",
                fused_policies=("fp8", "int8", "fp8x3", "int8x3",
                                "bf16", "refine_a", "bf16x3", "refine_ab"),
-               features=("vjp",))
+               features=("vjp",), partitioning=_GEMM_PARTITIONING)
 def _cuda_gemm(a, b, *, policy):
     if policy == "bf16":
         return gemm_tiled(a, b)
@@ -124,7 +136,8 @@ def _cuda_gemm(a, b, *, policy):
 # The paper's Fig. 6 "WMMA without shared memory" column: the refine_ab
 # unembed on this impl is four naive bf16 passes summed at the router.
 # Its wrapper pads every operand to 16-multiples (the WMMA fragment), the
-# one port GEMM whose kernel takes only tile-divisible shapes.
+# one port GEMM whose kernel takes only tile-divisible shapes.  It declares
+# no Partitioning (as ``pallas_naive``), so a mesh route rejects it.
 @register_impl("gemm", "cuda_naive", fused_policies=("bf16",), features=("vjp",),
                pads_to_tiles=True)
 def _cuda_naive_gemm(a, b, *, policy):
@@ -248,12 +261,18 @@ def _execute_plan(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
     at = a.permute(plan.a_perm)
     bt = b.permute(plan.b_perm)
     if plan.batch:
+        # batched contractions run unsharded, as in repro (the big weight
+        # matmuls are unbatched)
         at = at.reshape(plan.batch, plan.m, plan.k)
         bt = bt.reshape(plan.batch, plan.k, plan.n)
+        out = _impl_gemm_2d(impl, at, bt, shard.unsharded_route(route))
     else:
         at = at.reshape(plan.m, plan.k)
         bt = bt.reshape(plan.k, plan.n)
-    out = _impl_gemm_2d(impl, at, bt, route)
+        if shard.active_mesh(route.mesh) is not None and impl.capabilities.partitioning:
+            out = shard.sharded_gemm_2d(impl, at, bt, route)
+        else:
+            out = _impl_gemm_2d(impl, at, bt, route)
     return out.reshape(plan.out_shape).permute(plan.out_perm)
 
 
@@ -278,7 +297,11 @@ class _LoweredEinsum(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             da = routed_einsum(f"{out},{b_spec}->{a_spec}", g, b, ctx.route).to(a.dtype)
         if ctx.needs_input_grad[4]:
-            db = routed_einsum(f"{a_spec},{out}->{b_spec}", a, g, ctx.route).to(b.dtype)
+            # over a mesh every rank holds a and g whole, so it computes the
+            # weight-side gradient whole: no collective, where a sharded one
+            # would be gathered whole again (``core.ops.shard``)
+            db = routed_einsum(f"{a_spec},{out}->{b_spec}", a, g,
+                               shard.unsharded_route(ctx.route)).to(b.dtype)
         return None, None, None, da, db
 
 
@@ -292,7 +315,7 @@ def routed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     """
     route = as_route(policy)
     name = route.impl("gemm")
-    if name == "torch":
+    if name == "torch" and shard.active_mesh(route.mesh) is None:
         return torch_policy_einsum(spec, a, b, route.precision)
     registry.get_impl("gemm", name)      # unknown impls fail loudly
     plan = _plan_2d(spec, tuple(a.shape), tuple(b.shape))

@@ -26,7 +26,8 @@ rows are zero and come back zero.
 
 The alignment ``bm`` travels from the dispatcher to the impl as the
 ``bm`` keyword of ``grouped_matmul`` (``repro`` pins it on its route's
-tiles).  Expert-parallel ``Partitioning`` waits for the mesh slice.
+tiles); it comes from the global problem, so an expert-parallel rank
+(``core.ops.shard``) keeps the alignment its offsets were built with.
 
 Impl contract: fn(x (N,D) sorted+aligned, w (E,D,F), group_offsets
 (E+1,) int32, *, route, bm, group_counts=None) -> f32 (N,F).
@@ -41,10 +42,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.ops import registry
+from repro_torch.core.ops import registry, shard
 from repro_torch.core.ops.gemm import torch_policy_einsum
-from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec, register_family,
-                                           register_impl)
+from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec, Partitioning,
+                                           register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
 from repro_torch.core.ops.tiles import (TileConfig, align_group_counts, set_default_tiles,
                                         tile_for)
@@ -97,6 +98,7 @@ register_family(OpSpec(
     oracle=_oracle,
     error_bound=lambda policy: LADDER_BOUNDS[policy],
     grad_args=("x",),
+    audit_meshes=("ep=3,tp=2",),
 ))
 
 
@@ -107,7 +109,18 @@ def grouped_tiles(policy: str | Route, m: int, n: int, k: int) -> TileConfig:
     return tile_for(as_route(policy).impl("grouped"), m, n, k)
 
 
-@register_impl("grouped", "torch", fused_policies=registry.ALL_POLICIES, features=("vjp",))
+# Expert parallel: weights shard E; each rank runs its window of the
+# sorted buffer against its experts (zero-weight sentinel groups take the
+# rows outside it) and an f32 all-reduce over the expert axis reassembles
+# the disjoint regions.  tp additionally column-shards F.
+_GROUPED_PARTITIONING = Partitioning(
+    specs=(("x", (None, None)), ("w", ("ep", None, "tp")), ("out", (None, "tp"))),
+    collectives=("psum_f32:ep",),
+)
+
+
+@register_impl("grouped", "torch", fused_policies=registry.ALL_POLICIES, features=("vjp",),
+               partitioning=_GROUPED_PARTITIONING)
 def _torch_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int, group_counts=None):
     """Reference: gather into the worst-case (E, C = N, D) dispatch
     tensor, one policy einsum, scatter back (C = N: every group could own
@@ -132,7 +145,8 @@ set_default_tiles("cuda_grouped", TileConfig(bm=128), row_quantum=gemm_grouped.R
 
 
 @register_impl("grouped", "cuda_grouped", policies=registry.ALL_POLICIES,
-               fused_policies=tuple(gemm_grouped.POLICY_CODES), features=("vjp",))
+               fused_policies=tuple(gemm_grouped.POLICY_CODES), features=("vjp",),
+               partitioning=_GROUPED_PARTITIONING)
 def _cuda_grouped_matmul(x, w, group_offsets, *, route: Route, bm: int, group_counts=None):
     return gemm_grouped.grouped(x, w, group_offsets, bm=bm, policy=route.precision,
                                 group_counts=group_counts)
@@ -154,4 +168,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor
     """
     route = as_route(policy)
     impl = registry.get_impl("grouped", route.impl("grouped"))
-    return impl.fn(x, w, group_offsets, route=route, bm=bm, group_counts=group_counts)
+    if shard.active_mesh(route.mesh) is not None and impl.capabilities.partitioning:
+        return shard.sharded_grouped_matmul(impl, x, w, group_offsets, route, bm=bm,
+                                            group_counts=group_counts)
+    return impl.fn(x, w, group_offsets, route=shard.unsharded_route(route), bm=bm,
+                   group_counts=group_counts)

@@ -8,8 +8,10 @@ decorator every impl registers through, and routing
 capabilities at route-build time.  The audit hooks (``grad_args``,
 ``audit_contractions``, ``audit_runs``) drive the static auditor
 (``repro_torch.analysis``); ``capability_rows`` / ``capability_markdown``
-give the family x impl table with its ``audited`` column.
-``Partitioning`` waits for the multi-device slice.
+give the family x impl table with its ``shardable`` and ``audited``
+columns.  ``Partitioning`` declares how an impl shards under a device
+mesh (``core.ops.shard``); ``OpSpec.audit_meshes`` names the meshes the
+auditor traces it on.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.core.precision import POLICIES
 
 __all__ = [
     "Capabilities",
+    "Partitioning",
     "OpSpec",
     "KernelImpl",
     "register_family",
@@ -55,18 +58,48 @@ LADDER_BOUNDS = {
 
 
 @dataclasses.dataclass(frozen=True)
+class Partitioning:
+    """How one impl shards under a device mesh (``core.ops.shard``).
+
+    ``specs`` maps each contract operand (plus ``out``) to a per-dim
+    template of mesh ROLES -- ``dp`` (batch/data), ``tp`` (tensor
+    parallel), ``ep`` (expert parallel), ``sp`` (sequence parallel) -- or
+    None (replicated): the impl's canonical scheme, which the shard
+    builder binds to mesh axes at dispatch time with divisibility guards
+    (it may pick a role-compatible alternative, e.g. row-parallel GEMM
+    when only k divides).  ``collectives`` names the reductions the
+    sharded body applies (``psum_f32:tp``: f32 partial-sum epilogue over
+    the tp axis; ``all_gather_kv:sp``: the KV gather of the sequence
+    walk).  ``roles`` (derived) is what route-build validation checks.
+    """
+
+    specs: tuple[tuple[str, tuple[str | None, ...]], ...] = ()
+    collectives: tuple[str, ...] = ()
+
+    @property
+    def roles(self) -> frozenset[str]:
+        out = {r for _, dims in self.specs for r in dims if r}
+        out |= {c.partition(":")[2] for c in self.collectives if ":" in c}
+        return frozenset(out)
+
+
+@dataclasses.dataclass(frozen=True)
 class Capabilities:
     """Declarative metadata for one registered impl: the rungs it serves
     (``policies``), the subset it runs in one fused call
     (``fused_policies``) and feature tags.  ``pads_to_tiles`` says the
     impl's kernels take only tile-divisible operands (its wrapper pads
     them), which the auditor's PAL002 holds every kernel site to; most
-    port kernels mask ragged edges and leave it False."""
+    port kernels mask ragged edges and leave it False.  ``partitioning``
+    (None: one device only) declares how the impl shards under a mesh;
+    routes carrying a non-identity mesh validate against it like any
+    other capability."""
 
     policies: frozenset[str] = ALL_POLICIES
     fused_policies: frozenset[str] = frozenset()
     features: frozenset[str] = frozenset()
     pads_to_tiles: bool = False
+    partitioning: Partitioning | None = None
 
     def has(self, feature: str) -> bool:
         return feature in self.features
@@ -87,7 +120,9 @@ class OpSpec:
     audit_contractions``); ``audit_runs`` lists extra feature-gated entry
     points as ``(feature_tag, contractions, fn(problem, route) ->
     tensor)``, audited only for impls declaring that feature (attention
-    registers its ``decode`` / ``paged_decode`` surfaces here).
+    registers its ``decode`` / ``paged_decode`` surfaces here);
+    ``audit_meshes`` names the mesh specs whose sharded traces must
+    jointly exercise every declared ``Partitioning`` collective.
     """
 
     family: str
@@ -102,6 +137,7 @@ class OpSpec:
     grad_args: tuple[str, ...] = ()
     audit_contractions: int = 1
     audit_runs: tuple[tuple[str, int, Callable[..., Any]], ...] = ()
+    audit_meshes: tuple[str, ...] = ()
 
     def __post_init__(self) -> None:
         if not self.label:
@@ -140,7 +176,8 @@ def register_impl(family: str, name: str, *,
                   policies: Iterable[str] | None = None,
                   fused_policies: Iterable[str] = (),
                   features: Iterable[str] = (),
-                  pads_to_tiles: bool = False):
+                  pads_to_tiles: bool = False,
+                  partitioning: Partitioning | None = None):
     """Decorator registering ``fn`` as impl ``name`` of ``family``."""
     if family not in _FAMILIES:
         raise ValueError(
@@ -151,6 +188,7 @@ def register_impl(family: str, name: str, *,
         fused_policies=frozenset(fused_policies),
         features=frozenset(features),
         pads_to_tiles=pads_to_tiles,
+        partitioning=partitioning,
     )
 
     def wrap(fn):
@@ -214,12 +252,15 @@ def capability_rows() -> list[dict[str, str]]:
                 "policies": _fmt_policies(c.policies),
                 "fused": _fmt_policies(c.fused_policies),
                 "features": ",".join(sorted(c.features)) or "-",
+                "shardable": (",".join(sorted(c.partitioning.roles))
+                              if c.partitioning else "-"),
                 "audited": "yes" if spec.auditable else "-",
             })
     return rows
 
 
-_COLS = ("family", "impl", "role", "policies", "fused", "features", "audited")
+_COLS = ("family", "impl", "role", "policies", "fused", "features", "shardable",
+         "audited")
 
 
 def capability_markdown() -> str:

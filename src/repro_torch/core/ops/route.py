@@ -6,7 +6,10 @@ rung plus a (family -> impl) mapping.  ``ExecutionPolicy`` extends
 against its declared capabilities at construction: an impl lacking a
 rung it would run, or a feature listed in ``require``, fails with the
 missing capability named (or, with ``fallback=True``, resolves to the
-family's reference impl).  There is no mesh in the port yet.
+family's reference impl).  A non-identity ``mesh`` (a ``MeshSpec``)
+distributes every routed op over the ranks (``core.ops.shard``) and
+demands a ``Partitioning`` of every resolved impl, exactly like a rung or
+a feature; ``fallback`` resolves an unshardable impl to the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import warnings
 from collections.abc import Mapping
 
 from repro_torch.core.ops import registry
+from repro_torch.core.ops.shard import MeshSpec, active_mesh
 from repro_torch.core.precision import PrecisionPolicy
 
 __all__ = [
@@ -40,10 +44,11 @@ LAYER_FAMILIES = tuple(f for f in PrecisionPolicy._PRECISION_FIELDS
 
 @dataclasses.dataclass(frozen=True)
 class Route:
-    """Everything one contraction needs: precision x impls."""
+    """Everything one contraction needs: precision x impls x mesh."""
 
     precision: str = "bf16"
     backends: tuple[tuple[str, str], ...] = ()
+    mesh: MeshSpec | None = None
 
     def __post_init__(self) -> None:
         object.__setattr__(
@@ -75,16 +80,21 @@ def as_route(policy: str | Route) -> Route:
 
 def validate_backends(backends, *, rungs_for=None,
                       require: Mapping[str, tuple[str, ...]] | None = None,
-                      fallback: bool = False) -> tuple[tuple[str, str], ...]:
+                      fallback: bool = False,
+                      mesh: MeshSpec | None = None) -> tuple[tuple[str, str], ...]:
     """Check a backends mapping against the registry's capabilities.
 
     ``rungs_for(op_family, scoped_layer)`` returns the rungs the impl
     will run; ``require`` maps families to feature tags that must be
     present (families absent from the mapping are checked through their
-    reference impl).  A miss raises ``ValueError`` naming the missing
+    reference impl).  A non-identity ``mesh`` demands a ``Partitioning``
+    of every resolved impl (every family's ops run under the mesh, so
+    families absent from the mapping are checked through their reference
+    impl).  A miss raises ``ValueError`` naming the missing
     capability, or with ``fallback`` resolves to the reference impl.
     """
     require = dict(require or {})
+    mesh = active_mesh(mesh)
 
     def check(fam, name, scoped, *, allow_fallback):
         spec = registry.get_family(fam)
@@ -94,6 +104,8 @@ def validate_backends(backends, *, rungs_for=None,
                    if not caps.supports_policy(r)]
         missing += [f"capability {feat!r}" for feat in require.get(fam, ())
                     if not caps.has(feat)]
+        if mesh is not None and caps.partitioning is None:
+            missing += [f"capability 'partitioning' (mesh {mesh.describe()})"]
         if not missing:
             return name
         if allow_fallback and name != spec.reference:
@@ -120,7 +132,10 @@ def validate_backends(backends, *, rungs_for=None,
         out.append((key, check(fam, name, scoped, allow_fallback=fallback)))
         if not scoped:
             unscoped.add(fam)
-    for fam in sorted(set(require) - unscoped):
+    implied = set(require)
+    if mesh is not None:
+        implied |= set(registry.families())
+    for fam in sorted(implied - unscoped):
         check(fam, registry.reference_impl(fam), None, allow_fallback=False)
     return tuple(sorted(out))
 
@@ -135,19 +150,22 @@ class ExecutionPolicy(PrecisionPolicy):
     """Per-layer-family precision + the validated backends mapping.
 
     ``for_(layer_family)`` returns the ``Route`` the models hand to
-    ``peinsum`` and the family dispatchers.
+    ``peinsum`` and the family dispatchers.  ``mesh`` (a ``MeshSpec``)
+    distributes every routed op over the ranks; a non-identity mesh is
+    validated against each impl's ``Partitioning`` here.
     """
 
     backends: tuple[tuple[str, str], ...] = ()
     fallback: bool = False
     require: tuple[tuple[str, tuple[str, ...]], ...] = ()
+    mesh: MeshSpec | None = None
 
     def __post_init__(self) -> None:
         super().__post_init__()
         object.__setattr__(self, "require", _normalize_require(self.require))
         object.__setattr__(self, "backends", validate_backends(
             self.backends, rungs_for=self._rungs_for,
-            require=dict(self.require), fallback=self.fallback))
+            require=dict(self.require), fallback=self.fallback, mesh=self.mesh))
 
     def _rungs_for(self, op_family: str, scoped: str | None):
         """The rungs impl selection ``op_family`` will execute."""
@@ -175,7 +193,7 @@ class ExecutionPolicy(PrecisionPolicy):
             if scoped == layer_family:
                 chosen[fam] = name
         return Route(precision=PrecisionPolicy.for_(self, layer_family),
-                     backends=chosen)
+                     backends=chosen, mesh=self.mesh)
 
     def for_(self, layer_family: str) -> Route:  # type: ignore[override]
         return self.route(layer_family)

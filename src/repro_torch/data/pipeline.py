@@ -5,8 +5,9 @@ Batch i is a pure function of (seed, i, proc): the same numpy stream
 then an audio config's frames, then a VLM config's image rows), so the
 two packages train on bit-equal batches, and a restart needs no data state
 (the checkpoint stores only the step).  Batches are host numpy arrays;
-the train loop moves them to the device.  Host sharding across
-processes (``host_slice``) waits for the multi-device slice.
+the train loop moves them to the device.  ``host_slice`` gives a
+process its rows of the global batch (rank and world from
+``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from collections.abc import Iterator
 
 import numpy as np
 
-__all__ = ["DataConfig", "SyntheticLMDataset", "Prefetcher"]
+__all__ = ["DataConfig", "SyntheticLMDataset", "Prefetcher", "host_slice"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +97,18 @@ class Prefetcher:
                 self.q.get_nowait()
         except queue.Empty:
             pass
+
+
+def host_slice(global_batch: int, seq_len: int, *, proc: int | None = None,
+               nproc: int | None = None) -> tuple[int, int]:
+    """This process's (start, size) slice of the global batch: process
+    ``proc`` of ``nproc``, by default the rank and world size of the
+    default process group (0 of 1 without one)."""
+    del seq_len
+    if proc is None or nproc is None:
+        import torch.distributed as dist
+        up = dist.is_available() and dist.is_initialized()
+        proc = dist.get_rank() if up else 0
+        nproc = dist.get_world_size() if up else 1
+    per = global_batch // nproc
+    return proc * per, per

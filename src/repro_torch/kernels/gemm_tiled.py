@@ -176,8 +176,21 @@ SMEM_LIMIT = 232448              # bytes of shared memory a block may use on the
 
 
 @functools.cache
-def sm_count(index: int) -> int:
+def card_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The share of the card a launch plans its splits for.  A rank running its
+# block of a sharded problem (``core.ops.shard``) plans as the whole
+# problem would on one device: the split choosers see the card's SMs over
+# the share of the grid the cut took away, so the block sums K (or walks
+# the KV cache) in the same splits as one device.
+SM_SHARE = 1
+
+
+def sm_count(index: int) -> int:
+    """The SMs a launch plans its splits for (see ``SM_SHARE``)."""
+    return max(1, card_sms(index) // SM_SHARE)
 
 
 _WORKSPACES: dict[tuple[str, int, int], tuple] = {}
@@ -200,7 +213,7 @@ def split_workspace(index: int, stream: int) -> tuple[int, int, int, int]:
     launches: the last CTA of a tile resets its ticket) on device ``index``
     for the stream ``stream``, allocated once per device and stream: the
     launchers' (ws, ws_floats, tickets, n_tickets)."""
-    sms = sm_count(index)
+    sms = card_sms(index)
     return _workspace("split", index, stream, WS_SLOTS_PER_SM * sms * WS_SLOT_FLOATS,
                       TICKETS_PER_SM * sms)
 
@@ -209,7 +222,7 @@ def sm90_workspace(index: int, stream: int) -> tuple[int, int, int, int]:
     """The refined wgmma mainloop's split workspace (``sm90_splits`` > 1),
     as ``split_workspace``: SM90_SLOTS_PER_SM partials of 128 x 128 floats
     and as many tickets an SM."""
-    sms = sm_count(index)
+    sms = card_sms(index)
     return _workspace("sm90", index, stream, SM90_SLOTS_PER_SM * sms * SM90_PART,
                       SM90_SLOTS_PER_SM * sms)
 

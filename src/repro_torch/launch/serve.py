@@ -14,8 +14,12 @@ A staggered batch produces token for token the same outputs as serving
 each request alone, and an unquantized paged engine the same outputs as
 the dense one.  ``--replicas`` puts a replica pool in front of the engine
 and ``--gateway-port`` the HTTP gateway in front of the pool
-(``repro_torch.serve``); meshes and the tile cache wait for their slices
-(their flags are absent).
+(``repro_torch.serve``).  ``--mesh dp=2,tp=2`` (or ``auto`` with
+``--nprocs``) serves one engine over a mesh of ranks, one process a rank
+(``runtime.world``): every rank runs the same requests through the
+mesh-carrying policy, whose routed ops shard over the mesh and hand every
+rank the whole result, and rank 0 reports; the paged pool stays per rank.
+The tile cache waits for its slice (its flag is absent).
 
     python -m repro_torch.launch.serve --arch gemma3-1b \\
         --backend gemm=cuda --backend attention=cuda_fused \\
@@ -31,6 +35,8 @@ and ``--gateway-port`` the HTTP gateway in front of the pool
         --backend attention=cuda_fused --max-ctx 1024 [--kv-layout paged]
     python -m repro_torch.launch.serve --arch gemma3-1b --backend gemm=cuda \\
         --backend attention=cuda_fused --replicas 2 [--gateway-port 8080]
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke --device cpu \\
+        --backend grouped=cuda_grouped --mesh ep=2,tp=2
 
 ``--arch`` takes every architecture: gemma3-1b, starcoder2-15b,
 command-r-35b and nemotron-4-340b (dense), mixtral-8x7b and dbrx-132b
@@ -48,6 +54,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -680,7 +687,7 @@ class ServeEngine:
         return stats
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="gemma3-1b",
                     help="a ported architecture: " + ", ".join(ARCHS))
@@ -730,20 +737,73 @@ def main(argv=None) -> None:
                     help="address the gateway binds (default: loopback only)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs; 'cuda' fails without a card")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="device mesh: 'dp=2,tp=2,ep=2' (any subset), 'auto' (fit the "
+                         "rank count), or 'none' (default, one device).  Every routed "
+                         "impl must declare a Partitioning")
+    ap.add_argument("--nprocs", type=int, default=None,
+                    help="ranks to start (default: the mesh's size; for --mesh auto the "
+                         "visible cards on cuda, 1 on cpu)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="allow several ranks on one card (gloo collectives)")
+    return ap
 
-    device = resolve_device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+
+def _serve_policy(args, cfg, mesh=None):
     # the tick decodes against the KV cache every step: demand the
     # attention impl's decode (and paged_decode) capability up front
     attn_caps = ("decode", "paged_decode") if args.kv_layout == "paged" else ("decode",)
-    policy = execution_policy_for(
+    return execution_policy_for(
         cfg, default=args.policy, backends=ops.parse_backend_flags(args.backend),
-        require={"attention": attn_caps})
-    print(f"arch={cfg.name} layers={len(layer_kinds(cfg))} device={device} "
-          f"backends={dict(policy.backends)} policy={args.policy} "
-          f"kv={args.kv_layout}{'/' + args.kv_quant if args.kv_layout == 'paged' else ''}",
-          flush=True)
+        require={"attention": attn_caps}, mesh=mesh)
+
+
+def _serve_rank(rank: int, world_size: int, argv: list[str], mesh_text: str):
+    """One rank of a mesh-served engine (``runtime.world.spawn``)."""
+    from repro_torch.core.ops.shard import MeshSpec
+    from repro_torch.runtime import world
+    args = _parser().parse_args(argv)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    policy = _serve_policy(args, cfg, MeshSpec.parse(mesh_text))
+    return _serve(args, cfg, policy, world.rank_device(args.device, rank), report=rank == 0)
+
+
+def main(argv=None) -> None:
+    from repro_torch.runtime import mesh as meshlib
+    from repro_torch.runtime import world
+    from repro_torch.runtime.monitor import run_header
+    argv = list(argv) if argv is not None else None
+    args = _parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    n = args.nprocs
+    if n is None and args.mesh is not None and args.mesh.strip().lower() == "auto":
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    mesh = meshlib.resolve_mesh_spec(args.mesh, cfg, n_devices=n)
+    ranks = mesh.size if mesh is not None else 1
+    if n is not None and n != ranks:
+        raise SystemExit(f"--mesh {args.mesh!r} places {ranks} rank(s); --nprocs is {n}")
+    policy = _serve_policy(args, cfg, mesh)
+    print(run_header(args.arch, policy=policy, mesh=policy.mesh), flush=True)
+    if ranks == 1:
+        _serve(args, cfg, policy, device)
+        return
+    if args.replicas > 1 or args.gateway_port is not None:
+        raise SystemExit("--mesh serves one engine over its ranks; --replicas and "
+                         "--gateway-port run replicas on one device")
+    world.spawn(_serve_rank, ranks, args=(argv if argv is not None else sys.argv[1:],
+                                          mesh.describe()),
+                device=device.type, share_card=args.share_card, timeout=86400.0)
+
+
+def _serve(args, cfg, policy, device, *, report: bool = True) -> dict:
+    """Serve the CLI's requests on ``device`` (one rank's engine on a
+    mesh); prints the stats where ``report``."""
+    print_ = print if report else (lambda *a, **k: None)
+    print_(f"arch={cfg.name} layers={len(layer_kinds(cfg))} device={device} "
+           f"backends={dict(policy.backends)} policy={args.policy} "
+           f"kv={args.kv_layout}{'/' + args.kv_quant if args.kv_layout == 'paged' else ''}",
+           flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     params = api.init_params(cfg, gen, device)
     kv_kwargs = dict(kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
@@ -789,22 +849,23 @@ def main(argv=None) -> None:
             asyncio.run(gw.serve_forever())
             return
         stats = pool.run(reqs)
-        print(f"pool served {stats['requests']} requests across {stats['replicas']} "
-              f"replicas ({stats['wall_s']:.2f}s, {stats['tok_per_s']:.1f} tok/s)")
+        print_(f"pool served {stats['requests']} requests across {stats['replicas']} "
+               f"replicas ({stats['wall_s']:.2f}s, {stats['tok_per_s']:.1f} tok/s)")
         for r in reqs[:3]:
-            print(f"  req {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens[:8]}...")
-        return
+            print_(f"  req {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens[:8]}...")
+        return stats
 
     eng = ServeEngine(cfg, batch_size=args.batch, max_ctx=args.max_ctx,
                       policy=policy, max_queue=args.max_queue, device=device,
                       **kv_kwargs)
     eng.load(params)
     stats = eng.run(reqs)
-    print(f"served {stats['requests']} requests in {stats['ticks']} ticks "
-          f"({stats['wall_s']:.2f}s, {stats['tok_per_s']:.1f} tok/s, "
-          f"mean latency {stats['latency_mean_s'] * 1e3:.0f}ms)")
+    print_(f"served {stats['requests']} requests in {stats['ticks']} ticks "
+           f"({stats['wall_s']:.2f}s, {stats['tok_per_s']:.1f} tok/s, "
+           f"mean latency {stats['latency_mean_s'] * 1e3:.0f}ms)")
     for r in reqs[:3]:
-        print(f"  req {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens[:8]}...")
+        print_(f"  req {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens[:8]}...")
+    return {**stats, "tokens": [r.out_tokens for r in reqs]}
 
 
 if __name__ == "__main__":

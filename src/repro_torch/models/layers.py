@@ -5,8 +5,10 @@ Every matmul routes through ``core.refined_matmul.peinsum``, so the
 precision policy, and through an ``ExecutionPolicy`` route the GEMM
 impl, apply to every layer.  Initialisers draw the same shapes and
 scales as the JAX package (distribution-equal, not bit-equal: a
-``torch.Generator`` is not a JAX key).  The JAX package's activation
-sharding constraint has no counterpart: there is no mesh yet.
+``torch.Generator`` is not a JAX key).  ``unembed`` hands its logits
+to ``runtime.act_sharding.constrain``, as the JAX package does; the
+sharded ops return plain tensors (explicit SPMD), which it passes through
+unchanged.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.ops import Route
 from repro_torch.core.refined_matmul import peinsum
+from repro_torch.runtime.act_sharding import constrain
 
 Policy = str | Route
 Params = dict
@@ -75,8 +78,9 @@ def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def unembed(p: Params, x: torch.Tensor, policy: Policy) -> torch.Tensor:
     """Logits projection against the (V, d) table, an NT product the
-    router hands to the GEMM impl as a view."""
-    return peinsum("...d,vd->...v", x, p["table"], policy)
+    router hands to the GEMM impl as a view.  The logits take the installed
+    constraint (B: dp, S, V: tp; ``runtime/act_sharding.py``)."""
+    return constrain(peinsum("...d,vd->...v", x, p["table"], policy), "logits")
 
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str, *,

@@ -44,6 +44,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import AttnCache, attention, init_attn
+from repro_torch.runtime.act_sharding import constrain
 
 __all__ = ["init_params", "init_layer", "forward", "init_cache", "recurrent_state",
            "lm_loss"]
@@ -286,6 +287,7 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
         x = L.embed(params["embed"], tokens, dtype)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(dtype), x], dim=1)
+    x = constrain(x, "residual")
     pe_key = "enc_pos_embed" if encode else "pos_embed"
     if cfg.rope_theta is None and pe_key in params:
         table = params[pe_key]["table"]
@@ -303,6 +305,7 @@ def forward(params: dict, tokens: torch.Tensor | None, cfg: ModelConfig, *,
                                       policy=policy, mode=mode, pos=pos,
                                       cache=cache[i] if cache is not None else None,
                                       shared=params.get("shared"), enc_x=enc_x)
+                x = constrain(x, "residual")   # pin (B: dp, S, D: replicated)
                 ncs.append(nc)
                 if ai is not None:
                     a = a + ai

@@ -67,11 +67,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def step(cfg: AdamWConfig, state: AdamWState, params: Any, grads: Any,
+def step(cfg: AdamWConfig, state: AdamWState, params: Any, grads: Any, *,
+         gnorm: torch.Tensor | None = None,
          ) -> tuple[Any, AdamWState, dict[str, torch.Tensor]]:
     """One AdamW update, in place.  Returns (params, state, metrics) with
-    metrics ``grad_norm`` (before clipping) and ``lr``."""
-    gnorm = global_norm(grads)
+    metrics ``grad_norm`` (before clipping) and ``lr``.  ``gnorm`` is the
+    global norm when ``grads`` hold only this rank's blocks of the
+    gradients (a sharded run), computed from ``grads`` otherwise."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)

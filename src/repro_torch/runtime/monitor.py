@@ -3,8 +3,8 @@
 
 The monitor keeps a rolling window of per-step wall times, computes
 robust z-scores (median / MAD) and flags outliers, and accounts model
-FLOPs into achieved FLOP/s.  There is no mesh yet, so ``run_header``
-always reports a single device.
+FLOPs into achieved FLOP/s.  ``run_header`` names the mesh (or a single
+device) and each family's routed impl, letter for letter as ``repro``.
 """
 
 from __future__ import annotations
@@ -18,10 +18,14 @@ from repro_torch.core.ops import registry
 __all__ = ["StepMonitor", "StepStats", "run_header"]
 
 
-def run_header(arch: str, *, policy=None) -> str:
-    """One attributable run-header line: arch, device layout and the
+def run_header(arch: str, *, policy=None, mesh=None) -> str:
+    """One attributable run-header line: arch, mesh topology and the
     per-family routed impl."""
-    parts = [f"run: {arch}", "mesh none (single-device)"]
+    parts = [f"run: {arch}"]
+    if mesh is not None and not mesh.is_identity:
+        parts.append(f"mesh {mesh.describe()} ({mesh.size} devices)")
+    else:
+        parts.append("mesh none (single-device)")
     if policy is not None:
         parts.append(" ".join(f"{fam}={policy.impl_for(fam)}"
                               for fam in registry.families()))

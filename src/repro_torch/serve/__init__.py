@@ -7,8 +7,8 @@ Layering (each module imports only downward):
                   admission, 429 + Retry-After backpressure, request
                   timeouts/disconnect-cancellation, /metrics
     autoscale.py  queue-depth + tokens/s driven replica-set resizing
-                  plus the ``replace`` repair action (one device per
-                  replica: mesh re-resolution waits for the port's mesh)
+                  plus the ``replace`` repair action, each re-resolving
+                  a per-replica mesh (``runtime.mesh.replica_mesh_spec``)
     pool.py       N in-process ServeEngine replicas: least-loaded
                   routing, session affinity, bounded queues, drains,
                   death evacuation + token-exact request rehoming

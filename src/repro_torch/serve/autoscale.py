@@ -12,12 +12,11 @@ Two signals, both cheap host-side reads the pool already maintains:
     producing little (otherwise a momentarily empty queue between
     bursts would flap the replica set).
 
-``repro`` re-splits the device budget across the new active count at
-every scale event and re-resolves a per-replica mesh for the replicas
-built after it.  The port has no mesh yet (ROADMAP A item 7, which
-brings the re-resolution): ``mesh_for`` returns None, one device, which
-is what ``repro`` resolves on a single-device host, so an event is
-purely a replica-count change.
+At every scale event the device budget (``n_devices``, by default the
+one device the pool's engines share) is re-split across the new active
+count and a per-replica mesh re-resolved through
+``runtime.mesh.replica_mesh_spec``, as in ``repro``; the event records
+it.
 
 Deterministic by construction (tick-driven, no wall clock), so the
 loadgen's autoscale sweeps are reproducible run to run.
@@ -68,11 +67,15 @@ class Autoscaler:
     """
 
     def __init__(self, pool: ReplicaPool, policy: AutoscalePolicy
-                 | None = None, *, metrics=None):
+                 | None = None, *, cfg=None, n_devices: int = 1, metrics=None):
         self.pool = pool
         self.policy = policy or AutoscalePolicy()
         self.pool.max_replicas = max(self.pool.max_replicas,
                                      self.policy.max_replicas)
+        # mesh re-resolution inputs: the model config bounds TP/EP, the
+        # device budget is what gets re-split across replicas
+        self.cfg = cfg if cfg is not None else pool.cfg
+        self.n_devices = n_devices
         self.metrics = metrics
         self._tokens = collections.deque(maxlen=self.policy.window)
         self._last_action = -self.policy.cooldown
@@ -93,9 +96,11 @@ class Autoscaler:
         }
 
     def mesh_for(self, n_active: int):
-        """Per-replica mesh after a resize to ``n_active`` replicas:
-        None (one device) until the port has meshes."""
-        return None
+        """Per-replica MeshSpec after a resize: the device budget split
+        across ``n_active`` replicas, re-resolved config-aware (the path
+        ``resharder_for`` takes on a device-count change)."""
+        from repro_torch.runtime.mesh import replica_mesh_spec
+        return replica_mesh_spec(self.n_devices, n_active, self.cfg)
 
     # -------------------------------------------------------- repair
 

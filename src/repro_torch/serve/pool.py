@@ -41,9 +41,10 @@ undisturbed run (see ``ServeEngine.admit``).  Quarantined (SUSPECT)
 replicas keep draining but take no new work; transient submit errors
 fail over to the next candidate and count toward the circuit breaker.
 ``replace_replica`` (the autoscaler's ``replace`` action) rebuilds a
-dead replica's engine and re-enters it half-open (RECOVERING).  The
-port has no mesh yet: a scale event records the per-replica mesh it was
-handed (None, one device) and every engine runs the pool's policy.
+dead replica's engine and re-enters it half-open (RECOVERING).  A scale
+event records the per-replica mesh it was handed (the autoscaler's
+``mesh_for``); every engine runs the pool's policy, on the one device
+the pool's replicas share.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ class ScaleEvent:
     old_n: int
     new_n: int
     reason: str = ""
-    mesh: object | None = None   # per-replica mesh after the event (None: one device)
+    mesh: object | None = None   # per-replica MeshSpec after the event
     action: str = "resize"
 
     def describe(self) -> str:

@@ -1,9 +1,10 @@
 """The port's static auditor (``repro_torch.analysis``) held against
 ``repro.analysis`` on the CPU.
 
-* Catalogue and findings: the rule IDs and severities are ``repro``'s
-  (SHD001-003 wait for the port's mesh), and a finding's key, dict and
-  text are ``repro``'s for the same fields.
+* Catalogue and findings: the rule IDs and severities are ``repro``'s,
+  the sharding rules (SHD001-003, over each family's ``audit_meshes``
+  traces) included, and a finding's key, dict and text are ``repro``'s
+  for the same fields.
 * Baselines: a file saved by either package loads in the other and
   suppresses the same findings.
 * Structure: for every (family, port impl <-> ``repro`` impl) pair and
@@ -37,8 +38,8 @@ from repro_torch.analysis import auditor
 from repro_torch.analysis.graph_scan import scan_graph, trace_graph
 from repro_torch.analysis.rules import RULES, make_finding
 from repro_torch.analysis.source_rules import scan_cuda_source, scan_source
-from repro_torch.core.ops import registry
-from repro_torch.core.ops.registry import OpSpec
+from repro_torch.core.ops import registry, shard
+from repro_torch.core.ops.registry import OpSpec, Partitioning
 from repro_torch.kernels import (_build, _trace, attention_fused, attention_paged, batched_gemm,
                                  gemm_grouped, gemm_lowp, gemm_naive, gemm_refined, gemm_tiled,
                                  wkv6)
@@ -50,8 +51,8 @@ SHARDING_RULES = {"SHD001", "SHD002", "SHD003"}
 # ============================================================ catalogue
 
 def test_catalogue_matches_repro():
-    assert set(J_RULES) - set(RULES) == SHARDING_RULES
-    assert set(RULES) <= set(J_RULES)
+    assert SHARDING_RULES <= set(RULES)
+    assert set(RULES) == set(J_RULES)
     for rule_id, r in RULES.items():
         assert (r.rule_id, r.severity) == (J_RULES[rule_id].rule_id, J_RULES[rule_id].severity)
 
@@ -181,13 +182,15 @@ def _problem(seed: int) -> dict:
 
 
 def _register(run, *, impl="probe", policies=("bf16",), fused=(), features=(),
-              contractions=1, audit_runs=(), grad_args=(), pads_to_tiles=False):
+              contractions=1, audit_runs=(), grad_args=(), pads_to_tiles=False,
+              partitioning=None, audit_meshes=()):
     registry.register_family(OpSpec(
         family=FAM, contract="a, b -> out", reference=impl, make_problem=_problem, run=run,
         grad_args=tuple(grad_args), audit_contractions=contractions,
-        audit_runs=tuple(audit_runs)))
+        audit_runs=tuple(audit_runs), audit_meshes=tuple(audit_meshes)))
     registry.register_impl(FAM, impl, policies=policies, fused_policies=fused,
-                           features=features, pads_to_tiles=pads_to_tiles)(lambda *a, **k: None)
+                           features=features, pads_to_tiles=pads_to_tiles,
+                           partitioning=partitioning)(lambda *a, **k: None)
 
 
 def _audit(impl="probe", **kw):
@@ -286,6 +289,48 @@ def test_mut_cap003_fused_claim_decomposes_router_side(sandbox):
     found = _audit()
     assert _ids(found) == {"CAP003"}
     assert found[0].target == f"{FAM}/probe/bf16x3"
+
+
+def _sharded(*reductions):
+    """A run whose sharded trace reduces its product over each (axis,
+    dtype) of ``reductions``."""
+    def run(problem, route):
+        out = problem["a"].float() @ problem["b"].float()
+        spec = shard.active_mesh(route.mesh)
+        if spec is not None:
+            mesh = shard._mesh_for(spec)
+            for axis, dtype in reductions:
+                out = shard._psum(out.to(dtype), mesh, axis).float()
+        return out
+    return run
+
+
+_PSUM_TP = Partitioning(specs=(("b", (None, "tp")),), collectives=("psum_f32:tp",))
+
+
+def test_mut_shd001_undeclared_collective(sandbox):
+    _register(_sharded(("model", torch.float32), ("data", torch.float32)),
+              partitioning=_PSUM_TP, audit_meshes=("dp=2,tp=2",))
+    found = _audit()
+    assert _ids(found) == {"SHD001"}
+    assert found[0].target == f"{FAM}/probe/bf16@dp=2,tp=2"
+    assert _audit(meshes=False) == []
+
+
+def test_mut_shd002_declared_collective_never_observed(sandbox):
+    part = Partitioning(specs=_PSUM_TP.specs, collectives=("psum_f32:tp", "all_gather_kv:sp"))
+    _register(_sharded(("model", torch.float32)), partitioning=part,
+              audit_meshes=("dp=2,tp=2",))
+    found = _audit()
+    assert _ids(found) == {"SHD002"}
+    assert found[0].target == f"{FAM}/probe@audit-meshes"
+
+
+def test_mut_shd003_f32_reduction_on_a_narrow_operand(sandbox):
+    # the row-parallel epilogue reduced in bf16
+    _register(_sharded(("model", torch.bfloat16)), partitioning=_PSUM_TP,
+              audit_meshes=("tp=2",))
+    assert _ids(_audit()) == {"SHD003"}
 
 
 def test_mut_pal001_split_range_leaves_grid(sandbox):
@@ -435,6 +480,9 @@ def test_cli_list_rules_and_family(capsys):
     out = capsys.readouterr().out
     assert all(rule_id in out for rule_id in RULES)
     assert main(["--family", "gemm", "--impl", "cuda", "--policy", "bf16", "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["findings"] == []
+    assert main(["--family", "grouped", "--impl", "torch", "--policy", "bf16", "--no-meshes",
+                 "--no-source", "--json"]) == 0
     assert json.loads(capsys.readouterr().out)["findings"] == []
     assert main(["--impl", "cuda"]) == 2
 

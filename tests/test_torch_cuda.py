@@ -1674,3 +1674,26 @@ def test_pool_at_two_replicas_equals_one_engine_on_the_kernel_routes(dev):
         assert all(r.engine.tokens_generated > 0 for r in pool.replicas)
         assert [r.out_tokens for r in two] == [r.out_tokens for r in one], layout
         assert pool.pages_outstanding() == 0
+
+
+def test_mesh_parity_on_two_ranks_sharing_the_card(dev):
+    """Two gloo ranks on this card (``runtime.world.spawn`` with
+    ``share_card``) run decode-size sharded routes, every rank's result
+    bit-equal to one device's: a block cut on whole tiles plans its splits
+    as the whole problem does (``kernels.gemm_tiled.SM_SHARE``).  The
+    world has its own timeout, so a hung collective fails the test."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import mesh_checks, world
+    _build.build_all()
+    cases = [dict(c, mesh=c["mesh"].replace("dp=2,tp=2", "tp=2").replace("ep=2,tp=2", "ep=2"))
+             for c in mesh_checks.parity_cases("card")
+             if c["name"] in ("gemm_col_decode_bf16", "attn_decode_bf16",
+                              "grouped_decode_ep2_tp2_bf16")]
+    want = {c["name"]: mesh_checks.run_case(c, dev)["out"].float().cpu().numpy() for c in cases}
+    ranks = world.spawn(mesh_checks.parity_worker, 2, args=(cases, "cuda"), device="cuda",
+                        share_card=True, timeout=300)
+    for c in cases:
+        held = [r["results"][c["name"]]["out"] for r in ranks]
+        assert held[0][0] == held[1][0], c["name"]
+        np.testing.assert_array_equal(held[0][1], want[c["name"]], err_msg=c["name"])
+    assert all(r["launches"]["grouped_gemm"] and r["launches"]["flash_decode"] for r in ranks)

@@ -30,6 +30,18 @@ SPEC = loadgen.LoadSpec(n_requests=8, prompt_median=120, prompt_sigma=0.5, max_p
 RATE = 0.3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """These engines' CPU ops are small: one thread runs them as fast as
+    every core does, and leaves the other cores to the suite's other
+    workers (under xdist, every worker's OpenMP threads otherwise contend
+    for the same cores and spin)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def served():
     cfg = get_smoke("gemma3-1b")

@@ -396,7 +396,17 @@ def _loop(ckpt_dir, tcfg, policy):
                      ckpt_dir=str(ckpt_dir), ckpt_every=5, remat=True, device="cpu")
 
 
-def test_checkpoint_restart_is_bit_equal(tmp_path):
+@pytest.fixture
+def one_thread():
+    """Twenty smoke steps of small CPU ops: one thread runs them as fast
+    as every core, and leaves the cores to the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_checkpoint_restart_is_bit_equal(tmp_path, one_thread):
     """Kill and restart: a run that crashes at step 5 and resumes from its
     checkpoint ends bit-equal to an uninterrupted 10-step run (the twin
     of tests/test_system.py's restart test), on the kernel routes."""
