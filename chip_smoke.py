@@ -81,7 +81,7 @@ Phases, each printing one JSON line:
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
 Phases 10 and 11 run right after 6, while gemma3's params are loaded;
-12 runs after 9, once Mixtral is freed, and 13 to 22 after 12, each once
+12 runs after 9, once Mixtral is freed, and 13 to 27 after 12, each once
 the model before it is freed.
 
 10. serve_naive — gemma3-1b again (full width and depth, the serve
@@ -254,20 +254,46 @@ the model before it is freed.
    same call on one device in this process: the ranks agree, each case
    is within its bound and the line names the bit-equal ones.  (b)
    gemma3-1b at full width and depth trained at dp=2,tp=2 (FSDP over
-   ``data`` by the ``Sharder``) for 3 steps on phase 7's policy and
+   ``data`` by the ``Sharder``) for 2 steps on phase 7's policy and
    batch: step 0's per-token losses and the five gradients against phase
    7's one-device step 0 on the same kernel routes, held at phase 7's
    bounds and at tighter ones of its own, with two faulty controls (every
    data rank taking rank 0's rows; every sharded GEMM row-parallel with
-   its partials reduced in bf16) above them; then the saved step-3
+   its partials reduced in bf16) above them; then the saved step-2
    checkpoint resumed elastically on two ranks (``--mesh auto``: dp=2)
-   for 2 more steps.  (c) Mixtral 8x7B at full width, depth 2, served at
+   for 1 more step.  (c) Mixtral 8x7B at full width, depth 2, served at
    ep=2,tp=2: serve_moe's 8 requests, 32 tokens each, the same greedy
    tokens as one device, prompt 0's prefill logits within serve_moe's
    bound.  The lines give every rank's peak memory and times beside the
    one-device phases', the share of wall time in collectives, the
    transport and which collectives went through host memory.
-25. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+25. serve_dbrx — dbrx-132b at full width (d 6144, 48 heads of 128 on 8 kv
+   heads, 16 experts top-4 of 6144 -> 10752, vocab 100352), depth cut to 2
+   of 40 (31 GB of f32 weights), on serve_moe's policy (the experts on
+   ``cuda_grouped``): phase 4's 8 prompt lengths (ids within the
+   vocabulary), 32 new tokens each, 4 slots, 1024-token context.  Every
+   request must finish and every kernel of the path launch, the grouped
+   GEMM on both ``sm90`` (prefill) and ``splitk`` (decode) and never the
+   WMMA tile; one prompt's prefill logits are held against the ``torch``
+   routes at a dropless capacity (serve_moe's bound, same greedy token),
+   with one layer's experts rolled by one as the control above the bound.
+   Then ``serve_dbrx_paged`` (8-row bf16 pages on the grouped route: tokens
+   equal to the dense run's, every page handed back) and a profiled
+   prefill and decode tick.
+26. serve_starcoder2 — starcoder2-15b whole, nothing cut (40 layers, d
+   6144, 48 heads of 128 on 4 kv heads, a GELU MLP of 24576, vocab 49152;
+   63.8 GB of f32 weights), every QKV and MLP bias seeded non-zero on the
+   card (init makes them zero), the serve policy, the same requests.  The
+   prefill logits are held at gemma3's bound against the ``torch`` routes,
+   with the same stack's biases zeroed as the control above it; then the
+   paged twin and a profiled prefill and tick.
+27. serve_command_r — command-r-35b at full width (d 8192, 64 heads of 128
+   on 8 kv heads, d_ff 22528, vocab 256000, RoPE theta 8e6), depth cut to 4
+   of 40 (28.1 GB), the same way; the reference's refine_ab unembed runs
+   over vocab chunks, and fp8 MLPs on the kernel routes are the control.
+   Each of 25-27 gives its params, weights, init, peak memory, tok/s,
+   TTFT, launches and seconds.
+28. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -347,6 +373,15 @@ B = 4, S = 1024, H = 64 on the JAX test's input recipe, against its
 chunked plain version and the sequential recurrence, with the state reset
 at every chunk boundary and its own arithmetic on one TF32 pass as its
 controls (its operations bound at 3xTF32 on the tensor cores).
+
+The ``check`` phase also holds the kernels at the shapes of phases 25-27:
+the grouped forward at dbrx's experts (E = 16, top-4, 6144 -> 10752) at a
+decode tick (4 rows x top-4, 16-row tiles on the split-K weight stream,
+given the real counts) and at a 700-token prefill (T*k = 2800, 128-row
+tiles, wgmma), the flash forward (S = 700, causal) and decode (B = 4,
+linear 1024) at starcoder2's 48 heads on 4 kv heads (G = 12, hd 128), and
+``gemm_refined`` at command-r's refine_ab decode unembed (4 x 8192 against
+its 256000 x 8192 f32 table; the plain version over vocab chunks).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a GPU, or without ``src/repro_torch`` beside
@@ -480,7 +515,7 @@ MOE_STEP0_GRAD_BOUND = STEP0_GRAD_BOUND
 MESH_RANKS = 4
 MESH_RESUME_RANKS = 2
 MESH_TRAIN = "dp=2,tp=2"
-MESH_RESUME_STEPS = 2
+MESH_RESUME_STEPS = 1
 MESH_SERVE = "ep=2,tp=2"
 MESH_SERVE_DEPTH = 2
 MESH_TIMEOUT = 600
@@ -571,6 +606,16 @@ ZAMBA2_F32_LAYER_BOUND = 3e-3
 # bound.
 NEMOTRON_DEPTH = 2
 NEMOTRON_LOGITS_BOUND = LOGITS_BOUND
+# phases 25-27: dbrx-132b at depth DBRX_DEPTH of 40 (31 GB of f32 weights),
+# starcoder2-15b whole (63.8 GB) and command-r-35b at depth COMMAND_R_DEPTH of
+# 40 (28.1 GB), each at full width; prefill logits, kernel routes vs torch
+# routes, at serve_moe's and gemma3's bounds, each with its control above
+# (dbrx: one layer's experts rolled; starcoder2: every bias zeroed, the biases
+# seeded at STARCODER2_BIAS_SCALE since init makes them zero; command-r: fp8
+# MLPs on the kernel routes).
+DBRX_DEPTH = 2
+COMMAND_R_DEPTH = 4
+STARCODER2_BIAS_SCALE = 0.1
 # serve_whisper (whole, 0.79 B params): prefill logits on seeded random
 # frames, kernel routes vs torch routes, and the encoder's hidden states
 # (final-normed, 1500 x 1024) the same way, each at gemma3's bound; the
@@ -588,6 +633,10 @@ WHISPER_TRAIN_SEQ = 448
 
 
 TRAIN_STEPS = 3
+# phase 24 trains the mesh MESH_TRAIN_STEPS steps, then resumes it for
+# MESH_RESUME_STEPS (every check of the phase is on step 0 or the resume's
+# start)
+MESH_TRAIN_STEPS = 2
 # phases 17-20: the depth cuts (every width full) and the slow-decay copies'
 # RWKV-6 decay bias (log decay -exp(-4) = -0.018 a step: a 64-step chunk
 # keeps 0.31 of its input state, where the init's -0.7 keeps 1e-14)
@@ -913,7 +962,8 @@ def mesh_phase(dev, cfg, loop, tpolicy, train_peak_gb, train_step_s, mixtral, mp
 
         tjob = dict(device="cuda", arch="gemma3-1b", mesh=MESH_TRAIN,
                     batch=loop.data_cfg.global_batch, seq=loop.data_cfg.seq_len,
-                    run_to=TRAIN_STEPS, schedule_steps=TRAIN_STEPS + MESH_RESUME_STEPS,
+                    run_to=MESH_TRAIN_STEPS,
+                    schedule_steps=MESH_TRAIN_STEPS + MESH_RESUME_STEPS,
                     ckpt=f"{tmp}/ckpt", ref=f"{tmp}/step0.pt", controls=MESH_CONTROLS)
         sjob = dict(device="cuda", arch="mixtral-8x7b", depth=MESH_SERVE_DEPTH,
                     pattern=["attn_local", "moe"], mesh=MESH_SERVE, backends=moe_backends,
@@ -921,7 +971,7 @@ def mesh_phase(dev, cfg, loop, tpolicy, train_peak_gb, train_step_s, mixtral, mp
                     prompts=[r.prompt.tolist() for r in sreqs], ref=f"{tmp}/logits0.pt")
         ranks, world_s = spawn(MESH_RANKS, [("parity", cases), ("train", tjob),
                                             ("serve", sjob)])
-        rjob = dict(tjob, mesh="auto", run_to=TRAIN_STEPS + MESH_RESUME_STEPS, ref=None,
+        rjob = dict(tjob, mesh="auto", run_to=MESH_TRAIN_STEPS + MESH_RESUME_STEPS, ref=None,
                     controls=())
         rranks, resume_s = spawn(MESH_RESUME_RANKS, [("train", rjob)])
 
@@ -962,11 +1012,11 @@ def mesh_phase(dev, cfg, loop, tpolicy, train_peak_gb, train_step_s, mixtral, mp
     if not rr["token_loss_max_err"] > STEP0_TOKEN_LOSS_BOUND:
         faults.append(f"control rows_repeated lands within phase 7's bound: {rr}")
     losses = [r["losses"] for r in tranks]
-    if not (all(x == losses[0] for x in losses) and len(losses[0]) == TRAIN_STEPS
+    if not (all(x == losses[0] for x in losses) and len(losses[0]) == MESH_TRAIN_STEPS
             and all(math.isfinite(x) for x in losses[0])):
         faults.append(f"train losses: {losses}")
     res = rranks[0]
-    if not (res["mesh"] == "dp=2,tp=1,ep=1" and res["start"] == TRAIN_STEPS
+    if not (res["mesh"] == "dp=2,tp=1,ep=1" and res["start"] == MESH_TRAIN_STEPS
             and len(res["losses"]) == MESH_RESUME_STEPS
             and all(math.isfinite(x) for x in res["losses"])
             and all(r["losses"] == res["losses"] for r in rranks)):
@@ -2542,6 +2592,88 @@ def main() -> None:
     del g_log, table
     torch.cuda.empty_cache()
 
+    # ---- the shapes of phases 25-27.  dbrx-132b: the grouped wi at 16
+    # experts, top-4 (6144 -> 10752), at a decode tick (4 rows x top-4 =
+    # 16, 16-row tiles on the split-K weight stream, given the real counts:
+    # the bound counts only the live experts' weights) and at a 700-token
+    # prefill (T*k = 2800, 128-row tiles on the wgmma mainloop), group sizes
+    # from a seeded skewed draw over the 16, padding rows zero, the
+    # neighbouring expert's weights as the control.  starcoder2-15b: the flash
+    # forward and decode at 48 heads on 4 kv heads (G = 12, hd 128).
+    # command-r-35b: the refine_ab decode unembed, 4 x 8192 against its
+    # 256000 x 8192 f32 table (the plain version over vocab chunks).
+    dcfg_full = get_config("dbrx-132b")
+    d_exp, d_dm, d_ff = dcfg_full.num_experts, dcfg_full.d_model, dcfg_full.d_ff
+    d_rng = np.random.default_rng(25)
+    d_gen = torch.Generator(device=dev).manual_seed(25)
+    w_in = randn((d_exp, d_dm, d_ff), d_dm ** -0.5, generator=d_gen)
+    w_in_rolled = w_in.roll(-1, 0)
+    w_in16 = w_in.to(torch.bfloat16)
+    for tk, phase, bm_at in ((dcfg_full.top_k * 4, "decode", None), (700 * dcfg_full.top_k,
+                                                                     "prefill", 128)):
+        picked_bm = ops.grouped_tiles(grouped_route, tk, d_ff, d_dm).bm
+        bm = bm_at or picked_bm
+        counts = d_rng.multinomial(tk, d_rng.dirichlet(np.full(d_exp, 0.6)))
+        aligned = ops.align_group_counts(counts, bm)
+        off = torch.from_numpy(np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)).to(dev)
+        valid = torch.zeros(ops.round_up(tk, bm) + d_exp * bm, dtype=torch.bool, device=dev)
+        for g in range(d_exp):
+            valid[int(off[g]):int(off[g]) + int(counts[g])] = True
+        x = randn((valid.shape[0], d_dm), dtype=torch.bfloat16, generator=d_gen) * valid[:, None]
+        cnt = torch.from_numpy(counts).to(dev, torch.int32) if phase == "decode" else None
+        lib, lib_name = grouped_mm_library(x, w_in16, off[1:], "forward")
+        check("grouped_gemm", f"{phase} wi bf16 T*k={tk} {d_dm}->{d_ff} E={d_exp} bm={bm} "
+              f"counts {counts.tolist()} ({dcfg_full.name})",
+              lambda x=x, off=off, bm=bm, c=cnt: gg.grouped_gemm(x, w_in, off, bm=bm,
+                                                                 group_counts=c),
+              lambda x=x, off=off, bm=bm: gg.grouped_gemm_plain(x, w_in, off, bm=bm),
+              lib, GEMM_BOUND, 2 * tk * d_dm * d_ff,
+              tk * d_dm * 2 + int((counts > 0).sum()) * d_dm * d_ff * 4 + x.shape[0] * d_ff * 4,
+              control=lambda x=x, off=off, bm=bm: gg.grouped_gemm_plain(x, w_in_rolled, off,
+                                                                        bm=bm),
+              library_call=lib_name, loop="splitk" if phase == "decode" else "sm90",
+              extra={"live_experts": int((counts > 0).sum()), "dispatcher_bm": picked_bm,
+                     "buffer_rows": int(x.shape[0]),
+                     **({"splits": gg.grouped_splits(x.shape[0], d_ff, d_dm, sms)}
+                        if phase == "decode" else {})})
+        del x, lib
+    del w_in, w_in_rolled, w_in16
+    torch.cuda.empty_cache()
+    scfg_full = get_config("starcoder2-15b")
+    causal_prefill_row(scfg_full, 700)
+    a_heads, a_kvh, a_hd = scfg_full.num_heads, scfg_full.num_kv_heads, scfg_full.head_dim
+    a_grp = a_heads // a_kvh
+    qd = randn((4, 1, a_kvh, a_grp, a_hd), a_hd ** -0.5, torch.bfloat16)
+    kc, vc = (randn((4, s_cache, a_kvh, a_hd), dtype=torch.bfloat16) for _ in range(2))
+    kr, vr = (c.transpose(1, 2).repeat_interleave(a_grp, 1) for c in (kc, vc))
+    check("flash_decode", f"decode B=4 linear {s_cache} H={a_heads} Kv={a_kvh} hd={a_hd} "
+          f"({scfg_full.name})",
+          lambda: af.flash_decode(qd, kc, vc, pos), lambda: af.flash_decode_plain(qd, kc, vc, pos),
+          lambda: torch.nn.functional.scaled_dot_product_attention(
+              qd.reshape(4, 1, a_heads, a_hd).transpose(1, 2), kr, vr,
+              attn_mask=live[:, None, None, :].expand(4, a_heads, 1, s_cache), scale=1.0),
+          ATTN_BOUND, 4 * n_live * a_grp * a_hd * a_kvh,
+          qd.numel() * 2 + 2 * n_live * a_kvh * a_hd * 2 + qd.numel() * 4,
+          control=lambda: af.flash_decode_plain(qd, kc, vc, pos - 1),
+          library_call="scaled_dot_product_attention, kv heads repeated (not timed)",
+          extra={"splits": af.decode_splits(4, a_kvh, s_cache, sms)})
+    del qd, kc, vc, kr, vr
+    ccfg_full = get_config("command-r-35b")
+    c_d, c_vocab = ccfg_full.d_model, ccfg_full.vocab_size
+    xc4 = randn((4, c_d), dtype=torch.bfloat16)
+    table = randn((c_vocab, c_d), c_d ** -0.5)
+    check("gemm_refined", f"decode unembed refine_ab 4x{c_d}x{c_vocab} NT ({ccfg_full.name})",
+          lambda: gr.gemm_refined(xc4, table.t(), policy="refine_ab"),
+          lambda: vocab_chunked(lambda t: gr.gemm_refined_plain(xc4, t.t(), "refine_ab"), table),
+          lambda: torch.matmul(xc4.float(), table.t()), GEMM_BOUND,
+          refined_flops(xc4, table, 4, c_vocab, c_d),
+          xc4.numel() * 2 + table.numel() * 4 + 4 * c_vocab * 4, loop="splitk",
+          library_call="f32 SGEMM on an f32 copy of x (TF32 off)",
+          extra={**refined_extra(4, c_vocab, c_d),
+                 "plain": "gemm_refined_plain over 32768-row vocab chunks"})
+    del table, xc4
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 4 serve
     policy = ops.ExecutionPolicy(
         default="bf16", logits="refine_ab",
@@ -2991,12 +3123,11 @@ def main() -> None:
     # bf16 pages (the attention sublayers paged, the MoE sublayers holding
     # nothing): every request's tokens must equal the dense serve_moe's
     # and every page must come back.
+    moe_paged_policy = ops.ExecutionPolicy(default="bf16", logits="refine_ab",
+                                           backends=moe_backends,
+                                           require={"attention": ("decode", "paged_decode")})
     peng = ServeEngine(mcfg, batch_size=4, max_ctx=1024, device=dev, kv_layout="paged",
-                       kv_page_size=8,
-                       policy=ops.ExecutionPolicy(default="bf16", logits="refine_ab",
-                                                  backends=moe_backends,
-                                                  require={"attention": ("decode",
-                                                                         "paged_decode")}))
+                       kv_page_size=8, policy=moe_paged_policy)
     peng.load(mparams)
     preqs = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in mreqs]
     zero_launches(mods)
@@ -3547,106 +3678,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --------------------------------------------------- 14 serve_nemotron
-    # nemotron-4-340b at full width, depth NEMOTRON_DEPTH, on the kernel
-    # routes with the serve policy.  Its torch-route reference splits the
-    # refine_ab unembed's table over vocab chunks (the whole table's hi/lo
-    # split would not fit beside the params); each logit is one row's
-    # product either way.
-    full_n = get_config("nemotron-4-340b")
-    ncfg = dataclasses.replace(full_n, num_layers=NEMOTRON_DEPTH,
-                               segments=(Segment(("attn", "mlp"), NEMOTRON_DEPTH),))
-    nvocab = ncfg.vocab_size
-    mem_before_gb = torch.cuda.memory_allocated(dev) / 1e9
-    t0 = time.monotonic()
-    nparams = api.init_params(ncfg, torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize(dev)
-    n_init_s = time.monotonic() - t0
-    n_n_params = sum(t.numel() for t in leaves(nparams))
-    neng = ServeEngine(ncfg, batch_size=4, max_ctx=1024, policy=policy, device=dev)
-    neng.load(nparams)
-    neng.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
-    nrng = np.random.default_rng(4)
-    nreqs = [Request(rid=i, prompt=nrng.integers(2, nvocab, int(n)).astype(np.int32),
-                     max_new_tokens=32) for i, n in enumerate(lens)]
-    zero_launches(mods)
-    torch.cuda.reset_peak_memory_stats(dev)
-    nstats = neng.run(nreqs)
-    launches_nm = read_launches(mods)
-    n_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    nemo_faults = []
-    if not all(r.done and len(r.out_tokens) == 32 for r in nreqs):
-        nemo_faults.append(f"not every request finished with 32 tokens: "
-                           f"{[(r.rid, r.done, len(r.out_tokens)) for r in nreqs]}")
-    if any(not 0 <= t < nvocab for r in nreqs for t in r.out_tokens):
-        nemo_faults.append("a token outside the vocabulary")
-    if not all(launches_nm[k] > 0 for k in SERVE_KERNELS):
-        nemo_faults.append(f"a kernel of the path never launched: {launches_nm}")
-    real_unembed = layers_mod.unembed
-
-    def unembed_by_vocab_chunks(p, x, pol):
-        return vocab_chunked(lambda t: real_unembed({"table": t}, x, pol), p["table"])
-
-    nprompt = {"tokens": torch.as_tensor(nreqs[0].prompt, device=dev)[None].long()}
-
-    def nemotron_prefill(pol, chunked=False):
-        layers_mod.unembed = unembed_by_vocab_chunks if chunked else real_unembed
-        try:
-            with torch.no_grad():
-                return serve_step.make_prefill(ncfg, pol, s_ctx=1024)(nparams, nprompt)[0]
-        finally:
-            layers_mod.unembed = real_unembed
-
-    nlk = nemotron_prefill(policy)
-    nlr = nemotron_prefill(ref_policy, chunked=True)
-    # faulty control: fp8 MLPs (on the kernel routes: gemm_lowp's quantize
-    # pass reads the f32 weights in place)
-    nl8 = nemotron_prefill(ops.ExecutionPolicy(
-        default="bf16", mlp="fp8", logits="refine_ab",
-        backends={"gemm": "cuda", "attention": "cuda_fused"}))
-    if nlk.shape != (1, 1, nvocab) or not torch.isfinite(nlk).all():
-        nemo_faults.append(f"prefill logits shape {tuple(nlk.shape)} or non-finite")
-    n_err = (nlk - nlr).abs().max().item()
-    n_ctrl = (nl8 - nlr).abs().max().item()
-    if not n_err <= NEMOTRON_LOGITS_BOUND:
-        nemo_faults.append(f"prefill logits: kernel routes vs torch routes {n_err} > "
-                           f"{NEMOTRON_LOGITS_BOUND}")
-    if nlk.argmax() != nlr.argmax():
-        nemo_faults.append("prefill logits: the kernel routes pick another greedy token")
-    if not n_ctrl > NEMOTRON_LOGITS_BOUND:
-        nemo_faults.append(f"prefill logits: the fp8-MLP control ({n_ctrl}) is within "
-                           f"{NEMOTRON_LOGITS_BOUND}")
-    nlong_prompt = {"tokens": torch.as_tensor(nreqs[zlong].prompt, device=dev)[None].long()}
-    with torch.no_grad():
-        n_prefill_prof = profile_window(lambda: neng._prefill(nparams, nlong_prompt))
-    for i in range(4):
-        neng.submit(Request(rid=100 + i, prompt=nreqs[i].prompt, max_new_tokens=16))
-    neng.step()                                 # admit (prefill) all four
-    n_tick_prof = profile_window(neng.tick)
-    neng.run([])
-    ntop2 = nlr.flatten().topk(2).values
-    emit(phase="serve_nemotron", arch=ncfg.name, depth=NEMOTRON_DEPTH,
-         layers=len(nparams["layers"]), params=n_n_params, weights_gb=n_n_params * 4 / 1e9,
-         mem_before_load_gb=mem_before_gb, init_s=n_init_s, requests=nstats["requests"],
-         prompt_lens=[int(n) for n in lens], tokens=nstats["tokens"], ticks=nstats["ticks"],
-         wall_s=nstats["wall_s"], tok_per_s=nstats["tok_per_s"],
-         ttft_mean_s=nstats["ttft_mean_s"], latency_mean_s=nstats["latency_mean_s"],
-         peak_mem_gb=n_peak_gb, launches=launches_nm,
-         logits_prompt_len=int(lens[0]), prefill_logits_max_abs_err=n_err,
-         prefill_logits_bound=NEMOTRON_LOGITS_BOUND,
-         prefill_argmax_agrees=bool(nlk.argmax() == nlr.argmax()),
-         reference_top2_gap=(ntop2[0] - ntop2[1]).item(), control_fp8_mlp_err=n_ctrl,
-         logits_absmax=nlr.abs().max().item(), prefill_tokens=int(lens[zlong]),
-         prefill=n_prefill_prof, decode_tick=n_tick_prof)
-    if nemo_faults:
-        fail("serve_nemotron: " + "; ".join(nemo_faults))
-    del neng, nparams, nlk, nlr, nl8
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # Phases 15 and 16 share this: serve ``reqs`` on ``eng`` (and on a paged
-    # engine beside it), hold the prefill logits of one prompt against the
-    # torch routes with a faulty control, and profile a prefill and a tick.
+    # Phases 14-16 and 25-27 share these: serve requests on an engine (and
+    # on a paged engine beside it), hold the prefill logits of one prompt
+    # against the torch routes with a faulty control, and profile a prefill
+    # and a tick.  A reference whose refine_ab unembed would not fit beside
+    # the params (its whole table's hi/lo split) runs it over vocab chunks;
+    # each logit is one row's product either way.
     def served(reqs_, vocab_, launches_, faults, kernels=SERVE_KERNELS):
         """Every request finished (32 tokens, or EOS sooner), in the
         vocabulary, every kernel of the path launched."""
@@ -3659,13 +3696,10 @@ def main() -> None:
         if not all(launches_[k] > 0 for k in kernels):
             faults.append(f"a kernel of the path never launched: {launches_}")
 
-    def serve_paged_twin(c, prm, dense_reqs, faults):
+    def serve_paged_twin(c, prm, dense_reqs, faults, pol=paged_policy, kernels=PAGED_KERNELS):
         """The same requests and slots from 8-row bf16 pages: token for token
-        the dense run's, every page handed back, the paged decode launched."""
-        pol = ops.ExecutionPolicy(
-            default="bf16", logits="refine_ab",
-            backends={"gemm": "cuda", "attention": "cuda_fused"},
-            require={"attention": ("decode", "paged_decode")})
+        the dense run's, every page handed back, every kernel of the paged
+        path (``kernels``) launched."""
         e = ServeEngine(c, batch_size=4, max_ctx=1024, policy=pol, device=dev,
                         kv_layout="paged", kv_page_size=8)
         e.load(prm)
@@ -3691,20 +3725,20 @@ def main() -> None:
                           f"{[(r.rid, r.out_tokens[:4]) for r in preqs]}")
         if line["pages_outstanding"] or not line["tables_clear"]:
             faults.append(f"paged: pages still held after the run: {line}")
-        if not all(ls[n] > 0 for n in PAGED_KERNELS):
+        if not all(ls[n] > 0 for n in kernels):
             faults.append(f"paged: a kernel of the path never launched: {ls}")
         del e
         return line, ls
 
     def profiled(e, prm, batch, dense_reqs):
-        """A prefill of ``batch`` and one 4-slot decode tick, profiled."""
+        """A prefill of ``batch`` and one 4-slot decode tick, profiled.  The
+        four requests stay in flight: every caller drops ``e`` next."""
         with torch.no_grad():
             pre = profile_window(lambda: e._prefill(prm, batch))
         for i in range(4):
             e.submit(Request(rid=100 + i, prompt=dense_reqs[i].prompt, max_new_tokens=16))
         e.step()                                # admit (prefill) all four
         tick = profile_window(e.tick)
-        e.run([])
         return pre, tick
 
     def held(what, err, lim, ctrl, ctrl_name, same, faults):
@@ -3714,6 +3748,113 @@ def main() -> None:
             faults.append(f"{what}: the kernel routes pick another greedy token")
         if not ctrl > lim:
             faults.append(f"{what}: the {ctrl_name} control ({ctrl}) is within {lim}")
+
+    real_unembed = layers_mod.unembed
+
+    def unembed_by_vocab_chunks(p, x, pol):
+        return vocab_chunked(lambda t: real_unembed({"table": t}, x, pol), p["table"])
+
+    # Phases 14 and 25-27 serve a large config at full width (depth cut
+    # where its f32 weights would not fit), params from a device generator
+    # seeded 0: phase 4's prompt lengths (ids within the vocabulary), 32 new
+    # tokens each, 4 slots, 1024-token context.
+    def prompt_of(r):
+        return {"tokens": torch.as_tensor(r.prompt, device=dev)[None].long()}
+
+    def giant_config(name, depth):
+        full = get_config(name)
+        return dataclasses.replace(full, num_layers=depth,
+                                   segments=(Segment(full.segments[0].pattern, depth),))
+
+    def giant_prefill(c, prm, pol, batch, chunked=False):
+        """Prefill logits; ``chunked``: the refine_ab unembed over vocab
+        chunks (the reference's, whose whole-table hi/lo split would not
+        fit beside the params)."""
+        layers_mod.unembed = unembed_by_vocab_chunks if chunked else real_unembed
+        try:
+            with torch.no_grad():
+                return serve_step.make_prefill(c, pol, s_ctx=1024)(prm, batch)[0]
+        finally:
+            layers_mod.unembed = real_unembed
+
+    def serve_giant(c, pol, seed, kernels, prep=None):
+        """Init, ``prep`` on the params (its fields go on the line), then
+        the requests (tokens from ``seed``) through the engine: (params,
+        engine, requests, launches, faults, line)."""
+        mem_before = torch.cuda.memory_allocated(dev) / 1e9
+        t0 = time.monotonic()
+        prm = api.init_params(c, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.monotonic() - t0
+        line = prep(prm) if prep else {}
+        n = sum(t.numel() for t in leaves(prm))
+        e = ServeEngine(c, batch_size=4, max_ctx=1024, policy=pol, device=dev)
+        e.load(prm)
+        e.run([Request(rid=-1, prompt=np.arange(2, 18, dtype=np.int32), max_new_tokens=2)])
+        grng = np.random.default_rng(seed)
+        rs = [Request(rid=i, prompt=grng.integers(2, c.vocab_size, int(k)).astype(np.int32),
+                      max_new_tokens=32) for i, k in enumerate(lens)]
+        zero_launches(mods)
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = e.run(rs)
+        ls = read_launches(mods)
+        faults: list[str] = []
+        served(rs, c.vocab_size, ls, faults, kernels)
+        line = dict(arch=c.name, layers=len(prm["layers"]), params=n, weights_gb=n * 4 / 1e9,
+                    mem_before_load_gb=mem_before, init_s=init_s, **line,
+                    requests=st["requests"], prompt_lens=[int(k) for k in lens],
+                    tokens=st["tokens"], ticks=st["ticks"], wall_s=st["wall_s"],
+                    tok_per_s=st["tok_per_s"], ttft_mean_s=st["ttft_mean_s"],
+                    latency_mean_s=st["latency_mean_s"],
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=ls)
+        return prm, e, rs, ls, faults, line
+
+    def held_logits(lk, lr, lc, vocab_, lim, ctrl_name, faults) -> dict:
+        """The prefill logits held (shape, bound, greedy token, control)."""
+        if lk.shape != (1, 1, vocab_) or not torch.isfinite(lk).all():
+            faults.append(f"prefill logits shape {tuple(lk.shape)} or non-finite")
+        err, ctrl = (lk - lr).abs().max().item(), (lc - lr).abs().max().item()
+        same = bool(lk.argmax() == lr.argmax())
+        held("prefill logits", err, lim, ctrl, ctrl_name, same, faults)
+        top2 = lr.flatten().topk(2).values
+        return {"logits_prompt_len": int(lens[0]), "prefill_logits_max_abs_err": err,
+                "prefill_logits_bound": lim, "prefill_argmax_agrees": same,
+                "reference_top2_gap": (top2[0] - top2[1]).item(),
+                f"control_{ctrl_name.replace('-', '_').lower()}_err": ctrl,
+                "logits_absmax": lr.abs().max().item()}
+
+    def emit_giant(phase, prm, e, rs, line, t_phase, paged_line=None):
+        """The profiled prefill and tick, then the phase's line (and its
+        paged twin's)."""
+        pre, tick = profiled(e, prm, prompt_of(rs[zlong]), rs)
+        emit(phase=phase, **line, prefill_tokens=int(lens[zlong]), prefill=pre,
+             decode_tick=tick, phase_s=time.monotonic() - t_phase)
+        if paged_line is not None:
+            emit(phase=f"{phase}_paged", arch=line["arch"], **paged_line)
+
+    # --------------------------------------------------- 14 serve_nemotron
+    # nemotron-4-340b at full width, depth NEMOTRON_DEPTH, on the kernel
+    # routes with the serve policy; the reference's unembed over vocab
+    # chunks; fp8 MLPs on the kernel routes as the control (gemm_lowp's
+    # quantize pass reads the f32 weights in place).
+    t_phase = time.monotonic()
+    ncfg = giant_config("nemotron-4-340b", NEMOTRON_DEPTH)
+    nparams, neng, nreqs, launches_nm, nemo_faults, nline = serve_giant(
+        ncfg, policy, 4, SERVE_KERNELS)
+    nprompt = prompt_of(nreqs[0])
+    nlk = giant_prefill(ncfg, nparams, policy, nprompt)
+    nlr = giant_prefill(ncfg, nparams, ref_policy, nprompt, chunked=True)
+    nl8 = giant_prefill(ncfg, nparams, fp8_kernel_policy, nprompt)
+    nline.update(depth=NEMOTRON_DEPTH, **held_logits(nlk, nlr, nl8, ncfg.vocab_size,
+                                                     NEMOTRON_LOGITS_BOUND, "fp8-MLP",
+                                                     nemo_faults))
+    del nlk, nlr, nl8
+    emit_giant("serve_nemotron", nparams, neng, nreqs, nline, t_phase)
+    if nemo_faults:
+        fail("serve_nemotron: " + "; ".join(nemo_faults))
+    del neng, nparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------- 15 serve_whisper
     # whisper-medium whole (24 encoder + 24 decoder layers, tied 51865-row
@@ -4313,21 +4454,21 @@ def main() -> None:
 
     streams, over, metrics_text, health = asyncio.run(asyncio.wait_for(gateway_run(), 600))
     streamed = [[ln["token"] for ln in lines[:-1]] for lines in streams]
-    served = sum(float(ln.split()[-1]) for ln in metrics_text.splitlines()
-                 if ln.startswith("serve_tokens_total{"))
+    metrics_tokens = sum(float(ln.split()[-1]) for ln in metrics_text.splitlines()
+                         if ln.startswith("serve_tokens_total{"))
     health_obj = json.loads(health.split("\r\n\r\n", 1)[1])
     cancelled = reg.counter("serve_requests_cancelled")
     gateway = {
         "streams_equal_pool_run": streamed == pool_tokens[2][:4],
         "streamed_tokens": sum(map(len, streamed)),
-        "metrics_serve_tokens": served,
+        "metrics_serve_tokens": metrics_tokens,
         "over_watermark_status": int(over.split(" ", 2)[1]),
         "retry_after": "Retry-After: " in over,
         "disconnect_cancelled": sum(cancelled.value(replica=str(i)) for i in range(2)),
         "gateway_disconnects": reg.counter("gateway_disconnects").value(),
         "slots_free": all(r is None for rep in pool_d.replicas for r in rep.engine.slot_req),
         "healthz": health_obj}
-    if not (gateway["streams_equal_pool_run"] and served == gateway["streamed_tokens"]
+    if not (gateway["streams_equal_pool_run"] and metrics_tokens == gateway["streamed_tokens"]
             and gateway["over_watermark_status"] == 429 and gateway["retry_after"]
             and gateway["disconnect_cancelled"] == 1 and gateway["gateway_disconnects"] == 1
             and gateway["slots_free"] and health_obj.get("ok") is True):
@@ -4353,7 +4494,12 @@ def main() -> None:
     audit_policies = {"serve": policy, "serve_paged_bf16": paged_policy,
                       "serve_paged_int8_fp8x3": int8_policy, "serve_naive": naive_policy,
                       "train": tpolicy, "serve_moe": mpolicy, "train_moe": mt_policy,
-                      "serve_rwkv": rpolicy, "serve_zamba2": zpolicy}
+                      "serve_rwkv": rpolicy, "serve_zamba2": zpolicy,
+                      # phases 25-27: dbrx on serve_moe's policies, dense and paged;
+                      # starcoder2 and command-r on phase 4's and phase 5's
+                      "serve_dbrx": mpolicy, "serve_dbrx_paged": moe_paged_policy,
+                      "serve_starcoder2": policy, "serve_starcoder2_paged": paged_policy,
+                      "serve_command_r": policy, "serve_command_r_paged": paged_policy}
     # earlier phases' garbage is collected first: a collection during the
     # audit would free their tensors and move the reading
     gc.collect()
@@ -4370,7 +4516,7 @@ def main() -> None:
     _trace.launch = counting_launch
     try:
         findings = analysis.audit_all(device="cuda")
-        for pol in audit_policies.values():
+        for pol in {id(p): p for p in audit_policies.values()}.values():   # each once
             findings += analysis.audit_execution_policy(pol, device="cuda")
     finally:
         _trace.launch = traced_launch
@@ -4424,7 +4570,100 @@ def main() -> None:
     mesh_launches = mesh_phase(dev, cfg, loop, tpolicy, train_peak_gb, step_s, mixtral,
                                mpolicy, moe_backends, mreqs)
 
-    # ----------------------------------------------------------- 25 kernels
+    # ----------------------------------------- 25-27 serve dbrx, starcoder2, command-r
+    # Each served as phase 14 is (the giant helpers above), then its paged
+    # twin; one prompt's prefill logits against the torch routes with a
+    # faulty control above the bound.
+
+    # ---- 25 serve_dbrx: dbrx-132b at depth DBRX_DEPTH on serve_moe's
+    # policy (the grouped experts on cuda_grouped); the reference dropless
+    # (capacity_factor = E / k); one MoE layer's experts rolled by one as
+    # the control
+    t_phase = time.monotonic()
+    dcfg = giant_config("dbrx-132b", DBRX_DEPTH)
+    dparams, deng, dreqs, launches_db, dbrx_faults, dline = serve_giant(
+        dcfg, mpolicy, 25, SERVE_MOE_KERNELS)
+    grouped_loops_ok(launches_db, "serve_dbrx")
+    dcfg_dropless = dataclasses.replace(dcfg, capacity_factor=dcfg.num_experts / dcfg.top_k)
+    dprompt = prompt_of(dreqs[0])
+    dlk = giant_prefill(dcfg, dparams, mpolicy, dprompt)
+    dlr = giant_prefill(dcfg_dropless, dparams, mref_policy, dprompt)
+    dlc = giant_prefill(dcfg_dropless, rolled_experts(dparams, 1), mref_policy, dprompt)
+    dline.update(depth=DBRX_DEPTH, experts=dcfg.num_experts, top_k=dcfg.top_k,
+                 **held_logits(dlk, dlr, dlc, dcfg.vocab_size, MOE_LOGITS_BOUND,
+                               "rolled-experts", dbrx_faults))
+    del dlk, dlr, dlc
+    dpline, launches_dbp = serve_paged_twin(dcfg, dparams, dreqs, dbrx_faults,
+                                            moe_paged_policy, SERVE_MOE_PAGED_KERNELS)
+    emit_giant("serve_dbrx", dparams, deng, dreqs, dline, t_phase, dpline)
+    grouped_loops_ok(launches_dbp, "serve_dbrx_paged")
+    if dbrx_faults:
+        fail("serve_dbrx: " + "; ".join(dbrx_faults))
+    del deng, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 26 serve_starcoder2: starcoder2-15b whole on the serve policy,
+    # every QKV and MLP bias seeded at STARCODER2_BIAS_SCALE on the device
+    # (init makes them zero); the same stack with every bias zeroed as the
+    # control
+    def seed_biases(prm):
+        bgen = torch.Generator(device=dev).manual_seed(26)
+        n_b = 0
+        for lp in prm["layers"]:
+            for sub in lp.values():
+                if isinstance(sub, dict) and "b" in sub:
+                    sub["b"].normal_(0.0, STARCODER2_BIAS_SCALE, generator=bgen)
+                    n_b += 1
+        return {"bias_scale": STARCODER2_BIAS_SCALE, "bias_leaves": n_b}
+
+    def zero_biases(prm):
+        return {**prm, "layers": [
+            {k: ({**v, "b": torch.zeros_like(v["b"])} if isinstance(v, dict) and "b" in v
+                 else v) for k, v in lp.items()} for lp in prm["layers"]]}
+
+    t_phase = time.monotonic()
+    scfg = get_config("starcoder2-15b")
+    sparams, seng, sreqs, launches_sc, sc_faults, sline = serve_giant(
+        scfg, policy, 26, SERVE_KERNELS, prep=seed_biases)
+    sprompt = prompt_of(sreqs[0])
+    slk = giant_prefill(scfg, sparams, policy, sprompt)
+    slr = giant_prefill(scfg, sparams, ref_policy, sprompt)
+    slc = giant_prefill(scfg, zero_biases(sparams), ref_policy, sprompt)
+    sline.update(depth=scfg.num_layers, **held_logits(slk, slr, slc, scfg.vocab_size,
+                                                      LOGITS_BOUND, "zero-bias", sc_faults))
+    del slk, slr, slc
+    spline, launches_scp = serve_paged_twin(scfg, sparams, sreqs, sc_faults)
+    emit_giant("serve_starcoder2", sparams, seng, sreqs, sline, t_phase, spline)
+    if sc_faults:
+        fail("serve_starcoder2: " + "; ".join(sc_faults))
+    del seng, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 27 serve_command_r: command-r-35b at depth COMMAND_R_DEPTH on the
+    # serve policy; the reference's refine_ab unembed over vocab chunks;
+    # fp8 MLPs on the kernel routes as the control (nemotron's)
+    t_phase = time.monotonic()
+    ccfg = giant_config("command-r-35b", COMMAND_R_DEPTH)
+    cparams, ceng, creqs, launches_cr, cr_faults, cline = serve_giant(
+        ccfg, policy, 27, SERVE_KERNELS)
+    cprompt = prompt_of(creqs[0])
+    clk = giant_prefill(ccfg, cparams, policy, cprompt)
+    clr = giant_prefill(ccfg, cparams, ref_policy, cprompt, chunked=True)
+    clc = giant_prefill(ccfg, cparams, fp8_kernel_policy, cprompt)
+    cline.update(depth=COMMAND_R_DEPTH, **held_logits(clk, clr, clc, ccfg.vocab_size,
+                                                      LOGITS_BOUND, "fp8-MLP", cr_faults))
+    del clk, clr, clc
+    cpline, launches_crp = serve_paged_twin(ccfg, cparams, creqs, cr_faults)
+    emit_giant("serve_command_r", cparams, ceng, creqs, cline, t_phase, cpline)
+    if cr_faults:
+        fail("serve_command_r: " + "; ".join(cr_faults))
+    del ceng, cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 28 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
@@ -4437,7 +4676,10 @@ def main() -> None:
                "serve_internvl2_paged": launches_ip, "train_rwkv": launches_trw,
                "train_zamba2": launches_tz, "train_whisper": launches_tw,
                "train_internvl2": launches_ti, "precision": launches_pr,
-               "serve_stack": launches_ss, "mesh": mesh_launches}
+               "serve_stack": launches_ss, "mesh": mesh_launches, "serve_dbrx": launches_db,
+               "serve_dbrx_paged": launches_dbp, "serve_starcoder2": launches_sc,
+               "serve_starcoder2_paged": launches_scp, "serve_command_r": launches_cr,
+               "serve_command_r_paged": launches_crp}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above
@@ -4463,11 +4705,13 @@ def main() -> None:
             path_launches = train_launches[name]
         elif name == "flash_paged_decode":
             path_launches = (launches_pa[name] + launches_pb[name] + launches_pm[name]
-                             + launches_zp[name] + launches_wp[name] + launches_ip[name])
+                             + launches_zp[name] + launches_wp[name] + launches_ip[name]
+                             + launches_dbp[name] + launches_scp[name] + launches_crp[name])
         elif name == "gemm_lowp":
             path_launches = launches_pb[name]
         elif name == "grouped_gemm":
-            path_launches = launches_ms[name] + launches_pm[name] + launches_mt[name]
+            path_launches = (launches_ms[name] + launches_pm[name] + launches_mt[name]
+                             + launches_db[name] + launches_dbp[name])
         elif name == "grouped_gemm_dw":
             path_launches = launches_mt[name]
         elif name == "gemm_naive":

@@ -124,9 +124,7 @@ class TrainLoop:
             self.sharder = Sharder(cfg, self.mesh, policy=policy
                                    if isinstance(policy, ops.ExecutionPolicy) else None)
             self.constrainer = make_constrainer(self.sharder)
-            if microbatches != 1:
-                raise ValueError("over a mesh the data axis splits the batch: --microbatches "
-                                 "must be 1")
+            self.microbatches = microbatches
             self.loss_fn = make_loss_fn(cfg, policy, remat=remat)
             self.compress = compress
             self.error = None
@@ -203,11 +201,14 @@ class TrainLoop:
         return tree
 
     def _mesh_step(self, params, opt_state, batch):
-        """One step over the mesh.  The backward hands each whole gradient
-        to a hook as soon as it is accumulated: the hook means it over the
-        data-parallel axes (f32 sums in place, or the compressed mean over
-        ``data``), keeps this rank's block and drops the rest, so a rank
-        holds the whole params but never all of their whole gradients."""
+        """One step over the mesh.  The rank's rows run as ``microbatches``
+        equal pieces, each piece's backward accumulating into ``.grad``;
+        the last backward hands each whole gradient (the sum over the
+        pieces) to a hook as soon as it is accumulated: the hook divides it
+        by the piece count, means it over the data-parallel axes (f32 sums
+        in place, or the compressed mean over ``data``), keeps this rank's
+        block and drops the rest, so a rank holds the whole params but all
+        of their whole gradients only between pieces."""
         full = self.gather_params(params)
         flat = leaves(full)
         m = shard._Mesh(self.mesh)
@@ -216,11 +217,18 @@ class TrainLoop:
         if compress and self.error is None:
             self.error = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                           for p in flat]
+        k = self.microbatches
+        rows = batch["tokens"].shape[0]
+        if rows % k:
+            raise ValueError(f"a data rank's {rows} rows not divisible by microbatches {k}")
+        n = rows // k
         blocks: list = [None] * len(flat)
         sq: list = [None] * len(flat)
 
         def reduce(i: int, g: torch.Tensor) -> None:
             g = g.float().contiguous()
+            if k > 1:
+                g.div_(k)
             if compress:
                 g, self.error[i] = compression.compress_mean(g, self.error[i], self.mesh, "data")
             for a in axes:
@@ -239,19 +247,26 @@ class TrainLoop:
 
         for p in flat:
             p.requires_grad_(True)
-        handles = [p.register_post_accumulate_grad_hook(hook(i)) for i, p in enumerate(flat)]
+        sums: dict = {}
+        handles: list = []
         try:
             with (shard.local_batch(self.mesh.pod * self.mesh.dp),
                   use_constrainer(self.constrainer)):
-                total, mt = self.loss_fn(full, batch)
-                total.backward()
-            metrics = {k: v.detach() for k, v in mt.items()}
-            del total, mt      # their graph holds the whole params
+                for j in range(k):
+                    if j == k - 1:       # the hooks see the summed gradient only
+                        handles = [p.register_post_accumulate_grad_hook(hook(i))
+                                   for i, p in enumerate(flat)]
+                    piece = {key: v[j * n:(j + 1) * n] for key, v in batch.items()}
+                    total, mt = self.loss_fn(full, piece)
+                    total.backward()
+                    for key, v in mt.items():
+                        sums[key] = sums[key] + v.detach() if key in sums else v.detach()
+                    del total, mt      # their graph holds the whole params
         finally:
             for h in handles:
                 h.remove()
         del full, flat
-        metrics = self._dp_mean(metrics)
+        metrics = self._dp_mean({key: v / k for key, v in sums.items()})
         gnorm = torch.sqrt(sum(sq))
         it = iter(blocks)
         blocks = tree_map(lambda _: next(it), params)

@@ -207,3 +207,38 @@ def test_serve_cli_runs_the_arch_on_the_cpu(arch):
     text = out.getvalue()
     assert f"arch={get_smoke(arch).name} layers=4 device=cpu" in text
     assert "served 3 requests" in text
+
+
+def _seeded_biases(tree, rng, scale):
+    """A copy of repro's param tree with every ``b`` leaf drawn from
+    N(0, scale^2) (``init_params`` makes them zero, so a dropped, misplaced
+    or wrongly sliced bias would agree with repro); the rest shared."""
+    if isinstance(tree, dict):
+        return {k: (rng.normal(0.0, scale, np.shape(v)).astype(np.asarray(v).dtype)
+                    if k == "b" else _seeded_biases(v, rng, scale)) for k, v in tree.items()}
+    return tree
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_starcoder2_nonzero_biases_match_repro(jparams_by_arch, repro_kv_tile, route):
+    """starcoder2's six bias leaves (q, k, v, o, MLP in and out) seeded
+    non-zero in repro's tree before ``from_jax_numpy``: the f32 prefill
+    and decode logits within F32_ATOL, and at bf16 activations the bf16
+    policy's within BF16_ATOL with the same greedy tokens."""
+    jparams = _seeded_biases(jparams_by_arch["starcoder2-15b"], np.random.default_rng(3), 0.5)
+    n_bias = sum(1 for _ in _bias_leaves(jparams))
+    assert n_bias == 6 and all(np.abs(b).max() > 0.1 for b in _bias_leaves(jparams))
+    for jl, tl in _prefill_decode_logits(jparams, "starcoder2-15b", "f32", "float32", route):
+        assert jl.shape == tl.shape and np.isfinite(tl).all()
+        assert np.abs(jl - tl).max() <= F32_ATOL
+    for jl, tl in _prefill_decode_logits(jparams, "starcoder2-15b", "bf16", "bfloat16", route):
+        assert np.abs(jl - tl).max() <= BF16_ATOL
+        np.testing.assert_array_equal(jl.argmax(-1), tl.argmax(-1))
+
+
+def _bias_leaves(tree):
+    for k, v in tree.items():
+        if k == "b":
+            yield v
+        elif isinstance(v, dict):
+            yield from _bias_leaves(v)

@@ -433,18 +433,28 @@ def test_mixtral_logits_match_repro(jparams, route, activation_dtype):
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
-def test_dbrx_logits_match_repro(jparams, route):
-    """DBRX's smoke model (full attention, no window) at f32."""
-    for jl, tl in _logits(jparams["dbrx-132b"], "dbrx-132b", "f32", "float32", route,
-                          decode_steps=1):
-        assert jl.shape == tl.shape and np.abs(jl - tl).max() <= F32_ATOL
+@pytest.mark.parametrize("activation_dtype", ["float32", "bfloat16"])
+def test_dbrx_logits_match_repro(jparams, route, activation_dtype):
+    """DBRX's smoke model (full attention, no window; 16 experts, top-4 at
+    full size), the f32 policy on f32 activations and the bf16 policy on
+    bf16 activations, as Mixtral's test holds them."""
+    f32 = activation_dtype == "float32"
+    for jl, tl in _logits(jparams["dbrx-132b"], "dbrx-132b", "f32" if f32 else "bf16",
+                          activation_dtype, route, decode_steps=1):
+        assert jl.shape == tl.shape and np.isfinite(tl).all()
+        assert np.abs(jl - tl).max() <= (F32_ATOL if f32 else BF16_LOGITS_ATOL)
+        assert (jl[:, -1].argmax(-1) == tl[:, -1].argmax(-1)).all()
 
 
-def test_staggered_f32_serve_is_token_exact_against_repro(jparams):
+MOE_ARCHS = ["mixtral-8x7b", "dbrx-132b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_staggered_f32_serve_is_token_exact_against_repro(jparams, arch):
     """Continuous batching on cuda_grouped against repro's engine on
     pallas_grouped (twin of repro's staggered grouped-serve test): the
     same tokens for every request."""
-    jcfg, tcfg = _cfgs("mixtral-8x7b", "float32")
+    jcfg, tcfg = _cfgs(arch, "float32")
     jpol = JExecutionPolicy(default="f32", backends=J_ROUTES["grouped"], interpret=True)
     tpol = execution_policy_for(tcfg, default="f32", backends=ROUTES["grouped"],
                                 require={"attention": ("decode",)})
@@ -452,12 +462,12 @@ def test_staggered_f32_serve_is_token_exact_against_repro(jparams):
     prompts = [rng.integers(2, tcfg.vocab_size, 4 + (i % 2)).astype(np.int32) for i in range(3)]
     budgets = [3 + (i % 2) for i in range(3)]
     jeng = JServeEngine(jcfg, batch_size=2, max_ctx=24, policy=jpol)
-    jeng.load(jax.tree.map(jnp.asarray, jparams["mixtral-8x7b"]))
+    jeng.load(jax.tree.map(jnp.asarray, jparams[arch]))
     jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=n)
              for i, (p, n) in enumerate(zip(prompts, budgets))]
     jeng.run(jreqs)
     teng = ServeEngine(tcfg, batch_size=2, max_ctx=24, policy=tpol, device="cpu")
-    teng.load(from_jax_numpy(jparams["mixtral-8x7b"], tcfg, "cpu"))
+    teng.load(from_jax_numpy(jparams[arch], tcfg, "cpu"))
     treqs = [Request(rid=i, prompt=p, max_new_tokens=n)
              for i, (p, n) in enumerate(zip(prompts, budgets))]
     teng.run(treqs)
@@ -505,13 +515,14 @@ def test_train_step0_matches_repro(jparams, policy):
             assert rel <= BF16_GRAD_REL, (path, rel)
 
 
-def test_paged_serving_refuses_moe(jparams):
-    """Paged KV serves the MoE family too: Mixtral's attention sublayers
-    (ring layers, window 16 < 24) read 4-row pages, its MoE sublayers hold
-    nothing.  An f32 staggered paged engine on cuda_grouped emits repro's
-    paged engine's tokens and the port's dense engine's, and frees every
-    page."""
-    jcfg, tcfg = _cfgs("mixtral-8x7b", "float32")
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_paged_moe_serve_matches_repro_and_dense(jparams, arch):
+    """Paged KV serves the MoE family too: the attention sublayers read
+    4-row pages (Mixtral's are ring layers, window 16 < 24; DBRX's attend
+    to the whole context), the MoE sublayers hold nothing.  An f32
+    staggered paged engine on cuda_grouped emits repro's paged engine's
+    tokens and the port's dense engine's, and frees every page."""
+    jcfg, tcfg = _cfgs(arch, "float32")
     jpol = JExecutionPolicy(default="f32", backends=J_ROUTES["grouped"], interpret=True)
     tpol = execution_policy_for(tcfg, default="f32", backends=ROUTES["grouped"],
                                 require={"attention": ("decode", "paged_decode")})
@@ -521,11 +532,11 @@ def test_paged_serving_refuses_moe(jparams):
     budgets = [9, 4, 6]
     jeng = JServeEngine(jcfg, batch_size=2, max_ctx=24, policy=jpol, kv_layout="paged",
                         kv_page_size=4)
-    jeng.load(jax.tree.map(jnp.asarray, jparams["mixtral-8x7b"]))
+    jeng.load(jax.tree.map(jnp.asarray, jparams[arch]))
     jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=n)
              for i, (p, n) in enumerate(zip(prompts, budgets))]
     jeng.run(jreqs)
-    tparams = from_jax_numpy(jparams["mixtral-8x7b"], tcfg, "cpu")
+    tparams = from_jax_numpy(jparams[arch], tcfg, "cpu")
     outs = {}
     for layout in ("paged", "dense"):
         teng = ServeEngine(tcfg, batch_size=2, max_ctx=24, policy=tpol, device="cpu",

@@ -12,7 +12,9 @@ sums the gradient in another order, and AdamW's normalized update makes
 that grow (5e-7 at step 3, 6e-5 at step 5, 5e-4 at step 6 here): the
 first 3 steps are held to it within 1e-5 too.  The run headers name the
 mesh as ``repro``'s ``run_header`` does.  A mesh larger than its ranks fails
-before any rank starts.
+before any rank starts.  ``--microbatches`` passes through under ``--mesh``:
+each data rank runs its rows in that many pieces, as ``repro`` builds its
+step with ``microbatches`` whatever the mesh.
 """
 
 import math
@@ -100,3 +102,16 @@ def test_compressed_gradient_mean_trains(capfd):
     capfd.readouterr()
     assert packed[0] == plain[0]
     assert math.isfinite(packed[1]) and packed[1] != plain[1]
+
+
+def test_mesh_microbatches_match_one_rank():
+    """``--mesh dp=2 --microbatches 2`` on two ranks: each rank's two rows
+    run as two one-row pieces whose gradients are summed and halved before
+    the data-parallel mean, so every step's loss is within 1e-5 of one rank
+    taking the same batches as 4 microbatches (the same four one-row
+    gradients, summed in another grouping)."""
+    mesh = main(ARGS + ["--steps", "3", "--mesh", "dp=2", "--nprocs", "2",
+                        "--microbatches", "2"])
+    one = main(ARGS + ["--steps", "3", "--microbatches", "4"])
+    assert len(mesh) == 3 and all(math.isfinite(x) for x in mesh), mesh
+    assert max(abs(a - b) for a, b in zip(mesh, one)) <= 1e-5, (mesh, one)

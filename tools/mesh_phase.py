@@ -68,7 +68,7 @@ def witness(loop, tpolicy) -> None:
         for mesh in WITNESS_MESHES:
             job = dict(device="cuda", arch="gemma3-1b", mesh=mesh, batch=TRAIN_BATCH,
                        seq=TRAIN_SEQ, run_to=1,
-                       schedule_steps=chip_smoke.TRAIN_STEPS + chip_smoke.MESH_RESUME_STEPS,
+                       schedule_steps=chip_smoke.MESH_TRAIN_STEPS + chip_smoke.MESH_RESUME_STEPS,
                        ckpt=None, ref=f"{tmp}/ref.pt", controls=())
             t0 = time.monotonic()
             ranks = world.spawn(mesh_checks.jobs_worker, 2, args=([("train", job)],),
