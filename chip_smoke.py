@@ -81,7 +81,7 @@ Phases, each printing one JSON line:
    and five gradient leaves are held against the ``torch`` routes
    (dropless capacity), with the rolled-experts control above the bounds.
 Phases 10 and 11 run right after 6, while gemma3's params are loaded;
-12 runs after 9, once Mixtral is freed, and 13 to 27 after 12, each once
+12 runs after 9, once Mixtral is freed, and 13 to 31 after 12, each once
 the model before it is freed.
 
 10. serve_naive — gemma3-1b again (full width and depth, the serve
@@ -293,7 +293,36 @@ the model before it is freed.
    over vocab chunks, and fp8 MLPs on the kernel routes are the control.
    Each of 25-27 gives its params, weights, init, peak memory, tok/s,
    TTFT, launches and seconds.
-28. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
+28. train_dbrx — dbrx-132b at full width, depth 1 of 40 (16 experts top-4,
+   18 GB of f32 params, 72 GB with gradients and AdamW's moments), trains
+   2 AdamW steps (batch 1 x 1024: 4096 expert rows; remat, warmup 1)
+   through ``TrainLoop`` on the kernel routes with the experts on
+   ``cuda_grouped``: the grouped forward, dx and dW at E = 16, every dW and
+   every grouped launch on the wgmma mainloop.  Step 0 as phase 9 holds
+   it (per-token loss, aux loss and five gradients against the torch
+   routes at a dropless capacity on the kernel routes' picks, the remat
+   recompute routing the same, the rolled-experts control above the
+   bounds), on params drawn as the loop draws them but without its AdamW
+   moments; then one profiled step.
+29. train_starcoder2 — starcoder2-15b at full width, depth 8 of 40, every
+   bias seeded as in phase 26, 1 x 1024, the same way as phases 17-20
+   (step 0's per-token loss and five gradients, the layer-0 query bias
+   among them, against the torch routes; the zero-bias stack as the
+   control).
+30. train_command_r — command-r-35b at full width, depth 1 of 40 (two
+   untied 256000 x 8192 f32 tables: 78 GB with gradients and moments),
+   1 x 256; the torch routes' refine_ab unembed runs over checkpointed
+   vocab chunks; fp8 MLPs on the kernel routes as the control.  Each of
+   28-30 gives its params, step 0, losses, grad norms, step times, peak
+   memory, launches, a profiled step and seconds.  They fit the card
+   because AdamW updates each leaf in row blocks (``optim/adamw.py``).
+31. tiles — ``core.ops.tiles.autotune_tiles`` on gemm_lowp's decode MLP up
+   (fp8x3, 4 x 1152 -> 6912) into a cache file under the build
+   directory: each candidate's ms, the winner dispatched from the cache
+   within LOWP_BOUND of its plain version on that grid (another bk the
+   control above it), the file holding that one entry and reloading into
+   a cleared cache as the same tile.
+32. kernels — a ``mainloops`` line (which mainloop each ``gemm_tiled``,
    ``gemm_refined``, ``gemm_lowp``, ``grouped_gemm``, ``grouped_gemm_dw``,
    ``flash_attention``, ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` check ran: every M > 16 shape, every
@@ -381,7 +410,12 @@ given the real counts) and at a 700-token prefill (T*k = 2800, 128-row
 tiles, wgmma), the flash forward (S = 700, causal) and decode (B = 4,
 linear 1024) at starcoder2's 48 heads on 4 kv heads (G = 12, hd 128), and
 ``gemm_refined`` at command-r's refine_ab decode unembed (4 x 8192 against
-its 256000 x 8192 f32 table; the plain version over vocab chunks).
+its 256000 x 8192 f32 table; the plain version over vocab chunks).  For
+phases 28 and 30 it holds the grouped dx (w^T as a K-major B) and dW at
+dbrx's widths over 4096 rows and 16 experts (the dW 4.23 GB of f32), and
+command-r's train unembed dX (256 x 256000 x 8192, 4 terms, K = 256000),
+whose error against the f64 product must also be within twice f32
+SGEMM's, as phase 21 holds every rung.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a GPU, or without ``src/repro_torch`` beside
@@ -396,8 +430,10 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -616,6 +652,20 @@ NEMOTRON_LOGITS_BOUND = LOGITS_BOUND
 DBRX_DEPTH = 2
 COMMAND_R_DEPTH = 4
 STARCODER2_BIAS_SCALE = 0.1
+# phases 28-30: the same three configs trained at full width, each from
+# params drawn alone (no AdamW moments) for step 0, then TRAIN_GIANT_STEPS
+# steps through TrainLoop.  With f32 params, gradients and both moments,
+# dbrx-132b at depth 1 of 40 is 71.9 GB (one 16 x 6144 x 10752 expert stack
+# 4.23 GB), starcoder2-15b at depth 8 58.8 GB and command-r-35b at depth 1
+# 78.4 GB (its two untied 256000 x 8192 tables 8.39 GB each): AdamW updates a
+# leaf in row blocks (optim/adamw.py SLICE) so its temporaries fit beside
+# them.  dbrx trains 1 x 1024 tokens (T*k = 4096 expert rows), starcoder2
+# 1 x 1024, command-r 1 x TRAIN_COMMAND_R_SEQ.
+TRAIN_GIANT_STEPS = 2
+TRAIN_DBRX_DEPTH = 1
+TRAIN_STARCODER2_DEPTH = 8
+TRAIN_COMMAND_R_DEPTH = 1
+TRAIN_COMMAND_R_SEQ = 256
 # serve_whisper (whole, 0.79 B params): prefill logits on seeded random
 # frames, kernel routes vs torch routes, and the encoder's hidden states
 # (final-normed, 1500 x 1024) the same way, each at gemma3's bound; the
@@ -1138,6 +1188,7 @@ def main() -> None:
     from repro_torch.serve.gateway import Gateway
     from repro_torch.serve.metrics import MetricsRegistry
     from repro_torch.serve.pool import ReplicaPool
+    from torch.utils.checkpoint import checkpoint
 
     mods = {"gemm_tiled": gt, "gemm_refined": gr, **{k: af for k in af.LAUNCHES},
             "flash_paged_decode": ap, "gemm_lowp": gl, **{k: gg for k in gg.LAUNCHES},
@@ -2637,7 +2688,44 @@ def main() -> None:
                      **({"splits": gg.grouped_splits(x.shape[0], d_ff, d_dm, sms)}
                         if phase == "decode" else {})})
         del x, lib
-    del w_in, w_in_rolled, w_in16
+    # phase 28's backward at 1 x 1024 tokens (T*k = 4096 rows over the 16
+    # experts): dx of the up projection (dy against w^T, a K-major B) and dW
+    # (16 x 6144 x 10752 f32, 4.23 GB), group sizes from the same skewed
+    # draw, padding rows zero; controls as Mixtral's rows (the neighbouring
+    # expert's weights; dW's run boundaries moved by one tile)
+    tk = 1024 * dcfg_full.top_k
+    bm = ops.grouped_tiles(grouped_route, tk, d_ff, d_dm).bm
+    counts = d_rng.multinomial(tk, d_rng.dirichlet(np.full(d_exp, 0.6)))
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(ops.align_group_counts(
+        counts, bm))]).astype(np.int32)).to(dev)
+    valid = torch.zeros(ops.round_up(tk, bm) + d_exp * bm, dtype=torch.bool, device=dev)
+    for g in range(d_exp):
+        valid[int(off[g]):int(off[g]) + int(counts[g])] = True
+    x = randn((valid.shape[0], d_dm), dtype=torch.bfloat16, generator=d_gen) * valid[:, None]
+    dy = randn((valid.shape[0], d_ff), tk ** -0.5, generator=d_gen) * valid[:, None]
+    tag = (f"T*k={tk} E={d_exp} bm={bm} counts {counts.tolist()} ({dcfg_full.name})")
+    lib, lib_name = grouped_mm_library(dy.to(torch.bfloat16), w_in16.transpose(1, 2), off[1:],
+                                       "dx (w transposed view)")
+    check("grouped_gemm", f"train dx trans_w bf16 {d_ff}->{d_dm} {tag}",
+          lambda: gg.grouped_gemm(dy, w_in, off, bm=bm, trans_w=True),
+          lambda: gg.grouped_gemm_plain(dy, w_in, off, trans_w=True, bm=bm),
+          lib, GEMM_BOUND, 2 * tk * d_ff * d_dm,
+          tk * d_ff * 4 + int((counts > 0).sum()) * d_dm * d_ff * 4 + x.shape[0] * d_dm * 4,
+          control=lambda: gg.grouped_gemm_plain(dy, w_in_rolled, off, trans_w=True, bm=bm),
+          library_call=lib_name, loop="sm90",
+          extra={"live_experts": int((counts > 0).sum()), "buffer_rows": int(x.shape[0])})
+    del lib, w_in, w_in_rolled, w_in16
+    torch.cuda.empty_cache()
+    off_moved = off.clone()
+    off_moved[1:-1] += bm
+    lib, lib_name = grouped_mm_library(x.t(), dy.to(torch.bfloat16), off[1:], "dW (x^T view)")
+    check("grouped_gemm_dw", f"train dW bf16 {d_dm}x{d_ff} {tag}",
+          lambda: gg.grouped_gemm_dw(x, dy, off), lambda: gg.grouped_gemm_dw_plain(x, dy, off),
+          lib, GEMM_BOUND, 2 * tk * d_dm * d_ff,
+          tk * (d_dm * 2 + d_ff * 4) + d_exp * d_dm * d_ff * 4,
+          control=lambda: gg.grouped_gemm_dw_plain(x, dy, off_moved),
+          library_call=lib_name, loop="sm90")
+    del x, dy, lib, off_moved
     torch.cuda.empty_cache()
     scfg_full = get_config("starcoder2-15b")
     causal_prefill_row(scfg_full, 700)
@@ -2671,7 +2759,35 @@ def main() -> None:
           library_call="f32 SGEMM on an f32 copy of x (TF32 off)",
           extra={**refined_extra(4, c_vocab, c_d),
                  "plain": "gemm_refined_plain over 32768-row vocab chunks"})
-    del table, xc4
+    # phase 30's train unembed dX: the logits' f32 gradient (1 x 256 tokens)
+    # against the table, K = 256000 (the longest K the refined mainloop
+    # runs), 4 terms.  Besides GEMM_BOUND against its plain version, its
+    # max error against the f64 product is held, as phase 21 holds every
+    # rung, within PRECISION_ROUTE_FACTOR times f32 SGEMM's (TF32 off); the
+    # f64 product is summed over 32768-row K chunks.
+    m_c = TRAIN_COMMAND_R_SEQ
+    g_log = randn((m_c, c_vocab), c_vocab ** -0.5)
+    with torch.no_grad():
+        exact = sum(g_log[:, v0:v0 + 32768].double() @ table[v0:v0 + 32768].double()
+                    for v0 in range(0, c_vocab, 32768))
+        f64_err = {"kernel": (gr.gemm_refined(g_log, table, policy="refine_ab").double()
+                              - exact).abs().max().item(),
+                   "sgemm": (torch.matmul(g_log, table).double() - exact).abs().max().item()}
+    del exact
+    check("gemm_refined", f"train unembed dX refine_ab {m_c}x{c_vocab}x{c_d} ({ccfg_full.name})",
+          lambda: gr.gemm_refined(g_log, table, policy="refine_ab"),
+          lambda: gr.gemm_refined_plain(g_log, table, "refine_ab"),
+          lambda: torch.matmul(g_log, table), GEMM_BOUND,
+          refined_flops(g_log, table, m_c, c_d, c_vocab),
+          (g_log.numel() + table.numel() + m_c * c_d) * 4, loop="sm90",
+          library_call="f32 SGEMM (TF32 off)",
+          extra={**refined_extra(m_c, c_d, c_vocab), "f64_max_err": f64_err["kernel"],
+                 "sgemm_f64_max_err": f64_err["sgemm"],
+                 "f64_bound": PRECISION_ROUTE_FACTOR * f64_err["sgemm"]})
+    if not f64_err["kernel"] <= PRECISION_ROUTE_FACTOR * f64_err["sgemm"]:
+        fail(f"gemm_refined train unembed dX at K = {c_vocab}: {f64_err['kernel']} from the f64 "
+             f"product, over {PRECISION_ROUTE_FACTOR} x SGEMM's {f64_err['sgemm']}")
+    del table, xc4, g_log
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 4 serve
@@ -3153,7 +3269,6 @@ def main() -> None:
 
     # ---------------------------------------------------------- 9 train_moe
     tmcfg = mixtral(MOE_TRAIN_DEPTH)
-    tmcfg_dropless = dataclasses.replace(tmcfg, capacity_factor=tmcfg.num_experts / tmcfg.top_k)
     mt_policy = execution_policy_for(
         tmcfg, default="bf16", logits="refine_ab", backends=moe_backends,
         require={fam: ("vjp",) for fam in ops.families()})
@@ -3161,7 +3276,53 @@ def main() -> None:
                       opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
                       data_cfg=DataConfig(global_batch=1, seq_len=1024, vocab_size=mvocab),
                       remat=True, device=dev)
-    mtparams, _, _ = mloop.init_or_restore(0)
+
+    # Step 0's params are the draw TrainLoop.init_or_restore makes, without
+    # its AdamW moments (the largest configs would not fit the params three
+    # times over beside step 0's three passes): ``loop_from_step0`` checks
+    # that the loop's own draw repeats them.
+    def param_heads(p):
+        """The first elements of every leaf, to compare two draws by."""
+        return [t.detach().flatten()[:4096].clone() for t in leaves(p)]
+
+    def step0_params(c, prep=None):
+        """(params, their heads, ``prep``'s fields): api.init_params on a
+        device generator seeded 0, ``prep`` applied, every leaf requiring
+        its gradient as the loop's do."""
+        p = api.init_params(c, torch.Generator(device=dev).manual_seed(0), dev)
+        fields = {}
+        if prep is not None:
+            with torch.no_grad():
+                fields = prep(p)
+        for t in leaves(p):
+            t.requires_grad_(True)
+        return p, param_heads(p), fields
+
+    def loop_from_step0(tloop, steps, heads0, prep=None):
+        """``tloop.run(steps)``, ``prep`` applied to the params its
+        init_or_restore draws; returns (params, optimizer state, losses,
+        whether that draw's heads equal ``heads0``)."""
+        real = tloop.init_or_restore
+        drawn = []
+
+        def init_or_restore(seed=0):
+            p, o, start = real(seed)
+            if prep is not None:
+                with torch.no_grad():
+                    prep(p)
+            drawn.append(param_heads(p))
+            return p, o, start
+
+        tloop.init_or_restore = init_or_restore
+        try:
+            tp, topt, hist = tloop.run(steps, log_every=0)
+        finally:
+            del tloop.init_or_restore
+        same = len(drawn[0]) == len(heads0) and all(
+            torch.equal(a, b) for a, b in zip(heads0, drawn[0]))
+        return tp, topt, hist, same
+
+    mtparams, mheads, _ = step0_params(tmcfg)
     mbatch0 = mloop.batch(SyntheticLMDataset(mloop.data_cfg), 0)
     mfive = ("router", "wi", "wg", "wo", "attn_q")
 
@@ -3182,17 +3343,17 @@ def main() -> None:
             return probs.gather(-1, idx), idx
         return top_k
 
-    def moe_loss_and_grads(c, pol, p, top_k):
+    def moe_loss_and_grads(c, pol, p, b0, top_k):
         """(per-token losses, aux loss, gradients of the five leaves of the
         total loss lm + AUX_LOSS_WEIGHT aux) of one forward, with ``top_k``
         as moe's router."""
         moe_mod._top_k = top_k
         try:
-            logits, _, aux = transformer.forward(p, mbatch0["tokens"], c, policy=pol,
+            logits, _, aux = transformer.forward(p, b0["tokens"], c, policy=pol,
                                                  mode="train", remat=True)
             logits = logits.float()
             nll = torch.logsumexp(logits, dim=-1) - logits.gather(
-                -1, mbatch0["labels"].long()[..., None])[..., 0]
+                -1, b0["labels"].long()[..., None])[..., 0]
             del logits
             grads = torch.autograd.grad(nll.mean() + api.AUX_LOSS_WEIGHT * aux,
                                         moe_leaves(p))
@@ -3204,51 +3365,66 @@ def main() -> None:
         """Tokens routed to another expert set, per MoE layer."""
         return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b)]
 
-    # the kernel routes' picks: each MoE layer's forward, then the remat
-    # recompute in the backward (last layer first), which must repeat them
-    mp_k, mp_t = [], []
-    mnll_k, maux_k, mg_k = moe_loss_and_grads(tmcfg, mt_policy, mtparams, recording_top_k(mp_k))
-    remat_same = (len(mp_k) == 2 * MOE_TRAIN_DEPTH
-                  and flipped(mp_k[:MOE_TRAIN_DEPTH], mp_k[MOE_TRAIN_DEPTH:][::-1])
-                  == [0] * MOE_TRAIN_DEPTH)
-    mnll_t, maux_t, mg_t = moe_loss_and_grads(tmcfg_dropless, mref_policy, mtparams,
-                                              pinned_top_k(mp_k, mp_t))
-    mnll_c, maux_c, mg_c = moe_loss_and_grads(tmcfg_dropless, mref_policy,
-                                              rolled_experts(mtparams, 1),
-                                              pinned_top_k(mp_k, []))
-
     def mrel(a, b):
         return {k: ((x - y).norm() / y.norm()).item() for k, x, y in zip(mfive, a, b)}
 
-    mstep0 = {"loss_kernel": mnll_k.mean().item(), "loss_torch": mnll_t.mean().item(),
-              "aux_kernel": maux_k, "aux_torch": maux_t, "aux_err": abs(maux_k - maux_t),
-              "token_loss_max_err": (mnll_k - mnll_t).abs().max().item(),
-              "grad_rel_err": mrel(mg_k, mg_t),
-              "remat_recompute_routes_same": remat_same,
-              "tokens_torch_routes_would_route_apart_per_layer": flipped(
-                  mp_k[:MOE_TRAIN_DEPTH], mp_t[:MOE_TRAIN_DEPTH]),
-              "control_rolled_experts_aux_err": abs(maux_c - maux_t),
-              "control_rolled_experts_token_loss_max_err": (mnll_c - mnll_t).abs().max().item(),
-              "control_rolled_experts_grad_rel_err": mrel(mg_c, mg_t),
-              "token_loss_bound": MOE_STEP0_TOKEN_LOSS_BOUND, "aux_bound": MOE_STEP0_AUX_BOUND,
-              "grad_bound": MOE_STEP0_GRAD_BOUND}
-    del mtparams, mg_k, mg_t, mg_c, mnll_k, mnll_t, mnll_c, mp_k, mp_t
+    def moe_step0(c, pol, p, b0, depth):
+        """Step 0 of an MoE stack (layers [attn, moe] * depth): the kernel
+        routes' per-token losses, aux loss and five gradients against the
+        torch routes at a dropless capacity on the experts the kernel routes
+        picked, and the rolled-experts control (the first MoE layer's
+        experts rolled by one) on the same picks; each set of gradients is
+        compared as soon as it is made and dropped.  Returns (the step-0
+        fields, faults)."""
+        c_dropless = dataclasses.replace(c, capacity_factor=c.num_experts / c.top_k)
+        # the kernel routes' picks: each MoE layer's forward, then the remat
+        # recompute in the backward (last layer first), which must repeat them
+        p_k, p_t = [], []
+        nll_k, aux_k, g_k = moe_loss_and_grads(c, pol, p, b0, recording_top_k(p_k))
+        remat_same = (len(p_k) == 2 * depth
+                      and flipped(p_k[:depth], p_k[depth:][::-1]) == [0] * depth)
+        nll_t, aux_t, g_t = moe_loss_and_grads(c_dropless, mref_policy, p, b0,
+                                               pinned_top_k(p_k, p_t))
+        grad_rel = mrel(g_k, g_t)
+        del g_k
+        nll_c, aux_c, g_c = moe_loss_and_grads(c_dropless, mref_policy, rolled_experts(p, 1),
+                                               b0, pinned_top_k(p_k, []))
+        control_rel = mrel(g_c, g_t)
+        del g_c, g_t
+        step0 = {"loss_kernel": nll_k.mean().item(), "loss_torch": nll_t.mean().item(),
+                 "aux_kernel": aux_k, "aux_torch": aux_t, "aux_err": abs(aux_k - aux_t),
+                 "token_loss_max_err": (nll_k - nll_t).abs().max().item(),
+                 "grad_rel_err": grad_rel,
+                 "remat_recompute_routes_same": remat_same,
+                 "tokens_torch_routes_would_route_apart_per_layer": flipped(
+                     p_k[:depth], p_t[:depth]),
+                 "control_rolled_experts_aux_err": abs(aux_c - aux_t),
+                 "control_rolled_experts_token_loss_max_err": (nll_c - nll_t).abs().max().item(),
+                 "control_rolled_experts_grad_rel_err": control_rel,
+                 "token_loss_bound": MOE_STEP0_TOKEN_LOSS_BOUND,
+                 "aux_bound": MOE_STEP0_AUX_BOUND, "grad_bound": MOE_STEP0_GRAD_BOUND}
+        faults = []
+        if not (math.isfinite(step0["loss_kernel"]) and remat_same
+                and step0["token_loss_max_err"] <= MOE_STEP0_TOKEN_LOSS_BOUND
+                and step0["aux_err"] <= MOE_STEP0_AUX_BOUND
+                and max(grad_rel.values()) <= MOE_STEP0_GRAD_BOUND):
+            faults.append("step 0: kernel routes vs torch routes out of bounds")
+        if not (step0["control_rolled_experts_token_loss_max_err"] > MOE_STEP0_TOKEN_LOSS_BOUND
+                and max(control_rel.values()) > MOE_STEP0_GRAD_BOUND):
+            faults.append("step 0: the rolled-experts control lands within the bounds")
+        return step0, faults
+
+    mstep0, mfaults = moe_step0(tmcfg, mt_policy, mtparams, mbatch0, MOE_TRAIN_DEPTH)
+    moe_faults += [f"train_moe {f}" for f in mfaults]
+    del mtparams
+    gc.collect()
     torch.cuda.empty_cache()
     emit(phase="train_moe_step0", arch=tmcfg.name, depth=MOE_TRAIN_DEPTH, **mstep0)
-    if not (math.isfinite(mstep0["loss_kernel"]) and remat_same
-            and mstep0["token_loss_max_err"] <= MOE_STEP0_TOKEN_LOSS_BOUND
-            and mstep0["aux_err"] <= MOE_STEP0_AUX_BOUND
-            and max(mstep0["grad_rel_err"].values()) <= MOE_STEP0_GRAD_BOUND):
-        moe_faults.append("train_moe step 0: kernel routes vs torch routes out of bounds")
-    if not (mstep0["control_rolled_experts_token_loss_max_err"] > MOE_STEP0_TOKEN_LOSS_BOUND
-            and max(mstep0["control_rolled_experts_grad_rel_err"].values())
-            > MOE_STEP0_GRAD_BOUND):
-        moe_faults.append("train_moe step 0: the rolled-experts control lands within the bounds")
 
     zero_launches(mods)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
-    _, _, mhistory = mloop.run(TRAIN_STEPS, log_every=0)
+    _, _, mhistory, m_init_same = loop_from_step0(mloop, TRAIN_STEPS, mheads)
     torch.cuda.synchronize(dev)
     mtrain_wall = time.monotonic() - t0
     launches_mt = read_launches(mods)
@@ -3260,12 +3436,14 @@ def main() -> None:
          grad_norm=[r["grad_norm"] for r in mloop.log], lr=[r["lr"] for r in mloop.log],
          step_s=[r["step_s"] for r in mloop.log], median_step_s=mstep_s,
          tok_per_s=1024 / mstep_s, wall_s=mtrain_wall, peak_mem_gb=mt_peak_gb,
-         launches=launches_mt)
+         launches=launches_mt, step0_params_equal_loop_init=m_init_same)
     if not all(launches_mt[n] > 0 for n in TRAIN_MOE_KERNELS):
         fail(f"train_moe: a kernel of the path never launched: {launches_mt}")
     if not all(math.isfinite(x) for r in mloop.log
                for x in (r["loss"], r["aux_loss"], r["grad_norm"])):
         fail(f"train_moe: non-finite loss or grad norm: {mloop.log}")
+    if not m_init_same:
+        moe_faults.append("train_moe: step 0's params differ from the train loop's own draw")
     if moe_faults:
         fail("; ".join(moe_faults) + f": {mstep0}")
     # free Mixtral (the training loop's last optimizer state is bound to _)
@@ -4076,77 +4254,45 @@ def main() -> None:
         finally:
             transformer.attention = real_attention
 
-    def train_family(phase, c, b_rows, seq, five_fn, fault_ctx, kernels, *, slow=False,
-                     roll_image=False, **line):
-        """Step 0 against the torch routes with its control, then TRAIN_STEPS
-        steps through TrainLoop and one profiled step.  Returns the steps'
-        launches."""
-        t_phase = time.monotonic()
-        tpol = execution_policy_for(c, default="bf16", logits="refine_ab",
-                                    backends={"gemm": "cuda", "attention": "cuda_fused"},
+    def family_loop(c, b_rows, seq, backends, steps):
+        """Phase 7's train policy on ``backends`` (every family's impl with
+        a vjp) and a TrainLoop over it (warmup 1, remat on)."""
+        tpol = execution_policy_for(c, default="bf16", logits="refine_ab", backends=backends,
                                     require={fam: ("vjp",) for fam in ops.families()})
         tloop = TrainLoop(c, policy=tpol,
-                          opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                          opt_cfg=adamw.AdamWConfig(warmup_steps=1, total_steps=steps),
                           data_cfg=data_config(c, batch=b_rows, seq=seq), remat=True,
                           device=dev)
-        p0, _, _ = tloop.init_or_restore(0)
-        n_params = sum(t.numel() for t in leaves(p0))
-        cp = slow_decay(p0) if slow else p0
-        b0 = tloop.batch(SyntheticLMDataset(tloop.data_cfg), 0)
-        five = five_fn(cp)
-        ref_pol = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+        return tpol, tloop
 
-        def run(pol, fault=False):
-            b = b0
-            if fault and roll_image:
-                b = {**b0, "image_embeds": b0["image_embeds"].roll(1, dims=1)}
-            with fault_ctx(fault):
-                nll = token_nll(cp, b, c, pol)
-                grads = torch.autograd.grad(nll.mean(), list(five.values()))
-            return nll.detach(), grads
-
-        (nll_k, g_k), (nll_t, g_t), (nll_c, g_c) = run(tpol), run(ref_pol), run(ref_pol, True)
-
-        def rel(a, b):
-            return {k: ((x - y).norm() / y.norm()).item() for k, x, y in zip(five, a, b)}
-
-        step0 = {"loss_kernel": nll_k.mean().item(), "loss_torch": nll_t.mean().item(),
-                 "token_loss_max_err": (nll_k - nll_t).abs().max().item(),
-                 "grad_rel_err": rel(g_k, g_t),
-                 "control_token_loss_max_err": (nll_c - nll_t).abs().max().item(),
-                 "control_grad_rel_err": rel(g_c, g_t),
-                 "compared_on": "slow-decay copy" if slow else "the initial params",
-                 "token_loss_bound": STEP0_TOKEN_LOSS_BOUND, "grad_bound": STEP0_GRAD_BOUND}
-        del p0, cp, five, g_k, g_t, g_c, nll_k, nll_t, nll_c, b0
-        gc.collect()
-        torch.cuda.empty_cache()
-        faults = []
-        if not (math.isfinite(step0["loss_kernel"])
-                and step0["token_loss_max_err"] <= STEP0_TOKEN_LOSS_BOUND
-                and max(step0["grad_rel_err"].values()) <= STEP0_GRAD_BOUND):
-            faults.append("step 0: kernel routes vs torch routes out of bounds")
-        if not (step0["control_token_loss_max_err"] > STEP0_TOKEN_LOSS_BOUND
-                and max(step0["control_grad_rel_err"].values()) > STEP0_GRAD_BOUND):
-            faults.append("step 0: the control lands within the bounds")
-
+    def train_run(phase, c, tloop, steps, kernels, b_rows, seq, heads0, step0, faults,
+                  t_phase, *, prep=None, **line):
+        """``steps`` steps through ``tloop`` from step 0's params (``prep``
+        applied to its draw), their launches and peak memory, one profiled
+        step, the phase's line; fails on ``faults`` or the path's own.
+        Returns the steps' launches."""
         zero_launches(mods)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.monotonic()
-        tp, topt, hist = tloop.run(TRAIN_STEPS, log_every=0)
+        tp, topt, hist, same = loop_from_step0(tloop, steps, heads0, prep)
         torch.cuda.synchronize(dev)
         wall = time.monotonic() - t0
         ls = read_launches(mods)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         step_s = sorted(r["step_s"] for r in tloop.log)[len(tloop.log) // 2]
         prof = profile_window(lambda: tloop.step_fn(tp, topt, tloop.batch(
-            SyntheticLMDataset(tloop.data_cfg), TRAIN_STEPS))[2]["loss"].item())
-        emit(phase=phase, arch=c.name, **line, params=n_params, steps=TRAIN_STEPS,
-             batch=b_rows, seq=seq, remat=True, policy="default=bf16 logits=refine_ab",
-             step0=step0, loss=hist, grad_norm=[r["grad_norm"] for r in tloop.log],
-             lr=[r["lr"] for r in tloop.log], step_s=[r["step_s"] for r in tloop.log],
-             median_step_s=step_s, tok_per_s=b_rows * seq / step_s, wall_s=wall,
-             peak_mem_gb=peak_gb, launches=ls, profile_step=prof,
+            SyntheticLMDataset(tloop.data_cfg), steps))[2]["loss"].item())
+        moe_line = ({"aux_loss": [r["aux_loss"] for r in tloop.log]} if c.family == "moe"
+                    else {})
+        emit(phase=phase, arch=c.name, **line, steps=steps, batch=b_rows, seq=seq, remat=True,
+             policy="default=bf16 logits=refine_ab", step0=step0, loss=hist, **moe_line,
+             grad_norm=[r["grad_norm"] for r in tloop.log], lr=[r["lr"] for r in tloop.log],
+             step_s=[r["step_s"] for r in tloop.log], median_step_s=step_s,
+             tok_per_s=b_rows * seq / step_s, wall_s=wall, peak_mem_gb=peak_gb, launches=ls,
+             profile_step=prof, step0_params_equal_loop_init=same,
              phase_s=time.monotonic() - t_phase)
+        if not same:
+            faults.append("step 0's params differ from the train loop's own draw")
         if not all(ls[n] > 0 for n in kernels):
             faults.append(f"a kernel of the path never launched: {ls}")
         if not all(math.isfinite(x) for r in tloop.log for x in (r["loss"], r["grad_norm"])):
@@ -4157,6 +4303,98 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         return ls
+
+    def unembed_by_checkpointed_chunks(p, x, pol):
+        """The unembed over vocab chunks, each under ``checkpoint``: the
+        torch routes' refine_ab terms of one chunk at a time, in the
+        backward too (autograd through the whole table would keep each
+        term's f32 copy of it).  The chunks split N: every logit is the
+        same product."""
+        def chunk(t, x_):
+            return real_unembed({"table": t}, x_, pol)
+        return vocab_chunked(lambda t: checkpoint(chunk, t, x, use_reentrant=False),
+                             p["table"])
+
+    def train_family(phase, c, b_rows, seq, five_fn, fault_ctx, kernels, *, slow=False,
+                     roll_image=False, steps=TRAIN_STEPS, prep=None, control_params=None,
+                     control_policy=None, control_name=None, chunked_reference=False,
+                     **line):
+        """Step 0 against the torch routes with its control, then ``steps``
+        steps through TrainLoop and one profiled step.  The control is the
+        torch routes under ``fault_ctx`` (``roll_image``: the image rows
+        rolled by one) on the params, or on ``control_params(params)``, or
+        else the ``control_policy`` routes on the params.  ``prep`` edits
+        the params in place (its fields go on the line), step 0's and the
+        loop's alike.  ``chunked_reference``: the torch routes' unembed
+        over checkpointed vocab chunks.  Returns the steps' launches."""
+        t_phase = time.monotonic()
+        tpol, tloop = family_loop(c, b_rows, seq, {"gemm": "cuda", "attention": "cuda_fused"},
+                                  steps)
+        torch.cuda.reset_peak_memory_stats(dev)
+        p0, heads0, prep_fields = step0_params(c, prep)
+        n_params = sum(t.numel() for t in leaves(p0))
+        cp = slow_decay(p0) if slow else p0
+        b0 = tloop.batch(SyntheticLMDataset(tloop.data_cfg), 0)
+        names = list(five_fn(cp))
+        ref_pol = ops.ExecutionPolicy(default="bf16", logits="refine_ab")
+
+        def run(pol, p, fault=False, chunked=False):
+            b = b0
+            if fault and roll_image:
+                b = {**b0, "image_embeds": b0["image_embeds"].roll(1, dims=1)}
+            five = list(five_fn(p).values())
+            for t in five:                 # a control's replaced leaves
+                if not t.requires_grad:
+                    t.requires_grad_(True)
+            layers_mod.unembed = unembed_by_checkpointed_chunks if chunked else real_unembed
+            try:
+                with fault_ctx(fault):
+                    nll = token_nll(p, b, c, pol)
+                    grads = torch.autograd.grad(nll.mean(), five)
+            finally:
+                layers_mod.unembed = real_unembed
+            return nll.detach(), grads
+
+        def rel(a, b):
+            return {k: ((x - y).norm() / y.norm()).item() for k, x, y in zip(names, a, b)}
+
+        # each set of gradients is compared as soon as it is made and dropped
+        nll_k, g_k = run(tpol, cp)
+        nll_t, g_t = run(ref_pol, cp, chunked=chunked_reference)
+        grad_rel = rel(g_k, g_t)
+        del g_k
+        if control_policy is not None:
+            nll_c, g_c = run(control_policy, cp)
+        else:
+            nll_c, g_c = run(ref_pol, control_params(cp) if control_params else cp, fault=True,
+                             chunked=chunked_reference)
+        control_rel = rel(g_c, g_t)
+        del g_c, g_t
+        step0 = {"loss_kernel": nll_k.mean().item(), "loss_torch": nll_t.mean().item(),
+                 "token_loss_max_err": (nll_k - nll_t).abs().max().item(),
+                 "grad_rel_err": grad_rel,
+                 "control_token_loss_max_err": (nll_c - nll_t).abs().max().item(),
+                 "control_grad_rel_err": control_rel,
+                 "compared_on": "slow-decay copy" if slow else "the initial params",
+                 "token_loss_bound": STEP0_TOKEN_LOSS_BOUND, "grad_bound": STEP0_GRAD_BOUND,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if control_name:
+            step0["control"] = control_name
+        if chunked_reference:
+            step0["reference_unembed"] = "checkpointed 32768-row vocab chunks"
+        del p0, cp, nll_k, nll_t, nll_c, b0
+        gc.collect()
+        torch.cuda.empty_cache()
+        faults = []
+        if not (math.isfinite(step0["loss_kernel"])
+                and step0["token_loss_max_err"] <= STEP0_TOKEN_LOSS_BOUND
+                and max(step0["grad_rel_err"].values()) <= STEP0_GRAD_BOUND):
+            faults.append("step 0: kernel routes vs torch routes out of bounds")
+        if not (step0["control_token_loss_max_err"] > STEP0_TOKEN_LOSS_BOUND
+                and max(step0["control_grad_rel_err"].values()) > STEP0_GRAD_BOUND):
+            faults.append("step 0: the control lands within the bounds")
+        return train_run(phase, c, tloop, steps, kernels, b_rows, seq, heads0, step0, faults,
+                         t_phase, prep=prep, **line, **prep_fields, params=n_params)
 
     # 17 train_rwkv
     rcfg_t = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_RWKV_DEPTH,
@@ -4663,7 +4901,127 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 28 kernels
+    # ----------------------------------------- 28-30 train dbrx, starcoder2, command-r
+    # Each at full width through TrainLoop on phase 7's policy, step 0 on
+    # params drawn alone (``step0_params``), then TRAIN_GIANT_STEPS steps and
+    # a profiled one (``train_run``).
+
+    # ---- 28 train_dbrx: dbrx-132b at depth TRAIN_DBRX_DEPTH, the experts on
+    # cuda_grouped; step 0 as phase 9's (``moe_step0``: the torch routes
+    # dropless on the kernel routes' picks, the rolled-experts control)
+    t_phase = time.monotonic()
+    tdcfg = giant_config("dbrx-132b", TRAIN_DBRX_DEPTH)
+    td_pol, td_loop = family_loop(tdcfg, 1, 1024, moe_backends, TRAIN_GIANT_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    td_params, td_heads, _ = step0_params(tdcfg)
+    td_n = sum(t.numel() for t in leaves(td_params))
+    td_b0 = td_loop.batch(SyntheticLMDataset(td_loop.data_cfg), 0)
+    td_step0, td_faults = moe_step0(tdcfg, td_pol, td_params, td_b0, TRAIN_DBRX_DEPTH)
+    td_step0["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del td_params, td_b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tdb = train_run("train_dbrx", tdcfg, td_loop, TRAIN_GIANT_STEPS, TRAIN_MOE_KERNELS,
+                             1, 1024, td_heads, td_step0, td_faults, t_phase,
+                             depth=TRAIN_DBRX_DEPTH, params=td_n, experts=tdcfg.num_experts,
+                             top_k=tdcfg.top_k)
+    if launches_tdb["grouped_gemm.wmma"] or launches_tdb["grouped_gemm_dw.wmma"]:
+        fail(f"train_dbrx: a grouped launch ran the WMMA tile: {launches_tdb}")
+
+    # ---- 29 train_starcoder2: starcoder2-15b at depth TRAIN_STARCODER2_DEPTH,
+    # every bias seeded as phase 26 seeds it; the same stack with every bias
+    # zeroed as the control
+    sc_depth = TRAIN_STARCODER2_DEPTH
+    launches_tsc = train_family(
+        "train_starcoder2", giant_config("starcoder2-15b", sc_depth), 1, 1024,
+        lambda p: {"embed": p["embed"]["table"], "wq_bias": p["layers"][0]["wq"]["b"],
+                   "mlp_wo": p["layers"][1]["wo"]["w"],
+                   "wk": p["layers"][2 * sc_depth - 2]["wk"]["w"],
+                   "unembed": p["unembed"]["table"]},
+        lambda fault: contextlib.nullcontext(), TRAIN_KERNELS, steps=TRAIN_GIANT_STEPS,
+        prep=seed_biases, control_params=zero_biases, control_name="zero-bias",
+        depth=sc_depth)
+
+    # ---- 30 train_command_r: command-r-35b at depth TRAIN_COMMAND_R_DEPTH,
+    # 1 x TRAIN_COMMAND_R_SEQ tokens; the torch routes' refine_ab unembed over
+    # checkpointed vocab chunks
+    cr_depth = TRAIN_COMMAND_R_DEPTH
+    cr_five = (lambda p: {"embed": p["embed"]["table"], "wq": p["layers"][0]["wq"]["w"],
+                          "mlp_wo": p["layers"][1]["wo"]["w"],
+                          "wk": p["layers"][2 * cr_depth - 2]["wk"]["w"],
+                          "unembed": p["unembed"]["table"]})
+    launches_tcr = train_family(
+        "train_command_r", giant_config("command-r-35b", cr_depth), 1, TRAIN_COMMAND_R_SEQ,
+        cr_five, lambda fault: contextlib.nullcontext(), TRAIN_KERNELS,
+        steps=TRAIN_GIANT_STEPS, control_policy=fp8_kernel_policy, control_name="fp8-MLP",
+        chunked_reference=True, depth=cr_depth)
+
+    # ------------------------------------------------------------- 31 tiles
+    # autotune_tiles on gemm_lowp's decode MLP up (fp8x3, 4 x 1152 -> 6912:
+    # the split-K kernel, one scale per quantization tile) into a cache file
+    # under the build directory; the winner's output, dispatched from the
+    # cache, against gemm_lowp's plain version on that grid (LOWP_BOUND; the
+    # plain version on another bk is the control above it); the file
+    # reloaded into a cleared cache as the same tile
+    from repro_torch.core.ops import tiles as tiles_mod
+    t_phase = time.monotonic()
+    tm, tn, tkk = 4, ff, d
+    env0 = os.environ.get("REPRO_TILE_CACHE")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tdir:
+        cache_file = str(Path(tdir) / "tiles.json")
+        os.environ["REPRO_TILE_CACHE"] = cache_file
+        tiles_mod.clear_tile_cache()
+        timings: dict = {}
+        zero_launches(mods)
+        best = tiles_mod.autotune_tiles("cuda", tm, tn, tkk, policy="fp8x3", timings=timings,
+                                        device=dev)
+        torch.cuda.synchronize(dev)
+        launches_tiles = read_launches(mods)
+        t_gen = torch.Generator(device=dev).manual_seed(31)
+        xa = randn((tm, tkk), dtype=torch.bfloat16, generator=t_gen)
+        wb = randn((tkk, tn), tkk ** -0.5, generator=t_gen)
+        dispatched = tiles_mod.tile_for("cuda", tm, tn, tkk)
+        out = ops.gemm(xa, wb, policy="fp8x3", backend="cuda")
+        tile_err = (out - gl.gemm_lowp_plain(xa, wb, "fp8x3", bm=best.bm, bn=best.bn,
+                                             bk=best.bk)).abs().max().item()
+        other_bk = 128 if best.bk != 128 else 256
+        tile_ctrl = (out - gl.gemm_lowp_plain(xa, wb, "fp8x3", bm=best.bm, bn=best.bn,
+                                              bk=other_bk)).abs().max().item()
+        on_disk = json.loads(Path(cache_file).read_text())
+        tiles_mod.clear_tile_cache()
+        reloaded = tiles_mod.load_tile_cache()
+        reload_same = tiles_mod.tile_for("cuda", tm, tn, tkk) == best
+        del xa, wb, out
+    tiles_mod.clear_tile_cache()
+    if env0 is None:
+        os.environ.pop("REPRO_TILE_CACHE", None)
+    else:
+        os.environ["REPRO_TILE_CACHE"] = env0
+    emit(phase="tiles", impl="cuda", policy="fp8x3", shape=[tm, tn, tkk],
+         candidates_ms={f"{t.bm}x{t.bn}x{t.bk}": sec * 1e3 for t, sec in timings.items()},
+         best=[best.bm, best.bn, best.bk], dispatched=[dispatched.bm, dispatched.bn,
+                                                       dispatched.bk],
+         max_abs_err=tile_err, err_bound=LOWP_BOUND, control_other_bk=other_bk,
+         control_err=tile_ctrl, file_entries=on_disk, reloaded_entries=reloaded,
+         reload_same_tile=reload_same, launches=launches_tiles,
+         phase_s=time.monotonic() - t_phase)
+    tile_faults = []
+    if dispatched != best:
+        tile_faults.append(f"the shape dispatched {dispatched}, not the winner {best}")
+    if not tile_err <= LOWP_BOUND:
+        tile_faults.append(f"the winner's output is {tile_err} from its plain version")
+    if not tile_ctrl > LOWP_BOUND:
+        tile_faults.append(f"the other-bk control ({tile_ctrl}) is within {LOWP_BOUND}")
+    if on_disk != {f"cuda/{tm}/{tn}/{tkk}": [best.bm, best.bn, best.bk]}:
+        tile_faults.append(f"the cache file holds {on_disk}")
+    if reloaded != 1 or not reload_same:
+        tile_faults.append(f"the file reloaded {reloaded} entries, same tile {reload_same}")
+    if not launches_tiles["gemm_lowp"]:
+        tile_faults.append("autotune never launched gemm_lowp")
+    if tile_faults:
+        fail("tiles: " + "; ".join(tile_faults))
+
+    # ----------------------------------------------------------- 32 kernels
     rows = []
     by_path = {"serve": launches, "serve_paged_bf16": launches_pa,
                "serve_paged_int8_fp8x3": launches_pb, "train": train_launches,
@@ -4679,7 +5037,9 @@ def main() -> None:
                "serve_stack": launches_ss, "mesh": mesh_launches, "serve_dbrx": launches_db,
                "serve_dbrx_paged": launches_dbp, "serve_starcoder2": launches_sc,
                "serve_starcoder2_paged": launches_scp, "serve_command_r": launches_cr,
-               "serve_command_r_paged": launches_crp}
+               "serve_command_r_paged": launches_crp, "train_dbrx": launches_tdb,
+               "train_starcoder2": launches_tsc, "train_command_r": launches_tcr,
+               "tiles": launches_tiles}
     # every bf16 flash forward and dW launch of every path ran the wgmma
     # kernel; no gemm_tiled (the bf16 rung) or gemm_refined launch ran the
     # WMMA tile, so each one at M <= 16 ran the split-K loop and each above
@@ -4708,12 +5068,12 @@ def main() -> None:
                              + launches_zp[name] + launches_wp[name] + launches_ip[name]
                              + launches_dbp[name] + launches_scp[name] + launches_crp[name])
         elif name == "gemm_lowp":
-            path_launches = launches_pb[name]
+            path_launches = launches_pb[name] + launches_tiles[name]
         elif name == "grouped_gemm":
             path_launches = (launches_ms[name] + launches_pm[name] + launches_mt[name]
-                             + launches_db[name] + launches_dbp[name])
+                             + launches_db[name] + launches_dbp[name] + launches_tdb[name])
         elif name == "grouped_gemm_dw":
-            path_launches = launches_mt[name]
+            path_launches = launches_mt[name] + launches_tdb[name]
         elif name == "gemm_naive":
             path_launches = launches_n[name]
         elif name in BATCHED_KERNELS:

@@ -32,11 +32,17 @@ from repro_torch.core.ops.route import (
 from repro_torch.core.ops.tiles import (
     TileConfig,
     align_group_counts,
+    autotune_tiles,
+    clear_tile_cache,
+    load_tile_cache,
     pad2,
     round_up,
+    save_tile_cache,
     set_default_tiles,
     set_tiles,
+    tile_cache_path,
     tile_for,
+    use_tile_cache,
 )
 from repro_torch.core.ops.gemm import gemm, routed_einsum, torch_policy_einsum  # noqa: I001
 from repro_torch.core.ops.attention import (
@@ -55,7 +61,8 @@ __all__ = [
     "ExecutionPolicy", "Route", "as_route", "normalize_backends",
     "parse_backend_flags", "validate_backends",
     "TileConfig", "align_group_counts", "pad2", "round_up", "set_default_tiles",
-    "set_tiles", "tile_for",
+    "set_tiles", "tile_for", "clear_tile_cache", "tile_cache_path",
+    "save_tile_cache", "load_tile_cache", "use_tile_cache", "autotune_tiles",
     "gemm", "routed_einsum", "torch_policy_einsum",
     "AttentionOps", "attention_decode", "attention_forward",
     "attention_paged_decode", "grouped_matmul", "grouped_tiles",

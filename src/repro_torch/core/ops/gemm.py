@@ -41,7 +41,7 @@ from repro_torch.core.ops import registry, shard
 from repro_torch.core.ops.registry import (LADDER_BOUNDS, OpSpec, Partitioning,
                                            register_family, register_impl)
 from repro_torch.core.ops.route import Route, as_route
-from repro_torch.core.ops.tiles import tile_for
+from repro_torch.core.ops.tiles import TileConfig, pinned_tiles, tile_for
 from repro_torch.kernels.gemm_lowp import LOWP_POLICIES, gemm_lowp
 from repro_torch.kernels.gemm_naive import gemm_naive
 from repro_torch.kernels.gemm_refined import gemm_refined
@@ -325,12 +325,18 @@ def routed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, policy: str | Route = "bf16",
-         backend: str | None = None) -> torch.Tensor:
-    """Policy-routed C = A @ B through a registry impl (2-D entry)."""
+         backend: str | None = None, tiles: TileConfig | None = None) -> torch.Tensor:
+    """Policy-routed C = A @ B through a registry impl (2-D entry).
+
+    ``backend`` and ``tiles`` refine what ``policy`` carries.  ``tiles``
+    (clamped to the problem) stands in for the tile cache during this
+    call's forward; in the port it moves only the quantization grid of the
+    ``cuda`` impl's fp8 / int8 rungs (``tiles.tile_for``)."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm expects (m,k) x (k,n); got {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
     route = as_route(policy)
     if backend is not None:
         route = route.with_impl("gemm", backend)
-    return routed_einsum("mk,kn->mn", a, b, route)
+    with pinned_tiles(tiles):
+        return routed_einsum("mk,kn->mn", a, b, route)

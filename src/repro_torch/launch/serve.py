@@ -19,7 +19,8 @@ and ``--gateway-port`` the HTTP gateway in front of the pool
 (``runtime.world``): every rank runs the same requests through the
 mesh-carrying policy, whose routed ops shard over the mesh and hand every
 rank the whole result, and rank 0 reports; the paged pool stays per rank.
-The tile cache waits for its slice (its flag is absent).
+``--tile-cache PATH`` loads a tile-autotune cache at start
+(``core.ops.tiles``; the flag overrides an inherited ``REPRO_TILE_CACHE``).
 
     python -m repro_torch.launch.serve --arch gemma3-1b \\
         --backend gemm=cuda --backend attention=cuda_fused \\
@@ -746,6 +747,10 @@ def _parser() -> argparse.ArgumentParser:
                          "visible cards on cuda, 1 on cpu)")
     ap.add_argument("--share-card", action="store_true",
                     help="allow several ranks on one card (gloo collectives)")
+    ap.add_argument("--tile-cache", default=None, metavar="PATH",
+                    help="JSON tile-autotune cache: loaded at start, and where new "
+                         "autotune results are saved (also via REPRO_TILE_CACHE, "
+                         "which the flag overrides)")
     return ap
 
 
@@ -763,6 +768,7 @@ def _serve_rank(rank: int, world_size: int, argv: list[str], mesh_text: str):
     from repro_torch.core.ops.shard import MeshSpec
     from repro_torch.runtime import world
     args = _parser().parse_args(argv)
+    ops.use_tile_cache(args.tile_cache)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     policy = _serve_policy(args, cfg, MeshSpec.parse(mesh_text))
     return _serve(args, cfg, policy, world.rank_device(args.device, rank), report=rank == 0)
@@ -774,6 +780,10 @@ def main(argv=None) -> None:
     from repro_torch.runtime.monitor import run_header
     argv = list(argv) if argv is not None else None
     args = _parser().parse_args(argv)
+    n_tiles = ops.use_tile_cache(args.tile_cache)     # the flag or REPRO_TILE_CACHE
+    if n_tiles:
+        print(f"tile cache: {n_tiles} shape(s) loaded from {ops.tile_cache_path()}",
+              flush=True)
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     n = args.nprocs

@@ -32,7 +32,8 @@ Every family trains: an audio config's batches carry the encoder's
 frames and a VLM config's its image rows (``DataConfig``'s frame and
 image fields, set from the config as the JAX package's CLI sets them).
 Entry points run on ``cuda`` unless asked for ``cpu``; ``cuda`` with no
-card raises.
+card raises.  ``--tile-cache PATH`` loads a tile-autotune cache at start
+(``core.ops.tiles``; the flag overrides an inherited ``REPRO_TILE_CACHE``).
 
 Usage (CPU-scale example):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
@@ -356,6 +357,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="bf16-wire data-parallel gradient mean with f32 error feedback")
     ap.add_argument("--timeout", type=float, default=86400.0,
                     help="seconds a rank may run before the launcher stops the world")
+    ap.add_argument("--tile-cache", default=None, metavar="PATH",
+                    help="JSON tile-autotune cache: loaded at start, and where new "
+                         "autotune results are saved (also via REPRO_TILE_CACHE, "
+                         "which the flag overrides)")
     return ap
 
 
@@ -387,6 +392,7 @@ def _train(args, cfg, policy, device, mesh=None) -> list[float]:
 def _rank_main(rank: int, world_size: int, argv: list[str], mesh_text: str):
     """One rank of the launcher's world (``runtime.world.spawn``)."""
     args = _parser().parse_args(argv)
+    ops.use_tile_cache(args.tile_cache)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     mesh = meshlib.MeshSpec.parse(mesh_text)
     device = world.rank_device(args.device, rank)
@@ -397,6 +403,10 @@ def main(argv=None) -> list[float]:
     """The CLI; returns the losses of the steps it trained (rank 0's)."""
     argv = list(argv) if argv is not None else None
     args = _parser().parse_args(argv)
+    n_tiles = ops.use_tile_cache(args.tile_cache)     # the flag or REPRO_TILE_CACHE
+    if n_tiles:
+        print(f"tile cache: {n_tiles} shape(s) loaded from {ops.tile_cache_path()}",
+              flush=True)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
     flag = meshlib.resolve_mesh_flag(args.mesh, args.use_mesh)

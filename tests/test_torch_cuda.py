@@ -1697,3 +1697,59 @@ def test_mesh_parity_on_two_ranks_sharing_the_card(dev):
         assert held[0][0] == held[1][0], c["name"]
         np.testing.assert_array_equal(held[0][1], want[c["name"]], err_msg=c["name"])
     assert all(r["launches"]["grouped_gemm"] and r["launches"]["flash_decode"] for r in ranks)
+
+
+def test_adamw_slices_on_the_card(dev, monkeypatch):
+    """AdamW's sliced update on card tensors (``SLICE`` below every leaf
+    but one) is bit-equal to its whole-leaf update over 3 clipped steps."""
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10, clip_norm=0.5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tree(scale=1.0):
+        return {"w": scale * torch.randn(1537, 2049, device=dev, generator=gen),
+                "b": scale * torch.randn(4097, device=dev, generator=gen),
+                "small": scale * torch.randn(33, device=dev, generator=gen)}
+
+    p0 = tree()
+    grads = [tree(4.0) for _ in range(3)]
+    out = {}
+    for cut in (1 << 26, 1000):
+        monkeypatch.setattr(adamw, "SLICE", cut)
+        params = tree_map(torch.clone, p0)
+        state = adamw.init(params)
+        for g in grads:
+            gnorm = torch.sqrt(sum(x.square().sum() for x in leaves(g)))
+            params, state, m = adamw.step(cfg, state, params, g, gnorm=gnorm)
+            assert float(m["grad_norm"]) > cfg.clip_norm
+        out[cut] = leaves((params, state.m, state.v))
+    assert all(torch.equal(a, b) for a, b in zip(out[1 << 26], out[1000]))
+
+
+def test_autotune_on_a_gemm_lowp_shape(dev, tmp_path, monkeypatch):
+    """``autotune_tiles`` on the ``cuda`` impl at the decode MLP up (fp8x3):
+    the winner is one of repro's candidates, the shape dispatches on it,
+    its output is within LOWP_REL of the plain version at that grid, and
+    the saved file reloads as the same tile."""
+    from repro_torch.core import ops
+    from repro_torch.core.ops import tiles
+    path = tmp_path / "tiles.json"
+    monkeypatch.setenv("REPRO_TILE_CACHE", str(path))
+    saved = dict(tiles._TILE_CACHE)
+    m, n, k = 4, 6912, 1152
+    try:
+        with _within(300, "gemm_lowp"):
+            best = tiles.autotune_tiles("cuda", m, n, k, policy="fp8x3", device=dev)
+        assert tiles.tile_for("cuda", m, n, k) == best
+        a = torch.rand((m, k), device=dev) * 2 - 1
+        b = torch.rand((k, n), device=dev) * 2 - 1
+        got = ops.gemm(a, b, policy="fp8x3", backend="cuda")
+        want = gl.gemm_lowp_plain(a, b, policy="fp8x3", bm=best.bm, bn=best.bn, bk=best.bk)
+        assert (got - want).abs().max().item() <= LOWP_REL * want.abs().max().item()
+        tiles.clear_tile_cache()
+        assert tiles.load_tile_cache() == 1
+        assert tiles.tile_for("cuda", m, n, k) == best
+    finally:
+        tiles.clear_tile_cache()
+        tiles._TILE_CACHE.update(saved)

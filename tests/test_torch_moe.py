@@ -1,6 +1,7 @@
 """The port's MoE path against the JAX package's, on the CPU: the grouped
 family, the MoE FFN's two dispatch layouts, and the Mixtral and DBRX
-smoke models serving and training.
+smoke models serving and training (step 0 and three steps against
+``repro``'s).
 
 Inputs are made from numpy seeds (params from ``repro``'s
 ``init_params`` through ``from_jax_numpy``) and handed to both packages.
@@ -23,11 +24,14 @@ from repro.core import ops as jops
 from repro.core.ops import ExecutionPolicy as JExecutionPolicy
 from repro.core.ops.tiles import TileConfig as JTileConfig
 from repro.core.ops.tiles import align_group_counts as j_align_group_counts
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import SyntheticLMDataset as JSyntheticLMDataset
 from repro.kernels.gemm_grouped import tile_group_ids as j_tile_group_ids
 from repro.launch.serve import Request as JRequest
 from repro.launch.serve import ServeEngine as JServeEngine
 from repro.models import api as japi
 from repro.models import moe as JM
+from repro.optim import adamw as jadamw
 from repro.runtime import serve_step as jserve_step
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import execution_policy_for
@@ -35,11 +39,14 @@ from repro_torch.convert import from_jax_numpy
 from repro_torch.core import ops
 from repro_torch.core.ops.registry import LADDER_BOUNDS
 from repro_torch.core.tree import leaves, leaves_with_paths
+from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
 from repro_torch.kernels import gemm_grouped as gg
 from repro_torch.launch.serve import Request, ServeEngine
 from repro_torch.models import api
 from repro_torch.models import moe as M
+from repro_torch.optim import adamw
 from repro_torch.runtime import serve_step
+from repro_torch.runtime.train_step import make_train_step
 
 # repro's twin of each port impl: torch = xla, cuda_grouped = pallas_grouped
 IMPLS = {"torch": "xla", "cuda_grouped": "pallas_grouped"}
@@ -476,13 +483,14 @@ def test_staggered_f32_serve_is_token_exact_against_repro(jparams, arch):
 
 
 @pytest.mark.parametrize("policy", ["f32", "bf16"])
-def test_train_step0_matches_repro(jparams, policy):
-    """Step 0 on the Mixtral smoke model, grouped route, f32 activations:
-    total loss, LM loss, aux loss and every gradient leaf against repro's
-    ``loss_fn`` (through ``from_jax_numpy``, which flattens the (count,
-    E, D, F) expert stacks)."""
-    jcfg, tcfg = _cfgs("mixtral-8x7b", "float32")
-    jtree = jparams["mixtral-8x7b"]
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_train_step0_matches_repro(jparams, arch, policy):
+    """Step 0 on the Mixtral and DBRX smoke models, grouped route, f32
+    activations: total loss, LM loss, aux loss and every gradient leaf
+    against repro's ``loss_fn`` (through ``from_jax_numpy``, which flattens
+    the (count, E, D, F) expert stacks)."""
+    jcfg, tcfg = _cfgs(arch, "float32")
+    jtree = jparams[arch]
     toks = np.random.default_rng(7).integers(0, tcfg.vocab_size, (2, 33)).astype(np.int32)
     jbatch = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
     jpol = JExecutionPolicy(default=policy, backends=J_ROUTES["grouped"], interpret=True)
@@ -513,6 +521,39 @@ def test_train_step0_matches_repro(jparams, policy):
         else:
             rel = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
             assert rel <= BF16_GRAD_REL, (path, rel)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_three_smoke_steps_match_repro(jparams, arch):
+    """Three ``make_train_step`` steps on the grouped route at f32 (gemm and
+    attention on the reference), each package on its own twin of the same
+    batches: the losses within F32_ATOL.  No weight decay: repro decays
+    its stacked norm scales, the port's 1-D ones are not decayed."""
+    jcfg, tcfg = _cfgs(arch, "float32")
+    jpol = JExecutionPolicy(default="f32", backends=J_ROUTES["grouped"], interpret=True)
+    tpol = execution_policy_for(tcfg, default="f32", backends=ROUTES["grouped"])
+    opt = dict(lr=3e-3, warmup_steps=1, total_steps=3, weight_decay=0.0)
+    data = dict(global_batch=2, seq_len=16, vocab_size=tcfg.vocab_size, seed=3)
+    jds, tds = JSyntheticLMDataset(JDataConfig(**data)), SyntheticLMDataset(DataConfig(**data))
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p, b: japi.loss_fn(p, b, jcfg, policy=jpol, remat=True), has_aux=True))
+    j_adamw = jax.jit(jadamw.step, static_argnums=0)
+    jp = jax.tree.map(jnp.asarray, jparams[arch])
+    jo = jadamw.init(jp)
+    tstep = make_train_step(tcfg, adamw.AdamWConfig(**opt), tpol)
+    tp = from_jax_numpy(jparams[arch], tcfg, "cpu")
+    for p in leaves(tp):
+        p.requires_grad_(True)
+    to = adamw.init(tp)
+    jl, tl = [], []
+    for i in range(3):
+        (_, jm), jg = grad_fn(jp, {k: jnp.asarray(v) for k, v in jds.batch(i).items()})
+        jp, jo, _ = j_adamw(jadamw.AdamWConfig(**opt), jo, jp, jg)
+        tp, to, tm = tstep(tp, to, {k: torch.from_numpy(v) for k, v in tds.batch(i).items()})
+        jl.append(float(jm["loss"]))
+        tl.append(float(tm["loss"]))
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, atol=F32_ATOL)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
